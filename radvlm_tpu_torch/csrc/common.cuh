@@ -1,0 +1,38 @@
+// Shared device helpers for the port's attention kernels (sm_90a).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace radvlm {
+
+// Two floats -> one 32-bit register of two bf16 (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two raw bf16 values (as stored) -> one 32-bit register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_raw(const __nv_bfloat16& lo,
+                                             const __nv_bfloat16& hi) {
+  uint32_t a = *reinterpret_cast<const unsigned short*>(&lo);
+  uint32_t b = *reinterpret_cast<const unsigned short*>(&hi);
+  return a | (b << 16);
+}
+
+// d += A(16x16, row-major) * B(16x8, col-major); bf16 inputs, f32 sums.
+// Fragment layout (g = lane / 4, t = lane % 4):
+//   a[0] = A[g][2t..2t+1]   a[1] = A[g+8][2t..]   a[2] = A[g][2t+8..]
+//   a[3] = A[g+8][2t+8..]   b0 = B[2t..2t+1][g]   b1 = B[2t+8..][g]
+//   d[0..1] = D[g][2t..2t+1]                       d[2..3] = D[g+8][2t..]
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace radvlm

@@ -1,0 +1,265 @@
+"""Autoregressive generation in PyTorch (counterpart of
+`radvlm_tpu/generation/engine.py`).
+
+Prefill runs the prompt cache-less and splices the collected K/V into a
+preallocated bf16 cache; decode is one `decode_step` per token, updating the
+cache in place. The JAX `while_loop` becomes a host loop.
+
+Batching convention: prompts are LEFT-padded (`multimodal.collate(
+left_pad=True)`), so every row's last prompt token sits at index L-1; decode
+writes at the uniform cache index L+step while rotary positions stay per row
+(lengths[i]+step). The cache length is rounded up to a multiple of 128.
+
+Sampling: greedy, or temperature/top-k/top-p with a `torch.Generator` (it
+cannot reproduce `jax.random`'s draws; greedy tokens are comparable).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from radvlm_tpu_torch import kernels
+from radvlm_tpu_torch.config import RadVLMConfig, tokens_per_tile
+from radvlm_tpu_torch.models import qwen2, radvlm
+from radvlm_tpu_torch.ops.attention import flash_eligible
+from radvlm_tpu_torch.ops.flash_attention import tower_eligible
+
+Batch = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 256
+    eos_token_ids: Tuple[int, ...] = ()
+    pad_token_id: int = 0
+    temperature: float = 0.0  # 0 -> greedy
+    top_k: int = 0  # 0 -> disabled
+    top_p: float = 1.0  # 1 -> disabled
+
+
+def sample_token(
+    logits: torch.Tensor, gen: GenerationConfig, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """logits [B, V] -> token ids [B] (int64)."""
+    if gen.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits.float() / gen.temperature
+    if gen.top_k > 0:
+        kth = torch.topk(logits, gen.top_k, dim=-1).values[:, -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if gen.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < gen.top_p
+        threshold = torch.where(keep, sorted_logits, float("inf")).amin(-1, keepdim=True)
+        logits = logits.masked_fill(logits < threshold, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def cache_length(prompt_len: int, max_new_tokens: int) -> int:
+    return ((prompt_len + max_new_tokens + 127) // 128) * 128
+
+
+@torch.inference_mode()
+def prefill(
+    model: radvlm.RadVLM,
+    cfg: RadVLMConfig,
+    batch: Batch,
+    max_len: int,
+    *,
+    attn_impl: str = "auto",
+    cache_format: str = "bf16",
+):
+    """Encode images and run the prompt through the decoder, filling the
+    bf16 cache (bf16 whatever the weights' dtype, as in the JAX package).
+
+    batch: left-padded collate() output (torch tensors on the model's device)
+    with padded length L <= max_len. Returns (cache, cache_segment_ids
+    [B, max_len], last_logits [B, V])."""
+    if cache_format != "bf16":
+        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP M4/M9)")
+    b, l = batch["tokens"].shape
+    seg = batch["segment_ids"]
+    cache_seg = torch.zeros((b, max_len), dtype=seg.dtype, device=seg.device)
+    cache_seg[:, :l] = seg
+    hidden, (ks, vs) = radvlm.forward(
+        model, cfg, batch, attn_impl=attn_impl, return_hidden=True, collect_kv=True
+    )
+    ck, cv = qwen2.init_kv_cache(cfg.text, b, max_len, device=hidden.device)
+    ck[:, :, :l] = ks
+    cv[:, :, :l] = vs
+    logits = qwen2.unembed(model.text, cfg.text, hidden[:, l - 1])
+    return (ck, cv), cache_seg, logits
+
+
+@torch.inference_mode()
+def decode_step(
+    model: radvlm.RadVLM,
+    cfg: RadVLMConfig,
+    cache,
+    cache_seg: torch.Tensor,
+    tok: torch.Tensor,
+    positions: torch.Tensor,
+    write_idx: int,
+    *,
+    attn_impl: str = "auto",
+):
+    """One decode step: tok [B], positions [B] (rope), write_idx (cache slot).
+    The cache and cache_seg are updated in place. Returns (cache, cache_seg,
+    logits [B, V])."""
+    b = tok.shape[0]
+    cache_seg[:, write_idx] = 1
+    embeds = qwen2.embed_tokens(model.text, tok[:, None], cfg.text)
+    logits, cache = qwen2.forward(
+        model.text,
+        cfg.text,
+        input_embeds=embeds,
+        positions=positions[:, None],
+        segment_ids=torch.ones((b, 1), dtype=torch.int32, device=tok.device),
+        kv_cache=cache,
+        cache_index=int(write_idx),
+        cache_segment_ids=cache_seg,
+        attn_impl=attn_impl,
+    )
+    return cache, cache_seg, logits[:, 0]
+
+
+def make_generate_fn(cfg: RadVLMConfig, gen: GenerationConfig, *, attn_impl: str = "auto"):
+    """generate(model, batch, generator) -> {tokens [B, max_new], num_tokens [B]}.
+
+    Same contract as the JAX package's: tokens after a row's eos are
+    pad_token_id; the loop stops when every row is done."""
+
+    @torch.inference_mode()
+    def generate(model, batch: Batch, generator: Optional[torch.Generator] = None):
+        b, l = batch["tokens"].shape
+        max_len = cache_length(l, gen.max_new_tokens)
+        cache, cache_seg, logits = prefill(model, cfg, batch, max_len, attn_impl=attn_impl)
+        dev = logits.device
+        lengths = batch["lengths"].to(dev)
+        eos = torch.tensor(gen.eos_token_ids or (-1,), device=dev)
+        tok = sample_token(logits, gen, generator)
+        out = torch.full((b, gen.max_new_tokens), gen.pad_token_id, dtype=torch.long, device=dev)
+        out[:, 0] = tok
+        done = torch.isin(tok, eos)
+        num = torch.ones((b,), dtype=torch.long, device=dev)
+        for step in range(1, gen.max_new_tokens):
+            if bool(done.all()):
+                break
+            cache, cache_seg, logits = decode_step(
+                model, cfg, cache, cache_seg, tok, lengths + step - 1, l + step - 1,
+                attn_impl=attn_impl,
+            )
+            nxt = sample_token(logits, gen, generator)
+            nxt = torch.where(done, torch.full_like(nxt, gen.pad_token_id), nxt)
+            out[:, step] = nxt
+            num = num + (~done).long()
+            done = done | torch.isin(nxt, eos)
+            tok = nxt
+        return {"tokens": out, "num_tokens": num}
+
+    return generate
+
+
+def make_stream_fns(cfg: RadVLMConfig, *, attn_impl: str = "auto"):
+    """(prefill_fn, step_fn) pair for host-driven token streaming.
+
+    prefill_fn(model, batch, max_len) -> (cache, cache_seg, logits [B,V])
+    step_fn(model, cache, cache_seg, tok [B], positions [B], write_idx) ->
+        (cache, cache_seg, logits [B,V])"""
+
+    def prefill_fn(model, batch, max_len: int):
+        return prefill(model, cfg, batch, max_len, attn_impl=attn_impl)
+
+    def step_fn(model, cache, cache_seg, tok, positions, write_idx):
+        return decode_step(
+            model, cfg, cache, cache_seg, tok, positions, write_idx, attn_impl=attn_impl
+        )
+
+    return prefill_fn, step_fn
+
+
+@torch.inference_mode()
+def stream_generate(
+    model,
+    cfg: RadVLMConfig,
+    batch: Batch,
+    gen: GenerationConfig,
+    *,
+    stream_fns=None,
+    attn_impl: str = "auto",
+    generator: Optional[torch.Generator] = None,
+) -> Iterator[np.ndarray]:
+    """Yield one [B] numpy token array per decode step."""
+    if stream_fns is None:
+        stream_fns = make_stream_fns(cfg, attn_impl=attn_impl)
+    prefill_fn, step_fn = stream_fns
+    b, l = batch["tokens"].shape
+    max_len = cache_length(l, gen.max_new_tokens)
+    cache, cache_seg, logits = prefill_fn(model, batch, max_len)
+    lengths = batch["lengths"].to(logits.device)
+    eos = list(gen.eos_token_ids)
+    done = np.zeros((b,), bool)
+    tok = sample_token(logits, gen, generator)
+    for step in range(gen.max_new_tokens):
+        tok_np = tok.cpu().numpy()
+        tok_np = np.where(done, gen.pad_token_id, tok_np)
+        if eos:
+            done |= np.isin(tok_np, eos)
+        yield tok_np
+        if done.all() or step == gen.max_new_tokens - 1:
+            break
+        cache, cache_seg, logits = step_fn(
+            model, cache, cache_seg, torch.as_tensor(tok_np, device=logits.device),
+            lengths + step, l + step,
+        )
+        tok = sample_token(logits, gen, generator)
+
+
+def trim_at_stop_strings(text: str, stop_strings: Sequence[str]) -> str:
+    """Host-side stop-string trim (KeywordsStoppingCriteria semantics)."""
+    cut = len(text)
+    for s in stop_strings:
+        i = text.find(s)
+        if i >= 0:
+            cut = min(cut, i)
+    return text[:cut]
+
+
+def kernel_provenance(
+    cfg: RadVLMConfig, *, prompt_len: int, max_new_tokens: int, attn_impl: str = "auto"
+) -> Dict[str, object]:
+    """Which attention path each stage takes for this geometry, from the same
+    predicates the dispatch calls, plus the kernels' launch counts so far.
+
+    A stage reads "kernel" when its kernel serves it (on a CUDA tensor the
+    wrapper launches it; on a CPU tensor it runs the plain version) and
+    "plain" where the dispatch routes to plain attention, as the JAX package
+    routes to XLA (window, ALiBi, non-zero query offset, impl="xla")."""
+    v, t = cfg.vision, cfg.text
+    n = tokens_per_tile(cfg)
+    meta = torch.device("meta")
+    q_tower = torch.empty((1, n, v.num_heads, v.head_dim), device=meta)
+    q_text = torch.empty((1, prompt_len, t.num_heads, t.head_dim), device=meta)
+    k_text = torch.empty((1, prompt_len, t.num_kv_heads, t.head_dim), device=meta)
+    tower = flash_eligible(q_tower, q_tower, impl=attn_impl) and tower_eligible(
+        q_tower, q_tower, None, False
+    )
+    prefill_ok = flash_eligible(
+        q_text, k_text, impl=attn_impl, window=t.sliding_window,
+        alibi=t.alibi_bias_max if t.pos_embedding == "alibi" else 0,
+    )
+    decode_ok = qwen2.decode_kernel_eligible(
+        t, cache_length(prompt_len, max_new_tokens), attn_impl
+    )
+    return {
+        "tower_attention": "kernel" if tower else "plain",
+        "prefill_attention": "kernel" if prefill_ok else "plain",
+        "decode_attention": "kernel" if decode_ok else "plain",
+        "launches": kernels.launch_counts(),
+    }
