@@ -1,6 +1,9 @@
 """Batched VLM inference (counterpart of the `Tokenizer` and `VLMRunner` of
-`radvlm_tpu/eval/harness.py`). The task registry, metrics and the
-continuous-engine path are not ported yet (ROADMAP M5, M8).
+`radvlm_tpu/eval/harness.py`). The model may hold int8 weights (`QLinear`,
+from the weight bridge or `convert.random_quantized_params`); serving wraps
+the runner in `serve.worker.ModelWorker` or `serve.batch_worker.BatchWorker`.
+The task registry, metrics and the continuous-engine evaluation path are not
+ported yet (ROADMAP M8).
 """
 
 from __future__ import annotations

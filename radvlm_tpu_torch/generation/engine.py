@@ -2,8 +2,10 @@
 `radvlm_tpu/generation/engine.py`).
 
 Prefill runs the prompt cache-less and splices the collected K/V into a
-preallocated bf16 cache; decode is one `decode_step` per token, updating the
-cache in place. The JAX `while_loop` becomes a host loop.
+preallocated cache, bf16 or int8 (`cache_format`); decode is one
+`decode_step` per token, updating the cache in place, at one write index
+for the batch or one per row (the continuous engine). The JAX `while_loop`
+becomes a host loop.
 
 Batching convention: prompts are LEFT-padded (`multimodal.collate(
 left_pad=True)`), so every row's last prompt token sits at index L-1; decode
@@ -11,7 +13,8 @@ writes at the uniform cache index L+step while rotary positions stay per row
 (lengths[i]+step). The cache length is rounded up to a multiple of 128.
 
 Sampling: greedy, or temperature/top-k/top-p with a `torch.Generator` (it
-cannot reproduce `jax.random`'s draws; greedy tokens are comparable).
+cannot reproduce `jax.random`'s draws; greedy tokens are comparable), for
+the batch (`sample_token`) or per row (`sample_token_vec`).
 """
 
 from __future__ import annotations
@@ -25,8 +28,11 @@ import torch
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import RadVLMConfig, tokens_per_tile
 from radvlm_tpu_torch.models import qwen2, radvlm
+from radvlm_tpu_torch.models.layers import QLinear
 from radvlm_tpu_torch.ops.attention import flash_eligible
 from radvlm_tpu_torch.ops.flash_attention import tower_eligible
+from radvlm_tpu_torch.ops.kv_quant import quantize_kv
+from radvlm_tpu_torch.ops.quant import qmm_route
 
 Batch = Dict[str, torch.Tensor]
 
@@ -61,6 +67,44 @@ def sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def sampling_logits(
+    logits: torch.Tensor,  # [B, V]
+    temperature: torch.Tensor,  # [B]; <= 0 -> greedy for that row
+    top_p: torch.Tensor,  # [B]; >= 1 -> disabled for that row
+    top_k: int = 0,
+) -> torch.Tensor:
+    """Per-row tempered logits with -inf outside each row's top-k/top-p
+    keep set: the JAX `sample_token_vec`'s masking, step for step."""
+    t = temperature.float().clamp_min(1e-6)[:, None]
+    lg = logits.float() / t
+    if top_k > 0:
+        kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+        lg = lg.masked_fill(lg < kth, float("-inf"))
+    p = top_p.float().clamp_min(1e-6)[:, None]
+    sorted_logits = torch.sort(lg, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    keep = torch.cumsum(probs, dim=-1) - probs < p  # the first token always stays
+    threshold = torch.where(keep, sorted_logits, float("inf")).amin(-1, keepdim=True)
+    return lg.masked_fill(lg < threshold, float("-inf"))
+
+
+def sample_token_vec(
+    logits: torch.Tensor,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    generator: Optional[torch.Generator],
+    *,
+    top_k: int = 0,
+) -> torch.Tensor:
+    """Per-ROW temperature/top-p (and top-k) sampling for the continuous
+    engine: logits [B, V] -> token ids [B] (int64); rows with temperature
+    <= 0 take the argmax."""
+    greedy = torch.argmax(logits, dim=-1)
+    probs = torch.softmax(sampling_logits(logits, temperature, top_p, top_k), dim=-1)
+    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.where(temperature <= 0.0, greedy, sampled)
+
+
 def cache_length(prompt_len: int, max_new_tokens: int) -> int:
     return ((prompt_len + max_new_tokens + 127) // 128) * 128
 
@@ -76,13 +120,15 @@ def prefill(
     cache_format: str = "bf16",
 ):
     """Encode images and run the prompt through the decoder, filling the
-    bf16 cache (bf16 whatever the weights' dtype, as in the JAX package).
+    cache: bf16 (k, v) whatever the weights' dtype, as in the JAX package,
+    or with cache_format="int8" the 4-tuple (k, v int8 + per-(token,
+    kv-head) scales), the prompt's K/V quantized once here.
 
     batch: left-padded collate() output (torch tensors on the model's device)
     with padded length L <= max_len. Returns (cache, cache_segment_ids
     [B, max_len], last_logits [B, V])."""
-    if cache_format != "bf16":
-        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP M4/M9)")
+    if cache_format not in ("bf16", "int8"):
+        raise ValueError(f"cache_format must be 'bf16' or 'int8', got {cache_format!r}")
     b, l = batch["tokens"].shape
     seg = batch["segment_ids"]
     cache_seg = torch.zeros((b, max_len), dtype=seg.dtype, device=seg.device)
@@ -90,11 +136,20 @@ def prefill(
     hidden, (ks, vs) = radvlm.forward(
         model, cfg, batch, attn_impl=attn_impl, return_hidden=True, collect_kv=True
     )
-    ck, cv = qwen2.init_kv_cache(cfg.text, b, max_len, device=hidden.device)
-    ck[:, :, :l] = ks
-    cv[:, :, :l] = vs
+    if cache_format == "int8":
+        hkv = cfg.text.num_kv_heads
+        cache = qwen2.init_kv_cache_q8(cfg.text, b, max_len, device=hidden.device)
+        (kq, ksc), (vq, vsc) = quantize_kv(ks, hkv), quantize_kv(vs, hkv)
+        for c, part in zip(cache[:2], (kq, vq)):
+            c[:, :, :l] = part
+        for c, part in zip(cache[2:], (ksc, vsc)):
+            c[..., :l] = part
+    else:
+        cache = qwen2.init_kv_cache(cfg.text, b, max_len, device=hidden.device)
+        cache[0][:, :, :l] = ks
+        cache[1][:, :, :l] = vs
     logits = qwen2.unembed(model.text, cfg.text, hidden[:, l - 1])
-    return (ck, cv), cache_seg, logits
+    return cache, cache_seg, logits
 
 
 @torch.inference_mode()
@@ -105,15 +160,23 @@ def decode_step(
     cache_seg: torch.Tensor,
     tok: torch.Tensor,
     positions: torch.Tensor,
-    write_idx: int,
+    write_idx: qwen2.CacheIndex,
     *,
     attn_impl: str = "auto",
 ):
-    """One decode step: tok [B], positions [B] (rope), write_idx (cache slot).
-    The cache and cache_seg are updated in place. Returns (cache, cache_seg,
-    logits [B, V])."""
+    """One decode step: tok [B], positions [B] (rope), write_idx the cache
+    slot (an int for every row, or a [B] tensor, one per row). The cache and
+    cache_seg are updated in place; nothing here waits on the device.
+    Returns (cache, cache_seg, logits [B, V])."""
     b = tok.shape[0]
-    cache_seg[:, write_idx] = 1
+    if isinstance(write_idx, torch.Tensor):
+        # A device-side 1: a Python scalar here would go up through pageable
+        # memory and wait on the card.
+        cache_seg.index_put_((torch.arange(b, device=tok.device), write_idx.long()),
+                             cache_seg.new_ones(()))
+    else:
+        write_idx = int(write_idx)
+        cache_seg[:, write_idx] = 1
     embeds = qwen2.embed_tokens(model.text, tok[:, None], cfg.text)
     logits, cache = qwen2.forward(
         model.text,
@@ -122,7 +185,7 @@ def decode_step(
         positions=positions[:, None],
         segment_ids=torch.ones((b, 1), dtype=torch.int32, device=tok.device),
         kv_cache=cache,
-        cache_index=int(write_idx),
+        cache_index=write_idx,
         cache_segment_ids=cache_seg,
         attn_impl=attn_impl,
     )
@@ -232,15 +295,30 @@ def trim_at_stop_strings(text: str, stop_strings: Sequence[str]) -> str:
 
 
 def kernel_provenance(
-    cfg: RadVLMConfig, *, prompt_len: int, max_new_tokens: int, attn_impl: str = "auto"
+    cfg: RadVLMConfig,
+    *,
+    prompt_len: int,
+    max_new_tokens: int,
+    attn_impl: str = "auto",
+    quantized: bool = False,
+    cache_format: str = "bf16",
+    fill_rows: int = 1,
+    tiles: int = 1,
+    decode_rows: int = 1,
 ) -> Dict[str, object]:
-    """Which attention path each stage takes for this geometry, from the same
+    """Which path each stage takes for this geometry, from the same
     predicates the dispatch calls, plus the kernels' launch counts so far.
 
-    A stage reads "kernel" when its kernel serves it (on a CUDA tensor the
-    wrapper launches it; on a CPU tensor it runs the plain version) and
-    "plain" where the dispatch routes to plain attention, as the JAX package
-    routes to XLA (window, ALiBi, non-zero query offset, impl="xla")."""
+    Attention stages read "kernel" when their kernel serves them (on a CUDA
+    tensor the wrapper launches it; on a CPU tensor it runs the plain
+    version) and "plain" where the dispatch routes to plain attention, as
+    the JAX package routes to XLA (window, ALiBi, non-zero query offset,
+    impl="xla"). With int8 weights (`quantized`), the matmul stages read
+    `ops.quant.qmm_route` for their row counts: the fill's projections
+    (`fill_rows` prompts of `prompt_len` tokens, and of `tiles` tower tiles
+    each, all in one tower batch), the decode projections (`decode_rows`
+    slots) and the lm_head (weight-only): "w8a8" (K3), "int8" (K5/K6) or
+    "dequant"."""
     v, t = cfg.vision, cfg.text
     n = tokens_per_tile(cfg)
     meta = torch.device("meta")
@@ -257,9 +335,27 @@ def kernel_provenance(
     decode_ok = qwen2.decode_kernel_eligible(
         t, cache_length(prompt_len, max_new_tokens), attn_impl
     )
-    return {
+    out: Dict[str, object] = {
         "tower_attention": "kernel" if tower else "plain",
         "prefill_attention": "kernel" if prefill_ok else "plain",
-        "decode_attention": "kernel" if decode_ok else "plain",
-        "launches": kernels.launch_counts(),
+        "decode_attention": ("kernel_q8" if cache_format == "int8" else "kernel")
+        if decode_ok else "plain",
     }
+    if quantized:
+
+        def lm_head(rows: int) -> str:  # a tied int8 embedding is dequantized whole
+            return "dequant" if t.tie_word_embeddings else qmm_route(rows, False)
+
+        out.update(
+            tower_matmul=qmm_route(fill_rows * tiles * n),
+            prefill_matmul=qmm_route(fill_rows * prompt_len),
+            fill_lm_head=lm_head(fill_rows),
+            decode_matmul=qmm_route(decode_rows, False),
+            decode_lm_head=lm_head(decode_rows),
+        )
+    out["launches"] = kernels.launch_counts()
+    return out
+
+
+def is_quantized(model: radvlm.RadVLM) -> bool:
+    return any(isinstance(m, QLinear) for m in model.modules())

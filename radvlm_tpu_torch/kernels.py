@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written Hopper kernels.
 
-The CUDA sources in `csrc/` compile with `nvcc` into one shared library with
-a plain C interface, loaded through `ctypes` (no PyTorch headers, so a build
-takes seconds). The library is built at first use, under a lock, into
+The CUDA sources in `csrc/` compile with `nvcc`, one process per source, all
+started together, and link into one shared library with a plain C
+interface, loaded through `ctypes` (no PyTorch headers, so a build takes
+seconds). The library is built at first use, under a lock, into
 `build/radvlm_tpu_torch/` at the repository root (listed in `.gitignore`),
 and rebuilt when a source is newer than it; `RADVLM_TORCH_BUILD_DIR`
 overrides the directory.
@@ -38,6 +39,9 @@ _launches: Dict[str, int] = {
     "tower_attention": 0,  # K1
     "prefill_attention": 0,  # K2
     "decode_attention": 0,  # K9
+    "w8a8_matmul": 0,  # K3
+    "decode_attention_q8": 0,  # K4
+    "int8_matmul": 0,  # K5/K6
 }
 _count_lock = threading.Lock()
 _lock = threading.Lock()
@@ -67,9 +71,16 @@ ATOL = {
     # far (exp2), the plain version against the row's max (exp).
     "tower_attention": 1e-3,
     "prefill_attention": 1e-3,
-    # K9 keeps p in f32, as its plain version does: f32 sums in another
-    # order and exp2 for exp.
+    # K9 and K4 keep p (K4: p * vs) in f32, as their plain versions do:
+    # f32 sums in another order and exp2 for exp.
     "decode_attention": 1e-4,
+    "decode_attention_q8": 1e-4,
+    # K3 sums exactly in int32, as its plain version does (in f64), and
+    # applies the same two f32 products: equal bit for bit.
+    "w8a8_matmul": 0.0,
+    # K5/K6: bf16 x (int8 -> bf16) products are exact; f32 sums in another
+    # order (and over K splits) than the plain f32 matmul.
+    "int8_matmul": 1e-4,
 }
 
 
@@ -83,14 +94,18 @@ def error_ratio(name: str, out: torch.Tensor, ref: torch.Tensor, rows=None):
     either side of a bf16 rounding boundary: that moves every element of
     the row by an amount set by the row's values, not the element's own.
     Returns (max |out - ref|, the largest |out - ref| / bound) over `rows`
-    (a boolean index) if given; a ratio above 1 is a disagreement. Raises
-    if `out` is not finite."""
+    (a boolean index) if given; a ratio above 1 is a disagreement. A kernel
+    whose ATOL is 0 must equal its plain version bit for bit: its ratio is 0
+    when it does and inf otherwise. Raises if `out` is not finite."""
     o, r = out.float(), ref.float()
     if rows is not None:
         o, r = o[rows], r[rows]
     if not torch.isfinite(o).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     diff = (o - r).abs()
+    if ATOL[name] == 0:
+        err = float(diff.max())
+        return err, (0.0 if err == 0 else float("inf"))
     bound = 2.0 ** -7 * r.abs().amax(-1, keepdim=True) + ATOL[name]
     return float(diff.max()), float((diff / bound).max())
 
@@ -118,8 +133,23 @@ def _stale(lib_path: str) -> bool:
     return any(os.path.getmtime(s) > built for s in _sources())
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the first failure's stderr."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, err)
+    if failed is not None:
+        raise RuntimeError(f"kernel build failed ({' '.join(failed[0])}):\n{failed[1]}")
+
+
 def build(force: bool = False) -> str:
-    """Compile `csrc/*.cu` for sm_90a into the build directory if stale.
+    """Compile `csrc/*.cu` for sm_90a into the build directory if stale:
+    one nvcc per source, in parallel, then one link.
 
     Returns the library's path. Safe across threads and processes (a file
     lock in the build directory). Raises on a failed build."""
@@ -129,17 +159,18 @@ def build(force: bool = False) -> str:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         if not force and not _stale(lib_path):
             return lib_path
-        tmp = lib_path + f".tmp{os.getpid()}"
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", CSRC,
-            "-o", tmp, *[s for s in _sources() if s.endswith(".cu")],
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed ({' '.join(cmd)}):\n{proc.stderr}"
-            )
+        nvcc, pid = _nvcc(), os.getpid()
+        srcs = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{pid}.o") for s in srcs]
+        _run_all([
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-I", CSRC, "-c", src, "-o", obj]
+            for src, obj in zip(srcs, objs)
+        ])
+        tmp = lib_path + f".tmp{pid}"
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        for obj in objs:
+            os.remove(obj)
         os.replace(tmp, lib_path)
     return lib_path
 
@@ -158,8 +189,14 @@ def lib() -> ctypes.CDLL:
             handle.radvlm_decode_attention.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
             ]
+            handle.radvlm_decode_attention_q8.argtypes = [
+                p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
+            ]
+            handle.radvlm_w8a8_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
+            handle.radvlm_int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             for fn in ("radvlm_tower_attention", "radvlm_prefill_attention",
-                       "radvlm_decode_attention"):
+                       "radvlm_decode_attention", "radvlm_decode_attention_q8",
+                       "radvlm_w8a8_matmul", "radvlm_int8_matmul"):
                 getattr(handle, fn).restype = ctypes.c_int
             handle.radvlm_error_string.argtypes = [i]
             handle.radvlm_error_string.restype = ctypes.c_char_p
@@ -178,13 +215,20 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_tensors(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous bf16/int32 CUDA tensors with 4-byte
-    aligned data; anything else is a caller error, not a fallback."""
+def require_cuda_tensors(name: str, *tensors: torch.Tensor, align: int = 4) -> None:
+    """The kernels take contiguous CUDA tensors whose data is `align`-byte
+    aligned (16 where they use 16-byte loads); anything else is a caller
+    error, not a fallback."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name}: tensor data is not 4-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: tensor data is not {align}-byte aligned")
+
+
+def require_dtype(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: the kernel takes {dtype} {arg}, got {t.dtype}")

@@ -4,27 +4,39 @@ bias, SwiGLU/GeGLU MLP.
 
 The JAX layer scan becomes a Python loop over `layers`. The KV cache keeps
 the JAX package's stacked layout [L, B, Smax, Hkv*D] (kv heads folded into
-the minor dim); prefill runs cache-less and collects each layer's roped K/V
-(`collect_kv`), decode writes the new token's K/V into the cache IN PLACE and
-reads it through the K9 decode kernel. Not ported yet (they raise): MoE, the
-ALiBi/LayerNorm MPT family, the int8 cache, per-row and window cache writes,
-sequence-parallel decode.
+the minor dim), bf16 (k, v) or int8 (k, v, k_scale, v_scale) with scales
+[L, B, Hkv, Smax]; prefill runs cache-less and collects each layer's roped
+K/V (`collect_kv`), decode writes the new token's K/V into the cache IN
+PLACE - at one index for every row, or at each row's own index (continuous
+batching) - and reads it through the K9 (bf16) or K4 (int8) decode kernel.
+Projections are `Linear` or, for int8 weights, `QLinear` (`ops.quant.qmm`);
+the token embedding may be int8 with one scale per row. Not ported yet
+(they raise): MoE, the ALiBi/LayerNorm MPT family, multi-token per-row
+windows (speculative verify), sequence-parallel decode.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from radvlm_tpu_torch.config import Qwen2Config
-from radvlm_tpu_torch.models.layers import Linear, empty_param, fuse_linears
+from radvlm_tpu_torch.models.layers import Linear, QLinear, empty_param, fuse_linears
 from radvlm_tpu_torch.ops.attention import apply_rope, mha, rms_norm
-from radvlm_tpu_torch.ops.decode_attention import decode_attention_stacked
+from radvlm_tpu_torch.ops.decode_attention import (
+    decode_attention_stacked,
+    decode_attention_stacked_q8,
+)
+from radvlm_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv, quantize_kv_row
+from radvlm_tpu_torch.ops.quant import dequantize_array
 
-Cache = Tuple[torch.Tensor, torch.Tensor]
+# (k, v) bf16, or (k, v) int8 + (k_scale, v_scale) f32.
+Cache = Tuple[torch.Tensor, ...]
+# A scalar write offset, or one per row ([B] int tensor).
+CacheIndex = Union[int, torch.Tensor]
 
 
 def _check_supported(cfg: Qwen2Config) -> None:
@@ -64,6 +76,13 @@ class Qwen2Decoder(nn.Module):
             None if cfg.tie_word_embeddings
             else Linear.empty(cfg.hidden_size, cfg.vocab_size, False, **kw)
         )
+        self.embed_scale = None  # [V, 1] f32 when `embed` is int8
+
+    def set_int8_embedding(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Replace the embedding by int8 rows [V, D] with one f32 scale per
+        row [V, 1] (the JAX package's quantized embedding node)."""
+        self.embed = nn.Parameter(q, requires_grad=False)
+        self.embed_scale = nn.Parameter(scale.float(), requires_grad=False)
 
 
 def fuse_projections(model: Qwen2Decoder) -> Qwen2Decoder:
@@ -90,13 +109,19 @@ def _act(cfg: Qwen2Config, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def _qkv(cfg: Qwen2Config, blk: Qwen2Block, y: torch.Tensor, positions: torch.Tensor):
+def _proj(lin, x: torch.Tensor, w8a8: Optional[bool]) -> torch.Tensor:
+    """A projection; `w8a8` reaches int8 weights only (`QLinear`)."""
+    return lin(x, w8a8=w8a8) if isinstance(lin, QLinear) else lin(x)
+
+
+def _qkv(cfg: Qwen2Config, blk: Qwen2Block, y: torch.Tensor, positions: torch.Tensor,
+         w8a8: Optional[bool] = None):
     b, s, _ = y.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if hasattr(blk, "qkv"):
-        q, k, v = blk.qkv(y).split([h * hd, hkv * hd, hkv * hd], dim=-1)
+        q, k, v = _proj(blk.qkv, y, w8a8).split([h * hd, hkv * hd, hkv * hd], dim=-1)
     else:
-        q, k, v = blk.q(y), blk.k(y), blk.v(y)
+        q, k, v = (_proj(p, y, w8a8) for p in (blk.q, blk.k, blk.v))
     q, k, v = q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
     llama3 = None
     if cfg.rope_scaling_type == "llama3":
@@ -128,15 +153,16 @@ def decode_kernel_eligible(cfg: Qwen2Config, cache_max_len: int, attn_impl: str)
     )
 
 
-def _finish_block(cfg: Qwen2Config, blk: Qwen2Block, res: torch.Tensor, attn: torch.Tensor):
+def _finish_block(cfg: Qwen2Config, blk: Qwen2Block, res: torch.Tensor, attn: torch.Tensor,
+                  w8a8: Optional[bool] = None):
     b, s = attn.shape[:2]
-    x = res + blk.o(attn.reshape(b, s, -1))
+    x = res + _proj(blk.o, attn.reshape(b, s, -1), w8a8)
     y = _norm(cfg, x, blk.ln2)
     if hasattr(blk, "gateup"):
-        gate, up = blk.gateup(y).chunk(2, dim=-1)
+        gate, up = _proj(blk.gateup, y, w8a8).chunk(2, dim=-1)
     else:
-        gate, up = blk.gate(y), blk.up(y)
-    return x + blk.down(_act(cfg, gate) * up)
+        gate, up = _proj(blk.gate, y, w8a8), _proj(blk.up, y, w8a8)
+    return x + _proj(blk.down, _act(cfg, gate) * up, w8a8)
 
 
 def _block(
@@ -179,38 +205,79 @@ def _block_cached(
     cache: Cache,
     positions: torch.Tensor,
     segment_ids: Optional[torch.Tensor],
-    cache_index: int,
+    cache_index: CacheIndex,
     cache_segment_ids: torch.Tensor,
     attn_impl: str,
 ) -> torch.Tensor:
-    """One decoder block against the stacked bf16 cache. Writes the new
-    tokens' K/V at [layer_idx, :, cache_index:cache_index+s] IN PLACE, then
-    attends: single-token decode through the K9 kernel, else plain attention
-    with the query block at offset `cache_index`."""
-    if len(cache) != 2:
-        raise NotImplementedError("the int8 KV cache is not ported (ROADMAP M4/M9)")
-    if not isinstance(cache_index, int):
-        raise NotImplementedError(
-            "per-row cache writes (continuous batching, speculative verify) "
-            "are not ported (ROADMAP M5/M7)"
-        )
-    ck_all, cv_all = cache
+    """One decoder block against the stacked cache, bf16 (k, v) or int8
+    (k, v, k_scale, v_scale). Writes the new tokens' K/V at `cache_index`
+    IN PLACE (int8: quantized per (token, kv head) first): a scalar index
+    writes [cache_index, cache_index+s) of every row; a [B] tensor writes
+    one token per row at its own index (continuous batching, s == 1). Then
+    attends: single-token decode through K9 / K4, else plain attention over
+    the (dequantized) layer with the query block at offset `cache_index`.
+
+    Projections keep the activations unquantized here (w8a8=False), as the
+    JAX package's stacked decode matmuls do."""
+    quantized = len(cache) == 4
+    per_row = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
+    ck_all, cv_all = cache[0], cache[1]
     y = _norm(cfg, x, blk.ln1)
-    q, k, v = _qkv(cfg, blk, y, positions)
+    q, k, v = _qkv(cfg, blk, y, positions, w8a8=False)
     b, s = x.shape[:2]
+    if per_row and s > 1:
+        raise NotImplementedError(
+            "per-row multi-token cache windows (speculative verify) are not ported "
+            "(ROADMAP M7)"
+        )
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    ck_all[layer_idx, :, cache_index : cache_index + s] = k.reshape(b, s, hkv * hd)
-    cv_all[layer_idx, :, cache_index : cache_index + s] = v.reshape(b, s, hkv * hd)
+    kv_dtype = torch.bfloat16 if quantized else ck_all.dtype
+    k_flat = k.reshape(b, s, hkv * hd).to(kv_dtype)
+    v_flat = v.reshape(b, s, hkv * hd).to(kv_dtype)
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        idx = cache_index.long()
+        if quantized:
+            (kq, ksc), (vq, vsc) = quantize_kv_row(k_flat[:, 0], hkv), quantize_kv_row(v_flat[:, 0], hkv)
+            ck_all[layer_idx, rows, idx] = kq
+            cv_all[layer_idx, rows, idx] = vq
+            # [L, B, Hkv, S][l, rows, :, idx]: the advanced dims come first -> [B, Hkv].
+            cache[2][layer_idx, rows, :, idx] = ksc
+            cache[3][layer_idx, rows, :, idx] = vsc
+        else:
+            ck_all[layer_idx, rows, idx] = k_flat[:, 0]
+            cv_all[layer_idx, rows, idx] = v_flat[:, 0]
+    else:
+        span = slice(cache_index, cache_index + s)
+        if quantized:
+            (kq, ksc), (vq, vsc) = quantize_kv(k_flat, hkv), quantize_kv(v_flat, hkv)
+            ck_all[layer_idx, :, span] = kq
+            cv_all[layer_idx, :, span] = vq
+            cache[2][layer_idx, :, :, span] = ksc
+            cache[3][layer_idx, :, :, span] = vsc
+        else:
+            ck_all[layer_idx, :, span] = k_flat
+            cv_all[layer_idx, :, span] = v_flat
     smax = ck_all.shape[2]
     if s == 1 and decode_kernel_eligible(cfg, smax, attn_impl):
-        attn = decode_attention_stacked(
-            q[:, 0], ck_all, cv_all, cache_segment_ids, layer_idx, num_kv_heads=hkv
-        )[:, None]
+        if quantized:
+            attn = decode_attention_stacked_q8(
+                q[:, 0], ck_all, cv_all, cache[2], cache[3], cache_segment_ids, layer_idx,
+                num_kv_heads=hkv,
+            )[:, None]
+        else:
+            attn = decode_attention_stacked(
+                q[:, 0], ck_all, cv_all, cache_segment_ids, layer_idx, num_kv_heads=hkv
+            )[:, None]
     else:
+        ck, cv = ck_all[layer_idx], cv_all[layer_idx]
+        if quantized:
+            ck = dequantize_kv(ck, cache[2][layer_idx], hkv)
+            cv = dequantize_kv(cv, cache[3][layer_idx], hkv)
         attn = mha(
             q,
-            ck_all[layer_idx].reshape(b, smax, hkv, hd),
-            cv_all[layer_idx].reshape(b, smax, hkv, hd),
+            ck.reshape(b, smax, hkv, hd),
+            cv.reshape(b, smax, hkv, hd),
             q_segment_ids=segment_ids,
             kv_segment_ids=cache_segment_ids,
             causal=True,
@@ -218,13 +285,19 @@ def _block_cached(
             impl=attn_impl,
             window=cfg.sliding_window,
         )
-    return _finish_block(cfg, blk, x, attn)
+    return _finish_block(cfg, blk, x, attn, w8a8=False)
 
 
 def embed_tokens(
     model: Qwen2Decoder, input_ids: torch.Tensor, cfg: Optional[Qwen2Config] = None
 ) -> torch.Tensor:
-    out = F.embedding(input_ids.long(), model.embed)
+    ids = input_ids.long()
+    if model.embed_scale is not None:
+        # int8 embedding: gather rows and their scales, dequantize only those.
+        out = (F.embedding(ids, model.embed).float() * F.embedding(ids, model.embed_scale))
+        out = out.to(model.norm.dtype)
+    else:
+        out = F.embedding(ids, model.embed)
     if cfg is not None and cfg.embed_normalizer:
         out = out * torch.tensor(cfg.hidden_size ** 0.5, dtype=out.dtype)
     return out
@@ -238,7 +311,7 @@ def forward(
     positions: torch.Tensor,
     segment_ids: Optional[torch.Tensor] = None,
     kv_cache: Optional[Cache] = None,
-    cache_index: Optional[int] = None,
+    cache_index: Optional[CacheIndex] = None,
     cache_segment_ids: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
     return_hidden: bool = False,
@@ -246,9 +319,10 @@ def forward(
 ):
     """Run the decoder stack. input_embeds [B, S, D].
 
-    With kv_cache (stacked (k, v), each [L, B, Smax, Hkv*D], updated in
-    place), cache_index is the scalar write offset and cache_segment_ids
-    [B, Smax] the segment ids of the cache contents. Returns
+    With kv_cache (stacked (k, v), each [L, B, Smax, Hkv*D], or the int8
+    4-tuple; updated in place), cache_index is the scalar write offset or a
+    [B] tensor of per-row offsets (s == 1), and cache_segment_ids [B, Smax]
+    the segment ids of the cache contents. Returns
     (logits_or_hidden [B, S, V|D], cache): the same cache tensors, or with
     collect_kv the prompt's stacked K/V [L, B, S, Hkv*D] in bf16."""
     x = input_embeds
@@ -278,8 +352,13 @@ def forward(
 
 def unembed(model: Qwen2Decoder, cfg: Qwen2Config, hidden: torch.Tensor) -> torch.Tensor:
     if cfg.tie_word_embeddings:
-        return F.linear(hidden, model.embed)
-    return model.lm_head(hidden)
+        emb = model.embed
+        if model.embed_scale is not None:  # per-row scales: dequantize, transpose
+            emb = dequantize_array(emb, model.embed_scale, hidden.dtype)
+        return F.linear(hidden, emb)
+    # Logits keep weight-only precision: per-token activation quantization
+    # could flip a near-tie argmax.
+    return _proj(model.lm_head, hidden, False)
 
 
 def init_kv_cache(
@@ -290,4 +369,17 @@ def init_kv_cache(
     return (
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def init_kv_cache_q8(cfg: Qwen2Config, batch: int, max_len: int, device=None) -> Cache:
+    """Zeroed int8 cache: (k, v) int8 [L, B, Smax, Hkv*D] and per-(token,
+    kv head) scales (k_scale, v_scale) f32 [L, B, Hkv, Smax]."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads * cfg.head_dim)
+    sshape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len)
+    return (
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(sshape, dtype=torch.float32, device=device),
+        torch.zeros(sshape, dtype=torch.float32, device=device),
     )

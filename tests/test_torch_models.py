@@ -184,9 +184,10 @@ def test_fused_bridge_equals_unfused(tiny):
 
 
 def test_bridge_rejects_quantized_leaves(tiny):
+    """int4 nodes are not ported (int8 nodes are: tests/test_torch_int8.py)."""
     cfg, params = tiny
     text = dict(_np_tree(params["text"]))
-    text["lm_head"] = {"kernel": {"__q__": np.zeros((48, 300), np.int8),
+    text["lm_head"] = {"kernel": {"__q4__": np.zeros((24, 300), np.int8),
                                   "__scale__": np.ones((1, 300), np.float32)}}
     with pytest.raises(NotImplementedError, match="M9"):
         convert.load_qwen2(qwen2.Qwen2Decoder(cfg.text), text)
@@ -218,9 +219,24 @@ def test_kernel_provenance_reports_the_predicates():
     prov = teng.kernel_provenance(cfg, prompt_len=3584, max_new_tokens=32)
     assert prov["tower_attention"] == prov["prefill_attention"] == "kernel"
     assert prov["decode_attention"] == "kernel"
-    assert set(prov["launches"]) == {"tower_attention", "prefill_attention", "decode_attention"}
+    assert set(prov["launches"]) == {"tower_attention", "prefill_attention", "decode_attention",
+                                     "w8a8_matmul", "decode_attention_q8", "int8_matmul"}
     plain = teng.kernel_provenance(cfg, prompt_len=3584, max_new_tokens=32, attn_impl="xla")
     assert {plain[k] for k in ("tower_attention", "prefill_attention", "decode_attention")} == {"plain"}
+    # The int8 serving path: W8A8 fills and tower, weight-only decode and
+    # lm_head, the q8 decode kernel.
+    q8 = teng.kernel_provenance(cfg, prompt_len=3584, max_new_tokens=128, quantized=True,
+                                cache_format="int8", fill_rows=2, decode_rows=8)
+    assert q8["decode_attention"] == "kernel_q8"
+    assert (q8["tower_matmul"], q8["prefill_matmul"]) == ("w8a8", "w8a8")
+    assert {q8[k] for k in ("fill_lm_head", "decode_matmul", "decode_lm_head")} == {"int8"}
+    # A tied embedding (radvlm_0_5b) unembeds through its dequantized rows.
+    tied = cfglib.radvlm_0_5b()
+    assert tied.text.tie_word_embeddings
+    q8 = teng.kernel_provenance(tied, prompt_len=3584, max_new_tokens=128, quantized=True,
+                                decode_rows=8)
+    assert (q8["fill_lm_head"], q8["decode_lm_head"], q8["decode_matmul"]) == (
+        "dequant", "dequant", "int8")
 
 
 def test_engine_prefill_cache_layout_matches_jax(rng, tiny):

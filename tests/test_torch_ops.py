@@ -21,6 +21,8 @@ from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as tdec
 from radvlm_tpu_torch.ops import flash_attention as tfa
+from radvlm_tpu_torch.ops import int8_matmul as ti8
+from radvlm_tpu_torch.ops import w8a8_matmul as tw8
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -206,8 +208,24 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
         tdec.decode_attention_stacked(m[:, 0], m[:, :, 0][None], m[:, :, 0][None],
                                       torch.ones(1, 8, dtype=torch.int32, device="meta"), 0,
                                       num_kv_heads=1)
-    assert kernels.launch_counts() == {
-        "tower_attention": 0, "prefill_attention": 0, "decode_attention": 0}
+    i8 = torch.empty((1, 8, 16), device="meta", dtype=torch.int8)
+    f32 = torch.empty((1, 2, 8), device="meta")
+    with pytest.raises(ValueError):
+        tdec.decode_attention_stacked_q8(torch.empty((1, 2, 16), device="meta", dtype=torch.bfloat16),
+                                         i8[None], i8[None], f32[:, None, :1], f32[:, None, :1],
+                                         torch.ones(1, 8, dtype=torch.int32, device="meta"), 0,
+                                         num_kv_heads=1)
+    w = torch.empty((32, 16), device="meta", dtype=torch.int8)
+    s = torch.empty((32,), device="meta")
+    with pytest.raises(ValueError):
+        ti8.int8_matmul(torch.empty((2, 16), device="meta", dtype=torch.bfloat16), w, s)
+    with pytest.raises(ValueError):
+        tw8.w8a8_matmul(torch.empty((80, 16), device="meta", dtype=torch.int8),
+                        torch.empty((80, 1), device="meta"), w, s)
+    assert set(kernels.launch_counts().values()) == {0}
+    assert set(kernels.launch_counts()) == {
+        "tower_attention", "prefill_attention", "decode_attention", "w8a8_matmul",
+        "decode_attention_q8", "int8_matmul"}
 
 
 def test_kernel_sources_and_build_dir():
@@ -216,7 +234,8 @@ def test_kernel_sources_and_build_dir():
     import os
 
     names = sorted(os.path.basename(s) for s in kernels._sources())
-    assert names == ["common.cuh", "decode_attention.cu", "flash_attention.cu"]
+    assert names == ["common.cuh", "decode_attention.cu", "flash_attention.cu",
+                     "int8_matmul.cu", "w8a8_matmul.cu"]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert os.path.relpath(kernels.BUILD_DIR, repo).startswith("build")
     with open(os.path.join(repo, ".gitignore")) as f:

@@ -158,8 +158,8 @@ def test_http_round_trip(rng, tiny):
 
 def test_port_runs_with_jax_blocked():
     """The port imports no jax, and of the JAX package only its jax-free
-    config: with jax blocked in sys.modules, every module imports and the
-    tiny model generates tokens."""
+    config: with jax blocked in sys.modules, every module imports, the tiny
+    model generates tokens, and the int8 continuous engine serves requests."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -182,6 +182,19 @@ def test_port_runs_with_jax_blocked():
         runner = VLMRunner(model=model, cfg=cfg, tokenizer=Tok(), max_new_tokens=4,
                            batch_size=1, pad_to_multiple=64)
         img = np.random.default_rng(0).integers(0, 255, (70, 90, 3), dtype=np.uint8)
+        # The int8 continuous path: int8 weights made by the port, the int8 cache.
+        from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
+        from radvlm_tpu_torch.generation.engine import GenerationConfig
+        from radvlm_tpu_torch.models import multimodal
+        from radvlm_tpu_torch.models.convert import random_quantized_params
+        qmodel = random_quantized_params(cfg, torch.Generator().manual_seed(0),
+                                         dtype=torch.float32)
+        batcher = ContinuousBatcher(qmodel, cfg, GenerationConfig(max_new_tokens=3),
+                                    num_slots=2, max_len=256, prompt_buckets=(128,),
+                                    pad_tiles=2, kv_quant=True)
+        sample = multimodal.build_sample(Tok.encode("hi") + [-200], [img], cfg)
+        reqs = [batcher.submit(sample) for _ in range(3)]
+        assert [len(r.emitted) for r in batcher.run()] == [3, 3, 3]
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         assert not [k for k in loaded if k.split(".")[0] == "jax"]
