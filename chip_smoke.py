@@ -9,10 +9,17 @@ Phases, each raising on failure (the last line is printed only on success):
 2. build: the hand-written kernels from `radvlm_tpu_torch/csrc` (one nvcc
    per source, in parallel), timed;
 3. kernels: K1 (tower attention), K2 (prefill attention), K9 (decode
-   attention), K3 (W8A8 matmul), K4 (int8-cache decode attention) and K5/K6
-   (int8-weight decode matmul) against their plain PyTorch versions on the
-   card at the main paths' shapes: error (K3 bit for bit) and both times
-   (CUDA events, median of several runs);
+   attention), K3 (W8A8 matmul), K4 (int8-cache decode attention), K5/K6
+   (int8-weight decode matmul) and K10 / K11 (the verify window of
+   speculative decoding over the bf16 / int8 cache, 5 and 16 queries a
+   slot) against their plain PyTorch versions on the card at the main
+   paths' shapes: error (K3 bit for bit) and both times (CUDA events,
+   median of several runs); beside them the least time the card could take
+   (bytes over 3.35 TB/s or operations over the tensor-core peak, whichever
+   is larger) and, as a yardstick that no path uses, the one PyTorch call
+   that computes the same function where there is one (SDPA for K1, K2, K9
+   and K10, torch._int_mm plus the scale pass for K3,
+   torch._weight_int8pack_mm for K5/K6; none over the int8 cache);
 4. bf16 slice: radvlm_7b at full width with random bf16 weights made on the
    card from --seed. A reference check first (on one small input, the
    kernel path and plain attention in bf16 against plain attention on an f32
@@ -36,7 +43,19 @@ Phases, each raising on failure (the last line is printed only on success):
    the same tokens. K1, K2, K3, K4 and K5/K6 must have launched in that run.
    Then, with every slot filled, one greedy decode chunk runs under
    torch.cuda.set_sync_debug_mode("error") (no host sync hides in it), one
-   is timed and one is profiled.
+   is timed and one is profiled;
+6. speculative decoding and sessions, on the int8 model of phase 5: a
+   BatchWorker over ContinuousBatcher(spec_k=4, 8 slots, int8 KV cache)
+   serves 6 concurrent greedy requests whose tokens must be those phase 5's
+   plain engine gave for the same requests (a difference fails the run
+   unless the plain path's own top-2 logit gap at the first differing step
+   is under 1e-2), one sampling request, and a two-turn chat over
+   /v1/chat/completions with a session_id whose second turn must be a delta
+   prefill (resume_fills == 1) giving the text of a full prefill of the same
+   conversation; a delta fill and a full fill are timed, and one verify
+   chunk runs under set_sync_debug_mode("error") and one is timed. Then the
+   same with the bf16 KV cache and 3 requests, against a plain bf16-cache
+   engine. K11 and K4, then K10 and K9, must have launched.
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -65,12 +84,15 @@ from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import radvlm_7b
 from radvlm_tpu_torch.eval.harness import VLMRunner, batch_to_device
 from radvlm_tpu_torch.generation import engine
+from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
 from radvlm_tpu_torch.models import convert, multimodal, radvlm
+from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as da
 from radvlm_tpu_torch.ops import flash_attention as fa
 from radvlm_tpu_torch.ops import int8_matmul as i8
 from radvlm_tpu_torch.ops import kv_quant
 from radvlm_tpu_torch.ops import w8a8_matmul as w8
+from radvlm_tpu_torch.serve import openai_api as oai
 from radvlm_tpu_torch.serve.batch_worker import BatchWorker
 from radvlm_tpu_torch.serve.worker import ModelWorker
 
@@ -78,6 +100,7 @@ REQUESTS = 3
 NEW_TOKENS = 32
 INT8_REQUESTS = 12  # concurrent, in the int8 continuous phase
 INT8_BUCKETS = (3072, 3456, 3840, 4096)
+SPEC_REQUESTS = 6  # concurrent greedy requests of the spec phase (3 with the bf16 cache)
 QUESTIONS = ("Write the findings section of the report.", "Is there a pleural effusion?",
              "Describe the cardiac silhouette.", "Is there a pneumothorax?")
 
@@ -97,34 +120,53 @@ KERNELS = {
     # flat lm_head, int8_matmul.py:72).
     "int8_matmul": ("radvlm_tpu_torch/csrc/int8_matmul.cu",
                     "radvlm_tpu/ops/int8_matmul.py:131", "int8"),
+    "decode_attention_window": ("radvlm_tpu_torch/csrc/decode_attention.cu",
+                                "radvlm_tpu/ops/decode_attention.py:376", "spec_bf16"),
+    "decode_attention_window_q8": ("radvlm_tpu_torch/csrc/decode_attention.cu",
+                                   "radvlm_tpu/ops/decode_attention.py:453", "spec_int8"),
 }
 # The kernels each path must launch in its measured run.
 PATH_KERNELS = {
     "bf16": ("tower_attention", "prefill_attention", "decode_attention"),
     "int8": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
              "int8_matmul"),
+    "spec_int8": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
+                  "int8_matmul", "decode_attention_window_q8"),
+    "spec_bf16": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention",
+                  "int8_matmul", "decode_attention_window"),
 }
+SPEC_K = 4
+SPEC_BUCKETS = (3456, 3840)
+# The card's peaks (NVIDIA's H100 SXM data sheet, dense): what a kernel's
+# least possible time is computed from.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
-class ByteTokenizer:
-    """Bytes map to ids 2..257; any other id decodes as "<id>", so equal
-    text means equal tokens. No tokenizer files are needed."""
+class CharTokenizer:
+    """ASCII text (the prompts) encodes as 2 + its byte; an id decodes to one
+    character of its own above U+00FF, which encodes back to that id. So
+    equal text means equal tokens, and a reply sent back as text (the next
+    turn of a chat) is the very ids the engine emitted, as a session's
+    prefix match needs. No tokenizer files are needed."""
 
     eos_token_ids = (1,)
     pad_token_id = 0
 
+    @staticmethod
+    def _char(i: int) -> str:
+        c = 0x100 + i
+        return chr(c if c < 0xD800 else c + 0x800)  # step over the surrogates
+
     def encode(self, text):
-        return [2 + b for b in text.encode()]
+        out = []
+        for ch in text:
+            c = ord(ch)
+            out.append(2 + c if c < 0x100 else (c if c < 0xD800 else c - 0x800) - 0x100)
+        return out
 
     def decode(self, ids):
-        out, buf = [], bytearray()
-        for i in ids:
-            if 2 <= i < 258:
-                buf.append(i - 2)
-            else:
-                out.append(buf.decode(errors="replace") + f"<{i}>")
-                buf = bytearray()
-        return "".join(out) + buf.decode(errors="replace")
+        return "".join(self._char(i) for i in ids)
 
 
 def nvidia_smi_line() -> str:
@@ -148,6 +190,29 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the memory rate,
+    or its operations over the tensor cores' peak for `kind`, whichever is
+    larger."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S[kind]
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa(q, k, v, mask=None):
+    """The library's attention on [B, S, H, D] tensors (GQA by head groups):
+    timed as a yardstick, used on no path."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
 
 def check_close(name: str, label: str, out: torch.Tensor, ref: torch.Tensor, rows=None) -> float:
@@ -185,6 +250,8 @@ def phase_kernels(dev, seed: int):
         max_abs_err=err,
         ms=cuda_ms(lambda: fa.tower_attention(q, k, v)),
         plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, None, None, False, scale)),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v)),
+        **bound(nbytes(q, k, v, out), 4 * 10 * 16 * 729 * 729 * 72, "bf16"),
     )
     # K2: Qwen2-7B prefill, B=2, S=4096, left padding, 28/4 heads of 128.
     b, s = 2, 4096
@@ -203,8 +270,13 @@ def phase_kernels(dev, seed: int):
                       rows=seg.bool())
     if out[~seg.bool()].abs().max() != 0:
         raise AssertionError("K2: padding rows must be 0")
-    results["prefill_attention"] = dict(max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain))
-    del q, k, v, ref, out
+    mask = tatt.make_attention_mask(seg, seg, True)
+    pairs = int(mask.sum())  # the (query, key) pairs this run's mask leaves
+    results["prefill_attention"] = dict(
+        max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v, mask), reps=5),
+        **bound(nbytes(q, k, v, out, seg, seg), 4 * 28 * 128 * pairs, "bf16"))
+    del q, k, v, ref, out, mask
     # K9: decode, B=4, Smax=4096, layer 27 of a 28-layer stacked cache,
     # left padding and an unwritten tail per row.
     b, s, n_layers = 4, 4096, 28
@@ -228,17 +300,101 @@ def phase_kernels(dev, seed: int):
     # Timed over the 28 layers in turn, as decode reads them: one layer's
     # K/V (33.5 MB) would otherwise stay in the 50 MB L2 between calls.
     layers = itertools.cycle(range(n_layers))
+    mask = (seg != 0)[:, None, None, :]
+
+    def library(layer):
+        return sdpa(qd[:, None], ck[layer].view(b, s, 4, 128), cv[layer].view(b, s, 4, 128), mask)
+
+    visible = int((seg != 0).sum())  # only the written slots need to be read
     results["decode_attention"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: run(next(layers))),
         plain_ms=cuda_ms(lambda: plain(next(layers))),
+        library_ms=cuda_ms(lambda: library(next(layers))),
+        **bound(2 * visible * 512 * 2 + nbytes(qd, out, seg), 4 * 28 * 128 * visible, "bf16"),
     )
     del ck, cv
+    results.update(window_kernels(dev, randn, quantized=False))
     results.update(phase_int8_kernels(dev, g))
     for name, r in results.items():
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms", flush=True)
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library call {lib}", flush=True)
     torch.cuda.empty_cache()
     return results
+
+
+def window_kernels(dev, randn, *, quantized: bool, cache=None):
+    """K10 (bf16 cache) or K11 (int8 cache) at 8 slots x 4224 keys, windows of
+    5 (spec_k = 4, the main path's) and 16 queries: slots at different window
+    indices after their own left padding, slot 1's window ending at the last
+    cache index, slot 7 empty; the cache (and its scales) holds stale finite
+    values above every window. Returns the 5-query result."""
+    b, s, n_layers, hkv = 8, 4224, 28, 4
+    name = "decode_attention_window_q8" if quantized else "decode_attention_window"
+    label = "K11" if quantized else "K10"
+    if cache is None:
+        cache = (randn(n_layers, b, s, 512), randn(n_layers, b, s, 512))
+    result = None
+    for w in (5, 16):
+        q = randn(b, w, 28, 128)
+        widx = torch.tensor([3500, s - w, 4000, 3100, 3890, 3200, 1000, 2000],
+                            dtype=torch.int32, device=dev)
+        seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        for i, lo in enumerate([300, 0, 1000, 40, 700, 0, 123]):
+            seg[i, lo:int(widx[i]) + w] = 1
+
+        def run(layer):
+            if quantized:
+                return da.decode_attention_stacked_window_q8(q, *cache, seg, layer, widx,
+                                                             num_kv_heads=hkv)
+            return da.decode_attention_stacked_window(q, *cache, seg, layer, widx,
+                                                      num_kv_heads=hkv)
+
+        def plain(layer):
+            fn = (da.decode_attention_window_q8_plain if quantized
+                  else da.decode_attention_window_plain)
+            return fn(q, *(c[layer] for c in cache), seg, widx, num_kv_heads=hkv,
+                      scale=128 ** -0.5)
+
+        out = run(27)
+        torch.cuda.synchronize()
+        if out[7].abs().max() != 0:
+            raise AssertionError(f"{label}: a slot with no visible key must give 0")
+        err = check_close(name, f"{label} {name} [8,{w},28,128] x [8,4224,512]", out, plain(27))
+        # Keys some query of the window sees, and (query, key) pairs in all.
+        ar = torch.arange(s, device=dev)[None]
+        any_row = int(((seg != 0) & (ar <= widx[:, None] + w - 1)).sum())
+        pairs = sum(int(((seg != 0) & (ar <= widx[:, None] + j)).sum()) for j in range(w))
+        per_key = 2 * 512 + 2 * 4 * 4 if quantized else 2 * 512 * 2
+        layers = itertools.cycle(range(n_layers))
+        library_ms = None
+        if not quantized:
+            # The library's attention on the bf16 layer as it lies, under the
+            # window's visibility mask [B, 1, W, S]. (The int8 cache would
+            # need a dequantization first: no one call.)
+            mask = ((seg != 0)[:, None, :]
+                    & (ar[:, None, :] <= (widx[:, None] + torch.arange(w, device=dev))[:, :, None])
+                    )[:, None]
+
+            def library(layer):
+                return sdpa(q, cache[0][layer].view(b, s, hkv, 128),
+                            cache[1][layer].view(b, s, hkv, 128), mask)
+
+            library_ms = cuda_ms(lambda: library(next(layers)))
+        r = dict(max_abs_err=err, ms=cuda_ms(lambda: run(next(layers))),
+                 plain_ms=cuda_ms(lambda: plain(next(layers)), reps=3, warmup=1),
+                 library_ms=library_ms,
+                 **bound(any_row * per_key + nbytes(q, out, seg, widx), 4 * 28 * 128 * pairs,
+                         "bf16"))
+        print(f"    {label} W={w}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library call "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+              f"{any_row * per_key / r['ms'] / 1e6:.1f} GB/s of visible K/V", flush=True)
+        if w == SPEC_K + 1:
+            result = r
+        del q, out
+    return {name: result}
 
 
 def phase_int8_kernels(dev, g):
@@ -269,7 +425,14 @@ def phase_int8_kernels(dev, g):
         ms = cuda_ms(run)
         print(f"    K3 {label}: {ms:.4f} ms, {2 * m * k * n / ms / 1e9:.1f} TOP/s", flush=True)
         if label == "text gateup":
-            results["w8a8_matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=cuda_ms(plain, reps=5))
+            def library():  # cuBLAS int8 GEMM, then the two scale products
+                acc = torch._int_mm(xq, wq.t())
+                return ((acc.float() * xs) * ws).to(torch.bfloat16)
+
+            results["w8a8_matmul"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=cuda_ms(plain, reps=5),
+                library_ms=cuda_ms(library, reps=5),
+                **bound(nbytes(xq, xs, wq, ws, out), 2 * m * k * n, "int8"))
         del xq, xs, wq
     # K4: 8 slots of a 4224-token int8 cache, 28 layers, each slot at its own
     # write index after its own left padding; slot 7 holds nothing.
@@ -296,11 +459,15 @@ def phase_int8_kernels(dev, g):
     err = check_close("decode_attention_q8", "K4 decode_attention_q8 [8,28,128] x [8,4224,512]",
                       out, plain_q8(27))
     layers = itertools.cycle(range(n_layers))
+    visible = int((seg != 0).sum())  # per key: K and V rows, and 4 + 4 scales of 4 bytes
     results["decode_attention_q8"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: run_q8(next(layers))),
-        plain_ms=cuda_ms(lambda: plain_q8(next(layers))))
+        plain_ms=cuda_ms(lambda: plain_q8(next(layers))), library_ms=None,
+        **bound(visible * (2 * 512 + 2 * 4 * 4) + nbytes(qd, out, seg), 4 * 28 * 128 * visible,
+                "bf16"))
     print(f"    K4: {ck[0].numel() * 2 / results['decode_attention_q8']['ms'] / 1e6:.1f} GB/s "
           "of int8 K/V per layer", flush=True)
+    results.update(window_kernels(dev, randn, quantized=True, cache=(ck, cv, ks, vs)))
     del ck, cv, ks, vs
     # K5/K6: the decode projections of a fused Qwen2-7B layer and the lm_head
     # at 8 and 32 rows (decode slots). Three copies of each weight, used in
@@ -319,12 +486,15 @@ def phase_int8_kernels(dev, g):
             turn = itertools.cycle(ws)
             ms = cuda_ms(lambda: i8.int8_matmul(x, next(turn), sc))
             step_ms[(label, rows)] = ms
-            print(f"    K5/K6 {label} {rows} rows: {ms:.4f} ms, {n * k / ms / 1e6:.1f} GB/s",
-                  flush=True)
+            least = bound(nbytes(x, ws[0], sc, out), 2 * rows * k * n, "bf16")
+            print(f"    K5/K6 {label} {rows} rows: {ms:.4f} ms, {n * k / ms / 1e6:.1f} GB/s, "
+                  f"bound {least['bound_ms']:.4f} ms ({least['bound_by']})", flush=True)
             if (label, rows) == ("gateup", 8):
                 results["int8_matmul"] = dict(
                     max_abs_err=err, ms=ms,
-                    plain_ms=cuda_ms(lambda: i8.int8_matmul_plain(x, next(turn), sc)))
+                    plain_ms=cuda_ms(lambda: i8.int8_matmul_plain(x, next(turn), sc)),
+                    library_ms=cuda_ms(
+                        lambda: torch._weight_int8pack_mm(x, next(turn), sc)), **least)
         del ws
     for rows in (8, 32):
         per_step = 28 * sum(step_ms[(p, rows)] for p in ("qkv", "o", "gateup", "down"))
@@ -418,7 +588,7 @@ def phase_slice(dev, seed: int):
     t0 = time.perf_counter()
     model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                                 device=dev, dtype=torch.bfloat16)
-    runner = VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer(),
+    runner = VLMRunner(model=model, cfg=cfg, tokenizer=CharTokenizer(),
                        max_new_tokens=NEW_TOKENS, batch_size=2, pad_to_multiple=512)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
@@ -615,7 +785,7 @@ def phase_int8(dev, seed: int):
     print(f"  radvlm_7b int8: {int8_bytes / 1e9:.3f} GB of int8 weights, "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card, "
           f"init {time.perf_counter() - t0:.2f} s", flush=True)
-    tok = ByteTokenizer()
+    tok = CharTokenizer()
     rng = np.random.default_rng(seed + 1)
     reference_check_int8(model, cfg, tok, rng)
     runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
@@ -687,16 +857,23 @@ def phase_int8(dev, seed: int):
     print(f"  launches in the measured run: {counts}", flush=True)
     print(f"  provenance: {b.kernel_provenance()}", flush=True)
     require_launched("int8", counts)
-    engine_chunks(b, cfg, tok, reqs[0], images[0])
-    return counts
+    step_ms = engine_chunks(b, cfg, tok, reqs[0], images[0])
+    # What the spec phase serves again: the model, the first requests and
+    # the plain engine's greedy texts for them.
+    n = SPEC_REQUESTS
+    return counts, dict(model=model, cfg=cfg, tok=tok, reqs=reqs[:n], images=images[:n],
+                        plain_texts=[out["text"] for out, _, _ in loaded[:n]],
+                        plain_step_ms=step_ms)
 
 
 @torch.inference_mode()
-def engine_chunks(b, cfg, tok, req, image) -> None:
+def engine_chunks(b, cfg, tok, req, image, label: str = "int8") -> float:
     """Every slot filled (the engine thread is stopped), then three greedy
-    decode chunks: one under torch.cuda.set_sync_debug_mode("error"), which
-    raises on any host sync inside it; one timed by the host's clock; one
-    under torch.profiler (device time by kernel, busy share)."""
+    decode chunks (verify chunks on a spec engine): one under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any host sync
+    inside it; one timed by the host's clock; one under torch.profiler
+    (device time by kernel, busy share). Returns the timed chunk's ms per
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
     sample = multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, req["prompt"]),
@@ -716,8 +893,9 @@ def engine_chunks(b, cfg, tok, req, image) -> None:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     b._process_chunk(inflight, [])
-    print(f"  a greedy {b.steps_per_sync}-step chunk of {b.num_slots} slots ran under "
-          "set_sync_debug_mode('error'): no host sync", flush=True)
+    print(f"  a greedy {b.steps_per_sync}-step chunk of {b.num_slots} slots "
+          f"(spec_k={b.spec_k}) ran under set_sync_debug_mode('error'): no host sync",
+          flush=True)
 
     def chunk():
         torch.cuda.synchronize()
@@ -727,13 +905,196 @@ def engine_chunks(b, cfg, tok, req, image) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    before = dict(b.spec_stats) if b.spec_k else None
     wall = chunk()
-    print(f"  decode chunk: {wall:.4f} s for {b.steps_per_sync} steps of {b.num_slots} slots "
-          f"({1e3 * wall / b.steps_per_sync:.2f} ms/step, "
-          f"{b.num_slots * b.steps_per_sync / wall:.1f} tokens/s)", flush=True)
+    tokens = b.num_slots * b.steps_per_sync
+    if b.spec_k:  # a verify step emits its accepted prefix + 1
+        tokens = b.spec_stats["emitted"] - before["emitted"]
+    kind = f"verify (spec_k={b.spec_k})" if b.spec_k else "decode"
+    print(f"  {label} {kind} chunk: {wall:.4f} s for {b.steps_per_sync} steps of {b.num_slots} "
+          f"slots ({1e3 * wall / b.steps_per_sync:.2f} ms/step, {tokens} tokens, "
+          f"{tokens / wall:.1f} tokens/s)", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         chunk()
-    device_breakdown(prof, wall, f"int8 decode chunk ({b.steps_per_sync} steps)")
+    device_breakdown(prof, wall, f"{label} {kind} chunk ({b.steps_per_sync} steps)")
+    return 1e3 * wall / b.steps_per_sync
+
+
+def path_logits(model, cfg, tok, prompt_text, image, ids, step: int, kv_quant: bool):
+    """The logits [V] from which the plain path (a full prefill of the
+    prompt as the engine prefills it, then `ids` fed back one by one) picks
+    token `step` of the reply."""
+    sample = multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, prompt_text),
+                                     [image], cfg)
+    batch = batch_to_device(multimodal.collate([sample], pad_tiles=6, pad_to_multiple=128,
+                                               left_pad=True), model.device)
+    l = batch["tokens"].shape[1]
+    cache, seg, logits = engine.prefill(model, cfg, batch, 4224,
+                                        cache_format="int8" if kv_quant else "bf16")
+    for t in range(step):
+        cur = torch.tensor([ids[t]], device=model.device)
+        cache, seg, logits = engine.decode_step(model, cfg, cache, seg, cur,
+                                                batch["lengths"] + t, l + t)
+    return logits[0].float()
+
+
+def same_tokens_or_near_tie(label, ctx, prompt_text, image, text, ref_text, kv_quant) -> None:
+    """`text` must hold the tokens of `ref_text`, the plain path's. A
+    difference fails the run unless the plain path itself was at a near tie
+    at the first differing step: its own top-2 logit gap under 1e-2, which
+    is printed."""
+    if text == ref_text:
+        return
+    tok = ctx["tok"]
+    got, want = tok.encode(text), tok.encode(ref_text)
+    step = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    logits = path_logits(ctx["model"], ctx["cfg"], tok, prompt_text, image, want, step, kv_quant)
+    top = torch.topk(logits, 2).values
+    gap, limit = float(top[0] - top[1]), 1e-2
+    print(f"  {label}: tokens leave the plain path's at step {step} ({got[step:step + 1]} for "
+          f"{want[step:step + 1]}); the plain path's top-2 logit gap there is {gap:.3e} "
+          f"(limit {limit:.3e})", flush=True)
+    if not gap < limit:
+        raise AssertionError(f"{label}: the tokens differ from the plain path's")
+
+
+def chat_body(question_turns, image, session_id, **kw):
+    """An OpenAI chat body: the image and the first question, then the
+    (reply, question) turns that followed."""
+    first, *rest = question_turns
+    messages = [{"role": "user", "content": [
+        {"type": "image_url", "image_url": {"url": "data:image/png;base64," + png_b64(image)}},
+        {"type": "text", "text": first}]}]
+    for reply, question in rest:
+        messages += [{"role": "assistant", "content": reply}, {"role": "user", "content": question}]
+    return dict(messages=messages, max_tokens=NEW_TOKENS, session_id=session_id, **kw)
+
+
+@torch.inference_mode()
+def timed_fill(b, sample, **kw) -> float:
+    """Seconds of one fill of slot 0 (engine thread stopped), by the host's
+    clock around synchronizes."""
+    b.submit(sample, 1, **kw)
+    req = b.queue.get_nowait()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b._fill_group([(0, req)])
+    torch.cuda.synchronize()
+    b.slot_req[0] = None
+    return time.perf_counter() - t0
+
+
+def phase_spec(ctx, kv_quant: bool, n_requests: int):
+    """Speculative decoding and sessions on the int8 model, one KV cache."""
+    model, cfg, tok = ctx["model"], ctx["cfg"], ctx["tok"]
+    label = "spec int8-cache" if kv_quant else "spec bf16-cache"
+    reqs, images = ctx["reqs"][:n_requests], ctx["images"][:n_requests]
+    runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
+                       batch_size=1, pad_to_multiple=128)
+    engine_kw = dict(num_slots=8, max_len=4224, kv_quant=kv_quant, prompt_buckets=SPEC_BUCKETS,
+                     steps_per_sync=8, pipeline_depth=2, fill_batch=2)
+    if kv_quant:
+        plain_texts, plain_step_ms = ctx["plain_texts"], ctx["plain_step_ms"]
+    else:
+        # The plain engine with this cache, same slots and cache length (and
+        # so the same key-split plan in K9 as in K10): greedy tokens, and the
+        # time of a plain chunk.
+        pb = ContinuousBatcher(model, cfg, engine.GenerationConfig(
+            max_new_tokens=NEW_TOKENS, eos_token_ids=tok.eos_token_ids), spec_k=0, **engine_kw)
+        plain_reqs = [pb.submit(multimodal.build_sample(multimodal.tokenize_with_images(
+            tok.encode, r["prompt"]), [im], cfg), NEW_TOKENS) for r, im in zip(reqs, images)]
+        list(pb.run())
+        plain_texts = [engine.trim_at_stop_strings(tok.decode(r.emitted),
+                                                   runner.template.stop_strings)
+                       for r in plain_reqs]
+        plain_step_ms = engine_chunks(pb, cfg, tok, reqs[0], images[0], label="plain bf16-cache")
+        del pb, plain_reqs
+        torch.cuda.empty_cache()
+    worker = BatchWorker(runner, model_names=["radvlm-7b-int8"], spec_k=SPEC_K, **engine_kw)
+    b = worker.batcher
+    print(f"  {label}: warmup {worker.warmup_seconds:.2f} s: "
+          f"{ {k: round(v, 3) for k, v in b.warmup_timings.items()} }", flush=True)
+    port = worker.serve_forever(host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        # (a) concurrent greedy requests: the plain engine's tokens.
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(n_requests) as pool:
+            outs = list(pool.map(lambda r: post_json(base + "/worker_generate", r), reqs))
+        t_load = time.perf_counter() - t0
+        for i, out in enumerate(outs):
+            if out.get("error_code") != 0 or not out.get("text"):
+                raise AssertionError(f"{label} request {i} failed: {out}")
+            same_tokens_or_near_tie(f"{label} request {i}", ctx, reqs[i]["prompt"], images[i],
+                                    out["text"], plain_texts[i], kv_quant)
+        stats = dict(b.spec_stats)
+        print(f"  {label}: {n_requests} concurrent greedy requests in {t_load:.3f} s, tokens "
+              f"held to the plain engine's; spec_stats {stats} "
+              f"({stats['emitted'] / max(1, stats['verify_steps']):.3f} tokens per verify step)",
+              flush=True)
+        # (b) a sampling request: single-token steps (K4 / K9) on the same engine.
+        hot = post_json(base + "/worker_generate", dict(reqs[0], temperature=0.8, top_p=0.9))
+        if hot.get("error_code") != 0 or not hot.get("text"):
+            raise AssertionError(f"{label} sampling request failed: {hot}")
+        # (c) a two-turn chat with a session id over the OpenAI endpoint.
+        def chat(turns, session_id):
+            """(the reply's text, seconds) of one chat completion."""
+            t0 = time.perf_counter()
+            out = post_json(base + "/v1/chat/completions", chat_body(turns, images[0], session_id))
+            return out["choices"][0]["message"]["content"], time.perf_counter() - t0
+
+        q1, q2 = QUESTIONS[0], QUESTIONS[1]
+        reply1, t_turn1 = chat([q1], "chat-1")
+        if b.resume_fills != 0 or not reply1:
+            raise AssertionError(f"{label}: the first turn must be a full prefill with a reply")
+        turns = [q1, (reply1, q2)]
+        reply2, t_turn2 = chat(turns, "chat-1")
+        if b.resume_fills != 1:
+            raise AssertionError(f"{label}: the second turn was not a delta prefill "
+                                 f"(resume_fills = {b.resume_fills})")
+        full2, t_full2 = chat(turns, "chat-2")
+        if b.resume_fills != 1:
+            raise AssertionError(f"{label}: a new session id must be a full prefill")
+        if not reply2:
+            raise AssertionError(f"{label}: the resumed turn gave no text")
+        # The resumed turn is held to the full prefill of the same
+        # conversation under the rule of the greedy requests.
+        conversation = oai.messages_to_request(chat_body(turns, images[0], "x"),
+                                               runner.template)["prompt"]
+        same_tokens_or_near_tie(f"{label} resumed turn", ctx, conversation, images[0], reply2,
+                                full2, kv_quant)
+        print(f"  {label} session: turn 1 {t_turn1:.3f} s, turn 2 by delta prefill "
+              f"{t_turn2:.3f} s, the same turn by full prefill {t_full2:.3f} s, "
+              f"{'same text' if reply2 == full2 else 'texts differ at a near tie'}; resume_fills "
+              f"{b.resume_fills}", flush=True)
+        print(f"  {label} host_stats: { {k: round(v, 3) for k, v in b.host_stats.items()} }; "
+              f"spec_stats {b.spec_stats}", flush=True)
+        session = worker._sessions.get("chat-2")
+    finally:
+        worker.shutdown()
+    counts = kernels.launch_counts()
+    print(f"  launches in the measured run: {counts}", flush=True)
+    print(f"  provenance: {b.kernel_provenance()}", flush=True)
+    require_launched("spec_int8" if kv_quant else "spec_bf16", counts)
+    # A delta fill against a full fill of the same three-turn conversation.
+    q3 = tok.encode("<|im_end|>\n<|im_start|>user\n" + QUESTIONS[2]
+                    + "<|im_end|>\n<|im_start|>assistant\n")
+    timed_fill(b, multimodal.build_sample(q3, [], cfg), resume=session.snapshot)  # first-call costs
+    t_delta = timed_fill(b, multimodal.build_sample(q3, [], cfg), resume=session.snapshot)
+    full = multimodal.build_sample(list(session.ids) + q3, [images[0]], cfg)
+    t_full = timed_fill(b, full)
+    print(f"  {label} fill of turn 3: delta ({len(q3)} tokens on a snapshot of "
+          f"{session.snapshot.widx}) {t_delta:.4f} s, full ({full.length} tokens, tower included) "
+          f"{t_full:.4f} s", flush=True)
+    del session
+    step_ms = engine_chunks(b, cfg, tok, reqs[0], images[0], label=label)
+    per_tok = b.spec_stats["emitted"] / max(1, b.spec_stats["verify_steps"])
+    print(f"  {label}: {step_ms:.2f} ms per verify step of {SPEC_K + 1} queries a slot against "
+          f"{plain_step_ms:.2f} ms per plain step ({step_ms / plain_step_ms:.2f}x); "
+          f"{per_tok:.3f} tokens per verify step over the phase", flush=True)
+    return counts
 
 
 def post_json(url: str, req: dict) -> dict:
@@ -751,31 +1112,43 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     dev = torch.device("cuda:0")
     smi = nvidia_smi_line()
-    print(f"[1/5] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+    print(f"[1/6] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.lib()
-    print(f"[2/5] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
+    print(f"[2/6] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
 
-    print("[3/5] kernels against their plain versions", flush=True)
+    def header(text):
+        print(f"{text} (at {time.perf_counter() - t_start:.0f} s)", flush=True)
+
+    header("[3/6] kernels against their plain versions")
     results = phase_kernels(dev, 1234 + args.seed)
 
-    print("[4/5] bf16 slice: radvlm_7b, random bf16 weights", flush=True)
+    header("[4/6] bf16 slice: radvlm_7b, random bf16 weights")
     counts = {"bf16": phase_slice(dev, args.seed)}
     gc.collect()  # the bf16 model (15 GiB) goes before the int8 one comes
     torch.cuda.empty_cache()
 
-    print("[5/5] int8 continuous path: radvlm_7b, weights born int8, BatchWorker", flush=True)
-    counts["int8"] = phase_int8(dev, args.seed)
+    header("[5/6] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
+    counts["int8"], ctx = phase_int8(dev, args.seed)
+    gc.collect()  # phase 5's KV cache goes before the spec engines' come
+    torch.cuda.empty_cache()
+
+    header(f"[6/6] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
+    counts["spec_int8"] = phase_spec(ctx, True, SPEC_REQUESTS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["spec_bf16"] = phase_spec(ctx, False, SPEC_REQUESTS // 2)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": counts[path][name], **results[name]}
         for name, (src, replaces, path) in KERNELS.items()
     ]}
+    header("done")
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

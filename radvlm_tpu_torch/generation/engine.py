@@ -305,6 +305,7 @@ def kernel_provenance(
     fill_rows: int = 1,
     tiles: int = 1,
     decode_rows: int = 1,
+    spec_k: int = 0,
 ) -> Dict[str, object]:
     """Which path each stage takes for this geometry, from the same
     predicates the dispatch calls, plus the kernels' launch counts so far.
@@ -318,7 +319,10 @@ def kernel_provenance(
     (`fill_rows` prompts of `prompt_len` tokens, and of `tiles` tower tiles
     each, all in one tower batch), the decode projections (`decode_rows`
     slots) and the lm_head (weight-only): "w8a8" (K3), "int8" (K5/K6) or
-    "dequant"."""
+    "dequant". With `spec_k` (a speculative engine) the verify window's
+    stages are added: its attention over spec_k + 1 queries per slot
+    ("window" K10, "window_q8" K11, or "plain") and its matmuls at
+    `decode_rows * (spec_k + 1)` rows."""
     v, t = cfg.vision, cfg.text
     n = tokens_per_tile(cfg)
     meta = torch.device("meta")
@@ -332,15 +336,17 @@ def kernel_provenance(
         q_text, k_text, impl=attn_impl, window=t.sliding_window,
         alibi=t.alibi_bias_max if t.pos_embedding == "alibi" else 0,
     )
-    decode_ok = qwen2.decode_kernel_eligible(
-        t, cache_length(prompt_len, max_new_tokens), attn_impl
-    )
+    max_len = cache_length(prompt_len, max_new_tokens)
+    int8_cache = cache_format == "int8"
     out: Dict[str, object] = {
         "tower_attention": "kernel" if tower else "plain",
         "prefill_attention": "kernel" if prefill_ok else "plain",
-        "decode_attention": ("kernel_q8" if cache_format == "int8" else "kernel")
-        if decode_ok else "plain",
+        "decode_attention": qwen2.cached_attention_route(
+            t, max_len, attn_impl, 1, decode_rows > 1, int8_cache),
     }
+    if spec_k:
+        out["verify_attention"] = qwen2.cached_attention_route(
+            t, max_len, attn_impl, spec_k + 1, True, int8_cache)
     if quantized:
 
         def lm_head(rows: int) -> str:  # a tied int8 embedding is dequantized whole
@@ -353,6 +359,11 @@ def kernel_provenance(
             decode_matmul=qmm_route(decode_rows, False),
             decode_lm_head=lm_head(decode_rows),
         )
+        if spec_k:
+            out.update(
+                verify_matmul=qmm_route(decode_rows * (spec_k + 1), False),
+                verify_lm_head=lm_head(decode_rows * (spec_k + 1)),
+            )
     out["launches"] = kernels.launch_counts()
     return out
 

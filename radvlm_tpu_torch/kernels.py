@@ -42,6 +42,8 @@ _launches: Dict[str, int] = {
     "w8a8_matmul": 0,  # K3
     "decode_attention_q8": 0,  # K4
     "int8_matmul": 0,  # K5/K6
+    "decode_attention_window": 0,  # K10
+    "decode_attention_window_q8": 0,  # K11
 }
 _count_lock = threading.Lock()
 _lock = threading.Lock()
@@ -75,6 +77,9 @@ ATOL = {
     # f32 sums in another order and exp2 for exp.
     "decode_attention": 1e-4,
     "decode_attention_q8": 1e-4,
+    # K10 and K11 repeat K9's and K4's arithmetic for each row of the window.
+    "decode_attention_window": 1e-4,
+    "decode_attention_window_q8": 1e-4,
     # K3 sums exactly in int32, as its plain version does (in f64), and
     # applies the same two f32 products: equal bit for bit.
     "w8a8_matmul": 0.0,
@@ -192,10 +197,18 @@ def lib() -> ctypes.CDLL:
             handle.radvlm_decode_attention_q8.argtypes = [
                 p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
             ]
+            handle.radvlm_decode_attention_window.argtypes = [
+                p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
+            ]
+            handle.radvlm_decode_attention_window_q8.argtypes = [
+                p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
+            ]
             handle.radvlm_w8a8_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
             handle.radvlm_int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             for fn in ("radvlm_tower_attention", "radvlm_prefill_attention",
                        "radvlm_decode_attention", "radvlm_decode_attention_q8",
+                       "radvlm_decode_attention_window",
+                       "radvlm_decode_attention_window_q8",
                        "radvlm_w8a8_matmul", "radvlm_int8_matmul"):
                 getattr(handle, fn).restype = ctypes.c_int
             handle.radvlm_error_string.argtypes = [i]

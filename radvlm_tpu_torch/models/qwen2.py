@@ -8,11 +8,12 @@ the minor dim), bf16 (k, v) or int8 (k, v, k_scale, v_scale) with scales
 [L, B, Hkv, Smax]; prefill runs cache-less and collects each layer's roped
 K/V (`collect_kv`), decode writes the new token's K/V into the cache IN
 PLACE - at one index for every row, or at each row's own index (continuous
-batching) - and reads it through the K9 (bf16) or K4 (int8) decode kernel.
-Projections are `Linear` or, for int8 weights, `QLinear` (`ops.quant.qmm`);
-the token embedding may be int8 with one scale per row. Not ported yet
-(they raise): MoE, the ALiBi/LayerNorm MPT family, multi-token per-row
-windows (speculative verify), sequence-parallel decode.
+batching) - and reads it through the K9 (bf16) or K4 (int8) decode kernel; a
+per-row window of 2..16 tokens (the verify step of speculative decoding) is
+written at each row's own offset and read through K10 / K11. Projections
+are `Linear` or, for int8 weights, `QLinear` (`ops.quant.qmm`); the token
+embedding may be int8 with one scale per row. Not ported yet (they raise):
+MoE, the ALiBi/LayerNorm MPT family, sequence-parallel decode.
 """
 
 from __future__ import annotations
@@ -27,8 +28,11 @@ from radvlm_tpu_torch.config import Qwen2Config
 from radvlm_tpu_torch.models.layers import Linear, QLinear, empty_param, fuse_linears
 from radvlm_tpu_torch.ops.attention import apply_rope, mha, rms_norm
 from radvlm_tpu_torch.ops.decode_attention import (
+    MAX_WINDOW,
     decode_attention_stacked,
     decode_attention_stacked_q8,
+    decode_attention_stacked_window,
+    decode_attention_stacked_window_q8,
 )
 from radvlm_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv, quantize_kv_row
 from radvlm_tpu_torch.ops.quant import dequantize_array
@@ -153,6 +157,24 @@ def decode_kernel_eligible(cfg: Qwen2Config, cache_max_len: int, attn_impl: str)
     )
 
 
+def cached_attention_route(cfg: Qwen2Config, cache_max_len: int, attn_impl: str, s: int,
+                           per_row: bool, quantized: bool) -> str:
+    """Which attention `_block_cached` runs for `s` new tokens per row: the
+    one predicate of its dispatch, which `generation.engine.kernel_provenance`
+    calls too. "kernel" / "kernel_q8": one token through K9 / K4;
+    "window" / "window_q8": a per-row window of 2..16 tokens (speculative
+    verify) through K10 / K11; "plain": plain attention over the
+    (dequantized) layer with the query offset - longer windows (a resume
+    delta), a scalar offset, or a config the kernels exclude."""
+    if decode_kernel_eligible(cfg, cache_max_len, attn_impl):
+        suffix = "_q8" if quantized else ""
+        if s == 1:
+            return "kernel" + suffix
+        if per_row and 1 < s <= MAX_WINDOW:
+            return "window" + suffix
+    return "plain"
+
+
 def _finish_block(cfg: Qwen2Config, blk: Qwen2Block, res: torch.Tensor, attn: torch.Tensor,
                   w8a8: Optional[bool] = None):
     b, s = attn.shape[:2]
@@ -213,9 +235,18 @@ def _block_cached(
     (k, v, k_scale, v_scale). Writes the new tokens' K/V at `cache_index`
     IN PLACE (int8: quantized per (token, kv head) first): a scalar index
     writes [cache_index, cache_index+s) of every row; a [B] tensor writes
-    one token per row at its own index (continuous batching, s == 1). Then
-    attends: single-token decode through K9 / K4, else plain attention over
-    the (dequantized) layer with the query block at offset `cache_index`.
+    each row's s tokens at [cache_index[b], cache_index[b]+s) (continuous
+    batching at s == 1; the verify window of speculative decoding and the
+    delta of a resumed conversation at s > 1). Then attends as
+    `cached_attention_route` says: single-token decode through K9 / K4, a
+    per-row window of up to 16 tokens through K10 / K11, else plain
+    attention over the (dequantized) layer with the query block at offset
+    `cache_index`.
+
+    A window's entries past the accepted prefix stay in the cache as stale
+    K/V (and scales) until the next window overwrites them: it starts at
+    most s indices later and spans s, and the causal mask keys on the cache
+    index, so no query reaches them first.
 
     Projections keep the activations unquantized here (w8a8=False), as the
     JAX package's stacked decode matmuls do."""
@@ -225,16 +256,25 @@ def _block_cached(
     y = _norm(cfg, x, blk.ln1)
     q, k, v = _qkv(cfg, blk, y, positions, w8a8=False)
     b, s = x.shape[:2]
-    if per_row and s > 1:
-        raise NotImplementedError(
-            "per-row multi-token cache windows (speculative verify) are not ported "
-            "(ROADMAP M7)"
-        )
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     kv_dtype = torch.bfloat16 if quantized else ck_all.dtype
     k_flat = k.reshape(b, s, hkv * hd).to(kv_dtype)
     v_flat = v.reshape(b, s, hkv * hd).to(kv_dtype)
-    if per_row:
+    if per_row and s > 1:
+        rows = torch.arange(b, device=x.device)[:, None]  # [B, 1]
+        idxw = cache_index.long()[:, None] + torch.arange(s, device=x.device)[None]  # [B, s]
+        if quantized:
+            (kq, ksc), (vq, vsc) = quantize_kv(k_flat, hkv), quantize_kv(v_flat, hkv)
+            ck_all[layer_idx, rows, idxw] = kq
+            cv_all[layer_idx, rows, idxw] = vq
+            # [L, B, Hkv, S][l, rows, :, idxw]: the advanced dims come first,
+            # so the values are [B, s, Hkv] (made contiguous for the scatter).
+            cache[2][layer_idx, rows, :, idxw] = ksc.transpose(1, 2).contiguous()
+            cache[3][layer_idx, rows, :, idxw] = vsc.transpose(1, 2).contiguous()
+        else:
+            ck_all[layer_idx, rows, idxw] = k_flat
+            cv_all[layer_idx, rows, idxw] = v_flat
+    elif per_row:
         rows = torch.arange(b, device=x.device)
         idx = cache_index.long()
         if quantized:
@@ -259,16 +299,26 @@ def _block_cached(
             ck_all[layer_idx, :, span] = k_flat
             cv_all[layer_idx, :, span] = v_flat
     smax = ck_all.shape[2]
-    if s == 1 and decode_kernel_eligible(cfg, smax, attn_impl):
-        if quantized:
-            attn = decode_attention_stacked_q8(
-                q[:, 0], ck_all, cv_all, cache[2], cache[3], cache_segment_ids, layer_idx,
-                num_kv_heads=hkv,
-            )[:, None]
-        else:
-            attn = decode_attention_stacked(
-                q[:, 0], ck_all, cv_all, cache_segment_ids, layer_idx, num_kv_heads=hkv
-            )[:, None]
+    route = cached_attention_route(cfg, smax, attn_impl, s, per_row, quantized)
+    if route == "kernel_q8":
+        attn = decode_attention_stacked_q8(
+            q[:, 0], ck_all, cv_all, cache[2], cache[3], cache_segment_ids, layer_idx,
+            num_kv_heads=hkv,
+        )[:, None]
+    elif route == "kernel":
+        attn = decode_attention_stacked(
+            q[:, 0], ck_all, cv_all, cache_segment_ids, layer_idx, num_kv_heads=hkv
+        )[:, None]
+    elif route == "window_q8":
+        attn = decode_attention_stacked_window_q8(
+            q, ck_all, cv_all, cache[2], cache[3], cache_segment_ids, layer_idx,
+            cache_index.to(torch.int32), num_kv_heads=hkv,
+        )
+    elif route == "window":
+        attn = decode_attention_stacked_window(
+            q, ck_all, cv_all, cache_segment_ids, layer_idx, cache_index.to(torch.int32),
+            num_kv_heads=hkv,
+        )
     else:
         ck, cv = ck_all[layer_idx], cv_all[layer_idx]
         if quantized:
@@ -321,7 +371,7 @@ def forward(
 
     With kv_cache (stacked (k, v), each [L, B, Smax, Hkv*D], or the int8
     4-tuple; updated in place), cache_index is the scalar write offset or a
-    [B] tensor of per-row offsets (s == 1), and cache_segment_ids [B, Smax]
+    [B] tensor of per-row offsets, and cache_segment_ids [B, Smax]
     the segment ids of the cache contents. Returns
     (logits_or_hidden [B, S, V|D], cache): the same cache tensors, or with
     collect_kv the prompt's stacked K/V [L, B, S, Hkv*D] in bf16."""

@@ -5,12 +5,16 @@ Requests enqueue into one `ContinuousBatcher` driven by a single engine
 thread. Same controller protocol as `serve/worker.py` (register, heartbeat,
 `/worker_get_status`); `/worker_generate` returns one JSON result,
 `/worker_generate_stream` streams \\0-framed cumulative-text chunks as the
-engine emits tokens (bursts of <= steps_per_sync per chunk readback).
+engine emits tokens (bursts of <= steps_per_sync per chunk readback);
+`/v1/models` and `/v1/chat/completions` (plain and SSE) speak the OpenAI
+chat protocol (`serve/openai_api.py`).
 
-Not ported: fleets of engines and tensor-parallel engines (ROADMAP M12),
-the OpenAI-compatible endpoints, and multi-turn KV reuse (ROADMAP M7) - a
-request that names a `session_id` is served by a full prefill, as the JAX
-worker's session-miss path serves it.
+A request that names a `session_id` takes part in multi-turn KV reuse
+(`serve/sessions.py`): its finished KV stays on the device, and a later turn
+whose prompt extends the stored conversation prefills only the new tokens.
+The engine decodes speculatively when `spec_k` (or RADVLM_SPEC_K) is set.
+
+Not ported: fleets of engines and tensor-parallel engines (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from typing import Any, Dict, Optional
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher, Request
 from radvlm_tpu_torch.generation.engine import GenerationConfig, trim_at_stop_strings
 from radvlm_tpu_torch.models import multimodal
+from radvlm_tpu_torch.serve import openai_api as oai
+from radvlm_tpu_torch.serve.sessions import Session, SessionStore, image_hash, split_delta
 from radvlm_tpu_torch.serve.worker import HEARTBEAT_INTERVAL, load_image_from_base64, post_json
 
 log = logging.getLogger(__name__)
@@ -63,6 +69,10 @@ class BatchWorker:
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._server: Optional[ThreadingHTTPServer] = None
+        # Multi-turn KV reuse: RADVLM_SESSION_CAP=0 turns it off.
+        store = SessionStore()
+        self._sessions: Optional[SessionStore] = store if store.cap > 0 else None
+        self._session_ctx: Dict[int, Any] = {}  # uid -> (sid, ids, image hashes, stops)
         engine_kw.setdefault("prompt_buckets", (prompt_bucket,))
         self.batcher = ContinuousBatcher(
             runner.model, runner.cfg, gen, num_slots=num_slots, max_len=max_len,
@@ -71,11 +81,68 @@ class BatchWorker:
         # Every fill and decode variant runs once before the first request.
         t0 = time.perf_counter()
         self.batcher.warmup()
+        if self._sessions is not None:
+            self._warmup_sessions()
         self.warmup_seconds = time.perf_counter() - t0
         self._engine_thread = threading.Thread(target=self._engine_loop, daemon=True)
         self._engine_thread.start()
 
+    def _warmup_sessions(self) -> None:
+        """A two-turn dummy conversation through the engine before its loop
+        starts, so the first resumed turn of a live chat pays no first-call
+        cost (snapshot copies, the delta fill's allocations)."""
+        b = self.batcher
+        r1 = b.submit(multimodal.build_sample(list(range(2, 8)), [], self.runner.cfg),
+                      max_new_tokens=1, keep_kv=True)
+        for _ in b.run():
+            pass
+        snap = r1.kv_snapshot
+        if snap is not None and snap.widx + 128 <= b.max_len:
+            b.submit(multimodal.build_sample(list(range(2, 6)), [], self.runner.cfg),
+                     max_new_tokens=1, resume=snap)
+            for _ in b.run():
+                pass
+        b.resume_fills = 0  # counts live resumes, not the warmup's
+
+    def _finalize_session(self, req: Request) -> None:
+        """Store the finished request's KVSnapshot under its session id (on
+        the engine's completion path: the snapshot was cut at emission).
+
+        The stored ids must be exactly what the CLIENT's next prompt will
+        extend: only the emitted tokens the snapshot covers
+        (`KVSnapshot.n_reply`), and only up to the stop-string trim applied
+        to the returned text - the client never saw tokens past the stop,
+        and storing them would make every later prefix match miss."""
+        with self._lock:
+            ctx = self._session_ctx.pop(req.uid, None)
+        if ctx is None or req.error or req.kv_snapshot is None:
+            return
+        sid, ids, img_hashes, stops = ctx
+        snap = req.kv_snapshot
+        covered = snap.n_reply
+        tok = self.runner.tokenizer
+        raw = tok.decode(req.emitted)
+        trimmed = trim_at_stop_strings(raw, stops)
+        if trimmed != raw:
+            t = None
+            for i in range(len(req.emitted), -1, -1):
+                d = tok.decode(req.emitted[:i])
+                if d == trimmed:
+                    t = i
+                    break
+                if len(d) < len(trimmed):
+                    break  # decodes only shrink from here
+            if t is None:
+                return  # the stop cut inside a token: no clean boundary to store
+            covered = min(covered, t)
+        self._sessions.put(sid, Session(
+            ids=list(ids) + list(req.emitted[:covered]),
+            img_hashes=img_hashes,
+            snapshot=snap.truncated(snap.n_reply - covered),
+        ))
+
     def _signal_done(self, req: Request) -> None:
+        self._finalize_session(req)
         with self._lock:
             ev = self._events.get(req.uid)
         if ev:
@@ -104,17 +171,48 @@ class BatchWorker:
 
     def _submit(self, params_req: Dict[str, Any], *, stream: bool = False) -> Request:
         """Build the multimodal sample and enqueue it (raises ValueError for
-        protocol errors, e.g. an over-long prompt)."""
+        protocol errors, e.g. an over-long prompt).
+
+        With a "session_id": if the prompt exactly extends the stored
+        conversation, only the delta tokens are prefilled (`resume=`), and
+        the finished turn's KV is kept for the next one. Every miss is the
+        plain full prefill."""
         images = [load_image_from_base64(b) for b in params_req.get("images", [])]
         ids = multimodal.tokenize_with_images(self.runner.tokenizer.encode, params_req["prompt"])
-        return self.batcher.submit(
-            multimodal.build_sample(ids, images, self.runner.cfg),
-            int(params_req.get("max_new_tokens", 256)),
+        cfg = self.runner.cfg
+        kw = dict(
+            max_new_tokens=int(params_req.get("max_new_tokens", 256)),
             temperature=(float(params_req["temperature"])
                          if "temperature" in params_req else None),
             top_p=float(params_req["top_p"]) if "top_p" in params_req else None,
             stream=stream,
         )
+        sid = params_req.get("session_id")
+        keep = bool(sid) and self._sessions is not None
+        req = None
+        if keep:
+            img_hashes = [image_hash(im) for im in images]
+            ent = self._sessions.get(sid)
+            delta = split_delta(ent, ids, img_hashes) if ent else None
+            if delta is not None:
+                d_ids, k = delta
+                try:
+                    req = self.batcher.submit(multimodal.build_sample(d_ids, images[k:], cfg),
+                                              keep_kv=True, resume=ent.snapshot, **kw)
+                except ValueError as e:  # e.g. the delta does not fit the cache
+                    log.warning("session %s: resume refused (%s); full prefill", sid, e)
+                    req = None
+        if req is None:
+            req = self.batcher.submit(multimodal.build_sample(ids, images, cfg),
+                                      keep_kv=keep, **kw)
+        if keep:
+            with self._lock:
+                self._session_ctx[req.uid] = (sid, ids, img_hashes, self._stops(params_req))
+            if req.done:
+                # Completion raced the registration: finalize here (the pop
+                # makes this idempotent with _signal_done).
+                self._finalize_session(req)
+        return req
 
     def _stops(self, params_req: Dict[str, Any]):
         return list(self.runner.template.stop_strings) + list(
@@ -215,7 +313,56 @@ class BatchWorker:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def do_GET(self):
+                if self.path == "/v1/models":
+                    self._json(oai.models_json(worker.model_names, oai.now()))
+                else:
+                    self._json({"error": "unknown endpoint"}, code=404)
+
+            def _chat_completions(self):
+                try:
+                    data = self._read()
+                    params_req = oai.messages_to_request(data, worker.runner.template)
+                except (ValueError, UnicodeDecodeError, TypeError, AttributeError) as e:
+                    self._json({"error": {"message": str(e),
+                                          "type": "invalid_request_error"}}, code=400)
+                    return
+                model = data.get("model") or worker.model_names[0]
+                if model not in worker.model_names:
+                    self._json({"error": {"message": f"model {model!r} not found",
+                                          "type": "invalid_request_error",
+                                          "code": "model_not_found"}}, code=404)
+                    return
+                req_id, created = oai.new_request_id(), oai.now()
+                if data.get("stream"):
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/event-stream")
+                    self.send_header("Cache-Control", "no-cache")
+                    self.end_headers()
+                    chunks = worker.generate_stream(params_req)
+                    try:
+                        for frame in oai.sse_stream(model, chunks, req_id, created):
+                            self.wfile.write(frame)
+                            self.wfile.flush()
+                    except (BrokenPipeError, ConnectionResetError):
+                        log.info("SSE client disconnected")
+                    finally:
+                        chunks.close()
+                    return
+                result = worker.generate(params_req)
+                if result.get("error_code", 0) != 0:
+                    self._json({"error": {"message": result.get("text", "generation failed"),
+                                          "type": "server_error"}}, code=500)
+                    return
+                self._json(oai.completion_json(model, result, req_id, created))
+
             def do_POST(self):
+                if self.path == "/v1/models":
+                    self._json(oai.models_json(worker.model_names, oai.now()))
+                    return
+                if self.path == "/v1/chat/completions":
+                    self._chat_completions()
+                    return
                 if self.path == "/worker_get_status":
                     self._json({
                         "model_names": worker.model_names,

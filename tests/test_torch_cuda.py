@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1, K2, K9, K3, K4, K5/K6) against
+"""The port's hand-written CUDA kernels (K1, K2, K9, K3, K4, K5/K6, K10, K11) against
 their plain PyTorch versions on the card, at shapes beyond the main path's:
 other head dims and GQA ratios, ragged sequence tails, Sq < Sk, rows with
 nothing to attend, K and N tails of the int8 matmuls, 1-64 decode rows.
@@ -12,8 +12,10 @@ Tolerance, per output row (one query and head), as in chip_smoke.py
 (`kernels.error_ratio`): |kernel - plain| <= 2^-7 max_row|plain| + atol,
 one bf16 ulp of the row's largest value plus 1e-3 for K1/K2 (p rounded to
 bf16 after exp2 in the kernel, after exp in the plain version) and 1e-4
-for K9 and K4 (f32 p, summed in another order), 1e-4 for K5/K6 (exact
-products, f32 sums in another order). K3 sums exactly in int32 and must
+for K9 and K4 (f32 p, summed in another order) and for their windowed
+variants K10 and K11, 1e-4 for K5/K6 (exact products, f32 sums in another
+order). A row of a K10 / K11 window must also equal, bit for bit, what K9 /
+K4 gives for the same visible keys. K3 sums exactly in int32 and must
 equal its plain version (f64 sums) bit for bit.
 """
 
@@ -153,7 +155,8 @@ def test_mha_on_the_card_launches_the_kernels(dev):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "tower_attention": 1, "prefill_attention": 1, "decode_attention": 0,
-        "w8a8_matmul": 0, "decode_attention_q8": 0, "int8_matmul": 0}
+        "w8a8_matmul": 0, "decode_attention_q8": 0, "int8_matmul": 0,
+        "decode_attention_window": 0, "decode_attention_window_q8": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -299,3 +302,101 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
     seg = torch.ones((1, 32), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="int8"):
         tdec.decode_attention_stacked_q8(q, c, c, sc, sc, seg, 0, num_kv_heads=2)
+
+
+# (B, S, H, Hkv, D, W, layer)
+WINDOW_CASES = [
+    (8, 4224, 28, 4, 128, 5, 27),  # Qwen2-7B, spec_k = 4
+    (8, 4224, 28, 4, 128, 16, 3),  # the widest window: 112 query rows a CTA
+    (2, 1000, 14, 2, 64, 3, 0),  # Qwen2-0.5B, S not a multiple of 64
+    (1, 77, 8, 1, 128, 2, 1),  # one kv head for eight query heads
+    (3, 300, 4, 4, 32, 7, 2),  # no GQA
+]
+
+
+def _window_inputs(dev, case, quantized):
+    """A stacked cache whose every entry is finite but stale above each
+    slot's window, slots at different window indices after their own left
+    padding: slot 0's window ends at the last cache index, the last slot
+    (where B > 2) holds nothing."""
+    b, s, h, hkv, d, w, layer = case
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ck, cv = (_randn(gen, dev, layer + 1, b, s, hkv * d) for _ in range(2))
+    q = _randn(gen, dev, b, w, h, d)
+    widx = torch.tensor([s - w] + [(s // 2 + 97 * i) % (s - w) for i in range(1, b)],
+                        dtype=torch.int32, device=dev)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    for i in range(b):
+        seg[i, (13 * i) % (s // 4): int(widx[i]) + w] = 1
+    if b > 2:
+        seg[b - 1] = 0
+    if not quantized:
+        return q, (ck, cv), seg, widx
+    (kq, ks), (vq, vs) = tkv.quantize_kv(ck, hkv), tkv.quantize_kv(cv, hkv)
+    return q, (kq, vq, ks, vs), seg, widx
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["k10", "k11"])
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_matches_plain_and_single_query_kernel(dev, case, quantized):
+    b, s, h, hkv, d, w, layer = case
+    q, cache, seg, widx = _window_inputs(dev, case, quantized)
+    name = "decode_attention_window_q8" if quantized else "decode_attention_window"
+    before = kernels.launch_counts()[name]
+    if quantized:
+        out = tdec.decode_attention_stacked_window_q8(q, *cache, seg, layer, widx, num_kv_heads=hkv)
+        ref = tdec.decode_attention_window_q8_plain(
+            q, *(c[layer] for c in cache), seg, widx, num_kv_heads=hkv, scale=d ** -0.5)
+    else:
+        out = tdec.decode_attention_stacked_window(q, *cache, seg, layer, widx, num_kv_heads=hkv)
+        ref = tdec.decode_attention_window_plain(
+            q, cache[0][layer], cache[1][layer], seg, widx, num_kv_heads=hkv, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    assert out.shape == q.shape
+    _assert_close(name, out, ref)
+    if b > 2:
+        assert torch.all(out[b - 1] == 0)  # nothing visible -> 0, not NaN
+    # Row j equals the single-query kernel over the keys row j sees.
+    ar = torch.arange(s, device=dev)[None]
+    for j in range(w):
+        seg_j = torch.where(ar <= (widx[:, None] + j), seg, torch.zeros_like(seg))
+        if quantized:
+            one = tdec.decode_attention_stacked_q8(q[:, j], *cache, seg_j, layer, num_kv_heads=hkv)
+        else:
+            one = tdec.decode_attention_stacked(q[:, j], *cache, seg_j, layer, num_kv_heads=hkv)
+        assert torch.equal(out[:, j], one), j
+
+
+def test_window_ignores_non_finite_stale_scales(dev):
+    """Scales above the window may hold anything: K11 masks p, never p * vs."""
+    case = (2, 512, 8, 2, 64, 4, 0)
+    b, s, h, hkv, d, w, layer = case
+    q, (kq, vq, ks, vs), seg, widx = _window_inputs(dev, case, True)
+    clean = tdec.decode_attention_stacked_window_q8(q, kq, vq, ks, vs, seg, 0, widx,
+                                                    num_kv_heads=hkv)
+    ks2, vs2 = ks.clone(), vs.clone()
+    for i in range(b):
+        hi = int(widx[i]) + w
+        ks2[0, i, :, hi:] = float("nan")
+        vs2[0, i, :, hi:] = float("inf")
+    seg2 = seg.clone()
+    seg2[1, int(widx[1]) + w:] = 1  # stale segment bits above the window, too
+    out = tdec.decode_attention_stacked_window_q8(q, kq, vq, ks2, vs2, seg2, 0, widx,
+                                                  num_kv_heads=hkv)
+    torch.cuda.synchronize()
+    assert torch.equal(out, clean)
+
+
+def test_window_wrappers_raise_on_bad_input(dev):
+    q = torch.zeros((2, 17, 4, 64), dtype=torch.bfloat16, device=dev)
+    ck = torch.zeros((1, 2, 128, 2 * 64), dtype=torch.bfloat16, device=dev)
+    seg = torch.ones((2, 128), dtype=torch.int32, device=dev)
+    widx = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # a window wider than 16
+        tdec.decode_attention_stacked_window(q, ck, ck, seg, 0, widx, num_kv_heads=2)
+    with pytest.raises(ValueError):  # window_idx not int32
+        tdec.decode_attention_stacked_window(q[:, :4], ck, ck, seg, 0, widx.long(), num_kv_heads=2)
+    with pytest.raises(ValueError):  # an f32 cache
+        tdec.decode_attention_stacked_window(q[:, :4], ck.float(), ck.float(), seg, 0, widx,
+                                             num_kv_heads=2)

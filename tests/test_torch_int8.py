@@ -319,16 +319,45 @@ def test_int8_prefill_and_per_row_decode_match_jax(rng, tiny_q, monkeypatch):
         assert torch.all(tcache[2][:, i, :, widx[i]] > 0)
 
 
-def test_per_row_window_raises():
+def test_per_row_window_is_written_and_routed():
+    """A per-row window of s > 1 tokens is written at each row's own offset,
+    quantized (scales [B, s, Hkv] into [L, B, Hkv, S]), and attended through
+    K11's plain version on the CPU."""
     cfg = cfglib.tiny_test_config()
     model = convert.random_quantized_params(cfg, torch.Generator().manual_seed(0),
                                             dtype=torch.float32)
     cache = qwen2.init_kv_cache_q8(cfg.text, 2, 128)
-    x = torch.zeros((2, 3, cfg.text.hidden_size))
-    with pytest.raises(NotImplementedError, match="M7"):
-        qwen2.forward(model.text, cfg.text, input_embeds=x, positions=torch.zeros(2, 3).long(),
-                      kv_cache=cache, cache_index=torch.tensor([4, 9]),
-                      cache_segment_ids=torch.ones(2, 128, dtype=torch.int32))
+    x = torch.randn((2, 3, cfg.text.hidden_size), generator=torch.Generator().manual_seed(1))
+    seg = torch.zeros(2, 128, dtype=torch.int32)
+    seg[0, 4:7] = 1
+    seg[1, 9:12] = 1
+    with torch.inference_mode():
+        out, _ = qwen2.forward(model.text, cfg.text, input_embeds=x,
+                               positions=torch.zeros(2, 3).long(), kv_cache=cache,
+                               cache_index=torch.tensor([4, 9]), cache_segment_ids=seg)
+    assert out.shape == (2, 3, cfg.text.vocab_size) and torch.isfinite(out).all()
+    for row, lo in ((0, 4), (1, 9)):
+        written = (cache[2][:, row] > 0).all(dim=(0, 1))  # [S]: scales of every layer and head
+        assert written.nonzero().flatten().tolist() == [lo, lo + 1, lo + 2]
+        assert cache[0][:, row, lo:lo + 3].abs().sum() > 0
+    assert qwen2.cached_attention_route(cfg.text, 128, "auto", 3, True, True) == "window_q8"
+
+
+def test_per_row_window_raises():
+    """What still raises is a window the kernel does not take (over 16
+    tokens), on a tensor that is not on the CPU: the wrapper never falls
+    back to the plain version there."""
+    from radvlm_tpu_torch.ops import decode_attention as tdec
+
+    meta = torch.device("meta")
+    seg = torch.zeros(2, 128, dtype=torch.int32, device=meta)
+    q = torch.empty((2, 17, 4, 16), device=meta, dtype=torch.bfloat16)
+    kv = torch.empty((1, 2, 128, 2 * 16), device=meta, dtype=torch.int8)
+    sc = torch.empty((1, 2, 2, 128), device=meta)
+    with pytest.raises(ValueError, match="window of 2..16"):
+        tdec.decode_attention_stacked_window_q8(
+            q, kv, kv, sc, sc, seg, 0, torch.empty((2,), device=meta, dtype=torch.int32),
+            num_kv_heads=2)
 
 
 def test_random_quantized_params_is_seeded_and_born_int8():

@@ -16,6 +16,9 @@ import torch
 
 from radvlm_tpu.ops import attention as jatt
 from radvlm_tpu.ops.decode_attention import decode_attention_stacked as j_decode
+from radvlm_tpu.ops.decode_attention import decode_attention_stacked_window as j_window
+from radvlm_tpu.ops.decode_attention import decode_attention_stacked_window_q8 as j_window_q8
+from radvlm_tpu.ops.kv_quant import quantize_kv as j_quantize_kv
 from radvlm_tpu.ops.flash_attention import flash_attention as j_flash
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.ops import attention as tatt
@@ -225,7 +228,8 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
     assert set(kernels.launch_counts().values()) == {0}
     assert set(kernels.launch_counts()) == {
         "tower_attention", "prefill_attention", "decode_attention", "w8a8_matmul",
-        "decode_attention_q8", "int8_matmul"}
+        "decode_attention_q8", "int8_matmul", "decode_attention_window",
+        "decode_attention_window_q8"}
 
 
 def test_kernel_sources_and_build_dir():
@@ -267,3 +271,110 @@ def test_error_ratio_catches_one_mis_masked_slot(mutation):
     _, ratio = kernels.error_ratio(
         "decode_attention", run([(lo + shift[0], hi + shift[1]) for lo, hi in spans]), ref)
     assert ratio > 4.0
+
+
+def _window_case(rng, w):
+    """Slots at different window indices after their own left padding; slot
+    1's window ends at the last cache index, slot 2 has a hole."""
+    n_layers, b, s, h, hkv, d = 2, 3, 256, 4, 2, 64
+    q = _rand(rng, (b, w, h, d))
+    ck, cv = _rand(rng, (n_layers, b, s, hkv * d)), _rand(rng, (n_layers, b, s, hkv * d))
+    widx = np.array([100, s - w, 37], np.int32)
+    seg = np.zeros((b, s), np.int32)
+    for i, lo in enumerate((0, 30, 5)):
+        seg[i, lo:widx[i] + w] = 1
+    seg[2, 20:23] = 0
+    return q, ck, cv, widx, seg, hkv
+
+
+@pytest.mark.parametrize("w", [3, 16])
+def test_k10_plain_matches_pallas(rng, w):
+    """K10 (`_fused_heads_window_kernel`, interpret mode) on f32 inputs, at
+    the tolerance of tests/test_window_decode.py: 2e-5 (f32 sums in another
+    order)."""
+    q, ck, cv, widx, seg, hkv = _window_case(rng, w)
+    for layer in range(2):
+        ref = j_window(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(seg),
+                       jnp.int32(layer), jnp.asarray(widx), num_kv_heads=hkv, block_k=128,
+                       interpret=True)
+        out = tdec.decode_attention_stacked_window(_t(q), _t(ck), _t(cv), _t(seg), layer,
+                                                   _t(widx), num_kv_heads=hkv)
+        assert out.shape == q.shape
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("w", [5, 16])
+def test_k11_plain_matches_pallas(rng, w):
+    """K11 (`_fused_heads_window_q8_kernel`, interpret mode) over a cache
+    quantized by the JAX package: 3e-2, as tests/test_window_decode.py (the
+    TPU kernel rounds p * vs to bf16 before its PV product, the port keeps
+    it in f32)."""
+    q, ck, cv, widx, seg, hkv = _window_case(rng, w)
+    (kq, ks), (vq, vs) = (j_quantize_kv(jnp.asarray(x), hkv) for x in (ck, cv))
+    for layer in range(2):
+        ref = j_window_q8(jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(seg), jnp.int32(layer),
+                          jnp.asarray(widx), num_kv_heads=hkv, block_k=128, interpret=True)
+        out = tdec.decode_attention_stacked_window_q8(
+            _t(q), _t(np.asarray(kq)), _t(np.asarray(vq)), _t(np.asarray(ks)),
+            _t(np.asarray(vs)), _t(seg), layer, _t(widx), num_kv_heads=hkv)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["k10", "k11"])
+def test_window_plain_rows_equal_single_query_plain(rng, quantized):
+    """Row j of a window is the single-query function (K9 / K4) over the
+    keys row j sees; an empty slot gives 0; stale, even non-finite, scales
+    above the window leave the result as it is."""
+    from radvlm_tpu_torch.ops import kv_quant as tkv
+
+    w = 4
+    q, ck, cv, widx, seg, hkv = _window_case(rng, w)
+    seg[0] = 0  # slot 0 sees nothing
+    q, seg_t, widx_t = _t(q), _t(seg), _t(widx)
+    if quantized:
+        (kq, ks), (vq, vs) = tkv.quantize_kv(_t(ck), hkv), tkv.quantize_kv(_t(cv), hkv)
+        for i in range(3):
+            ks[1, i, :, widx[i] + w:] = float("nan")
+            vs[1, i, :, widx[i] + w:] = float("inf")
+        out = tdec.decode_attention_stacked_window_q8(q, kq, vq, ks, vs, seg_t, 1, widx_t,
+                                                      num_kv_heads=hkv)
+    else:
+        out = tdec.decode_attention_stacked_window(q, _t(ck), _t(cv), seg_t, 1, widx_t,
+                                                   num_kv_heads=hkv)
+    assert torch.isfinite(out).all() and torch.all(out[0] == 0)
+    ar = torch.arange(seg.shape[1])[None]
+    for j in range(w):
+        seg_j = torch.where(ar <= widx_t[:, None] + j, seg_t, torch.zeros_like(seg_t))
+        if quantized:
+            # the single-query plain version multiplies p = 0 by the scale:
+            # give it finite scales above the window
+            one = tdec.decode_attention_stacked_q8(
+                q[:, j], kq, vq, torch.nan_to_num(ks, nan=1.0), torch.nan_to_num(vs, posinf=1.0),
+                seg_j, 1, num_kv_heads=hkv)
+        else:
+            one = tdec.decode_attention_stacked(q[:, j], _t(ck), _t(cv), seg_j, 1,
+                                                num_kv_heads=hkv)
+        np.testing.assert_allclose(out[:, j].numpy(), one.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_window_wrappers_raise_off_cpu_without_a_kernel():
+    """On a tensor that is not on the CPU the window wrappers check their
+    inputs and go for the kernel: no fallback to the plain version."""
+    meta = torch.device("meta")
+    q = torch.empty((2, 4, 4, 64), device=meta, dtype=torch.bfloat16)
+    ck = torch.empty((1, 2, 128, 2 * 64), device=meta, dtype=torch.bfloat16)
+    seg = torch.empty((2, 128), device=meta, dtype=torch.int32)
+    widx = torch.empty((2,), device=meta, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.decode_attention_stacked_window(q, ck, ck, seg, 0, widx, num_kv_heads=2)
+    with pytest.raises(ValueError, match="window of 2..16"):
+        tdec.decode_attention_stacked_window(q[:, :1], ck, ck, seg, 0, widx, num_kv_heads=2)
+    with pytest.raises(ValueError, match="int32"):
+        tdec.decode_attention_stacked_window(q, ck, ck, seg, 0, widx.long(), num_kv_heads=2)
+    i8, f32 = ck.to(torch.int8), torch.empty((1, 2, 2, 128), device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.decode_attention_stacked_window_q8(q, i8, i8, f32, f32, seg, 0, widx, num_kv_heads=2)
+    with pytest.raises(ValueError, match="scales"):
+        tdec.decode_attention_stacked_window_q8(q, i8, i8, f32[..., :5], f32[..., :5], seg, 0,
+                                                widx, num_kv_heads=2)
+    assert set(kernels.launch_counts().values()) == {0}

@@ -157,12 +157,15 @@ def test_http_round_trip(rng, tiny):
 
 
 def test_port_runs_with_jax_blocked():
-    """The port imports no jax, and of the JAX package only its jax-free
-    config: with jax blocked in sys.modules, every module imports, the tiny
-    model generates tokens, and the int8 continuous engine serves requests."""
+    """The port imports no jax and nothing of the JAX package: with both
+    `jax` and `radvlm_tpu` blocked in sys.modules (`sys.modules[name] = None`
+    makes any import of it raise), every module imports, the tiny model
+    generates tokens, and the int8 continuous engine serves requests, with
+    speculative decoding too."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["radvlm_tpu"] = None
         import importlib, pkgutil
         import numpy as np, torch
         import radvlm_tpu_torch
@@ -195,11 +198,17 @@ def test_port_runs_with_jax_blocked():
         sample = multimodal.build_sample(Tok.encode("hi") + [-200], [img], cfg)
         reqs = [batcher.submit(sample) for _ in range(3)]
         assert [len(r.emitted) for r in batcher.run()] == [3, 3, 3]
+        plain = [r.emitted for r in reqs]
+        batcher = ContinuousBatcher(qmodel, cfg, GenerationConfig(max_new_tokens=3),
+                                    num_slots=2, max_len=256, prompt_buckets=(128,),
+                                    pad_tiles=2, kv_quant=True, spec_k=2)
+        reqs = [batcher.submit(sample) for _ in range(3)]
+        list(batcher.run())
+        assert [r.emitted for r in reqs] == plain
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         assert not [k for k in loaded if k.split(".")[0] == "jax"]
-        assert {k for k in loaded if k.split(".")[0] == "radvlm_tpu"} == {
-            "radvlm_tpu", "radvlm_tpu.config"}
+        assert not [k for k in loaded if k.split(".")[0] == "radvlm_tpu"]
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -207,3 +216,27 @@ def test_port_runs_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     toks = eval(out.stdout.strip().splitlines()[-1])[0]
     assert len(eval(toks)) > 0
+
+
+PRESETS = ["tiny_test_config", "radvlm_0_5b", "radvlm_7b", "qwen2_0_5b", "qwen2_7b"]
+CONSTANTS = ["IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "DEFAULT_IMAGE_TOKEN"]
+
+
+@pytest.mark.parametrize("name", PRESETS + CONSTANTS)
+def test_port_config_equals_jax_config(name):
+    """The port keeps its own copy of the config module: every preset it
+    exports equals the JAX package's field by field, and so do the three
+    constants; a config object of either package drives the port."""
+    import dataclasses
+
+    from radvlm_tpu_torch import config as tcfg
+
+    if name in CONSTANTS:
+        assert getattr(tcfg, name) == getattr(cfglib, name)
+        return
+    mine, theirs = getattr(tcfg, name)(), getattr(cfglib, name)()
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    assert [f.name for f in dataclasses.fields(mine)] == [f.name for f in dataclasses.fields(theirs)]
+    assert type(mine).__module__ == "radvlm_tpu_torch.config"
+    if name.startswith(("radvlm", "tiny")):
+        assert tcfg.tokens_per_tile(mine) == tcfg.tokens_per_tile(theirs) == theirs.tokens_per_tile
