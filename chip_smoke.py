@@ -10,16 +10,25 @@ Phases, each raising on failure (the last line is printed only on success):
    per source, in parallel), timed;
 3. kernels: K1 (tower attention), K2 (prefill attention), K9 (decode
    attention), K3 (W8A8 matmul), K4 (int8-cache decode attention), K5/K6
-   (int8-weight decode matmul) and K10 / K11 (the verify window of
+   (int8-weight decode matmul), K10 / K11 (the verify window of
    speculative decoding over the bf16 / int8 cache, 5 and 16 queries a
-   slot) against their plain PyTorch versions on the card at the main
-   paths' shapes: error (K3 bit for bit) and both times (CUDA events,
-   median of several runs); beside them the least time the card could take
-   (bytes over 3.35 TB/s or operations over the tensor-core peak, whichever
-   is larger) and, as a yardstick that no path uses, the one PyTorch call
-   that computes the same function where there is one (SDPA for K1, K2, K9
-   and K10, torch._int_mm plus the scale pass for K3,
-   torch._weight_int8pack_mm for K5/K6; none over the int8 cache);
+   slot), K12 (int4-weight decode matmul, 8 and 40 rows; a row's result
+   must not depend on the row count) and K13 (W8A8 matmul that quantizes
+   its rows inside; bit for bit equal to quantize_rows + K3) against their
+   plain PyTorch versions on the card at the main paths' shapes: error (K3
+   and K13 bit for bit) and both times (CUDA events, median of several
+   runs; for the skinny decode matmuls K5/K6 and K12 also the kernels' own
+   time on the device by torch.profiler, since their wrappers' host time
+   exceeds it; where the profiler traces no device, by events around calls
+   queued behind a busy card); beside them the least time the card could take (bytes over 3.35
+   TB/s or operations over the tensor-core peak, whichever is larger) and,
+   as a yardstick that no path uses, the one PyTorch call that computes
+   the same function where there is one (SDPA for K1, K2, K9 and K10,
+   torch._int_mm plus the scale pass for K3 and, after quantize_rows, for
+   K13, torch._weight_int8pack_mm for K5/K6; none over the int8 cache and
+   none for K12: torch._weight_int4pack_mm takes bf16 scales and zero
+   points in its own layout and does not round the weight after its
+   scale, another function);
 4. bf16 slice: radvlm_7b at full width with random bf16 weights made on the
    card from --seed. A reference check first (on one small input, the
    kernel path and plain attention in bf16 against plain attention on an f32
@@ -55,7 +64,24 @@ Phases, each raising on failure (the last line is printed only on success):
    conversation; a delta fill and a full fill are timed, and one verify
    chunk runs under set_sync_debug_mode("error") and one is timed. Then the
    same with the bf16 KV cache and 3 requests, against a plain bf16-cache
-   engine. K11 and K4, then K10 and K9, must have launched.
+   engine. K11 and K4, then K10 and K9, must have launched;
+7. the pre-quantized artifact, radvlm_7b at full width and depth: an int4
+   (W4A16) model born unfused on the card (`random_quantized_params(bits=4,
+   fuse=False)`) is written by `quant_io.save_quantized` into a directory
+   under build/ (size and seconds printed), `worker_cli.build_worker` loads
+   it and builds the continuous engine of phase 5 (8 slots, int8 KV cache,
+   the same buckets), and every loaded tensor must equal the saved model's
+   bit for bit. A reference check (logits against an f32 copy of the
+   dequantized weights), then 6 concurrent greedy requests and 2 single
+   ones (and a repeat) over HTTP. K12 must have launched (112 a decode
+   step), K6 for the lm_head and K3 for the tower's fc2. A decode chunk is
+   timed and profiled against phase 5's int8 chunk, and one request through
+   a spec_k=4 engine must give the plain engine's tokens. The directory is
+   deleted;
+7b. fused W8A8 on the int8 model of phase 5: with RADVLM_W8A8_IMPL=fused,
+   3 greedy requests must give phase 5's tokens exactly (K13 is bit-equal
+   to quantize_rows + K3) with K13 launched and K3 not, and a fill group of
+   2 prompts is timed through K3 and through K13 in turns.
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -72,6 +98,7 @@ import io
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import time
@@ -85,14 +112,16 @@ from radvlm_tpu_torch.config import radvlm_7b
 from radvlm_tpu_torch.eval.harness import VLMRunner, batch_to_device
 from radvlm_tpu_torch.generation import engine
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
-from radvlm_tpu_torch.models import convert, multimodal, radvlm
+from radvlm_tpu_torch.models import convert, multimodal, quant_io, radvlm
 from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as da
 from radvlm_tpu_torch.ops import flash_attention as fa
+from radvlm_tpu_torch.ops import int4_matmul as i4
 from radvlm_tpu_torch.ops import int8_matmul as i8
 from radvlm_tpu_torch.ops import kv_quant
 from radvlm_tpu_torch.ops import w8a8_matmul as w8
 from radvlm_tpu_torch.serve import openai_api as oai
+from radvlm_tpu_torch.serve import worker_cli
 from radvlm_tpu_torch.serve.batch_worker import BatchWorker
 from radvlm_tpu_torch.serve.worker import ModelWorker
 
@@ -101,6 +130,8 @@ NEW_TOKENS = 32
 INT8_REQUESTS = 12  # concurrent, in the int8 continuous phase
 INT8_BUCKETS = (3072, 3456, 3840, 4096)
 SPEC_REQUESTS = 6  # concurrent greedy requests of the spec phase (3 with the bf16 cache)
+INT4_REQUESTS = 6  # concurrent, in the artifact phase
+FUSED_REQUESTS = 3  # greedy requests of the fused-W8A8 phase
 QUESTIONS = ("Write the findings section of the report.", "Is there a pleural effusion?",
              "Describe the cardiac silhouette.", "Is there a pneumothorax?")
 
@@ -124,6 +155,10 @@ KERNELS = {
                                 "radvlm_tpu/ops/decode_attention.py:376", "spec_bf16"),
     "decode_attention_window_q8": ("radvlm_tpu_torch/csrc/decode_attention.cu",
                                    "radvlm_tpu/ops/decode_attention.py:453", "spec_int8"),
+    "int4_matmul": ("radvlm_tpu_torch/csrc/int4_matmul.cu",
+                    "radvlm_tpu/ops/int4_matmul.py:111", "int4"),
+    "w8a8_matmul_fused": ("radvlm_tpu_torch/csrc/w8a8_matmul.cu",
+                          "radvlm_tpu/ops/w8a8_matmul.py:122", "fused"),
 }
 # The kernels each path must launch in its measured run.
 PATH_KERNELS = {
@@ -134,6 +169,14 @@ PATH_KERNELS = {
                   "int8_matmul", "decode_attention_window_q8"),
     "spec_bf16": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention",
                   "int8_matmul", "decode_attention_window"),
+    # The int4 artifact: K12 for the layers' decode projections, K5/K6 for
+    # the lm_head, K3 for the tower's fc2 (D = 4304 stays int8).
+    "int4": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
+             "int8_matmul", "int4_matmul"),
+    "int4_spec": ("tower_attention", "prefill_attention", "w8a8_matmul", "int8_matmul",
+                  "int4_matmul", "decode_attention_window_q8"),
+    "fused": ("tower_attention", "prefill_attention", "w8a8_matmul_fused",
+              "decode_attention_q8", "int8_matmul"),
 }
 SPEC_K = 4
 SPEC_BUCKETS = (3456, 3840)
@@ -190,6 +233,62 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of fn() in ms: the durations of the kernels it launches,
+    summed by torch.profiler over `reps` calls. `cuda_ms` brackets a Python
+    call with events, so for a kernel that takes less than its wrapper's
+    host time (the skinny decode matmuls) it reads the host, not the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    if busy <= 0:  # the profiler traced no device
+        return queued_ms(fn, reps)
+    return busy / 1e3 / reps
+
+
+_queued_ms_said = False
+
+
+def queued_ms(fn, reps: int = 10) -> float:
+    """Device time of fn() in ms where torch.profiler traces no device:
+    `reps` calls are queued behind matmuls that keep the card busy until the
+    host has issued them all, so the two events around them bracket the
+    kernels back to back and none of the wrapper's host time. Fails if the
+    host never got ahead of the card."""
+    global _queued_ms_said
+    if not _queued_ms_said:
+        _queued_ms_said = True
+        print("    torch.profiler recorded no device time: device times are taken by CUDA "
+              "events around calls queued behind a busy card", flush=True)
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    blockers = 8
+    while blockers <= 512:
+        torch.cuda.synchronize()
+        gate = torch.cuda.Event()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(blockers):
+            a @ a
+        gate.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not gate.query()  # the card still works on the matmuls
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        blockers *= 2
+    raise AssertionError("queued_ms: the host never got ahead of the card")
 
 
 def nbytes(*tensors) -> int:
@@ -485,22 +584,120 @@ def phase_int8_kernels(dev, g):
                               out, i8.int8_matmul_plain(x, ws[0], sc))
             turn = itertools.cycle(ws)
             ms = cuda_ms(lambda: i8.int8_matmul(x, next(turn), sc))
-            step_ms[(label, rows)] = ms
+            dms = step_ms[(label, rows)] = device_ms(lambda: i8.int8_matmul(x, next(turn), sc))
             least = bound(nbytes(x, ws[0], sc, out), 2 * rows * k * n, "bf16")
-            print(f"    K5/K6 {label} {rows} rows: {ms:.4f} ms, {n * k / ms / 1e6:.1f} GB/s, "
-                  f"bound {least['bound_ms']:.4f} ms ({least['bound_by']})", flush=True)
+            print(f"    K5/K6 {label} {rows} rows: {ms:.4f} ms by events, {dms:.4f} ms on the "
+                  f"device ({n * k / dms / 1e6:.1f} GB/s), bound {least['bound_ms']:.4f} ms "
+                  f"({least['bound_by']})", flush=True)
             if (label, rows) == ("gateup", 8):
                 results["int8_matmul"] = dict(
-                    max_abs_err=err, ms=ms,
+                    max_abs_err=err, ms=ms, device_ms=dms,
                     plain_ms=cuda_ms(lambda: i8.int8_matmul_plain(x, next(turn), sc)),
                     library_ms=cuda_ms(
                         lambda: torch._weight_int8pack_mm(x, next(turn), sc)), **least)
+            if (label, rows) == ("lm_head", 8):  # K6's shape
+                plain_ms = cuda_ms(lambda: i8.int8_matmul_plain(x, next(turn), sc), reps=5)
+                lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, next(turn), sc), reps=5)
+                print(f"    K6 lm_head 8 rows: plain {plain_ms:.4f} ms, library call "
+                      f"(_weight_int8pack_mm) {lib_ms:.4f} ms", flush=True)
         del ws
     for rows in (8, 32):
         per_step = 28 * sum(step_ms[(p, rows)] for p in ("qkv", "o", "gateup", "down"))
         per_step += step_ms[("lm_head", rows)]
-        print(f"    K5/K6 per decode step, {rows} rows (28 layers + lm_head): {per_step:.3f} ms",
+        print(f"    K5/K6 per decode step, {rows} rows (28 layers + lm_head): {per_step:.3f} ms "
+              "on the device", flush=True)
+    results.update(int4_kernel(dev, g, randn))
+    results.update(fused_w8a8_kernel(dev, randn, randint8))
+    return results
+
+
+def int4_kernel(dev, g, randn):
+    """K12 at the four decode projections of a fused Qwen2-7B layer, 8 rows
+    (a decode step of 8 slots) and 40 (a verify step of 8 slots x 5
+    queries), against its plain version; rows 0-7 of the 40 must equal the 8
+    bit for bit. Enough copies of each weight, used in turn, that none
+    stays in the 50 MB L2."""
+    results, step_ms = {}, {}
+    for label, k, n in [("qkv", 3584, 4608), ("o", 3584, 3584), ("gateup", 3584, 37888),
+                        ("down", 18944, 3584)]:
+        copies = max(3, -(-100_000_000 // (n * k // 2)))
+        ws = [torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+              for _ in range(copies)]
+        sc = torch.rand(k // i4.GROUP, n, generator=g, device=dev) * (0.03 / 7) + 0.005 / 7
+        x40 = randn(40, k)
+        outs = {}
+        for rows in (8, 40):
+            x = x40[:rows].contiguous()
+            out = outs[rows] = i4.int4_matmul(x, ws[0], sc)
+            torch.cuda.synchronize()
+            err = check_close("int4_matmul", f"K12 int4_matmul {label} [{rows},{k}]x[{k},{n}]",
+                              out, i4.int4_matmul_plain(x, ws[0], sc))
+            turn = itertools.cycle(ws)
+            ms = cuda_ms(lambda: i4.int4_matmul(x, next(turn), sc))
+            dms = step_ms[(label, rows)] = device_ms(lambda: i4.int4_matmul(x, next(turn), sc))
+            least = bound(nbytes(x, ws[0], sc, out), 2 * rows * k * n, "bf16")
+            print(f"    K12 {label} {rows} rows: {ms:.4f} ms by events, {dms:.4f} ms on the device "
+                  f"({nbytes(ws[0], sc) / dms / 1e6:.1f} GB/s of nibbles and scales), bound "
+                  f"{least['bound_ms']:.4f} ms ({least['bound_by']})", flush=True)
+            if (label, rows) == ("gateup", 8):
+                results["int4_matmul"] = dict(
+                    max_abs_err=err, ms=ms, device_ms=dms,
+                    plain_ms=cuda_ms(lambda: i4.int4_matmul_plain(x, next(turn), sc),
+                                     reps=3, warmup=1),
+                    library_ms=None, **least)
+        if not torch.equal(outs[8], outs[40][:8]):
+            raise AssertionError(f"K12 {label}: a row's result depends on the row count")
+        del ws
+    print("    K12: rows 0-7 alone equal rows 0-7 among 40 bit for bit at all four shapes",
+          flush=True)
+    for rows in (8, 40):
+        per_step = 28 * sum(step_ms[(p, rows)] for p in ("qkv", "o", "gateup", "down"))
+        print(f"    K12 per decode step, {rows} rows (28 layers, no lm_head): {per_step:.3f} ms "
+              "on the device", flush=True)
+    return results
+
+
+def fused_w8a8_kernel(dev, randn, randint8):
+    """K13 at a 3456-token fill's gateup and down projections and the
+    tower's fc1 (5 tiles): bit for bit equal to quantize_rows + K3, timed
+    beside that pair and beside quantize_rows + torch._int_mm + the scale
+    pass."""
+    results = {}
+    for label, m, k, n in [("text gateup", 3456, 3584, 37888), ("text down", 3456, 18944, 3584),
+                           ("tower fc1", 3645, 1152, 4304)]:
+        x = randn(m, k)
+        x[m // 2] = 0  # a row of zeros: amax clamps to 1e-8, y = 0
+        wq = randint8(n, k)
+        ws = torch.full((n,), 0.02 / 127, device=dev)
+
+        def unfused():
+            xq, xs = w8.quantize_rows(x)
+            return w8.w8a8_matmul(xq, xs, wq, ws)
+
+        def library():
+            xq, xs = w8.quantize_rows(x)
+            return ((torch._int_mm(xq, wq.t()).float() * xs) * ws).to(torch.bfloat16)
+
+        run = lambda: w8.w8a8_matmul_fused(x, wq, ws)  # noqa: E731
+        out = run()
+        torch.cuda.synchronize()
+        err = check_close("w8a8_matmul_fused",
+                          f"K13 w8a8_matmul_fused {label} [{m},{k}]x[{k},{n}] vs quantize_rows + K3",
+                          out, unfused())
+        if out[m // 2].abs().max() != 0:
+            raise AssertionError("K13: a row of zeros must give 0")
+        ms, pair_ms = cuda_ms(run, reps=5), cuda_ms(unfused, reps=5)
+        quant_ms = cuda_ms(lambda: w8.quantize_rows(x), reps=5)
+        print(f"    K13 {label}: {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} TOP/s); "
+              f"quantize_rows + K3 {pair_ms:.4f} ms (quantize_rows alone {quant_ms:.4f})",
               flush=True)
+        if label == "text gateup":
+            results["w8a8_matmul_fused"] = dict(
+                max_abs_err=err, ms=ms,
+                plain_ms=cuda_ms(lambda: w8.w8a8_matmul_fused_plain(x, wq, ws), reps=3, warmup=1),
+                library_ms=cuda_ms(library, reps=5),
+                **bound(nbytes(x, wq, ws, out), 2 * m * k * n, "int8"))
+        del x, wq
     return results
 
 
@@ -675,8 +872,12 @@ def device_breakdown(prof, wall: float, label: str, profiled_wall=None, top: int
     # them would count the same time twice.
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        print(f"  profile {label}: unprofiled wall {wall:.4f} s; torch.profiler recorded no "
+              "device time, so the device-busy share is not measured", flush=True)
+        return
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    profiled = "" if profiled_wall is None else f", profiled wall {profiled_wall:.4f} s"
+    profiled ="" if profiled_wall is None else f", profiled wall {profiled_wall:.4f} s"
     print(f"  profile {label}: unprofiled wall {wall:.4f} s{profiled}, device busy {busy:.4f} s "
           f"({100 * busy / wall:.1f}% of the unprofiled wall)", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
@@ -1097,6 +1298,222 @@ def phase_spec(ctx, kv_quant: bool, n_requests: int):
     return counts
 
 
+def same_parameters(a, b) -> int:
+    """Every parameter of `a` equal to `b`'s bit for bit (same names, dtypes,
+    shapes, bytes); returns their bytes."""
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    if pa.keys() != pb.keys():
+        raise AssertionError(f"parameter names differ: {sorted(pa.keys() ^ pb.keys())[:5]}")
+    total = 0
+    for name, x in pa.items():
+        y = pb[name]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{name}: {x.dtype} {tuple(x.shape)} != {y.dtype} {tuple(y.shape)}")
+        raw = torch.int16 if x.dtype == torch.bfloat16 else x.dtype  # bytes, not values
+        if not torch.equal(x.view(raw), y.view(raw)):
+            raise AssertionError(f"{name}: loaded bytes differ from the saved model's")
+        total += x.numel() * x.element_size()
+    return total
+
+
+def phase_artifact(dev, seed: int, ctx):
+    """The pre-quantized artifact path at full width and depth: int4 model
+    -> save_quantized -> worker_cli.build_worker -> served."""
+    cfg, tok = radvlm_7b(), CharTokenizer()
+    t0 = time.perf_counter()
+    saved = convert.random_quantized_params(cfg, torch.Generator(device=dev).manual_seed(seed + 7),
+                                            device=dev, bits=4, fuse=False)
+    torch.cuda.synchronize()
+    print(f"  radvlm_7b int4 (unfused): {sum(p.numel() * p.element_size() for p in saved.parameters()) / 1e9:.3f} "
+          f"GB of parameters, init {time.perf_counter() - t0:.2f} s", flush=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    path = os.path.join(root, f"smoke_artifact_{os.getpid()}")
+    try:
+        t0 = time.perf_counter()
+        payload = quant_io.save_quantized(saved, cfg, path)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(path, quant_io.WEIGHTS))
+        print(f"  save_quantized: {payload / 1e9:.3f} GB payload, {size / 1e9:.3f} GB file, "
+              f"{t_save:.2f} s ({payload / t_save / 1e9:.3f} GB/s)", flush=True)
+        args = worker_cli.parse_args([
+            "--checkpoint", path, "--model-names", "radvlm-7b-int4", "--num-slots", "8",
+            "--max-len", "4224", "--max-new-tokens", str(NEW_TOKENS)])
+        t0 = time.perf_counter()
+        worker = worker_cli.build_worker(args, tokenizer=tok, kv_quant=True,
+                                         prompt_buckets=INT8_BUCKETS, steps_per_sync=32,
+                                         pipeline_depth=4, fill_batch=2)
+        t_build = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    runner, b = worker.runner, worker.batcher
+    model = runner.model
+    if model.device != dev or runner.cfg != cfg:
+        raise AssertionError("build_worker must load the artifact's config onto the card")
+    print(f"  build_worker: {t_build:.2f} s, of which warmup {worker.warmup_seconds:.2f} s "
+          f"(load_quantized + fuse {t_build - worker.warmup_seconds:.2f} s); "
+          f"{ {k: round(v, 3) for k, v in b.warmup_timings.items()} }", flush=True)
+    # The runner fused its model in place; fuse the saved one the same way.
+    n_bytes = same_parameters(radvlm.fuse_for_inference(saved, cfg), model)
+    print(f"  loaded parameters equal the saved model's bit for bit ({n_bytes / 1e9:.3f} GB); "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card", flush=True)
+    del saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 1)
+    reference_check_int8(model, cfg, tok, np.random.default_rng(seed + 2))
+    images = [cxr_image(rng) for _ in range(INT4_REQUESTS)]
+    reqs = [{"prompt": prompt(runner, QUESTIONS[i % len(QUESTIONS)]), "images": [png_b64(im)],
+             "max_new_tokens": NEW_TOKENS, "temperature": 0.0} for i, im in enumerate(images)]
+    port = worker.serve_forever(host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        b.host_stats = dict.fromkeys(b.host_stats, 0)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(INT4_REQUESTS) as pool:
+            loaded = list(pool.map(lambda r: post_json(base + "/worker_generate", r), reqs))
+        t_load = time.perf_counter() - t0
+        for i, out in enumerate(loaded):
+            if out.get("error_code") != 0 or not out.get("text"):
+                raise AssertionError(f"int4 request {i} failed: {out}")
+        n_tok = b.host_stats["tokens"]
+        print(f"  {INT4_REQUESTS} concurrent requests: {t_load:.3f} s, "
+              f"{INT4_REQUESTS / t_load:.3f} images/s, {n_tok} tokens, {n_tok / t_load:.1f} "
+              f"tokens/s (prefills included)", flush=True)
+        single, texts = [], []
+        for i in (3, 4, 3):
+            chunks, t_first, t_all = post_stream(base + "/worker_generate_stream", reqs[i])
+            if not chunks or any(c["error_code"] != 0 for c in chunks):
+                raise AssertionError(f"int4 single request {i} failed: {chunks[-1:]}")
+            single.append(t_all)
+            texts.append(chunks[-1]["text"])
+            print(f"  single request {i}: first chunk {t_first:.3f} s, total {t_all:.3f} s, "
+                  f"{len(tok.encode(texts[-1]))} tokens", flush=True)
+        if texts[-1] != texts[0] or texts[0] != loaded[3]["text"]:
+            raise AssertionError("a repeated greedy int4 request gave other tokens")
+        print(f"  host_stats: { {k: round(v, 3) for k, v in b.host_stats.items()} }", flush=True)
+    finally:
+        worker.shutdown()
+    counts = kernels.launch_counts()
+    print(f"  launches in the measured run: {counts}", flush=True)
+    print(f"  provenance: {b.kernel_provenance()}", flush=True)
+    require_launched("int4", counts)
+    # A fill's projections have thousands of rows (dequant route), so every
+    # K12 launch is a decode step's: 4 fused projections x 28 layers.
+    per_step = 4 * cfg.text.num_layers
+    if counts["int4_matmul"] % per_step:
+        raise AssertionError(f"K12 launched {counts['int4_matmul']} times: not {per_step} a step")
+    print(f"  K12: {counts['int4_matmul'] // per_step} decode steps x {per_step} launches",
+          flush=True)
+    t_fill = [timed_fill_group(b, reqs[:1], images[:1], tok, cfg) for _ in range(2)][-1]
+    print(f"  int4 fill of one prompt (dequant route + cuBLAS; tower fc2 and lm_head int8): "
+          f"{t_fill:.4f} s", flush=True)
+    step_ms = engine_chunks(b, cfg, tok, reqs[0], images[0], label="int4")
+    print(f"  int4 decode step {step_ms:.2f} ms against {ctx['plain_step_ms']:.2f} ms for phase "
+          f"5's int8 step ({step_ms / ctx['plain_step_ms']:.2f}x)", flush=True)
+    # One request through a speculative engine (8 slots x 5 window rows = 40
+    # rows: K12 and K11) must give the plain engine's tokens.
+    sample = multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, reqs[0]["prompt"]),
+                                     [images[0]], cfg)
+    sb = ContinuousBatcher(model, cfg, engine.GenerationConfig(
+        max_new_tokens=NEW_TOKENS, eos_token_ids=tok.eos_token_ids), num_slots=8, max_len=4224,
+        kv_quant=True, prompt_buckets=(b._bucket_for(sample.length),), steps_per_sync=8,
+        pipeline_depth=2, spec_k=SPEC_K)
+    sb.warmup()
+    kernels.reset_launch_counts()
+    req = sb.submit(sample, NEW_TOKENS)
+    list(sb.run())
+    spec_counts = kernels.launch_counts()
+    text = engine.trim_at_stop_strings(tok.decode(req.emitted), runner.template.stop_strings)
+    same_tokens_or_near_tie("int4 spec request", dict(model=model, cfg=cfg, tok=tok),
+                            reqs[0]["prompt"], images[0], text, loaded[0]["text"], True)
+    require_launched("int4_spec", spec_counts)
+    print(f"  int4 spec_k={SPEC_K} request: {len(req.emitted)} tokens, "
+          f"{'the plain engine\'s tokens' if text == loaded[0]['text'] else 'a near tie'}; "
+          f"spec_stats {sb.spec_stats}; launches {spec_counts}", flush=True)
+    return counts
+
+
+@torch.inference_mode()
+def timed_fill_group(b, reqs, images, tok, cfg) -> float:
+    """Seconds of one fill group (engine thread stopped) of the requests'
+    prompts into slots 0.., by the host's clock around synchronizes."""
+    group = []
+    for i, (r, im) in enumerate(zip(reqs, images)):
+        b.submit(multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, r["prompt"]),
+                                         [im], cfg), 1)
+        group.append((i, b.queue.get_nowait()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b._fill_group(group)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i, _ in group:
+        b.slot_req[i] = None
+    return wall
+
+
+def phase_fused(ctx):
+    """Phase 5's int8 model and engine settings with RADVLM_W8A8_IMPL=fused:
+    every W8A8 matmul of a fill goes through K13 instead of quantize_rows +
+    K3, and the tokens must not change."""
+    model, cfg, tok = ctx["model"], ctx["cfg"], ctx["tok"]
+    reqs, images = ctx["reqs"][:FUSED_REQUESTS], ctx["images"][:FUSED_REQUESTS]
+    runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
+                       batch_size=1, pad_to_multiple=128)
+    os.environ["RADVLM_W8A8_IMPL"] = "fused"
+    try:
+        worker = BatchWorker(runner, model_names=["radvlm-7b-int8"], num_slots=8, max_len=4224,
+                             kv_quant=True, prompt_buckets=INT8_BUCKETS, steps_per_sync=32,
+                             pipeline_depth=4, fill_batch=2)
+        b = worker.batcher
+        print(f"  fused: warmup {worker.warmup_seconds:.2f} s: "
+              f"{ {k: round(v, 3) for k, v in b.warmup_timings.items()} }", flush=True)
+        port = worker.serve_forever(host="127.0.0.1", port=0, background=True)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(FUSED_REQUESTS) as pool:
+                outs = list(pool.map(lambda r: post_json(base + "/worker_generate", r), reqs))
+            t_load = time.perf_counter() - t0
+        finally:
+            worker.shutdown()
+        counts = kernels.launch_counts()
+        print(f"  provenance: {b.kernel_provenance()}", flush=True)
+    finally:
+        os.environ.pop("RADVLM_W8A8_IMPL")
+    for i, out in enumerate(outs):
+        if out.get("error_code") != 0 or not out.get("text"):
+            raise AssertionError(f"fused request {i} failed: {out}")
+        if out["text"] != ctx["plain_texts"][i]:  # K13 is bit-equal: no near-tie rule
+            raise AssertionError(f"fused request {i}: tokens differ from phase 5's")
+    print(f"  {FUSED_REQUESTS} concurrent greedy requests in {t_load:.3f} s: phase 5's tokens "
+          f"exactly", flush=True)
+    print(f"  launches in the measured run: {counts}", flush=True)
+    require_launched("fused", counts)
+    if counts["w8a8_matmul"] != 0:
+        raise AssertionError(f"K3 launched {counts['w8a8_matmul']} times under "
+                             "RADVLM_W8A8_IMPL=fused")
+    # A fill group of 2 prompts through K3, K13, K13, K3 (the dispatch reads
+    # the variable at every matmul; first-call costs were paid in warmup).
+    walls = {"kernel": [], "fused": []}
+    for impl in ("kernel", "fused", "fused", "kernel"):
+        if impl == "fused":
+            os.environ["RADVLM_W8A8_IMPL"] = "fused"
+        try:
+            walls[impl].append(timed_fill_group(b, reqs[:2], images[:2], tok, cfg))
+        finally:
+            os.environ.pop("RADVLM_W8A8_IMPL", None)
+    k3, k13 = statistics.mean(walls["kernel"]), statistics.mean(walls["fused"])
+    print(f"  fill group of 2 prompts: through quantize_rows + K3 "
+          f"{[round(t, 4) for t in walls['kernel']]} s, through K13 "
+          f"{[round(t, 4) for t in walls['fused']]} s ({k13 / k3:.2f}x)", flush=True)
+    return counts
+
+
 def post_json(url: str, req: dict) -> dict:
     body = json.dumps(req).encode()
     with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=600) as resp:
@@ -1112,36 +1529,46 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     dev = torch.device("cuda:0")
     smi = nvidia_smi_line()
-    print(f"[1/6] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+    print(f"[1/8] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
     t_start = t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.lib()
-    print(f"[2/6] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
+    print(f"[2/8] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
 
     def header(text):
         print(f"{text} (at {time.perf_counter() - t_start:.0f} s)", flush=True)
 
-    header("[3/6] kernels against their plain versions")
+    header("[3/8] kernels against their plain versions")
     results = phase_kernels(dev, 1234 + args.seed)
 
-    header("[4/6] bf16 slice: radvlm_7b, random bf16 weights")
+    header("[4/8] bf16 slice: radvlm_7b, random bf16 weights")
     counts = {"bf16": phase_slice(dev, args.seed)}
     gc.collect()  # the bf16 model (15 GiB) goes before the int8 one comes
     torch.cuda.empty_cache()
 
-    header("[5/6] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
+    header("[5/8] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
     counts["int8"], ctx = phase_int8(dev, args.seed)
     gc.collect()  # phase 5's KV cache goes before the spec engines' come
     torch.cuda.empty_cache()
 
-    header(f"[6/6] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
+    header(f"[6/8] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
     counts["spec_int8"] = phase_spec(ctx, True, SPEC_REQUESTS)
     gc.collect()
     torch.cuda.empty_cache()
     counts["spec_bf16"] = phase_spec(ctx, False, SPEC_REQUESTS // 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[7/8] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
+    counts["int4"] = phase_artifact(dev, args.seed, ctx)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[8/8] fused W8A8 (K13) on the int8 model")
+    counts["fused"] = phase_fused(ctx)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

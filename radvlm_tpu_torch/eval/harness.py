@@ -1,6 +1,7 @@
 """Batched VLM inference (counterpart of the `Tokenizer` and `VLMRunner` of
-`radvlm_tpu/eval/harness.py`). The model may hold int8 weights (`QLinear`,
-from the weight bridge or `convert.random_quantized_params`); serving wraps
+`radvlm_tpu/eval/harness.py`). The model may hold int8 or int4 weights
+(`QLinear` / `Q4Linear`, from the weight bridge, an artifact or
+`convert.random_quantized_params`); serving wraps
 the runner in `serve.worker.ModelWorker` or `serve.batch_worker.BatchWorker`.
 The task registry, metrics and the continuous-engine evaluation path are not
 ported yet (ROADMAP M8).
@@ -36,6 +37,30 @@ class Tokenizer:
 
     eos_token_ids: Tuple[int, ...] = ()
     pad_token_id: int = 0
+
+
+class HFTokenizer(Tokenizer):
+    """An HF tokenizer directory behind the protocol. `transformers` is
+    imported here, not with the module: a machine that serves with another
+    tokenizer need not have it, and where it is missing this raises the
+    ImportError."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(path)
+        eos = [self.tok.eos_token_id]
+        im_end = self.tok.convert_tokens_to_ids("<|im_end|>")
+        if im_end is not None and im_end != self.tok.unk_token_id:
+            eos.append(im_end)
+        self.eos_token_ids = tuple(i for i in dict.fromkeys(eos) if i is not None)
+        self.pad_token_id = self.tok.pad_token_id or 0
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self.tok.decode(ids, skip_special_tokens=True)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from radvlm_tpu_torch.config import RadVLMConfig
+from radvlm_tpu_torch.device import resolve as resolve_device
 from radvlm_tpu_torch.generation import engine, spec
 from radvlm_tpu_torch.generation.engine import GenerationConfig, sample_token_vec
 from radvlm_tpu_torch.models import multimodal, qwen2, radvlm
@@ -166,7 +167,9 @@ class KVSnapshot:
     @classmethod
     def from_numpy(cls, fields: Dict[str, Any], device=None) -> "KVSnapshot":
         """Inverse of `to_numpy` (uint16 cache rows are bf16 bit patterns):
-        a snapshot cut by the JAX package, passed as numpy, resumes here."""
+        a snapshot cut by the JAX package, passed as numpy, resumes here, on
+        `device` (None: the card)."""
+        device = resolve_device(device)
 
         def dev(a) -> torch.Tensor:
             a = np.array(a)  # a writable copy: the arrays of a JAX snapshot are read-only
@@ -868,6 +871,7 @@ class ContinuousBatcher:
             self.cfg, prompt_len=self.prompt_buckets[-1],
             max_new_tokens=self.max_len - self.prompt_buckets[-1],
             attn_impl=self.attn_impl, quantized=engine.is_quantized(self.model),
+            weight_bits=engine.weight_bits(self.model),
             cache_format="int8" if self.kv_quant else "bf16",
             fill_rows=min(self.fill_batch, self.num_slots), tiles=self.pad_tiles,
             decode_rows=self.num_slots, spec_k=self.spec_k,

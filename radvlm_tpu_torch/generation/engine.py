@@ -28,11 +28,12 @@ import torch
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import RadVLMConfig, tokens_per_tile
 from radvlm_tpu_torch.models import qwen2, radvlm
-from radvlm_tpu_torch.models.layers import QLinear
+from radvlm_tpu_torch.models.layers import Q4Linear, QLinear
 from radvlm_tpu_torch.ops.attention import flash_eligible
 from radvlm_tpu_torch.ops.flash_attention import tower_eligible
+from radvlm_tpu_torch.ops.int4_matmul import GROUP
 from radvlm_tpu_torch.ops.kv_quant import quantize_kv
-from radvlm_tpu_torch.ops.quant import qmm_route
+from radvlm_tpu_torch.ops.quant import qmm_route, w8a8_impl_name
 
 Batch = Dict[str, torch.Tensor]
 
@@ -306,6 +307,7 @@ def kernel_provenance(
     tiles: int = 1,
     decode_rows: int = 1,
     spec_k: int = 0,
+    weight_bits: int = 8,
 ) -> Dict[str, object]:
     """Which path each stage takes for this geometry, from the same
     predicates the dispatch calls, plus the kernels' launch counts so far.
@@ -319,7 +321,14 @@ def kernel_provenance(
     (`fill_rows` prompts of `prompt_len` tokens, and of `tiles` tower tiles
     each, all in one tower batch), the decode projections (`decode_rows`
     slots) and the lm_head (weight-only): "w8a8" (K3), "int8" (K5/K6) or
-    "dequant". With `spec_k` (a speculative engine) the verify window's
+    "dequant". With `weight_bits=4` (an int4 model: its layers' projections
+    are `Q4Linear`, the tower's `fc2` whose contraction dim does not divide
+    by 128, and the lm_head, stay int8) the decoder's stages read the int4
+    route, "int4" (K12) or "dequant", and `tower_matmul` splits into
+    `tower_matmul` (int4) and `tower_matmul_int8` (fc2). `w8a8_impl` says
+    which kernel a "w8a8" stage launches: "kernel" (K3 after
+    `quantize_rows`), "fused" (K13), or "off" when no stage takes that
+    route. With `spec_k` (a speculative engine) the verify window's
     stages are added: its attention over spec_k + 1 queries per slot
     ("window" K10, "window_q8" K11, or "plain") and its matmuls at
     `decode_rows * (spec_k + 1)` rows."""
@@ -352,21 +361,30 @@ def kernel_provenance(
         def lm_head(rows: int) -> str:  # a tied int8 embedding is dequantized whole
             return "dequant" if t.tie_word_embeddings else qmm_route(rows, False)
 
+        bits = weight_bits
         out.update(
-            tower_matmul=qmm_route(fill_rows * tiles * n),
-            prefill_matmul=qmm_route(fill_rows * prompt_len),
+            tower_matmul=qmm_route(fill_rows * tiles * n, bits=bits),
+            prefill_matmul=qmm_route(fill_rows * prompt_len, bits=bits),
             fill_lm_head=lm_head(fill_rows),
-            decode_matmul=qmm_route(decode_rows, False),
+            decode_matmul=qmm_route(decode_rows, False, bits=bits),
             decode_lm_head=lm_head(decode_rows),
         )
+        if bits == 4 and v.intermediate_size % GROUP:
+            out["tower_matmul_int8"] = qmm_route(fill_rows * tiles * n)
         if spec_k:
             out.update(
-                verify_matmul=qmm_route(decode_rows * (spec_k + 1), False),
+                verify_matmul=qmm_route(decode_rows * (spec_k + 1), False, bits=bits),
                 verify_lm_head=lm_head(decode_rows * (spec_k + 1)),
             )
+        out["w8a8_impl"] = w8a8_impl_name() if "w8a8" in out.values() else "off"
     out["launches"] = kernels.launch_counts()
     return out
 
 
 def is_quantized(model: radvlm.RadVLM) -> bool:
-    return any(isinstance(m, QLinear) for m in model.modules())
+    return any(isinstance(m, (QLinear, Q4Linear)) for m in model.modules())
+
+
+def weight_bits(model: radvlm.RadVLM) -> int:
+    """4 for a model whose layers hold `Q4Linear` projections, else 8."""
+    return 4 if any(isinstance(m, Q4Linear) for m in model.modules()) else 8

@@ -44,6 +44,8 @@ _launches: Dict[str, int] = {
     "int8_matmul": 0,  # K5/K6
     "decode_attention_window": 0,  # K10
     "decode_attention_window_q8": 0,  # K11
+    "int4_matmul": 0,  # K12
+    "w8a8_matmul_fused": 0,  # K13
 }
 _count_lock = threading.Lock()
 _lock = threading.Lock()
@@ -86,6 +88,13 @@ ATOL = {
     # K5/K6: bf16 x (int8 -> bf16) products are exact; f32 sums in another
     # order (and over K splits) than the plain f32 matmul.
     "int8_matmul": 1e-4,
+    # K12: both sides round each weight to bf16 after its group scale, so the
+    # bf16 x bf16 products are exact; f32 sums in another order (and over K
+    # splits) than the plain f32 matmul.
+    "int4_matmul": 1e-4,
+    # K13 repeats `quantize_rows` (IEEE division, round half to even) and K3's
+    # exact int32 sum and f32 epilogue: equal to quantize_rows + K3 bit for bit.
+    "w8a8_matmul_fused": 0.0,
 }
 
 
@@ -205,11 +214,14 @@ def lib() -> ctypes.CDLL:
             ]
             handle.radvlm_w8a8_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
             handle.radvlm_int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            handle.radvlm_int4_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            handle.radvlm_w8a8_matmul_fused.argtypes = [p, p, p, p, p, i, i, i, p]
             for fn in ("radvlm_tower_attention", "radvlm_prefill_attention",
                        "radvlm_decode_attention", "radvlm_decode_attention_q8",
                        "radvlm_decode_attention_window",
                        "radvlm_decode_attention_window_q8",
-                       "radvlm_w8a8_matmul", "radvlm_int8_matmul"):
+                       "radvlm_w8a8_matmul", "radvlm_int8_matmul",
+                       "radvlm_int4_matmul", "radvlm_w8a8_matmul_fused"):
                 getattr(handle, fn).restype = ctypes.c_int
             handle.radvlm_error_string.argtypes = [i]
             handle.radvlm_error_string.restype = ctypes.c_char_p

@@ -11,8 +11,9 @@ PLACE - at one index for every row, or at each row's own index (continuous
 batching) - and reads it through the K9 (bf16) or K4 (int8) decode kernel; a
 per-row window of 2..16 tokens (the verify step of speculative decoding) is
 written at each row's own offset and read through K10 / K11. Projections
-are `Linear` or, for int8 weights, `QLinear` (`ops.quant.qmm`); the token
-embedding may be int8 with one scale per row. Not ported yet (they raise):
+are `Linear` or, for int8 / int4 weights, `QLinear` / `Q4Linear`
+(`ops.quant.qmm` / `q4mm`); the token embedding may be int8 with one scale
+per row. Not ported yet (they raise):
 MoE, the ALiBi/LayerNorm MPT family, sequence-parallel decode.
 """
 
@@ -114,7 +115,8 @@ def _act(cfg: Qwen2Config, x: torch.Tensor) -> torch.Tensor:
 
 
 def _proj(lin, x: torch.Tensor, w8a8: Optional[bool]) -> torch.Tensor:
-    """A projection; `w8a8` reaches int8 weights only (`QLinear`)."""
+    """A projection; `w8a8` reaches int8 weights only (`QLinear`): a
+    `Q4Linear` never quantizes its activations."""
     return lin(x, w8a8=w8a8) if isinstance(lin, QLinear) else lin(x)
 
 

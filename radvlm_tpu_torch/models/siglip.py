@@ -58,6 +58,10 @@ class SigLIPTower(nn.Module):
         self.patch_embed = Linear.empty(p * p * 3, d, True, **kw)
         self.pos_embed = empty_param(cfg.tokens_per_tile, d, **kw)
         self.layers = nn.ModuleList(SigLIPLayer(cfg, **kw) for _ in range(cfg.num_layers))
+        # The checkpoint's post-LN: `forward` does not apply it (the tower is
+        # read before it), but the parameter tree carries it, so that a model
+        # saved from here holds what the JAX package's tree holds.
+        self.post_ln_scale, self.post_ln_bias = empty_param(d, **kw), empty_param(d, **kw)
 
 
 def fuse_projections(tower: SigLIPTower) -> SigLIPTower:

@@ -18,6 +18,12 @@ Weights keep torch's [out, in] layout (K contiguous); the JAX package's
 [in, out] kernels are transposed once by the weight bridge.
 `w8a8_matmul_plain` is the plain version. The wrapper runs it only for a
 tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
+
+`w8a8_matmul_fused` (K13, the same source file) takes the bf16 activations
+and quantizes them inside: a small kernel writes the rows' scales, and the
+matmul quantizes its A tiles on the way into shared memory. It replaces the
+Pallas `w8a8_matmul_fused` and equals `quantize_rows` followed by K3 bit for
+bit; `w8a8_matmul_fused_plain` is exactly that composition.
 """
 
 from __future__ import annotations
@@ -92,4 +98,44 @@ def w8a8_matmul(
     )
     kernels.check(err, "w8a8_matmul")
     kernels.count_launch("w8a8_matmul")
+    return out.reshape(*lead, n)
+
+
+def w8a8_matmul_fused_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """Plain version of K13: `quantize_rows`, then the plain version of K3."""
+    xq, xs = quantize_rows(x)
+    return w8a8_matmul_plain(xq, xs[:, 0], wq, ws.float(), x.dtype)
+
+
+def w8a8_matmul_fused(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """K13 wrapper: x [..., K] bf16, wq [N, K] int8, ws [N] f32 -> y [..., N]
+    = (float(xq @ wq^T) * xs) * ws with (xq, xs) = quantize_rows(x) made
+    inside the kernel."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    n = wq.shape[0]
+    x2 = x.reshape(-1, k)
+    if x.device.type == "cpu":
+        return w8a8_matmul_fused_plain(x2, wq, ws).reshape(*lead, n)
+    if wq.shape != (n, k) or ws.shape != (n,):
+        raise ValueError(
+            f"w8a8_matmul_fused: x {tuple(x.shape)} does not match wq {tuple(wq.shape)} / "
+            f"ws {tuple(ws.shape)}"
+        )
+    if k % 16:
+        raise ValueError(f"w8a8_matmul_fused: the kernel takes K a multiple of 16, got K={k}")
+    kernels.require_dtype("w8a8_matmul_fused", torch.bfloat16, x=x2)
+    kernels.require_dtype("w8a8_matmul_fused", torch.int8, wq=wq)
+    kernels.require_dtype("w8a8_matmul_fused", torch.float32, ws=ws)
+    x2 = x2.contiguous()
+    kernels.require_cuda_tensors("w8a8_matmul_fused", x2, wq, align=16)
+    kernels.require_cuda_tensors("w8a8_matmul_fused", ws)
+    m = x2.shape[0]
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    err = kernels.lib().radvlm_w8a8_matmul_fused(
+        x2.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        m, n, k, kernels.stream_ptr(x.device),
+    )
+    kernels.check(err, "w8a8_matmul_fused")
+    kernels.count_launch("w8a8_matmul_fused")
     return out.reshape(*lead, n)

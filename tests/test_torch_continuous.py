@@ -82,7 +82,7 @@ def _samples(mm, cfg):
 
 
 def _run_port(cfg, params, eos, **kw):
-    b = TBatcher(convert.radvlm_from_jax(params, cfg), cfg,
+    b = TBatcher(convert.radvlm_from_jax(params, cfg, device="cpu"), cfg,
                  teng.GenerationConfig(max_new_tokens=NEW, eos_token_ids=eos), **ENGINE, **kw)
     reqs = [b.submit(s) for s in _samples(tmm, cfg)]
     done = {r.uid: r.emitted for r in b.run()}
@@ -113,7 +113,7 @@ def test_provenance_reads_the_row_counts_the_matmuls_see(tiny_q):
     fill group's tiles in one batch (2 x 6 tiles x 16 tokens: W8A8, where one
     tile alone would go weight-only), the prompt W8A8, decode weight-only."""
     cfg, params = tiny_q
-    model = convert.radvlm_from_jax(params, cfg)
+    model = convert.radvlm_from_jax(params, cfg, device="cpu")
     b = TBatcher(model, cfg, teng.GenerationConfig(max_new_tokens=5),
                  **dict(ENGINE, pad_tiles=6), fill_batch=2, kv_quant=True)
     rows = {"tower": set(), "text": set()}
@@ -196,7 +196,7 @@ def _post(port, path, obj, raw=None):
 def test_batch_worker_over_http(tiny_q):
     cfg, params = tiny_q
     tok = ByteTokenizer()
-    runner = VLMRunner(model=convert.radvlm_from_jax(params, cfg), cfg=cfg, tokenizer=tok,
+    runner = VLMRunner(model=convert.radvlm_from_jax(params, cfg, device="cpu"), cfg=cfg, tokenizer=tok,
                        max_new_tokens=NEW, pad_to_multiple=128)
     engine_kw = dict(num_slots=2, max_len=256, prompt_bucket=128, kv_quant=True, pad_tiles=2,
                      steps_per_sync=4)

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1, K2, K9, K3, K4, K5/K6, K10, K11) against
+"""The port's hand-written CUDA kernels (K1-K6, K9-K13) against
 their plain PyTorch versions on the card, at shapes beyond the main path's:
 other head dims and GQA ratios, ragged sequence tails, Sq < Sk, rows with
 nothing to attend, K and N tails of the int8 matmuls, 1-64 decode rows.
@@ -16,7 +16,11 @@ for K9 and K4 (f32 p, summed in another order) and for their windowed
 variants K10 and K11, 1e-4 for K5/K6 (exact products, f32 sums in another
 order). A row of a K10 / K11 window must also equal, bit for bit, what K9 /
 K4 gives for the same visible keys. K3 sums exactly in int32 and must
-equal its plain version (f64 sums) bit for bit.
+equal its plain version (f64 sums) bit for bit. K12 rounds each weight to
+bf16 after its group scale, as its plain version does, so products are
+exact and only the order of the f32 sums differs (1e-4); a row's result must
+not depend on how many rows it comes with. K13 must equal `quantize_rows`
+followed by K3 bit for bit.
 """
 
 import pytest
@@ -26,11 +30,12 @@ from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as tdec
 from radvlm_tpu_torch.ops import flash_attention as tfa
+from radvlm_tpu_torch.ops import int4_matmul as ti4
 from radvlm_tpu_torch.ops import int8_matmul as ti8
 from radvlm_tpu_torch.ops import kv_quant as tkv
 from radvlm_tpu_torch.ops import quant as tq
 from radvlm_tpu_torch.ops import w8a8_matmul as tw8
-from radvlm_tpu_torch.models.layers import QLinear
+from radvlm_tpu_torch.models.layers import Q4Linear, QLinear
 
 pytestmark = pytest.mark.cuda
 
@@ -400,3 +405,131 @@ def test_window_wrappers_raise_on_bad_input(dev):
     with pytest.raises(ValueError):  # an f32 cache
         tdec.decode_attention_stacked_window(q[:, :4], ck.float(), ck.float(), seg, 0, widx,
                                              num_kv_heads=2)
+
+
+def _q4(gen, dev, n, k):
+    """Random packed nibbles [n, k/2] (every value of -8..7 occurs) and
+    group scales [k/128, n] of differing sizes."""
+    w = torch.randint(0, 256, (n, k // 2), generator=gen, device=dev, dtype=torch.uint8)
+    scale = torch.rand(k // 128, n, generator=gen, device=dev) * 4e-3 + 1e-4
+    return w, scale
+
+
+# (rows, K, N): 1-64 rows; the Qwen2-7B qkv / o / gateup / down shapes (28
+# and 148 groups: neither divides by every split count); an odd N; one group.
+K12_CASES = [(1, 3584, 4608), (8, 3584, 3584), (40, 3584, 37888), (8, 18944, 3584),
+             (64, 18944, 3584), (33, 3584, 4608), (5, 128, 131), (64, 256, 3),
+             (17, 4864, 896)]
+
+
+@pytest.mark.parametrize("case", K12_CASES)
+def test_k12_matches_plain(dev, case):
+    m, k, n = case
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x = _randn(gen, dev, m, k)
+    w, scale = _q4(gen, dev, n, k)
+    before = kernels.launch_counts()["int4_matmul"]
+    out = ti4.int4_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["int4_matmul"] == before + 1
+    _assert_close("int4_matmul", out, ti4.int4_matmul_plain(x, w, scale))
+
+
+@pytest.mark.parametrize("case", [(3584, 4608), (18944, 3584), (3584, 37888)])
+def test_k12_row_does_not_depend_on_row_count(dev, case):
+    """Rows 0-7 alone, among 40 and among 64 rows: the same bits (greedy
+    speculative tokens must equal plain greedy tokens)."""
+    k, n = case
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = _randn(gen, dev, 64, k)
+    w, scale = _q4(gen, dev, n, k)
+    y8 = ti4.int4_matmul(x[:8].contiguous(), w, scale)
+    y1 = ti4.int4_matmul(x[:1].contiguous(), w, scale)
+    y40 = ti4.int4_matmul(x[:40].contiguous(), w, scale)
+    y64 = ti4.int4_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(y8, y40[:8]) and torch.equal(y8, y64[:8]) and torch.equal(y1, y8[:1])
+
+
+def test_k12_dequant_route_uses_the_same_weights(dev):
+    """Above 64 rows a Q4Linear dequantizes (the weights K12 rounds) and
+    runs one plain matmul; at or below it launches K12."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    w, scale = _q4(gen, dev, 96, 256)
+    lin = Q4Linear(w, scale, _randn(gen, dev, 96))
+    kernels.reset_launch_counts()
+    x = _randn(gen, dev, 65, 256)
+    big = lin(x)
+    small = lin(x[:64].contiguous())
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["int4_matmul"] == 1
+    assert (tq.qmm_route(65, bits=4), tq.qmm_route(64, bits=4)) == ("dequant", "int4")
+    _assert_close("int4_matmul", small, big[:64])
+
+
+def test_k12_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    w = torch.zeros((32, 64), device=dev, dtype=torch.uint8)
+    s = torch.ones((1, 32), device=dev)
+    x = torch.zeros((2, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ti4.int4_matmul(x.float(), w, s)
+    with pytest.raises(ValueError, match="rows"):
+        ti4.int4_matmul(torch.zeros((65, 128), device=dev, dtype=torch.bfloat16), w, s)
+    with pytest.raises(ValueError, match="uint8"):
+        ti4.int4_matmul(x, w.view(torch.int8), s)
+    with pytest.raises(ValueError, match="does not match"):
+        ti4.int4_matmul(x[:, :64].contiguous(), w[:, :32].contiguous(), s)
+    with pytest.raises(ValueError, match="CUDA"):
+        ti4.int4_matmul(x, w.cpu(), s)
+
+
+# (M, K, N): K3's cases (K = 4304 is no multiple of 32; tower rows; odd N)
+# plus the down projection's K = 18944 and an M that is no multiple of 128.
+K13_CASES = K3_CASES + [(3456, 18944, 3584), (1000, 18944, 256), (129, 128, 128)]
+
+
+@pytest.mark.parametrize("case", K13_CASES)
+def test_k13_equals_quantize_rows_then_k3(dev, case):
+    m, k, n = case
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = _randn(gen, dev, m, k) * 3.0
+    x[m // 2] = 0  # a row of zeros: amax clamps, y = 0
+    wq = _int8(gen, dev, n, k)
+    ws = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+    counts = kernels.launch_counts()
+    out = tw8.w8a8_matmul_fused(x, wq, ws)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["w8a8_matmul_fused"] == counts["w8a8_matmul_fused"] + 1
+    assert after["w8a8_matmul"] == counts["w8a8_matmul"]
+    xq, xs = tw8.quantize_rows(x)
+    assert torch.equal(out, tw8.w8a8_matmul(xq, xs, wq, ws))
+    assert torch.equal(out, tw8.w8a8_matmul_fused_plain(x, wq, ws))
+    assert torch.all(out[m // 2] == 0)
+
+
+def test_qmm_takes_the_fused_kernel_when_asked(dev, monkeypatch):
+    gen = torch.Generator(device=dev).manual_seed(24)
+    lin = QLinear(_int8(gen, dev, 96, 64), torch.full((96,), 1e-3, device=dev),
+                  _randn(gen, dev, 96))
+    x = _randn(gen, dev, 200, 64)
+    ref = lin(x)
+    monkeypatch.setenv("RADVLM_W8A8_IMPL", "fused")
+    kernels.reset_launch_counts()
+    out = lin(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["w8a8_matmul_fused"], counts["w8a8_matmul"]) == (1, 0)
+    assert torch.equal(out, ref)
+
+
+def test_k13_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    w = torch.zeros((32, 64), device=dev, dtype=torch.int8)
+    s = torch.ones(32, device=dev)
+    x = torch.zeros((80, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tw8.w8a8_matmul_fused(x.float(), w, s)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tw8.w8a8_matmul_fused(x[:, :40].contiguous(), w[:, :40].contiguous(), s)
+    with pytest.raises(ValueError, match="CUDA"):
+        tw8.w8a8_matmul_fused(x, w.cpu(), s)

@@ -231,7 +231,7 @@ def test_bridge_loads_quantized_trees(rng, tiny_q, fused):
     cfg, params = tiny_q
     if fused:
         params = _np_tree(jrad.fuse_for_inference(params, cfg))
-    model = convert.radvlm_from_jax(params, cfg)
+    model = convert.radvlm_from_jax(params, cfg, device="cpu")
     blk = model.text.layers[0]
     assert isinstance(blk.qkv if fused else blk.q, QLinear)
     assert isinstance(model.text.lm_head, QLinear) and isinstance(model.vision_tower.layers[0].fc1, QLinear)
@@ -252,8 +252,8 @@ def test_bridge_quantized_equals_port_quantize_model(tiny_q):
     and scales as the JAX `quantize_params` brought over by the bridge."""
     cfg, qparams = tiny_q
     params = _np_tree(jrad.init_params(cfg, jax.random.key(0)))
-    mine = tq.quantize_model(convert.radvlm_from_jax(params, cfg))
-    theirs = convert.radvlm_from_jax(qparams, cfg)
+    mine = tq.quantize_model(convert.radvlm_from_jax(params, cfg, device="cpu"))
+    theirs = convert.radvlm_from_jax(qparams, cfg, device="cpu")
     sa, sb = mine.state_dict(), theirs.state_dict()
     assert sa.keys() == sb.keys()
     for k in sa:
@@ -283,7 +283,7 @@ def test_int8_prefill_and_per_row_decode_match_jax(rng, tiny_q, monkeypatch):
     max_len = 256
     jcache, jseg, jlog = jeng.prefill(params, cfg, {k: jnp.asarray(v) for k, v in batch.items()},
                                       max_len, cache_format="int8")
-    model = convert.radvlm_from_jax(params, cfg)
+    model = convert.radvlm_from_jax(params, cfg, device="cpu")
     cache, seg, logits = teng.prefill(model, cfg, {k: _t(v) for k, v in batch.items()},
                                       max_len, cache_format="int8")
     assert len(cache) == 4 and cache[0].dtype == torch.int8 and cache[2].shape == jcache[2].shape
@@ -325,7 +325,7 @@ def test_per_row_window_is_written_and_routed():
     K11's plain version on the CPU."""
     cfg = cfglib.tiny_test_config()
     model = convert.random_quantized_params(cfg, torch.Generator().manual_seed(0),
-                                            dtype=torch.float32)
+                                            device="cpu", dtype=torch.float32)
     cache = qwen2.init_kv_cache_q8(cfg.text, 2, 128)
     x = torch.randn((2, 3, cfg.text.hidden_size), generator=torch.Generator().manual_seed(1))
     seg = torch.zeros(2, 128, dtype=torch.int32)
@@ -363,7 +363,7 @@ def test_per_row_window_raises():
 def test_random_quantized_params_is_seeded_and_born_int8():
     cfg = cfglib.tiny_test_config()
     a, b = (convert.random_quantized_params(cfg, torch.Generator().manual_seed(3),
-                                            dtype=torch.float32) for _ in range(2))
+                                            device="cpu", dtype=torch.float32) for _ in range(2))
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(pa, pb), name
     qkv = a.text.layers[0].qkv
@@ -387,7 +387,7 @@ def test_int8_path_against_its_f32_reference():
     error by the figure this measures (see PERF.md)."""
     cfg = cfglib.tiny_test_config()
     model = convert.random_quantized_params(cfg, torch.Generator().manual_seed(0),
-                                            dtype=torch.float32)
+                                            device="cpu", dtype=torch.float32)
     ref = convert.dequantized_copy(model, cfg)
     rng = np.random.default_rng(0)
     tok = lambda s: [2 + b for b in s.encode()]  # noqa: E731

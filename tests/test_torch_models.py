@@ -85,7 +85,7 @@ def test_projector_matches_jax(rng, tiny):
     cfg, params = tiny
     x = rng.normal(size=(2, 5, cfg.vision.hidden_size)).astype(np.float32)
     ref = jproj.forward(params["projector"], cfg.projector, jnp.asarray(x))
-    model = convert.radvlm_from_jax(_np_tree(params), cfg)
+    model = convert.radvlm_from_jax(_np_tree(params), cfg, device="cpu")
     out = model.projector(torch.from_numpy(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
@@ -168,7 +168,7 @@ def test_radvlm_forward_matches_jax(rng, tiny):
                for p, im in zip(["<image>\nhi", "a longer <image>\nprompt"], imgs)]
     batch = jmm.collate(samples, pad_to_multiple=32, left_pad=True)
     ref, _ = jrad.forward(params, cfg, {k: jnp.asarray(v) for k, v in batch.items()})
-    model = convert.radvlm_from_jax(_np_tree(params), cfg)
+    model = convert.radvlm_from_jax(_np_tree(params), cfg, device="cpu")
     out, _ = radvlm.forward(model, cfg, {k: torch.from_numpy(v) for k, v in batch.items()})
     real = batch["segment_ids"] != 0
     np.testing.assert_allclose(out.numpy()[real], np.asarray(ref)[real], **TOL)
@@ -176,27 +176,33 @@ def test_radvlm_forward_matches_jax(rng, tiny):
 
 def test_fused_bridge_equals_unfused(tiny):
     cfg, params = tiny
-    a = convert.radvlm_from_jax(_np_tree(jrad.fuse_for_inference(params, cfg)), cfg)
-    b = radvlm.fuse_for_inference(convert.radvlm_from_jax(_np_tree(params), cfg), cfg)
+    a = convert.radvlm_from_jax(_np_tree(jrad.fuse_for_inference(params, cfg)), cfg,
+                                device="cpu")
+    b = radvlm.fuse_for_inference(convert.radvlm_from_jax(_np_tree(params), cfg, device="cpu"), cfg)
     sa, sb = a.state_dict(), b.state_dict()
     assert sa.keys() == sb.keys()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
 def test_bridge_rejects_quantized_leaves(tiny):
-    """int4 nodes are not ported (int8 nodes are: tests/test_torch_int8.py)."""
+    """An int4 node whose contraction dim does not divide by 128 is refused:
+    `quantize_params(bits=4)` keeps such a kernel int8, so no tree holds one
+    (int4 nodes that do divide load: tests/test_torch_int4.py; int8 nodes:
+    tests/test_torch_int8.py)."""
     cfg, params = tiny
     text = dict(_np_tree(params["text"]))
     text["lm_head"] = {"kernel": {"__q4__": np.zeros((24, 300), np.int8),
                                   "__scale__": np.ones((1, 300), np.float32)}}
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(ValueError, match="multiple of 128"):
         convert.load_qwen2(qwen2.Qwen2Decoder(cfg.text), text)
 
 
 def test_init_params_is_seeded(tiny):
     cfg, _ = tiny
-    a = convert.init_params(cfg, torch.Generator().manual_seed(3), dtype=torch.float32)
-    b = convert.init_params(cfg, torch.Generator().manual_seed(3), dtype=torch.float32)
+    a = convert.init_params(cfg, torch.Generator().manual_seed(3), device="cpu",
+                            dtype=torch.float32)
+    b = convert.init_params(cfg, torch.Generator().manual_seed(3), device="cpu",
+                            dtype=torch.float32)
     for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(pa, pb) and torch.isfinite(pa).all(), name
     assert torch.all(a.text.norm == 1) and torch.all(a.text.layers[0].q.bias == 0)
@@ -221,7 +227,8 @@ def test_kernel_provenance_reports_the_predicates():
     assert prov["decode_attention"] == "kernel"
     assert set(prov["launches"]) == {"tower_attention", "prefill_attention", "decode_attention",
                                      "w8a8_matmul", "decode_attention_q8", "int8_matmul",
-                                     "decode_attention_window", "decode_attention_window_q8"}
+                                     "decode_attention_window", "decode_attention_window_q8",
+                                     "int4_matmul", "w8a8_matmul_fused"}
     plain = teng.kernel_provenance(cfg, prompt_len=3584, max_new_tokens=32, attn_impl="xla")
     assert {plain[k] for k in ("tower_attention", "prefill_attention", "decode_attention")} == {"plain"}
     # The int8 serving path: W8A8 fills and tower, weight-only decode and
@@ -252,7 +259,7 @@ def test_engine_prefill_cache_layout_matches_jax(rng, tiny):
     batch = jmm.collate([jmm.build_sample(jmm.tokenize_with_images(tok, "<image>\nx"), [img], cfg)],
                         pad_to_multiple=32, left_pad=True)
     (rk, _), rseg, rlog = jeng.prefill(params, cfg, {k: jnp.asarray(v) for k, v in batch.items()}, 128)
-    model = convert.radvlm_from_jax(_np_tree(params), cfg)
+    model = convert.radvlm_from_jax(_np_tree(params), cfg, device="cpu")
     (k, _), seg, logits = teng.prefill(model, cfg, {k: torch.from_numpy(v) for k, v in batch.items()}, 128)
     assert k.shape == rk.shape and k.dtype == torch.bfloat16
     np.testing.assert_array_equal(seg.numpy(), np.asarray(rseg))

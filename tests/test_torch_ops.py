@@ -229,7 +229,7 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
     assert set(kernels.launch_counts()) == {
         "tower_attention", "prefill_attention", "decode_attention", "w8a8_matmul",
         "decode_attention_q8", "int8_matmul", "decode_attention_window",
-        "decode_attention_window_q8"}
+        "decode_attention_window_q8", "int4_matmul", "w8a8_matmul_fused"}
 
 
 def test_kernel_sources_and_build_dir():
@@ -239,7 +239,7 @@ def test_kernel_sources_and_build_dir():
 
     names = sorted(os.path.basename(s) for s in kernels._sources())
     assert names == ["common.cuh", "decode_attention.cu", "flash_attention.cu",
-                     "int8_matmul.cu", "w8a8_matmul.cu"]
+                     "int4_matmul.cu", "int8_matmul.cu", "w8a8_matmul.cu"]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert os.path.relpath(kernels.BUILD_DIR, repo).startswith("build")
     with open(os.path.join(repo, ".gitignore")) as f:

@@ -54,7 +54,7 @@ ENGINE = dict(num_slots=2, max_len=512, prompt_buckets=(128,), pad_tiles=2)
 def tiny():
     cfg = cfglib.tiny_test_config()
     params = jax.tree.map(np.asarray, jrad.init_params(cfg, jax.random.key(7)))
-    return cfg, params, convert.radvlm_from_jax(params, cfg)
+    return cfg, params, convert.radvlm_from_jax(params, cfg, device="cpu")
 
 
 def _static_reference(params, cfg, ids, images, steps):
@@ -267,7 +267,7 @@ def test_jax_snapshot_resumes_in_the_port_and_back(tiny, kv_quant, spec_k):
         attn_impl="xla", kv_quant=kv_quant, spec_k=spec_k, **ENGINE)
     j1 = _run_one(jb, jmm.build_sample(ids1, [img1], cfg), steps, keep_kv=True)
     jsnap = j1.kv_snapshot
-    snap = KVSnapshot.from_numpy(_jax_snapshot_fields(jsnap))
+    snap = KVSnapshot.from_numpy(_jax_snapshot_fields(jsnap), device="cpu")
     assert (snap.widx, snap.real_len, snap.n_reply, snap.max_len, snap.kv_quant) == (
         jsnap.widx, jsnap.real_len, jsnap.n_reply, jsnap.max_len, kv_quant)
     assert snap.cache_rows[0].dtype == (torch.int8 if kv_quant else torch.bfloat16)
@@ -278,7 +278,7 @@ def test_jax_snapshot_resumes_in_the_port_and_back(tiny, kv_quant, spec_k):
     t2 = _run_one(tb, tmm.build_sample(delta, [], cfg), steps, keep_kv=True, resume=snap)
     assert t2.emitted == expected
     # The round trip through numpy keeps every array and scalar.
-    again = KVSnapshot.from_numpy(snap.to_numpy())
+    again = KVSnapshot.from_numpy(snap.to_numpy(), device="cpu")
     assert dataclasses.replace(again, cache_rows=(), seg_row=None, hist_row=None) == \
         dataclasses.replace(snap, cache_rows=(), seg_row=None, hist_row=None)
     for a, b in zip(again.cache_rows + (again.seg_row,), snap.cache_rows + (snap.seg_row,)):

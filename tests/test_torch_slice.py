@@ -108,7 +108,7 @@ def _runners(tiny, **kw):
     cfg, params = tiny
     common = dict(cfg=cfg, tokenizer=ByteTokenizer(), max_new_tokens=16, pad_to_multiple=64, **kw)
     return (JRunner(params=params, **common),
-            TRunner(model=convert.radvlm_from_jax(params, cfg), **common))
+            TRunner(model=convert.radvlm_from_jax(params, cfg, device="cpu"), **common))
 
 
 def test_generate_batch_tokens_identical(rng, tiny):
@@ -160,8 +160,9 @@ def test_port_runs_with_jax_blocked():
     """The port imports no jax and nothing of the JAX package: with both
     `jax` and `radvlm_tpu` blocked in sys.modules (`sys.modules[name] = None`
     makes any import of it raise), every module imports, the tiny model
-    generates tokens, and the int8 continuous engine serves requests, with
-    speculative decoding too."""
+    generates tokens, the int8 continuous engine serves requests, with
+    speculative decoding too, and an int4 model saved as an artifact loads
+    back and serves the same tokens."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -181,7 +182,8 @@ def test_port_runs_with_jax_blocked():
             decode = staticmethod(lambda ids: str(list(ids)))
 
         cfg = tiny_test_config(vocab_size=300)
-        model = init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+        model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                            dtype=torch.float32)
         runner = VLMRunner(model=model, cfg=cfg, tokenizer=Tok(), max_new_tokens=4,
                            batch_size=1, pad_to_multiple=64)
         img = np.random.default_rng(0).integers(0, 255, (70, 90, 3), dtype=np.uint8)
@@ -191,7 +193,7 @@ def test_port_runs_with_jax_blocked():
         from radvlm_tpu_torch.models import multimodal
         from radvlm_tpu_torch.models.convert import random_quantized_params
         qmodel = random_quantized_params(cfg, torch.Generator().manual_seed(0),
-                                         dtype=torch.float32)
+                                         device="cpu", dtype=torch.float32)
         batcher = ContinuousBatcher(qmodel, cfg, GenerationConfig(max_new_tokens=3),
                                     num_slots=2, max_len=256, prompt_buckets=(128,),
                                     pad_tiles=2, kv_quant=True)
@@ -205,6 +207,33 @@ def test_port_runs_with_jax_blocked():
         reqs = [batcher.submit(sample) for _ in range(3)]
         list(batcher.run())
         assert [r.emitted for r in reqs] == plain
+        # The int4 path: an unfused int4 model at a width that divides by 128,
+        # saved as an artifact, loaded back, served by the int4 engine.
+        import dataclasses, tempfile
+        from radvlm_tpu_torch.models import quant_io
+        from radvlm_tpu_torch.models.layers import Q4Linear
+        wide = dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, hidden_size=128, intermediate_size=256,
+                                          head_dim=32),
+            vision=dataclasses.replace(cfg.vision, hidden_size=128))
+        q4 = random_quantized_params(wide, torch.Generator().manual_seed(1), device="cpu",
+                                     dtype=torch.float32, bits=4, fuse=False)
+        with tempfile.TemporaryDirectory() as d:
+            quant_io.save_quantized(q4, wide, d)
+            loaded_model, loaded_cfg = quant_io.load_quantized(d, device="cpu")
+        assert loaded_cfg == wide and isinstance(loaded_model.text.layers[0].down, Q4Linear)
+        sample4 = multimodal.build_sample(Tok.encode("hi") + [-200], [img], wide)
+        outs = []
+        for m in (q4, loaded_model):
+            VLMRunner(model=m, cfg=wide, tokenizer=Tok())  # fuses in place
+            b4 = ContinuousBatcher(m, wide, GenerationConfig(max_new_tokens=3), num_slots=2,
+                                   max_len=256, prompt_buckets=(128,), pad_tiles=2,
+                                   kv_quant=True)
+            assert b4.kernel_provenance()["decode_matmul"] == "int4"
+            r4 = [b4.submit(sample4) for _ in range(2)]
+            list(b4.run())
+            outs.append([r.emitted for r in r4])
+        assert outs[0] == outs[1] and len(outs[0][0]) == 3
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         assert not [k for k in loaded if k.split(".")[0] == "jax"]

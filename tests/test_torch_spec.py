@@ -197,7 +197,7 @@ def test_verify_window_matches_stepwise_decode(text_model, cache_format):
 def tiny():
     cfg = cfglib.tiny_test_config()
     params = jax.tree.map(np.asarray, jrad.init_params(cfg, jax.random.key(7)))
-    return cfg, params, convert.radvlm_from_jax(params, cfg)
+    return cfg, params, convert.radvlm_from_jax(params, cfg, device="cpu")
 
 
 def _mk_sample(mm, cfg, seed, n_text):
@@ -274,7 +274,7 @@ def test_spec_acceptance_on_a_repetitive_stream():
     tokens stay the plain greedy ones and the JAX spec engine's."""
     cfg = cfglib.tiny_test_config(vocab_size=16)
     params = jax.tree.map(np.asarray, jrad.init_params(cfg, jax.random.key(1)))
-    model = convert.radvlm_from_jax(params, cfg)
+    model = convert.radvlm_from_jax(params, cfg, device="cpu")
     rng = np.random.default_rng(12345)
     img = rng.integers(0, 255, size=(80, 64, 3), dtype=np.uint8)
     ids = [3, IMAGE_TOKEN_INDEX] + [int(t) for t in rng.integers(3, 16, size=6)]
