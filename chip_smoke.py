@@ -14,7 +14,8 @@ Phases, each raising on failure (the last line is printed only on success):
    speculative decoding over the bf16 / int8 cache, 5 and 16 queries a
    slot), K12 (int4-weight decode matmul, 8 and 40 rows; a row's result
    must not depend on the row count) and K13 (W8A8 matmul that quantizes
-   its rows inside; bit for bit equal to quantize_rows + K3) against their
+   its rows inside; bit for bit equal to quantize_rows + K3) and the
+   training kernels (K2 writing its lse, K7, K8: see phase 8) against their
    plain PyTorch versions on the card at the main paths' shapes: error (K3
    and K13 bit for bit) and both times (CUDA events, median of several
    runs; for the skinny decode matmuls K5/K6 and K12 also the kernels' own
@@ -81,7 +82,30 @@ Phases, each raising on failure (the last line is printed only on success):
 7b. fused W8A8 on the int8 model of phase 5: with RADVLM_W8A8_IMPL=fused,
    3 greedy requests must give phase 5's tokens exactly (K13 is bit-equal
    to quantize_rows + K3) with K13 launched and K3 not, and a fill group of
-   2 prompts is timed through K3 and through K13 in turns.
+   2 prompts is timed through K3 and through K13 in turns;
+8. SFT, the training path: radvlm_0_5b at full width and depth, f32 master
+   weights made on the card from --seed, every part tunable, remat on. Phase
+   3 first holds the training kernels to their plain versions at the three
+   shapes training gives them (the 0.5B and the 7B decoder at 4096 tokens,
+   the SigLIP tower's tiles): K2 writing the lse (o bit for bit the no-lse
+   entry point's), K7 (dk, dv) and K8 (dq), timed beside the bound and beside
+   SDPA's backward through torch.autograd.grad (a yardstick no path uses).
+   Here, a reference check on one small batch (loss and per-group gradient
+   norms of the kernel path and of plain attention under the same bf16
+   autocast, against plain attention in f32: the kernel path must be as close
+   as the plain bf16 path, within 2x or 1e-2), then `training.loop.train` on
+   a llava-json of synthetic CXR-sized PNGs written under build/: packed
+   rows (one image sample and one text sample) in the 4096 bucket,
+   micro-batch 1, accumulation 2, 6 micro-steps (3 updates) with a
+   checkpoint, a resume from it for 2 more, and 4 constant-rate steps on one
+   batch whose loss must fall. K2-lse, K7 and K8 must have launched (K7 and
+   K8 once a layer a micro-step: 24 + 26), K1 must not. Seconds a step,
+   tokens/s, peak memory and a profiler breakdown of one step are printed;
+9. QLoRA: radvlm_7b at full width and depth over an unfused int8 base born on
+   the card, rank-128 adapters, 2 steps of one packed 4096-token row through
+   `training.loop.train`: the adapters change, the base's bytes do not, K7
+   and K8 launch 28 times a step at head_dim 128, K1 serves the frozen
+   tower, K3 and K5/K6 never launch.
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -93,6 +117,7 @@ import argparse
 import base64
 import collections
 import concurrent.futures
+import dataclasses
 import gc
 import io
 import itertools
@@ -108,7 +133,8 @@ import numpy as np
 import torch
 
 from radvlm_tpu_torch import kernels
-from radvlm_tpu_torch.config import radvlm_7b
+from radvlm_tpu_torch.config import radvlm_0_5b, radvlm_7b
+from radvlm_tpu_torch.data.loader import Bucket, LlavaJsonDataset, PrefetchLoader
 from radvlm_tpu_torch.eval.harness import VLMRunner, batch_to_device
 from radvlm_tpu_torch.generation import engine
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
@@ -124,6 +150,10 @@ from radvlm_tpu_torch.serve import openai_api as oai
 from radvlm_tpu_torch.serve import worker_cli
 from radvlm_tpu_torch.serve.batch_worker import BatchWorker
 from radvlm_tpu_torch.serve.worker import ModelWorker
+from radvlm_tpu_torch.training import loop as train_loop
+from radvlm_tpu_torch.training import lora as lora_lib
+from radvlm_tpu_torch.training import optimizer as optim
+from radvlm_tpu_torch.training import train_step as tstep
 
 REQUESTS = 3
 NEW_TOKENS = 32
@@ -159,6 +189,13 @@ KERNELS = {
                     "radvlm_tpu/ops/int4_matmul.py:111", "int4"),
     "w8a8_matmul_fused": ("radvlm_tpu_torch/csrc/w8a8_matmul.cu",
                           "radvlm_tpu/ops/w8a8_matmul.py:122", "fused"),
+    # K2 writing its lse (the forward under a gradient), and its backward.
+    "prefill_attention_lse": ("radvlm_tpu_torch/csrc/flash_attention.cu",
+                              "radvlm_tpu/ops/flash_attention.py:188", "sft"),
+    "flash_attention_bwd_dkv": ("radvlm_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "radvlm_tpu/ops/flash_attention.py:294", "sft"),
+    "flash_attention_bwd_dq": ("radvlm_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "radvlm_tpu/ops/flash_attention.py:342", "sft"),
 }
 # The kernels each path must launch in its measured run.
 PATH_KERNELS = {
@@ -177,7 +214,15 @@ PATH_KERNELS = {
                   "int4_matmul", "decode_attention_window_q8"),
     "fused": ("tower_attention", "prefill_attention", "w8a8_matmul_fused",
               "decode_attention_q8", "int8_matmul"),
+    # Full finetuning: every attention is under a gradient, the tower's too.
+    "sft": ("prefill_attention_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+    # QLoRA: the decoder as above, the frozen tower through K1.
+    "qlora": ("tower_attention", "prefill_attention_lse", "flash_attention_bwd_dkv",
+              "flash_attention_bwd_dq"),
 }
+TRAIN_BUCKET = Bucket(4096, 6)
+SFT_STEPS, SFT_RESUMED_STEPS, OVERFIT_STEPS, QLORA_STEPS = 6, 2, 4, 2
+LORA_RANK = 128
 SPEC_K = 4
 SPEC_BUCKETS = (3456, 3840)
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): what a kernel's
@@ -414,12 +459,121 @@ def phase_kernels(dev, seed: int):
     )
     del ck, cv
     results.update(window_kernels(dev, randn, quantized=False))
+    results.update(training_kernels(dev, g, randn))
     results.update(phase_int8_kernels(dev, g))
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library call {lib}", flush=True)
     torch.cuda.empty_cache()
+    return results
+
+
+def training_kernels(dev, g, randn):
+    """K2 writing the lse, K7 (dk, dv) and K8 (dq) at the three shapes the
+    training paths give them, against `attention_plain` and
+    `attention_backward_plain`. Returns the results at the 0.5B decoder's
+    shape, the SFT path's."""
+    shapes = [
+        # (label, B, S, H, Hkv, D, causal, segment layout)
+        ("0.5B decoder", 1, 4096, 14, 2, 64, True, "packed"),
+        ("7B decoder", 1, 4096, 28, 4, 128, True, "left_pad"),
+        ("tower", 5, 729, 16, 16, 72, False, None),
+    ]
+    results = {}
+    for label, b, s, h, hkv, d, causal, layout in shapes:
+        q, k, v, do = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, s, h, d)
+        seg = None
+        if layout is not None:
+            seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+            if layout == "packed":  # an image sample, a text sample, right padding
+                seg[:, 3300:] = 2
+                seg[:, 3900:] = 0
+            else:
+                seg[:, :517] = 0
+        scale = d ** -0.5
+        kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal)
+        tag = f"[{b},{s},{h}|{hkv},{d}] {label}"
+        # K2 with the lse.
+        o, lse = fa.prefill_attention_lse(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(o, fa.prefill_attention(q, k, v, **kw)):
+            raise AssertionError(f"K2-lse {label}: o differs from the no-lse entry point's")
+        ref_o, ref_lse = fa.attention_plain(q, k, v, seg, seg, causal, scale, with_lse=True)
+        real = None if seg is None else seg.bool()
+        err = check_close("prefill_attention_lse", f"K2-lse o {tag} (bit-equal to K2's)", o, ref_o,
+                          rows=real)
+        fin = torch.isfinite(ref_lse)
+        if not torch.equal(fin, torch.isfinite(lse)) or not torch.all(lse[~fin] == float("-inf")):
+            raise AssertionError(f"K2-lse {label}: lse must be -inf exactly on the rows that "
+                                 "attend nothing")
+        lse_err = float((lse[fin] - ref_lse[fin]).abs().max())
+        lse_bound = 1e-4 * max(1.0, float(ref_lse[fin].abs().max()))
+        print(f"  K2-lse lse {tag}: max_abs_err {lse_err:.3e} on the finite rows (bound "
+              f"{lse_bound:.1e}: f32 sums in another order, exp2 / log for exp / log); "
+              f"{int((~fin).sum())} rows at -inf", flush=True)
+        if not lse_err <= lse_bound:
+            raise AssertionError(f"K2-lse {label}: lse disagrees with the plain version")
+        if seg is None:
+            pairs = b * s * s
+            mask = None
+        else:
+            mask = tatt.make_attention_mask(seg, seg, causal)
+            pairs = int(mask.sum())
+        seg_bytes = 0 if seg is None else 2 * nbytes(seg)
+        r_lse = dict(max_abs_err=err, ms=cuda_ms(lambda: fa.prefill_attention_lse(q, k, v, **kw)),
+                     plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, seg, seg, causal, scale,
+                                                                 with_lse=True), reps=3, warmup=1),
+                     library_ms=cuda_ms(lambda: sdpa(q, k, v, mask), reps=5),
+                     **bound(nbytes(q, k, v, o, lse) + seg_bytes, 4 * h * d * pairs, "bf16"))
+        # K7 and K8, with a cotangent on the lse too.
+        dlse = torch.randn(b, h, s, generator=g, device=dev)
+        dlse = torch.where(fin, dlse, torch.zeros_like(dlse))
+        delta = fa.attention_delta(o, do, dlse)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        plain = lambda: fa.attention_backward_plain(  # noqa: E731
+            q, k, v, seg, seg, o, lse, do, dlse, causal, scale)
+        rq, rk, rv = plain()
+        err_dk = check_close("flash_attention_bwd_dkv", f"K7 dk {tag}", dk, rk)
+        err_dv = check_close("flash_attention_bwd_dkv", f"K7 dv {tag}", dv, rv)
+        err_dq = check_close("flash_attention_bwd_dq", f"K8 dq {tag}", dq, rq)
+        if seg is not None and not (torch.all(dq[seg == 0] == 0) and torch.all(dk[seg == 0] == 0)
+                                    and torch.all(dv[seg == 0] == 0)):
+            raise AssertionError(f"K7/K8 {label}: padding rows must get zero gradients")
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"K7 {label}: two launches gave different bits")
+        del rq, rk, rv, dk2, dv2
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        # The library's backward: one autograd.grad through SDPA gives dq, dk
+        # and dv together (used on no path).
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        lib_out = sdpa(ql, kl, vl, mask)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                         retain_graph=True), reps=5)
+        del lib_out, ql, kl, vl
+        common = nbytes(q, k, v, do, lse, delta) + seg_bytes
+        r_dkv = dict(max_abs_err=max(err_dk, err_dv),
+                     ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+                     plain_ms=plain_ms, library_ms=library_ms,
+                     **bound(common + nbytes(dk, dv), 8 * h * d * pairs, "bf16"))
+        r_dq = dict(max_abs_err=err_dq,
+                    ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)),
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    **bound(common + nbytes(dq), 6 * h * d * pairs, "bf16"))
+        for name, r in (("K2-lse", r_lse), ("K7", r_dkv), ("K8", r_dq)):
+            what = "SDPA forward" if name == "K2-lse" else "SDPA backward (dq, dk, dv together)"
+            print(f"    {name} {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+                  f"({'forward' if name == 'K2-lse' else 'the whole backward'}), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {what} {r['library_ms']:.4f} ms",
+                  flush=True)
+        if label == "0.5B decoder":
+            results.update(prefill_attention_lse=r_lse, flash_attention_bwd_dkv=r_dkv,
+                           flash_attention_bwd_dq=r_dq)
+        del q, k, v, do, o, lse, dlse, delta, dk, dv, dq, mask
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1462,10 +1616,15 @@ def phase_fused(ctx):
     reqs, images = ctx["reqs"][:FUSED_REQUESTS], ctx["images"][:FUSED_REQUESTS]
     runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
                        batch_size=1, pad_to_multiple=128)
+    # Only the buckets these prompts fall into are warmed up (each costs
+    # two fills through K13 and their host prep).
+    lengths = [multimodal.build_sample(multimodal.tokenize_with_images(
+        tok.encode, r["prompt"]), [im], cfg).length for r, im in zip(reqs, images)]
+    buckets = tuple(sorted({min(b for b in INT8_BUCKETS if b >= n) for n in lengths}))
     os.environ["RADVLM_W8A8_IMPL"] = "fused"
     try:
         worker = BatchWorker(runner, model_names=["radvlm-7b-int8"], num_slots=8, max_len=4224,
-                             kv_quant=True, prompt_buckets=INT8_BUCKETS, steps_per_sync=32,
+                             kv_quant=True, prompt_buckets=buckets, steps_per_sync=32,
                              pipeline_depth=4, fill_batch=2)
         b = worker.batcher
         print(f"  fused: warmup {worker.warmup_seconds:.2f} s: "
@@ -1514,6 +1673,292 @@ def phase_fused(ctx):
     return counts
 
 
+def write_training_data(root: str, rng, n_pairs: int) -> str:
+    """A llava-json under `root`: `n_pairs` cells with a synthetic CXR-sized
+    PNG each (portrait, 560 x 400-448: ~3.1k tokens with its text) and as
+    many text-only cells (~0.5k tokens), so that one of each packs into a
+    4096-token row. Returns the json's path."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    findings = ("No focal consolidation, pleural effusion or pneumothorax. The cardiac silhouette "
+                "is within normal limits. No acute osseous abnormality.")
+    cells = []
+    for i in range(n_pairs):
+        name = f"cxr{i}.png"
+        img = rng.integers(0, 255, size=(560, int(rng.integers(400, 448)), 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(root, name))
+        cells.append({"id": f"img{i}", "image": name, "conversations": [
+            {"from": "human", "value": "<image>\n" + QUESTIONS[i % len(QUESTIONS)]},
+            {"from": "gpt", "value": findings}]})
+        cells.append({"id": f"txt{i}", "conversations": [
+            {"from": "human", "value": "Rewrite these findings as an impression: " + findings},
+            {"from": "gpt", "value": "Impression: no acute cardiopulmonary process. " * 3}]})
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(cells, f)
+    return path
+
+
+def training_run_config(cfg, train_cfg, data_path, root, tok, seed: int, n_rows: int, **kw):
+    """A RunConfig over `data_path` (`n_rows` image cells and as many text
+    cells) whose epoch is `n_rows` rows of one image cell and one text cell
+    each: the loader's seed is the first of seed, seed + 1, ... with that
+    plan (a row of two images would be clipped at the bucket's 4096 tokens,
+    a row of two texts would be mostly padding)."""
+    run = train_loop.RunConfig(
+        model=cfg, train=train_cfg, data_path=data_path, image_root=root, micro_batch_size=1,
+        log_every=1, buckets=(TRAIN_BUCKET,), pack_factor=2, loader_workers=4, **kw)
+    with open(data_path) as f:
+        cells = json.load(f)
+    dataset = LlavaJsonDataset(cells=cells, image_root=root, cfg=cfg, tokenize_fn=tok.encode,
+                               max_len=TRAIN_BUCKET.max_len)
+    for loader_seed in range(seed, seed + 100000):
+        plan = PrefetchLoader(dataset, 1, buckets=run.buckets, seed=loader_seed,
+                              pack_factor=2).epoch_plan(0)
+        if len(plan) == n_rows and all(
+                sum("image" in cells[i] for i in idxs) == 1 for _, idxs in plan):
+            break
+    else:
+        raise AssertionError("no loader seed packs one image a row")
+    lengths = [sum(dataset[i].length for i in idxs) for _, idxs in plan]
+    print(f"  data: {len(cells)} cells, loader seed {loader_seed}, packed rows of {lengths} "
+          f"tokens in the {TRAIN_BUCKET.max_len} bucket", flush=True)
+    if max(lengths) > TRAIN_BUCKET.max_len:
+        raise AssertionError("a packed row exceeds the bucket")
+    return dataclasses.replace(run, seed=loader_seed)
+
+
+def group_grad_norms(model) -> dict:
+    """Gradient norm per learning-rate group; frees the gradients."""
+    sq = collections.defaultdict(float)
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            sq[optim.group_of(name)] += float(p.grad.float().square().sum())
+            p.grad = None
+    return {g: v ** 0.5 for g, v in sq.items()}
+
+
+def training_reference_check(model, cfg, tok, rng) -> None:
+    """Loss and per-group gradient norms on one small batch, three ways:
+    the train step's path (bf16 autocast, K2-lse / K7 / K8), plain attention
+    under the same autocast, and plain attention in f32 without autocast
+    (the reference). The kernel path must be about as close to the
+    reference as the plain bf16 path is: within 2x its relative error, or
+    1e-2."""
+    img = rng.integers(0, 255, size=(384, 384, 3), dtype=np.uint8)
+    ids = multimodal.tokenize_with_images(
+        tok.encode, "<|im_start|>user\n<image>\nAny effusion?<|im_end|>\n<|im_start|>assistant\n")
+    reply = tok.encode("No pleural effusion.<|im_end|>\n")
+    sample = multimodal.build_sample(ids + reply, [img], cfg,
+                                     labels=[-100] * len(ids) + reply)
+    batch = batch_to_device(multimodal.collate([sample], pad_to_multiple=128), model.device)
+    got = {}
+    for name, impl, autocast in (("f32 plain", "xla", False), ("kernels", "auto", True),
+                                 ("bf16 plain", "xla", True)):
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            loss, _ = radvlm.loss_fn(model, cfg, batch, remat=True, attn_impl=impl)
+        loss.backward()
+        got[name] = dict(loss=float(loss.detach()), **group_grad_norms(model))
+    ref = got["f32 plain"]
+    for key in ref:
+        err = {n: abs(got[n][key] - ref[key]) / abs(ref[key]) for n in ("kernels", "bf16 plain")}
+        limit = max(2 * err["bf16 plain"], 1e-2)
+        print(f"  {key}: f32 plain {ref[key]:.6f}, kernels {got['kernels'][key]:.6f} (rel err "
+              f"{err['kernels']:.3e}), bf16 plain {got['bf16 plain'][key]:.6f} (rel err "
+              f"{err['bf16 plain']:.3e}); limit {limit:.3e}", flush=True)
+        if not (np.isfinite(got["kernels"][key]) and err["kernels"] <= limit):
+            raise AssertionError(f"training reference check: kernel path off the f32 {key}")
+    print(f"  reference batch: {batch['tokens'].shape[1]} tokens, "
+          f"{batch['tiles'].shape[1]} tiles", flush=True)
+
+
+def run_training(run, tok, model, label: str, first_step: int = 0):
+    """`training.loop.train` with every step's metrics and wall time kept.
+    Returns (state, [(step, metrics, seconds since the previous step)])."""
+    seen, t_prev = [], [time.perf_counter()]
+
+    def on_metrics(step, m):
+        now = time.perf_counter()
+        seen.append((step, m, now - t_prev[0]))
+        t_prev[0] = now
+
+    state = train_loop.train(run, tok.encode, init_params=model, metrics_callback=on_metrics)
+    for step, m, dt in seen:
+        print(f"  {label} step {step}: loss {m['loss']:.4f}, {int(m['tokens'])} supervised tokens, "
+              f"grad_norm {m['grad_norm']:.4f}, {dt:.3f} s, {m['tokens_per_sec']:.0f} tokens/s",
+              flush=True)
+        if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"{label} step {step}: loss or grad_norm not finite")
+    want = list(range(first_step + 1, run.max_steps + 1))
+    if state.step != run.max_steps or [s for s, _, _ in seen] != want:
+        raise AssertionError(f"{label}: ran steps {[s for s, _, _ in seen]}, expected {want}")
+    return state, seen
+
+
+def phase_sft(dev, seed: int):
+    """Full finetuning of radvlm_0_5b at full width and depth through
+    `training.loop.train`."""
+    cfg, tok = radvlm_0_5b(), CharTokenizer()
+    t0 = time.perf_counter()
+    model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+                                dtype=torch.float32)
+    labels = optim.mark_trainable(model, optim.TrainConfig())
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for n, p in model.named_parameters() if n in labels)
+    print(f"  radvlm_0_5b: {n_train / 1e6:.1f} M trainable f32 parameters (every part tunable), "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(seed + 3)
+    training_reference_check(model, cfg, tok, rng)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_train_{os.getpid()}")
+    try:
+        data_path = write_training_data(root, rng, SFT_STEPS + SFT_RESUMED_STEPS)
+        train_cfg = optim.TrainConfig(grad_accum_steps=2, total_steps=100)
+        run = training_run_config(cfg, train_cfg, data_path, root, tok, seed,
+                                  SFT_STEPS + SFT_RESUMED_STEPS, max_steps=SFT_STEPS,
+                                  checkpoint_dir=os.path.join(root, "ckpt"), save_steps=SFT_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, seen = run_training(run, tok, model, "SFT")
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steady = [dt for _, _, dt in seen[2:]]  # past the first update
+        tokens = statistics.median(m["tokens_per_sec"] for _, m, _ in seen[2:])
+        print(f"  SFT: {SFT_STEPS} micro-steps ({state.opt_state.count} updates), median "
+              f"{statistics.median(steady):.3f} s a micro-step, {tokens:.0f} tokens/s, peak memory "
+              f"{peak / 2**30:.2f} GiB; the whole call {t_run:.2f} s (set-up, the loader's start and "
+              f"the checkpoint's write included)", flush=True)
+        print(f"  launches in the measured run: {counts}", flush=True)
+        require_launched("sft", counts)
+        per_step = cfg.text.num_layers + cfg.vision.num_layers
+        for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+            if counts[name] != SFT_STEPS * per_step:
+                raise AssertionError(f"{name} launched {counts[name]} times, not {per_step} a "
+                                     "micro-step")
+        if counts["prefill_attention_lse"] != 2 * SFT_STEPS * per_step:  # forward + recompute
+            raise AssertionError("K2-lse must launch twice a layer a micro-step under remat")
+        if counts["tower_attention"] or counts["prefill_attention"]:
+            raise AssertionError("K1 / K2 without the lse launched under a gradient")
+        size = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(os.path.join(root, "ckpt")) for f in fs)
+        print(f"  checkpoint at step {SFT_STEPS}: {size / 1e9:.3f} GB", flush=True)
+        # Resume: the restore must bring back what the NaN below destroys.
+        with torch.no_grad():
+            model.text.norm.fill_(float("nan"))
+        state, resumed = run_training(
+            dataclasses.replace(run, max_steps=SFT_STEPS + SFT_RESUMED_STEPS), tok, model,
+            "SFT resumed", first_step=SFT_STEPS)
+        if state.opt_state.count != (SFT_STEPS + SFT_RESUMED_STEPS) // 2:
+            raise AssertionError("the resumed run lost the optimizer's update count")
+        print(f"  resumed from the checkpoint at step {SFT_STEPS}: steps "
+              f"{[s for s, _, _ in resumed]}, {state.opt_state.count} updates in all", flush=True)
+        # Overfit one batch at a constant rate: the loss must fall.
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        const = optim.TrainConfig(learning_rate=1e-4, vision_tower_lr=1e-4, lr_schedule="constant",
+                                  warmup_ratio=0.0, grad_accum_steps=1)
+        ostate, step_fn, _ = tstep.setup_training(cfg, const, model)
+        with open(data_path) as f:
+            cells = json.load(f)
+        loader = PrefetchLoader(
+            LlavaJsonDataset(cells=cells, image_root=root, cfg=cfg, tokenize_fn=tok.encode,
+                             max_len=TRAIN_BUCKET.max_len),
+            1, buckets=run.buckets, seed=run.seed, num_workers=2, pack_factor=2)
+        batch = batch_to_device(next(iter(loader.epoch(0))), dev)
+        losses = []
+        for _ in range(OVERFIT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ostate, m = step_fn(ostate, batch)
+            losses.append(float(m["loss"]))
+            wall = time.perf_counter() - t0
+        print(f"  overfit of one batch at a constant 1e-4: losses "
+              f"{[round(l, 4) for l in losses]}", flush=True)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError("the overfit loss did not fall")
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ostate, m = step_fn(ostate, batch)
+            torch.cuda.synchronize()
+        device_breakdown(prof, wall, "SFT step (update every step)", top=14)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def fingerprint(model) -> list:
+    """A sum per parameter, exact for the integer ones: changes if a byte does."""
+    return [(n, float(p.double().sum()) if p.is_floating_point() else int(p.long().sum()))
+            for n, p in model.named_parameters()]
+
+
+def phase_qlora(dev, seed: int):
+    """QLoRA of radvlm_7b over an int8 base through `training.loop.train`."""
+    cfg, tok = radvlm_7b(), CharTokenizer()
+    t0 = time.perf_counter()
+    base = convert.random_quantized_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                                           device=dev, fuse=False)
+    torch.cuda.synchronize()
+    print(f"  radvlm_7b int8 base (unfused): {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          f"on the card, init {time.perf_counter() - t0:.2f} s", flush=True)
+    before = fingerprint(base)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_qlora_{os.getpid()}")
+    try:
+        data_path = write_training_data(root, np.random.default_rng(seed + 4), QLORA_STEPS)
+        train_cfg = optim.TrainConfig(learning_rate=1e-4, lr_schedule="constant", warmup_ratio=0.0,
+                                      grad_accum_steps=1)
+        run = training_run_config(cfg, train_cfg, data_path, root, tok, seed, QLORA_STEPS,
+                                  max_steps=QLORA_STEPS, lora_rank=LORA_RANK, quantize_base=True)
+        lcfg = lora_lib.LoraConfig(rank=LORA_RANK, alpha=run.lora_alpha)
+        first = lora_lib.init_lora(base, lcfg, torch.Generator(device=dev).manual_seed(run.seed))
+        a0 = {p: ad["a"].detach().clone() for p, ad in first.items()}
+        del first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        state, seen = run_training(run, tok, base, "QLoRA")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_adapter = sum(t.numel() for ad in state.params.values() for t in ad.values())
+    print(f"  QLoRA: rank {LORA_RANK}, {n_adapter / 1e6:.1f} M adapter parameters over "
+          f"{len(state.params)} stacked kernels; last step {seen[-1][2]:.3f} s, "
+          f"{seen[-1][1]['tokens_per_sec']:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    print(f"  launches in the measured run: {counts}", flush=True)
+    require_launched("qlora", counts)
+    layers = cfg.text.num_layers
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        if counts[name] != QLORA_STEPS * layers:
+            raise AssertionError(f"{name} launched {counts[name]} times, not {layers} a step")
+    if counts["tower_attention"] != QLORA_STEPS * cfg.vision.num_layers:
+        raise AssertionError("K1 must serve every layer of the frozen tower once a step")
+    for name in ("w8a8_matmul", "int8_matmul", "w8a8_matmul_fused", "int4_matmul"):
+        if counts[name]:
+            raise AssertionError(f"{name} launched {counts[name]} times in training mode")
+    for path, ad in state.params.items():
+        if not float(ad["b"].detach().abs().max()) > 0 or torch.equal(ad["a"].detach(), a0[path]):
+            raise AssertionError(f"adapter {path} did not change")
+        if not (torch.isfinite(ad["a"]).all() and torch.isfinite(ad["b"]).all()):
+            raise AssertionError(f"adapter {path} is not finite")
+    if fingerprint(base) != before:
+        raise AssertionError("the frozen base changed")
+    print("  every adapter's A and B changed and is finite; the base's parameters did not change",
+          flush=True)
+    return counts
+
+
 def post_json(url: str, req: dict) -> dict:
     body = json.dumps(req).encode()
     with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=600) as resp:
@@ -1529,32 +1974,32 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     dev = torch.device("cuda:0")
     smi = nvidia_smi_line()
-    print(f"[1/8] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+    print(f"[1/9] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
     t_start = t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.lib()
-    print(f"[2/8] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
+    print(f"[2/9] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
 
     def header(text):
         print(f"{text} (at {time.perf_counter() - t_start:.0f} s)", flush=True)
 
-    header("[3/8] kernels against their plain versions")
+    header("[3/9] kernels against their plain versions")
     results = phase_kernels(dev, 1234 + args.seed)
 
-    header("[4/8] bf16 slice: radvlm_7b, random bf16 weights")
+    header("[4/9] bf16 slice: radvlm_7b, random bf16 weights")
     counts = {"bf16": phase_slice(dev, args.seed)}
     gc.collect()  # the bf16 model (15 GiB) goes before the int8 one comes
     torch.cuda.empty_cache()
 
-    header("[5/8] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
+    header("[5/9] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
     counts["int8"], ctx = phase_int8(dev, args.seed)
     gc.collect()  # phase 5's KV cache goes before the spec engines' come
     torch.cuda.empty_cache()
 
-    header(f"[6/8] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
+    header(f"[6/9] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
     counts["spec_int8"] = phase_spec(ctx, True, SPEC_REQUESTS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1562,13 +2007,24 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7/8] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
+    header("[7/9] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
     counts["int4"] = phase_artifact(dev, args.seed, ctx)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[8/8] fused W8A8 (K13) on the int8 model")
+    header("[7b/9] fused W8A8 (K13) on the int8 model")
     counts["fused"] = phase_fused(ctx)
+    del ctx  # the int8 model goes before the trainers' come
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[8/9] SFT: radvlm_0_5b, f32 master weights, every part tunable, training.loop.train")
+    counts["sft"] = phase_sft(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[9/9] QLoRA: radvlm_7b, int8 base, rank-128 adapters, training.loop.train")
+    counts["qlora"] = phase_qlora(dev, args.seed)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

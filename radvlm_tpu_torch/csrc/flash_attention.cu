@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernels in radvlm_tpu/ops/flash_attention.py:
 //   K1  _fwd_short   (single-pass non-causal softmax for the 729-token tiles)
 //   K2  _fwd/_fwd_kernel (blocked online softmax, GQA, causal block skipping,
-//       segment mask q_seg == k_seg & q_seg != 0), forward only.
+//       segment mask q_seg == k_seg & q_seg != 0), the forward. Its backward
+//       (K7, K8) is flash_attention_bwd.cu and reads the lse written here.
 //
 // Both are one template: a CTA owns 64 query rows of one (batch, head), four
 // warps of 16 rows each. K/V tiles of 64 keys are staged through shared memory
@@ -29,7 +30,10 @@
 // - Causal: tiles wholly above the diagonal are never loaded (kv_end).
 // - p is rounded to bf16 before the PV product, as the TPU kernel rounds p to
 //   v's dtype; l sums the unrounded p.
-// - No lse output: only ring attention and the backward need it (ROADMAP K2).
+// - The lse output (f32 [B, H, Sq], natural-log units: m * scale + ln(l),
+//   -inf on a row with l == 0) is a template flag: serving's entry points
+//   instantiate the kernel without it and compute exactly what they did
+//   before; `radvlm_prefill_attention_lse` writes it for the backward.
 //
 // Layouts are the port's public BSHD: q/o [B, Sq, H, D], k/v [B, Sk, Hkv, D],
 // segment ids [B, S] int32. D must be even (pairs are loaded as 32 bits).
@@ -49,12 +53,13 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool ok) {
   return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
 }
 
-template <int DP, bool CAUSAL, bool HAS_SEG>
+template <int DP, bool CAUSAL, bool HAS_SEG, bool LSE>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ qseg,
-    const int* __restrict__ kseg, __nv_bfloat16* __restrict__ o, int sq,
-    int sk, int h, int hkv, int d, float scale_log2) {
+    const int* __restrict__ kseg, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int sq, int sk, int h, int hkv, int d,
+    float scale_log2) {
   constexpr int LDS = DP + 8;  // padded shared row, in bf16 elements
   __shared__ __align__(16) __nv_bfloat16 ks[kBlockN * LDS];
   __shared__ __align__(16) __nv_bfloat16 vs[kBlockN * LDS];
@@ -231,6 +236,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       }
     }
   }
+  if (LSE && t == 0) {
+    // m is the max of the raw scores: lse = m * scale + ln(l), with
+    // scale = scale_log2 * ln(2).
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lb = lse + ((long)b * h + hq) * sq;
+    if (r0 < sq) lb[r0] = l0 > 0.f ? m0 * (scale_log2 * kLn2) + logf(l0) : -INFINITY;
+    if (r1 < sq) lb[r1] = l1 > 0.f ? m1 * (scale_log2 * kLn2) + logf(l1) : -INFINITY;
+  }
 }
 
 struct Args {
@@ -240,28 +253,40 @@ struct Args {
   const int* qseg;
   const int* kseg;
   __nv_bfloat16* o;
+  float* lse;  // written only by the LSE instantiations
   int b, sq, sk, h, hkv, d;
   float scale_log2;
   cudaStream_t stream;
 };
 
-template <int DP, bool CAUSAL, bool HAS_SEG>
+template <int DP, bool CAUSAL, bool HAS_SEG, bool LSE>
 cudaError_t launch(const Args& a) {
   dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.h, a.b);
-  flash_fwd_kernel<DP, CAUSAL, HAS_SEG><<<grid, kThreads, 0, a.stream>>>(
-      a.q, a.k, a.v, a.qseg, a.kseg, a.o, a.sq, a.sk, a.h, a.hkv, a.d,
+  flash_fwd_kernel<DP, CAUSAL, HAS_SEG, LSE><<<grid, kThreads, 0, a.stream>>>(
+      a.q, a.k, a.v, a.qseg, a.kseg, a.o, a.lse, a.sq, a.sk, a.h, a.hkv, a.d,
       a.scale_log2);
   return cudaGetLastError();
 }
 
-template <bool CAUSAL, bool HAS_SEG>
+template <bool CAUSAL, bool HAS_SEG, bool LSE = false>
 cudaError_t dispatch_head_dim(const Args& a) {
   if (a.d % 2 != 0 || a.d > 128 || a.hkv <= 0 || a.h % a.hkv != 0) {
     return cudaErrorInvalidValue;
   }
-  if (a.d <= 64) return launch<64, CAUSAL, HAS_SEG>(a);
-  if (a.d <= 80) return launch<80, CAUSAL, HAS_SEG>(a);
-  return launch<128, CAUSAL, HAS_SEG>(a);
+  if (a.d <= 64) return launch<64, CAUSAL, HAS_SEG, LSE>(a);
+  if (a.d <= 80) return launch<80, CAUSAL, HAS_SEG, LSE>(a);
+  return launch<128, CAUSAL, HAS_SEG, LSE>(a);
+}
+
+template <bool LSE>
+cudaError_t dispatch_masks(const Args& a, bool causal) {
+  const bool seg = a.qseg != nullptr;
+  if (causal) {
+    return seg ? dispatch_head_dim<true, true, LSE>(a)
+               : dispatch_head_dim<true, false, LSE>(a);
+  }
+  return seg ? dispatch_head_dim<false, true, LSE>(a)
+             : dispatch_head_dim<false, false, LSE>(a);
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -279,6 +304,7 @@ extern "C" int radvlm_tower_attention(const void* q, const void* k,
                nullptr,
                nullptr,
                static_cast<__nv_bfloat16*>(o),
+               nullptr,
                b, s, s, h, h, d,
                scale * kLog2e,
                static_cast<cudaStream_t>(stream)};
@@ -297,15 +323,32 @@ extern "C" int radvlm_prefill_attention(const void* q, const void* k,
                static_cast<const int*>(qseg),
                static_cast<const int*>(kseg),
                static_cast<__nv_bfloat16*>(o),
+               nullptr,
                b, sq, sk, h, hkv, d,
                scale * kLog2e,
                static_cast<cudaStream_t>(stream)};
-  const bool seg = qseg != nullptr;
-  cudaError_t err;
-  if (causal) {
-    err = seg ? dispatch_head_dim<true, true>(a) : dispatch_head_dim<true, false>(a);
-  } else {
-    err = seg ? dispatch_head_dim<false, true>(a) : dispatch_head_dim<false, false>(a);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_masks<false>(a, causal != 0));
+}
+
+// K2 with the lse output: o as `radvlm_prefill_attention` gives it, bit for
+// bit, and lse f32 [B, H, Sq] for the backward kernels.
+extern "C" int radvlm_prefill_attention_lse(const void* q, const void* k,
+                                            const void* v, const void* qseg,
+                                            const void* kseg, void* o,
+                                            void* lse, int b, int sq, int sk,
+                                            int h, int hkv, int d, int causal,
+                                            float scale, void* stream) {
+  using namespace radvlm;
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const __nv_bfloat16*>(q),
+               static_cast<const __nv_bfloat16*>(k),
+               static_cast<const __nv_bfloat16*>(v),
+               static_cast<const int*>(qseg),
+               static_cast<const int*>(kseg),
+               static_cast<__nv_bfloat16*>(o),
+               static_cast<float*>(lse),
+               b, sq, sk, h, hkv, d,
+               scale * kLog2e,
+               static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dispatch_masks<true>(a, causal != 0));
 }

@@ -308,6 +308,7 @@ def kernel_provenance(
     decode_rows: int = 1,
     spec_k: int = 0,
     weight_bits: int = 8,
+    tower_grad: bool = False,
 ) -> Dict[str, object]:
     """Which path each stage takes for this geometry, from the same
     predicates the dispatch calls, plus the kernels' launch counts so far.
@@ -331,16 +332,17 @@ def kernel_provenance(
     route. With `spec_k` (a speculative engine) the verify window's
     stages are added: its attention over spec_k + 1 queries per slot
     ("window" K10, "window_q8" K11, or "plain") and its matmuls at
-    `decode_rows * (spec_k + 1)` rows."""
+    `decode_rows * (spec_k + 1)` rows. With `tower_grad` (training with a
+    tunable tower) the tower's attention reads "kernel_lse": K2 with the lse
+    and the K7 / K8 backward instead of K1, which writes no lse."""
     v, t = cfg.vision, cfg.text
     n = tokens_per_tile(cfg)
     meta = torch.device("meta")
     q_tower = torch.empty((1, n, v.num_heads, v.head_dim), device=meta)
     q_text = torch.empty((1, prompt_len, t.num_heads, t.head_dim), device=meta)
     k_text = torch.empty((1, prompt_len, t.num_kv_heads, t.head_dim), device=meta)
-    tower = flash_eligible(q_tower, q_tower, impl=attn_impl) and tower_eligible(
-        q_tower, q_tower, None, False
-    )
+    tower_flash = flash_eligible(q_tower, q_tower, impl=attn_impl)
+    tower = tower_flash and tower_eligible(q_tower, q_tower, None, False, tower_grad)
     prefill_ok = flash_eligible(
         q_text, k_text, impl=attn_impl, window=t.sliding_window,
         alibi=t.alibi_bias_max if t.pos_embedding == "alibi" else 0,
@@ -348,7 +350,8 @@ def kernel_provenance(
     max_len = cache_length(prompt_len, max_new_tokens)
     int8_cache = cache_format == "int8"
     out: Dict[str, object] = {
-        "tower_attention": "kernel" if tower else "plain",
+        "tower_attention": ("kernel" if tower
+                            else "kernel_lse" if tower_flash and tower_grad else "plain"),
         "prefill_attention": "kernel" if prefill_ok else "plain",
         "decode_attention": qwen2.cached_attention_route(
             t, max_len, attn_impl, 1, decode_rows > 1, int8_cache),

@@ -46,6 +46,9 @@ _launches: Dict[str, int] = {
     "decode_attention_window_q8": 0,  # K11
     "int4_matmul": 0,  # K12
     "w8a8_matmul_fused": 0,  # K13
+    "prefill_attention_lse": 0,  # K2 writing the lse (the training forward)
+    "flash_attention_bwd_dkv": 0,  # K7
+    "flash_attention_bwd_dq": 0,  # K8
 }
 _count_lock = threading.Lock()
 _lock = threading.Lock()
@@ -95,6 +98,13 @@ ATOL = {
     # K13 repeats `quantize_rows` (IEEE division, round half to even) and K3's
     # exact int32 sum and f32 epilogue: equal to quantize_rows + K3 bit for bit.
     "w8a8_matmul_fused": 0.0,
+    # K2 with the lse is K2.
+    "prefill_attention_lse": 1e-3,
+    # K7/K8 recompute p by exp2 where the plain version takes exp, and both
+    # round p and ds to bf16 before the products: a value at a rounding
+    # boundary falls on either side, and f32 sums run in another order.
+    "flash_attention_bwd_dkv": 1e-3,
+    "flash_attention_bwd_dq": 1e-3,
 }
 
 
@@ -200,6 +210,15 @@ def lib() -> ctypes.CDLL:
             handle.radvlm_prefill_attention.argtypes = [
                 p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
             ]
+            handle.radvlm_prefill_attention_lse.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
+            ]
+            handle.radvlm_flash_attention_bwd_dkv.argtypes = [
+                p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
+            ]
+            handle.radvlm_flash_attention_bwd_dq.argtypes = [
+                p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
+            ]
             handle.radvlm_decode_attention.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p,
             ]
@@ -221,7 +240,9 @@ def lib() -> ctypes.CDLL:
                        "radvlm_decode_attention_window",
                        "radvlm_decode_attention_window_q8",
                        "radvlm_w8a8_matmul", "radvlm_int8_matmul",
-                       "radvlm_int4_matmul", "radvlm_w8a8_matmul_fused"):
+                       "radvlm_int4_matmul", "radvlm_w8a8_matmul_fused",
+                       "radvlm_prefill_attention_lse", "radvlm_flash_attention_bwd_dkv",
+                       "radvlm_flash_attention_bwd_dq"):
                 getattr(handle, fn).restype = ctypes.c_int
             handle.radvlm_error_string.argtypes = [i]
             handle.radvlm_error_string.restype = ctypes.c_char_p

@@ -13,7 +13,8 @@ scales [.., in/128, out]) become `Q4Linear` modules: the nibbles are
 repacked once into the K12 kernel's layout, the group scales keep theirs.
 `radvlm_to_tree` is the inverse, for an unfused model: the same keys,
 shapes, dtypes and bytes the JAX package's tree has (the artifact writer,
-`models/quant_io.py`, stores that tree).
+`models/quant_io.py`, stores that tree; the training checkpoint,
+`training/checkpoint.py`, too, so trained weights cross both ways).
 
 A `device` of None means the card (`device.resolve`).
 """
@@ -157,8 +158,18 @@ def radvlm_from_jax(
     params: Tree, cfg: RadVLMConfig, *, device=None, dtype=torch.float32
 ) -> radvlm.RadVLM:
     """The JAX package's RadVLM parameter tree -> a `RadVLM` module on
-    `device` (None: the card)."""
+    `device` (None: the card). With `dtype=torch.float32` and an unfused
+    tree this is the trainer's model (`training.optimizer.mark_trainable`
+    turns its gradients on)."""
     model = radvlm.RadVLM(cfg, device=resolve(device), dtype=dtype)
+    return load_tree(model, params)
+
+
+@torch.no_grad()
+def load_tree(model: radvlm.RadVLM, params: Tree) -> radvlm.RadVLM:
+    """Copy the JAX package's parameter tree into an existing model, in
+    place (each parameter keeps its `requires_grad`): how a training
+    checkpoint is restored."""
     load_siglip(model.vision_tower, params["vision_tower"])
     for i in range(len(model.projector.fcs)):
         _linear(model.projector.fcs, str(i), params["projector"][f"fc{i}"])

@@ -3,8 +3,15 @@
 Parameters are created uninitialised (`torch.empty`) on the requested device
 and dtype: weights come from the weight bridge (`models/convert.py`), either
 from the JAX package's parameter tree or from a seeded random init, so no
-time is spent on an init that is overwritten. They never require grad: the
-port serves inference only so far.
+time is spent on an init that is overwritten. They are made with
+`requires_grad=False` (inference); the trainer turns gradients on for the
+tunable groups of an f32 model (`training.optimizer.mark_trainable`).
+
+LoRA: `training.lora.merge_lora` attaches stacked adapters to a `Linear` or
+`QLinear` as `lora = (a [L, in, r], b [L, r, out], layer, scaling)`. A dense
+`Linear` then multiplies by W + scaling * (a b)^T, as the JAX package merges
+the delta into the kernel; a `QLinear` adds (x a) (scaling * b) beside the
+quantized matmul, so the int8 base never dequantizes into residency.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ class Linear(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(weight, requires_grad=False)
         self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+        self.lora = None  # (a, b, layer, scaling) while adapters are attached
 
     @classmethod
     def empty(cls, d_in: int, d_out: int, bias: bool, *, device=None, dtype=None) -> "Linear":
@@ -39,7 +47,11 @@ class Linear(nn.Module):
         return cls(w, b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        weight = self.weight
+        if self.lora is not None:
+            a, b, layer, scaling = self.lora
+            weight = (weight + scaling * torch.matmul(a[layer], b[layer]).t()).to(weight.dtype)
+        return F.linear(x, weight, self.bias)
 
 
 class QLinear(nn.Module):
@@ -61,6 +73,7 @@ class QLinear(nn.Module):
         self.weight = nn.Parameter(weight, requires_grad=False)
         self.scale = nn.Parameter(scale.float(), requires_grad=False)
         self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+        self.lora = None  # (a, b, layer, scaling) while adapters are attached
 
     @classmethod
     def empty(cls, d_in: int, d_out: int, bias: bool, *, device=None, dtype=None) -> "QLinear":
@@ -71,7 +84,13 @@ class QLinear(nn.Module):
         return cls(w, s, b)
 
     def forward(self, x: torch.Tensor, w8a8: Optional[bool] = None) -> torch.Tensor:
-        return qmm(x, self.weight, self.scale, self.bias, w8a8=w8a8)
+        y = qmm(x, self.weight, self.scale, None, w8a8=w8a8)
+        if self.lora is not None:
+            a, b, layer, scaling = self.lora
+            low = torch.matmul(torch.matmul(x, a[layer].to(x.dtype)),
+                               (scaling * b[layer]).to(b.dtype).to(x.dtype))
+            y = y + low.to(y.dtype)
+        return y if self.bias is None else y + self.bias
 
 
 class Q4Linear(nn.Module):

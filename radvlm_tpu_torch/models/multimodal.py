@@ -1,11 +1,12 @@
 """Host-side multimodal batch assembly (numpy), the counterpart of
-`radvlm_tpu/models/multimodal.py` for generation.
+`radvlm_tpu/models/multimodal.py`.
 
 Per sample: text with <image> markers -> token ids with IMAGE_TOKEN_INDEX
 sentinels; images -> anyres tiles + merge plans; sentinel expansion ->
 tokens[L], img_src[L] (row into the sample's merged image tokens, -1 for
 text), labels[L]. `collate` pads to static bucket shapes. `pack_samples`
-(training) is not ported yet.
+(training) joins several samples into one row whose segment ids keep them
+apart. The arrays equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -150,6 +151,62 @@ def build_sample(
     )
 
 
+def pack_samples(samples: Sequence[MMSample]) -> MMSample:
+    """Concatenate samples into ONE packed sample; `collate` restores the
+    segment boundaries from `segment_lengths`.
+
+    Packing fills a training row with the mixture's short samples instead
+    of padding: the attention kernels' segment mask keeps each original
+    sample to itself and the loss mask respects segments. img_src rows shift
+    by the running merged-token offset, merge-plan rows by the running tile
+    offset, and every sample's newline row points at the one newline row of
+    the packed tile matrix (total tiles * tokens_per_tile)."""
+    if len(samples) == 1:
+        packed = dataclasses.replace(samples[0])
+        packed.segment_lengths = [samples[0].length]
+        return packed
+    tpt = samples[0].tokens_per_tile
+    tokens, img_src, labels = [], [], []
+    tiles, mi, mw = [], [], []
+    newline_masks = []
+    row_off = 0
+    tile_off = 0
+    seg_lengths = []
+    for s in samples:
+        if s.tokens_per_tile != tpt:
+            raise ValueError("packed samples must share tokens_per_tile")
+        tokens.append(s.tokens)
+        src = s.img_src.copy()
+        src[src >= 0] += row_off
+        img_src.append(src)
+        labels.append(s.labels)
+        # Find the sample's own newline references BEFORE shifting, so they
+        # cannot collide with a later sample's tile rows.
+        idx = s.merge_indices.copy()
+        newline_masks.append(idx == s.tiles.shape[0] * tpt)
+        idx += tile_off * tpt
+        mi.append(idx)
+        mw.append(s.merge_weights)
+        tiles.append(s.tiles)
+        seg_lengths.append(s.length)
+        row_off += s.merge_indices.shape[0]
+        tile_off += s.tiles.shape[0]
+    merge_indices = np.concatenate(mi, axis=0)
+    merge_indices[np.concatenate(newline_masks, axis=0)] = tile_off * tpt
+    packed = MMSample(
+        tokens=np.concatenate(tokens),
+        img_src=np.concatenate(img_src),
+        labels=np.concatenate(labels),
+        tiles=np.concatenate(tiles, axis=0),
+        merge_indices=merge_indices,
+        merge_weights=np.concatenate(mw, axis=0),
+        num_image_tokens=row_off,
+        tokens_per_tile=tpt,
+    )
+    packed.segment_lengths = seg_lengths
+    return packed
+
+
 def collate(
     samples: Sequence[MMSample],
     *,
@@ -158,9 +215,10 @@ def collate(
     pad_to_multiple: int = 128,
     left_pad: bool = False,
 ) -> Dict[str, np.ndarray]:
-    """Pad and stack samples into a static-shape batch; left_pad=True aligns
-    sequence ends for batched generation prefill. Packed samples (training)
-    are not supported."""
+    """Pad and stack samples into a static-shape batch; right-pad for
+    training, left_pad=True aligns sequence ends for batched generation
+    prefill. A packed row (`pack_samples`) gets one segment id per original
+    sample and positions that restart at each."""
     b = len(samples)
     L = max(s.length for s in samples)
     if pad_len is not None:
@@ -188,8 +246,15 @@ def collate(
         tokens[i, sl] = s.tokens
         img_src[i, sl] = s.img_src
         labels[i, sl] = s.labels
-        segment_ids[i, sl] = 1
-        positions[i, sl] = np.arange(n)
+        seg_lengths = getattr(s, "segment_lengths", None)
+        if seg_lengths and len(seg_lengths) > 1:
+            segment_ids[i, sl] = np.concatenate([
+                np.full(m, k + 1, np.int32) for k, m in enumerate(seg_lengths)
+            ])
+            positions[i, sl] = np.concatenate([np.arange(m) for m in seg_lengths])
+        else:
+            segment_ids[i, sl] = 1
+            positions[i, sl] = np.arange(n)
         tiles[i, : s.tiles.shape[0]] = s.tiles
         # The sample's newline row (its own T * tpt) moves to the batch's
         # T * tpt, where apply_merge puts the newline after T tiles.

@@ -24,6 +24,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from radvlm_tpu_torch.config import Qwen2Config
 from radvlm_tpu_torch.models.layers import Linear, QLinear, empty_param, fuse_linears
@@ -366,10 +367,18 @@ def forward(
     cache_index: Optional[CacheIndex] = None,
     cache_segment_ids: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    remat: bool = False,
     return_hidden: bool = False,
     collect_kv: bool = False,
 ):
     """Run the decoder stack. input_embeds [B, S, D].
+
+    `remat` (training, cache-less path) rematerialises each layer in the
+    backward and saves nothing inside it, as the JAX package's
+    `jax.checkpoint(..., nothing_saveable)`: non-reentrant
+    `torch.utils.checkpoint`, so the first forward already sees which
+    inputs need a gradient and takes the same attention kernel as the
+    recompute.
 
     With kv_cache (stacked (k, v), each [L, B, Smax, Hkv*D], or the int8
     4-tuple; updated in place), cache_index is the scalar write offset or a
@@ -388,8 +397,13 @@ def forward(
         new_cache = kv_cache
     else:
         ks, vs = [], []
+        remat = remat and torch.is_grad_enabled() and not collect_kv
         for blk in model.layers:
-            out = _block(cfg, blk, x, positions, segment_ids, attn_impl, collect_kv)
+            if remat:
+                out = checkpoint(_block, cfg, blk, x, positions, segment_ids, attn_impl,
+                                 use_reentrant=False)
+            else:
+                out = _block(cfg, blk, x, positions, segment_ids, attn_impl, collect_kv)
             if collect_kv:
                 x, (k, v) = out
                 ks.append(k)

@@ -7,16 +7,21 @@
    (`merge_image_features`, `models/anyres.py`);
 3. the splice at image positions is a `torch.where` over the host-computed
    index map `img_src` (`splice_embeds`).
+
+`loss_fn` is the training loss: next-token cross entropy over the supervised
+positions, the unembedding taken in chunks of 1024 positions that are
+recomputed in the backward, so the [B, L, vocab] f32 logits never exist.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from radvlm_tpu_torch.config import RadVLMConfig, tokens_per_tile
+from radvlm_tpu_torch.config import IGNORE_INDEX, RadVLMConfig, tokens_per_tile
 from radvlm_tpu_torch.models import qwen2, siglip, towers
 from radvlm_tpu_torch.models.anyres import apply_merge
 from radvlm_tpu_torch.models.layers import empty_param
@@ -51,7 +56,8 @@ def fuse_for_inference(model: RadVLM, cfg: Optional[RadVLMConfig] = None) -> Rad
 
 
 def encode_tiles(
-    model: RadVLM, cfg: RadVLMConfig, tiles: torch.Tensor, *, attn_impl: str = "auto"
+    model: RadVLM, cfg: RadVLMConfig, tiles: torch.Tensor, *, attn_impl: str = "auto",
+    remat: bool = False,
 ) -> torch.Tensor:
     """[N, ts, ts, 3] -> [N, 729, D_text]: tower + projector, one batch.
 
@@ -64,7 +70,8 @@ def encode_tiles(
         p.dtype == torch.bfloat16 for p in model.vision_tower.parameters()
     ):
         tiles = tiles.to(torch.bfloat16)
-    feats = towers.forward(model.vision_tower, cfg.vision, tiles, attn_impl=attn_impl)
+    feats = towers.forward(model.vision_tower, cfg.vision, tiles, attn_impl=attn_impl,
+                           remat=remat)
     return model.projector(feats)
 
 
@@ -106,6 +113,7 @@ def forward(
     batch: Dict[str, torch.Tensor],
     *,
     attn_impl: str = "auto",
+    remat: bool = False,
     kv_cache=None,
     cache_index=None,
     cache_segment_ids=None,
@@ -114,10 +122,11 @@ def forward(
 ):
     """Full multimodal forward. batch keys: tiles [B,T,ts,ts,3],
     merge_indices/weights [B,N,4], tokens/img_src/positions/segment_ids [B,L].
-    Returns (logits [B,L,V] or hidden, cache) as `qwen2.forward`."""
+    Returns (logits [B,L,V] or hidden, cache) as `qwen2.forward`. `remat`
+    rematerialises every tower and decoder layer in the backward."""
     b, t = batch["tiles"].shape[:2]
     flat_tiles = batch["tiles"].reshape((b * t,) + tuple(batch["tiles"].shape[2:]))
-    tile_feats = encode_tiles(model, cfg, flat_tiles, attn_impl=attn_impl)
+    tile_feats = encode_tiles(model, cfg, flat_tiles, attn_impl=attn_impl, remat=remat)
     tile_feats = tile_feats.reshape(b, t, tokens_per_tile(cfg), -1)
     merged = merge_image_features(
         model, tile_feats, batch["merge_indices"], batch["merge_weights"]
@@ -133,6 +142,70 @@ def forward(
         cache_index=cache_index,
         cache_segment_ids=cache_segment_ids,
         attn_impl=attn_impl,
+        remat=remat,
         return_hidden=return_hidden,
         collect_kv=collect_kv,
     )
+
+
+CE_CHUNK = 1024
+
+
+def _chunk_nll(model: RadVLM, cfg: RadVLMConfig, hidden, labels, mask) -> torch.Tensor:
+    """Summed NLL of one block of positions: unembed, f32 log_softmax, gather."""
+    logits = qwen2.unembed(model.text, cfg.text, hidden)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return torch.sum(nll * mask)
+
+
+def _chunked_ce(model: RadVLM, cfg: RadVLMConfig, hidden: torch.Tensor,
+                safe_labels: torch.Tensor, mask: torch.Tensor,
+                chunk: int = CE_CHUNK) -> torch.Tensor:
+    """Summed token NLL with the unembedding and log_softmax taken in
+    sequence chunks under a (non-reentrant) checkpoint, so the whole
+    [B, L, vocab] logits tensor never exists: one [B, chunk, V] block is
+    alive at a time and is recomputed in the backward. hidden [B, L, D],
+    safe_labels [B, L] (0 where unsupervised), mask [B, L] bool. The same
+    f32 log_softmax per position as the unchunked form."""
+    l = hidden.shape[1]
+    if l <= chunk:
+        return _chunk_nll(model, cfg, hidden, safe_labels, mask)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for s in range(0, l, chunk):
+        total = total + checkpoint(
+            _chunk_nll, model, cfg, hidden[:, s:s + chunk], safe_labels[:, s:s + chunk],
+            mask[:, s:s + chunk], use_reentrant=False)
+    return total
+
+
+def loss_fn(
+    model: RadVLM,
+    cfg: RadVLMConfig,
+    batch: Dict[str, torch.Tensor],
+    *,
+    remat: bool = True,
+    attn_impl: str = "auto",
+    chunk: int = CE_CHUNK,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy with IGNORE_INDEX masking: labels[i]
+    supervises logits[i - 1], positions of segment 0 never count. A batch
+    with "labels_next" instead of "labels" is shifted already
+    (labels_next[i] supervises logits[i], segment gating folded in).
+    Returns (loss, {"loss", "tokens"}); the loss is the mean over the
+    supervised tokens (at least 1)."""
+    if cfg.text.num_experts and cfg.text.router_aux_coef > 0:
+        raise NotImplementedError("the MoE router loss is not ported (ROADMAP M10)")
+    hidden, _ = forward(model, cfg, batch, remat=remat, attn_impl=attn_impl, return_hidden=True)
+    if "labels_next" in batch:
+        shift_labels = batch["labels_next"]
+        mask = shift_labels != IGNORE_INDEX
+    else:
+        hidden = hidden[:, :-1]
+        shift_labels = batch["labels"][:, 1:]
+        mask = (shift_labels != IGNORE_INDEX) & (batch["segment_ids"][:, 1:] != 0)
+    safe_labels = torch.where(mask, shift_labels, torch.zeros_like(shift_labels))
+    total = _chunked_ce(model, cfg, hidden, safe_labels, mask, chunk)
+    count = mask.sum().clamp_min(1)
+    loss = total / count
+    return loss, {"loss": loss.detach(), "tokens": count}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from radvlm_tpu_torch.config import SigLIPConfig
 from radvlm_tpu_torch.models.layers import Linear, empty_param, fuse_linears
@@ -86,13 +87,19 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def forward(
-    tower: SigLIPTower, cfg: SigLIPConfig, pixels: torch.Tensor, *, attn_impl: str = "auto"
+    tower: SigLIPTower, cfg: SigLIPConfig, pixels: torch.Tensor, *, attn_impl: str = "auto",
+    remat: bool = False,
 ) -> torch.Tensor:
-    """pixels [B, H, W, 3] normalized -> [B, 729, D] (no post-LN, no head)."""
+    """pixels [B, H, W, 3] normalized -> [B, 729, D] (no post-LN, no head).
+    `remat` rematerialises each layer in the backward (training)."""
     if attn_impl == "ring":
         attn_impl = "auto"  # ring is for the seq-sharded LLM only
     x = tower.patch_embed(patchify(pixels, cfg.patch_size))
     x = x + tower.pos_embed[None]
+    remat = remat and torch.is_grad_enabled()
     for layer in tower.layers:
-        x = layer(x, cfg, attn_impl)
+        if remat:
+            x = checkpoint(layer, x, cfg, attn_impl, use_reentrant=False)
+        else:
+            x = layer(x, cfg, attn_impl)
     return x

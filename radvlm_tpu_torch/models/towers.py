@@ -40,6 +40,6 @@ def build(vision_cfg, *, device=None, dtype=None) -> siglip.SigLIPTower:
     return siglip.SigLIPTower(vision_cfg, device=device, dtype=dtype)
 
 
-def forward(tower, vision_cfg, pixels, *, attn_impl: str = "auto"):
+def forward(tower, vision_cfg, pixels, *, attn_impl: str = "auto", remat: bool = False):
     _require_siglip(vision_cfg)
-    return siglip.forward(tower, vision_cfg, pixels, attn_impl=attn_impl)
+    return siglip.forward(tower, vision_cfg, pixels, attn_impl=attn_impl, remat=remat)

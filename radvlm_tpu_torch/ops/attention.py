@@ -108,7 +108,8 @@ def flash_eligible(
     window: int = 0,
     alibi: int = 0,
 ) -> bool:
-    """Do the hand-written attention kernels (K1/K2) serve this call?
+    """Do the hand-written attention kernels (K1/K2, and K7/K8 under a
+    gradient) serve this call?
 
     The one predicate `mha` and `generation.engine.kernel_provenance` both
     call. Only what the JAX package itself routes to XLA stays plain: a
@@ -139,6 +140,10 @@ def mha(
     impl: "auto"/"flash" take the kernels (`ops.flash_attention`) where
     `flash_eligible` holds, "xla" forces the plain path (the name is the JAX
     package's). "ring" (sequence-parallel ring attention) has no port yet.
+    Where q, k or v needs a gradient the kernel route is K2 with the lse
+    forward and K7 / K8 backward, the tower's calls included (K1 serves them
+    only without a gradient); the plain route differentiates through
+    `mha_reference` by autograd, as the JAX package's XLA path does.
     """
     if impl == "ring":
         raise NotImplementedError(

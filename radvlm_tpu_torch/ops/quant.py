@@ -21,13 +21,17 @@ int4 weights (W4A16, activations are never quantized):
 - 64 rows or fewer: the K12 kernel (weights streamed as nibbles);
 - otherwise: dequantize to the activations' dtype and one plain matmul.
 
-Not ported here (no counterpart): the training-mode dequant path and LoRA
-adapters (ROADMAP M11). The JAX package's `qmm_idx` (a stacked weight and a
-layer index) needs no counterpart: a layer's weight is its own tensor.
+Training (`training_mode`): every quantized matmul dequantizes its weight
+and runs one dense matmul, so that the activations keep a gradient through a
+frozen quantized base (QLoRA); no quantized kernel is reached. The LoRA term
+beside a quantized matmul is `models.layers.QLinear.forward`'s. The JAX
+package's `qmm_idx` (a stacked weight and a layer index) needs no
+counterpart: a layer's weight is its own tensor.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Tuple
 
@@ -42,6 +46,36 @@ from radvlm_tpu_torch.ops.int4_matmul import (
 )
 from radvlm_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_matmul
 from radvlm_tpu_torch.ops.w8a8_matmul import quantize_rows, w8a8_matmul, w8a8_matmul_fused
+
+
+# Set while a train step runs (forward AND backward: rematerialised layers run
+# their forward again inside the backward). The W8A8 activation rounding has
+# a zero gradient and the int8 / int4 kernels have none at all, so either
+# would silently stop backprop through a frozen quantized base.
+_TRAINING = False
+
+
+@contextlib.contextmanager
+def training_mode():
+    """Quantized matmuls take the differentiable dequantize-then-matmul
+    route while this is active (the counterpart of the JAX package's
+    `quant.training_mode`)."""
+    global _TRAINING
+    prev = _TRAINING
+    _TRAINING = True
+    try:
+        yield
+    finally:
+        _TRAINING = prev
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a dense matmul of `x` runs in: the autocast dtype where
+    autocast is on for x's device (the trainer's bf16 operands over f32
+    master weights), else x's own."""
+    if x.is_cuda and torch.is_autocast_enabled():
+        return torch.get_autocast_dtype("cuda")
+    return x.dtype
 
 
 def quantize_array(
@@ -80,10 +114,12 @@ def w8a8_impl_name() -> str:
 
 def qmm_route(rows: int, w8a8: Optional[bool] = None, bits: int = 8) -> str:
     """Where a quantized matmul of `rows` activation rows goes. The one
-    dispatch predicate. int8 weights (`bits=8`): "w8a8" (K3, or K13 as
+    dispatch predicate. Under `training_mode` always "dequant". int8 weights (`bits=8`): "w8a8" (K3, or K13 as
     `w8a8_impl_name` says), "int8" (K5/K6) or "dequant" (plain). int4
     weights (`bits=4`, whose contraction dim always divides by 128): "int4"
     (K12) or "dequant"; `w8a8` does not matter to them."""
+    if _TRAINING:
+        return "dequant"
     if bits == 4:
         return "int4" if rows <= MAX_ROWS else "dequant"
     if (w8a8_enabled() if w8a8 is None else w8a8) and rows > MAX_ROWS:
@@ -111,7 +147,7 @@ def qmm(
     elif route == "int8":
         y = int8_matmul(x, weight, scale)
     else:
-        y = F.linear(x, dequantize_array(weight, scale[:, None], x.dtype))
+        y = F.linear(x, dequantize_array(weight, scale[:, None], compute_dtype(x)))
     return y if bias is None else y + bias
 
 
@@ -125,7 +161,7 @@ def q4mm(
     if qmm_route(x.numel() // x.shape[-1], bits=4) == "int4":
         y = int4_matmul(x, weight, scale)
     else:
-        y = F.linear(x, dequantize_weight_int4(weight, scale, x.dtype))
+        y = F.linear(x, dequantize_weight_int4(weight, scale, compute_dtype(x)))
     return y if bias is None else y + bias
 
 

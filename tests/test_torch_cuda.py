@@ -158,10 +158,8 @@ def test_mha_on_the_card_launches_the_kernels(dev):
     tatt.mha(x, kv, kv, causal=True, window=8)
     tatt.mha(x, kv, kv, causal=True, q_offset=3)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {
-        "tower_attention": 1, "prefill_attention": 1, "decode_attention": 0,
-        "w8a8_matmul": 0, "decode_attention_q8": 0, "int8_matmul": 0,
-        "decode_attention_window": 0, "decode_attention_window_q8": 0}
+    assert {k: n for k, n in kernels.launch_counts().items() if n} == {
+        "tower_attention": 1, "prefill_attention": 1}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -533,3 +531,115 @@ def test_k13_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tw8.w8a8_matmul_fused(x[:, :40].contiguous(), w[:, :40].contiguous(), s)
     with pytest.raises(ValueError, match="CUDA"):
         tw8.w8a8_matmul_fused(x, w.cpu(), s)
+
+
+# The training kernels: K2 with its lse, K7 (dk, dv) and K8 (dq).
+# (B, Sq, Sk, H, Hkv, D, causal, segments)
+BWD_CASES = [
+    (1, 1024, 1024, 14, 2, 64, True, "packed"),  # Qwen2-0.5B, packed rows with padding
+    (1, 1024, 1024, 28, 4, 128, True, "left_pad"),  # Qwen2-7B
+    (5, 729, 729, 16, 16, 72, False, None),  # the SigLIP tower: ragged, D padded to 80
+    (2, 700, 700, 14, 2, 64, True, "left_pad"),  # ragged tail, rows that attend nothing
+    (1, 333, 333, 4, 4, 128, True, None),  # causal, no segment ids
+    (2, 256, 256, 8, 2, 72, False, "packed"),  # non-causal, packed segments
+    (2, 192, 512, 8, 8, 64, True, "cache"),  # Sk > Sq
+    (1, 130, 130, 6, 3, 30, True, None),  # head_dim not a multiple of 8: 4-byte staging
+]
+
+
+def _bwd_inputs(dev, case):
+    b, sq, sk, h, hkv, d, causal, segs = case
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = _randn(gen, dev, b, sq, h, d)
+    k, v = _randn(gen, dev, b, sk, hkv, d), _randn(gen, dev, b, sk, hkv, d)
+    do = _randn(gen, dev, b, sq, h, d)
+    dlse = torch.randn(b, h, sq, generator=gen, device=dev)
+    qseg = kseg = None
+    if segs is not None:
+        qseg = torch.ones((b, sq), dtype=torch.int32, device=dev)
+        if segs == "packed":
+            qseg[:, sq // 3:] = 2
+            qseg[0, -17:] = 0
+        else:
+            qseg[0, :sq // 3 + 5] = 0
+        kseg = torch.zeros((b, sk), dtype=torch.int32, device=dev)
+        kseg[:, :sq] = qseg
+    return q, k, v, do, dlse, qseg, kseg
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_k2_lse_matches_plain_and_k2(dev, case):
+    causal, d = case[6], case[5]
+    q, k, v, _, _, qseg, kseg = _bwd_inputs(dev, case)
+    before = kernels.launch_counts()["prefill_attention_lse"]
+    o, lse = tfa.prefill_attention_lse(q, k, v, q_segment_ids=qseg, kv_segment_ids=kseg,
+                                       causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["prefill_attention_lse"] == before + 1
+    # The no-lse entry point computes the same o, bit for bit.
+    assert torch.equal(o, tfa.prefill_attention(q, k, v, q_segment_ids=qseg,
+                                                kv_segment_ids=kseg, causal=causal))
+    ref_o, ref_lse = tfa.attention_plain(q, k, v, qseg, kseg, causal, d ** -0.5, with_lse=True)
+    real = None if qseg is None else qseg != 0
+    _assert_close("prefill_attention_lse", o, ref_o, rows=real)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert torch.all(lse[~fin] == float("-inf"))
+    # f32 sums in another order, exp2 / log for exp / log.
+    assert float((lse[fin] - ref_lse[fin]).abs().max()) <= 1e-4 * max(
+        1.0, float(ref_lse[fin].abs().max()))
+
+
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_k7_k8_match_plain(dev, case, with_dlse):
+    causal, d = case[6], case[5]
+    q, k, v, do, dlse, qseg, kseg = _bwd_inputs(dev, case)
+    kw = dict(q_segment_ids=qseg, kv_segment_ids=kseg, causal=causal)
+    o, lse = tfa.prefill_attention_lse(q, k, v, **kw)
+    dlse = dlse if with_dlse else None
+    if dlse is not None:  # no cotangent reaches a row whose lse is -inf
+        dlse = torch.where(torch.isfinite(lse), dlse, torch.zeros_like(dlse))
+    delta = tfa.attention_delta(o, do, dlse)
+    before = kernels.launch_counts()
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    rq, rk, rv = tfa.attention_backward_plain(q, k, v, qseg, kseg, o, lse, do, dlse, causal,
+                                              d ** -0.5)
+    _assert_close("flash_attention_bwd_dq", dq, rq)
+    _assert_close("flash_attention_bwd_dkv", dk, rk)
+    _assert_close("flash_attention_bwd_dkv", dv, rv)
+    if qseg is not None:  # rows that attend nothing, keys nobody attends: exact zeros
+        assert torch.all(dq[qseg == 0] == 0)
+        assert torch.all(dk[kseg == 0] == 0) and torch.all(dv[kseg == 0] == 0)
+    # The same launch gives the same bits (no atomics).
+    dk2, dv2 = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_flash_attention_function_on_the_card(dev):
+    """`flash_attention` under a gradient: K2-lse forward, K7/K8 backward, f32
+    inputs cast to bf16 and back; the tower shape does not take K1."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 729, 16, 72, generator=gen, device=dev, requires_grad=True)
+               for _ in range(3))
+    kernels.reset_launch_counts()
+    out = tfa.flash_attention(q, k, v)
+    assert out.dtype == torch.float32
+    w = torch.randn(out.shape, generator=gen, device=dev)
+    dq, dk, dv = torch.autograd.grad((out * w).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["tower_attention"] == 0 and counts["prefill_attention_lse"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1 and counts["flash_attention_bwd_dq"] == 1
+    qb, kb, vb = (t.detach().to(torch.bfloat16) for t in (q, k, v))
+    o, lse = tfa.attention_plain(qb, kb, vb, None, None, False, 72 ** -0.5, with_lse=True)
+    rq, rk, rv = tfa.attention_backward_plain(qb, kb, vb, None, None, o, lse,
+                                              w.to(torch.bfloat16), None, False, 72 ** -0.5)
+    _assert_close("flash_attention_bwd_dq", dq, rq)
+    _assert_close("flash_attention_bwd_dkv", dk, rk)
+    _assert_close("flash_attention_bwd_dkv", dv, rv)

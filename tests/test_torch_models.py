@@ -228,7 +228,8 @@ def test_kernel_provenance_reports_the_predicates():
     assert set(prov["launches"]) == {"tower_attention", "prefill_attention", "decode_attention",
                                      "w8a8_matmul", "decode_attention_q8", "int8_matmul",
                                      "decode_attention_window", "decode_attention_window_q8",
-                                     "int4_matmul", "w8a8_matmul_fused"}
+                                     "int4_matmul", "w8a8_matmul_fused", "prefill_attention_lse",
+                                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq"}
     plain = teng.kernel_provenance(cfg, prompt_len=3584, max_new_tokens=32, attn_impl="xla")
     assert {plain[k] for k in ("tower_attention", "prefill_attention", "decode_attention")} == {"plain"}
     # The int8 serving path: W8A8 fills and tower, weight-only decode and

@@ -225,11 +225,19 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
     with pytest.raises(ValueError):
         tw8.w8a8_matmul(torch.empty((80, 16), device="meta", dtype=torch.int8),
                         torch.empty((80, 1), device="meta"), w, s)
+    lse = torch.empty((1, 2, 8), device="meta")
+    with pytest.raises(ValueError):
+        tfa.prefill_attention_lse(m, m, m, causal=True)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_dkv(m, m, m, m, lse, lse, causal=True)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_dq(m, m, m, m, lse, lse, causal=True)
     assert set(kernels.launch_counts().values()) == {0}
     assert set(kernels.launch_counts()) == {
         "tower_attention", "prefill_attention", "decode_attention", "w8a8_matmul",
         "decode_attention_q8", "int8_matmul", "decode_attention_window",
-        "decode_attention_window_q8", "int4_matmul", "w8a8_matmul_fused"}
+        "decode_attention_window_q8", "int4_matmul", "w8a8_matmul_fused",
+        "prefill_attention_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"}
 
 
 def test_kernel_sources_and_build_dir():
@@ -239,7 +247,8 @@ def test_kernel_sources_and_build_dir():
 
     names = sorted(os.path.basename(s) for s in kernels._sources())
     assert names == ["common.cuh", "decode_attention.cu", "flash_attention.cu",
-                     "int4_matmul.cu", "int8_matmul.cu", "w8a8_matmul.cu"]
+                     "flash_attention_bwd.cu", "int4_matmul.cu", "int8_matmul.cu",
+                     "w8a8_matmul.cu"]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert os.path.relpath(kernels.BUILD_DIR, repo).startswith("build")
     with open(os.path.join(repo, ".gitignore")) as f:

@@ -161,12 +161,15 @@ def test_port_runs_with_jax_blocked():
     `jax` and `radvlm_tpu` blocked in sys.modules (`sys.modules[name] = None`
     makes any import of it raise), every module imports, the tiny model
     generates tokens, the int8 continuous engine serves requests, with
-    speculative decoding too, and an int4 model saved as an artifact loads
-    back and serves the same tokens."""
+    speculative decoding too, an int4 model saved as an artifact loads
+    back and serves the same tokens, and the trainer takes a full-finetune
+    step and two QLoRA steps (optax, orbax and flax blocked too)."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["radvlm_tpu"] = None
+        for name in ("optax", "orbax", "flax"):
+            sys.modules[name] = None
         import importlib, pkgutil
         import numpy as np, torch
         import radvlm_tpu_torch
@@ -234,10 +237,33 @@ def test_port_runs_with_jax_blocked():
             list(b4.run())
             outs.append([r.emitted for r in r4])
         assert outs[0] == outs[1] and len(outs[0][0]) == 3
+        # The training path: a full-finetune step and a QLoRA step.
+        from radvlm_tpu_torch.eval.harness import batch_to_device
+        from radvlm_tpu_torch.training import train_step as ts
+        from radvlm_tpu_torch.training.lora import LoraConfig
+        from radvlm_tpu_torch.training.optimizer import TrainConfig
+        ids = Tok.encode("hi") + [-200] + Tok.encode("ok")
+        train_sample = multimodal.build_sample(ids, [img], cfg, labels=[-100] * 3 + ids[3:])
+        batch = batch_to_device(multimodal.collate(
+            [multimodal.pack_samples([train_sample, train_sample])]), "cpu")
+        tcfg = TrainConfig(grad_accum_steps=1, warmup_ratio=0.0, learning_rate=1e-3)
+        fresh = init_params(cfg, torch.Generator().manual_seed(2), device="cpu",
+                            dtype=torch.float32)
+        w0 = fresh.text.layers[0].q.weight.detach().clone()
+        state, step_fn, _ = ts.setup_training(cfg, tcfg, fresh)
+        state, metrics = step_fn(state, batch)
+        assert state.step == 1 and float(metrics["loss"]) > 0 and float(metrics["grad_norm"]) > 0
+        assert not torch.equal(fresh.text.layers[0].q.weight, w0)
+        qbase = random_quantized_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                                        dtype=torch.float32, fuse=False)
+        lstate, qbase, lstep = ts.setup_lora_training(cfg, tcfg, LoraConfig(rank=2), qbase)
+        for _ in range(2):  # B starts at 0: A moves from the second step on
+            lstate, metrics = lstep(lstate, qbase, batch)
+        assert all(float(ad["b"].detach().abs().max()) > 0 for ad in lstate.params.values())
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
-        assert not [k for k in loaded if k.split(".")[0] == "jax"]
-        assert not [k for k in loaded if k.split(".")[0] == "radvlm_tpu"]
+        for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax"):
+            assert not [k for k in loaded if k.split(".")[0] == blocked], blocked
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
