@@ -7,212 +7,365 @@
 //       segment mask q_seg == k_seg & q_seg != 0), the forward. Its backward
 //       (K7, K8) is flash_attention_bwd.cu and reads the lse written here.
 //
-// Both are one template: a CTA owns 64 query rows of one (batch, head), four
-// warps of 16 rows each. K/V tiles of 64 keys are staged through shared memory
-// and the two products run on the tensor cores with mma.sync m16n8k16
-// (bf16 in, f32 sums). K1 is the instantiation without causal or segment
-// masking; K2 adds them. What bounds it on the H100: the tensor-core rate for
-// the two products, but this first version reaches only a fraction of it,
-// because it stages K/V synchronously with 4-byte loads (no cp.async/TMA
-// pipeline, no wgmma) and reads V fragments element by element. Those are the
-// next steps; correctness first.
+// Both are one kernel (design notes at the end of this comment).
 //
-// Choices against the TPU kernels:
+// Contracts:
 // - The scale multiplies the f32 scores after the dot (as _fwd_short does),
-//   not the bf16 q (as _fwd_kernel does at :147): one fewer bf16 rounding.
-//   The scale and log2(e) fold into one multiply inside exp2.
-// - head_dim is padded inside the kernel to DP in {64, 80, 128}: D = 72 (the
-//   SigLIP tower) runs as 80, zero-filled. The sequence tail (S = 729) is
-//   masked, and out-of-range K/V rows are zero-filled so that 0 * garbage
-//   never reaches the sums.
-// - Masked scores are -inf and their p is zeroed explicitly; a row with no
-//   unmasked key (left padding, segment 0) ends with l = 0 and writes o = 0.
-// - Causal: tiles wholly above the diagonal are never loaded (kv_end).
+//   folded with log2(e) into the exp2 argument.
+// - Masked scores are -inf and ex2 of -inf is exactly +0, so masked p is 0; a
+//   row with no unmasked key (left padding, segment 0) ends with l = 0 and
+//   writes o = 0.
+// - Causal positions are absolute (query i sees keys <= i); tiles wholly
+//   above the diagonal are never loaded.
 // - p is rounded to bf16 before the PV product, as the TPU kernel rounds p to
 //   v's dtype; l sums the unrounded p.
-// - The lse output (f32 [B, H, Sq], natural-log units: m * scale + ln(l),
-//   -inf on a row with l == 0) is a template flag: serving's entry points
-//   instantiate the kernel without it and compute exactly what they did
-//   before; `radvlm_prefill_attention_lse` writes it for the backward.
+// - lse (f32 [B, H, Sq], natural-log units: m * scale + ln(l), -inf on a row
+//   with l == 0) is written only when its pointer is given; nothing else
+//   depends on it, so o is the same bits with and without it. No atomics on
+//   the output: every launch gives the same bits.
 //
 // Layouts are the port's public BSHD: q/o [B, Sq, H, D], k/v [B, Sk, Hkv, D],
-// segment ids [B, S] int32. D must be even (pairs are loaded as 32 bits).
+// segment ids [B, S] int32. D must be even and at most 128.
+//
+// Design:
+// - A CTA owns 128 query rows of one (batch, head): two warpgroups of 64
+//   rows, each running both products with wgmma (m64nNk16, bf16 in, f32
+//   sums). S = Q K^T takes Q and K from shared memory (both K-major); O += P
+//   V takes P from registers (the S accumulator rounded to bf16 is already
+//   wgmma's A fragment) and V from shared memory with the transpose bit (V is
+//   MN-major). Every operand sits in wgmma.cuh's 128-byte swizzled layout
+//   of 64-column blocks: D = 72 (SigLIP) takes two blocks, contracts over 80
+//   in QK and runs PV at N = 72.
+// - K/V tiles of 64 keys stream through a ring of two stages, so tile n + 1
+//   is in flight while tile n computes; Q is staged once. Where head_dim % 8
+//   == 0 and q, k, v are 16-byte aligned, one thread fills a stage with TMA
+//   (one box of 64 columns x 64 rows a column block, landing in the swizzled
+//   layout, zeros past the sequence and past head_dim) counted on the
+//   stage's mbarrier; elsewhere every thread copies 4 bytes at a time with
+//   cp.async into the same layout (one kernel choosing its copy width, not a
+//   second route). One barrier a tile frees the stage the next copy
+//   overwrites.
+// - Clean and masked tiles, as the TPU kernel splits them: a warp skips the
+//   per-element mask on a tile wholly inside the sequence, wholly at or
+//   below the diagonal for its 16 rows, and (with segment ids) whose keys
+//   all carry the one non-zero segment id its rows share (min = max, reduced
+//   once a tile). A tile none of whose keys shares a segment with a row of
+//   the CTA is skipped (every p would be 0), and a CTA whose rows all have
+//   segment 0 (left padding) loads nothing and writes o = 0, lse = -inf.
+// - Grid (heads, query tiles, batch): the g query heads of one kv head are
+//   neighbouring CTAs (their K/V tiles stay in L2) and query tiles run from
+//   the last, so the heaviest causal CTAs start first.
+// - Two CTAs an SM (128 registers a thread): four warpgroups interleave, so
+//   one's softmax runs beside another's products.
+// What bounds it: each warpgroup runs a tile as one dependent chain (the
+// ring's barrier, QK, mask and softmax, PV), and four warpgroups an SM do
+// not hide its latency: 11-41% of the tensor-core bound at the main-path
+// shapes (PERF.md section 6, with the variants that measured no faster:
+// PV of tile n - 1 overlapped with tile n's softmax inside a warpgroup,
+// 128-key tiles, 256-row CTAs, a third stage, copies issued behind QK).
+// The copies cost by the box: with 32-byte swizzled boxes of 16 columns
+// (ten a tile at D = 72, sixteen at D = 128) the kernel took 1.12-1.24x
+// its time with these 64-column ones (1.00-1.01x at the packed 0.5B shape).
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
+#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time (no -lcuda)
+#include <limits.h>
 #include <math.h>
+
+#include <mutex>
 
 namespace radvlm {
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per CTA (16 per warp)
-constexpr int kBlockN = 64;  // keys per shared-memory tile
-constexpr int kThreads = 128;
+constexpr int kBlockM = 128;  // query rows a CTA owns: two warpgroups of 64
+constexpr int kBlockN = 64;   // keys a K/V tile holds
+constexpr int kStages = 2;    // K/V tiles in shared memory
+constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+// Shared memory for head dims padded to DP, in bytes: Q, each stage's K and
+// V tiles (kCols columns: whole 64-column blocks), each stage's key segment
+// ids, the CTA's segment range, each stage's mbarrier.
+template <int DP>
+struct Smem {
+  static constexpr int kCols = (DP + 63) / 64 * 64;
+  static constexpr int kQ = kBlockM * kCols * 2;
+  static constexpr int kTile = kBlockN * kCols * 2;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kSeg = kQ + kStages * kStage;
+  static constexpr int kRange = kSeg + kStages * kBlockN * 4;
+  static constexpr int kBar = kRange + 8;
+  static constexpr int kBytes = kBar + kStages * 8;
+};
+
+struct Params {
+  CUtensorMap tq, tk, tv;  // read where tma: [B, S, H, D] in boxes of 16 x rows
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const int* qseg;  // null: no segment ids
+  const int* kseg;
+  __nv_bfloat16* o;
+  float* lse;  // null: not written
+  int sq, sk, h, hkv, d, n_qtiles;
+  float scale_log2;
+  bool causal;
+  bool tma;  // else 4-byte cp.async copies
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int DP, bool CAUSAL, bool HAS_SEG, bool LSE>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ qseg,
-    const int* __restrict__ kseg, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int sq, int sk, int h, int hkv, int d,
-    float scale_log2) {
-  constexpr int LDS = DP + 8;  // padded shared row, in bf16 elements
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockN * LDS];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockN * LDS];
-  __shared__ int kseg_s[kBlockN];
+// Rows [row0, row0 + R) of a [*, row_stride] bf16 matrix, columns [0, DP),
+// into the swizzled tile at shared address `dst` with 4-byte cp.async
+// copies: zero past `limit` rows and past `d` columns. Neighbouring threads
+// copy neighbouring column pairs of a row.
+template <int R, int DP>
+__device__ __forceinline__ void stage_tile(uint32_t dst, const __nv_bfloat16* src,
+                                           long row_stride, int row0, int limit, int d) {
+#pragma unroll 4
+  for (int it = 0; it < (R * DP / 2 + kThreads - 1) / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    if ((R * DP / 2) % kThreads != 0 && i >= R * DP / 2) break;
+    const int r = i / (DP / 2), col = (i % (DP / 2)) * 2;
+    const bool ok = row0 + r < limit && col < d;
+    cp_async4(dst + sw128_offset<R>(r, col >> 3) + (col & 7) * 2,
+              ok ? src + (long)(row0 + r) * row_stride + col : src, ok);
+  }
+}
 
-  const int qtile = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
-  const int hk = hq / (h / hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// DP: head_dim padded to a multiple of 16 (the QK contraction); DV: the PV
+// product's N, head_dim padded to a multiple of 8.
+template <int DP, int DV>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const __grid_constant__ Params p) {
+  using S = Smem<DP>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sbase = smem_u32(smem);
+  const int* kseg_s = reinterpret_cast<const int*>(smem + S::kSeg);
+
+  const int hq = blockIdx.x, b = blockIdx.z;
+  const int qtile = p.n_qtiles - 1 - blockIdx.y;  // the heaviest causal tiles first
+  const int hk = hq / (p.h / p.hkv);
+  const int q0 = qtile * kBlockM;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = qtile * kBlockM + warp * 16 + g, r1 = r0 + 8;
+  const int wrow = q0 + wg * 64 + warp * 16;  // this warp's first query row
+  const int r0 = wrow + g, r1 = r0 + 8;
+  const bool seg = p.qseg != nullptr;
 
-  const long q_rs = (long)h * d, kv_rs = (long)hkv * d;
-  const __nv_bfloat16* qb = q + (long)b * sq * q_rs + (long)hq * d;
-  const __nv_bfloat16* kb = k + (long)b * sk * kv_rs + (long)hk * d;
-  const __nv_bfloat16* vb = v + (long)b * sk * kv_rs + (long)hk * d;
+  const long q_rs = (long)p.h * p.d, kv_rs = (long)p.hkv * p.d;
+  const int* ksegb = seg ? p.kseg + (long)b * p.sk : nullptr;
 
-  // This warp's 16 query rows as A fragments, zero past S and past D.
-  uint32_t qf[DP / 16][4];
+  // qs0 / qs1: the segment ids of rows r0 / r1; wq: the one non-zero id all
+  // 16 rows of this warp share, or -1; [cta_lo, cta_hi]: the range of the
+  // CTA's non-zero ids.
+  int qs0 = 1, qs1 = 1, wq = 0, cta_lo = 1, cta_hi = 1;
+  bool any = true;
+  if (seg) {
+    int* range = reinterpret_cast<int*>(smem + S::kRange);
+    if (threadIdx.x == 0) {
+      range[0] = INT_MAX;
+      range[1] = INT_MIN;
+    }
+    qs0 = r0 < p.sq ? p.qseg[(long)b * p.sq + r0] : 0;
+    qs1 = r1 < p.sq ? p.qseg[(long)b * p.sq + r1] : 0;
+    const int lo = __reduce_min_sync(0xffffffffu, min(qs0, qs1));
+    const int hi = __reduce_max_sync(0xffffffffu, max(qs0, qs1));
+    wq = lo == hi && lo != 0 ? lo : -1;
+    __syncthreads();
+    if (qs0 != 0) {
+      atomicMin(&range[0], qs0);
+      atomicMax(&range[1], qs0);
+    }
+    if (qs1 != 0) {
+      atomicMin(&range[0], qs1);
+      atomicMax(&range[1], qs1);
+    }
+    any = __syncthreads_or(qs0 != 0 || qs1 != 0);
+    cta_lo = range[0];
+    cta_hi = range[1];
+  }
+  const int kv_end = p.causal ? min(p.sk, q0 + kBlockM) : p.sk;
+  const int n_tiles = any ? (kv_end + kBlockN - 1) / kBlockN : 0;
+
+  if (p.tma && threadIdx.x == 0) {
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = load_pair(qb + r0 * q_rs + c, r0 < sq && c < d);
-    qf[kk][1] = load_pair(qb + r1 * q_rs + c, r1 < sq && c < d);
-    qf[kk][2] = load_pair(qb + r0 * q_rs + c + 8, r0 < sq && c + 8 < d);
-    qf[kk][3] = load_pair(qb + r1 * q_rs + c + 8, r1 < sq && c + 8 < d);
+    for (int i = 0; i < kStages; ++i) mbar_init(sbase + S::kBar + i * 8, 1);
+    fence_mbar_init();
   }
-  int qs0 = 1, qs1 = 1;
-  if (HAS_SEG) {
-    qs0 = r0 < sq ? qseg[(long)b * sq + r0] : 0;
-    qs1 = r1 < sq ? qseg[(long)b * sq + r1] : 0;
-  }
+  if (p.tma) __syncthreads();
 
-  float acc[DP / 8][4];
+  // Tile `tile` (and Q with tile 0) into its stage of the ring; one
+  // cp.async commit group a call (the segment ids, and K / V where not
+  // tma), empty past the last tile, so that "all but the newest kStages - 2
+  // groups" always means "up to the tile about to be computed".
+  auto issue = [&](int tile) {
+    if (tile < n_tiles) {
+      const int st = tile % kStages, n0 = tile * kBlockN;
+      const uint32_t ks = sbase + S::kQ + st * S::kStage, vs = ks + S::kTile;
+      if (p.tma) {
+        if (threadIdx.x == 0) {
+          const uint32_t bar = sbase + S::kBar + st * 8;
+          mbar_expect_tx(bar, S::kStage + (tile == 0 ? S::kQ : 0));
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
+          for (int c = 0; c < S::kCols / 64; ++c) {
+            if (tile == 0) tma_load_4d(sbase + c * kBlockM * 128, &p.tq, bar, c * 64, hq, q0, b);
+            tma_load_4d(ks + c * kBlockN * 128, &p.tk, bar, c * 64, hk, n0, b);
+            tma_load_4d(vs + c * kBlockN * 128, &p.tv, bar, c * 64, hk, n0, b);
+          }
+        }
+      } else {
+        const long kv_off = (long)b * p.sk * kv_rs + (long)hk * p.d;
+        if (tile == 0) {
+          stage_tile<kBlockM, DP>(sbase, p.q + (long)b * p.sq * q_rs + (long)hq * p.d, q_rs, q0,
+                                  p.sq, p.d);
+        }
+        stage_tile<kBlockN, DP>(ks, p.k + kv_off, kv_rs, n0, p.sk, p.d);
+        stage_tile<kBlockN, DP>(vs, p.v + kv_off, kv_rs, n0, p.sk, p.d);
+      }
+      if (seg && threadIdx.x < kBlockN) {
+        const int key = n0 + threadIdx.x;
+        cp_async4(sbase + S::kSeg + (st * kBlockN + threadIdx.x) * 4,
+                  key < p.sk ? ksegb + key : ksegb, key < p.sk);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  float acc[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   // Running max of the raw scores and partial row sums (rows r0 and r1; each
   // thread sums its own columns, the four threads of a row combine at the end).
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const float sl2 = p.scale_log2;
+  const uint32_t q_s = sbase + wg * 64 * 128;  // this warpgroup's 64 rows of Q
 
-  int kv_end = sk;
-  if (CAUSAL) kv_end = min(sk, (qtile + 1) * kBlockM);
-  for (int n0 = 0; n0 < kv_end; n0 += kBlockN) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kBlockN * (DP / 2); i += kThreads) {
-      const int r = i / (DP / 2), c = (i % (DP / 2)) * 2;
-      const int key = n0 + r;
-      const bool ok = key < sk && c < d;
-      *reinterpret_cast<uint32_t*>(&ks[r * LDS + c]) =
-          load_pair(kb + key * kv_rs + c, ok);
-      *reinterpret_cast<uint32_t*>(&vs[r * LDS + c]) =
-          load_pair(vb + key * kv_rs + c, ok);
-    }
-    if (HAS_SEG) {
-      for (int i = threadIdx.x; i < kBlockN; i += kThreads) {
-        kseg_s[i] = n0 + i < sk ? kseg[(long)b * sk + n0 + i] : 0;
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n % kStages, n0 = n * kBlockN;
+    if (p.tma) mbar_wait(sbase + S::kBar + st * 8, (n / kStages) & 1);
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile n landed for every thread; tile n - 1's stage is free
+    issue(n + kStages - 1);
+    const uint32_t k_s = sbase + S::kQ + st * S::kStage, v_s = k_s + S::kTile;
+    const int* ks_tile = kseg_s + st * kBlockN;
+
+    bool clean = n0 + kBlockN <= p.sk;
+    if (p.causal) clean = clean && n0 + kBlockN - 1 <= wrow;
+    if (seg) {
+      int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+      for (int i = lane; i < kBlockN; i += 32) {
+        lo = min(lo, ks_tile[i]);
+        hi = max(hi, ks_tile[i]);
       }
-    }
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys per warp.
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-      const __nv_bfloat16* krow = &ks[(nb * 8 + g) * LDS + 2 * t];
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_16816(s[nb], qf[kk], b0, b1);
-      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      // No key shares a segment with a row of the CTA: every p is 0, and m,
+      // l and O stay as they are.
+      if (hi < cta_lo || lo > cta_hi) continue;
+      clean = clean && wq > 0 && lo == wq && hi == wq;
     }
 
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    // S = Q K^T: 64 rows x kBlockN keys a warpgroup.
+    float s[kBlockN / 2];  // the first k-step overwrites it (scale-d 0)
+    wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      // Column block kk / 4, 32 bytes a k16 step into it.
+      Wgmma<kBlockN>::ss(s, desc_k_major(q_s + (kk >> 2) * kBlockM * 128 + (kk & 3) * 32),
+                         desc_k_major(k_s + (kk >> 2) * kBlockN * 128 + (kk & 3) * 32),
+                         kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    if (!clean) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nb * 8 + 2 * t + (e & 1);
-        const int key = n0 + col;
-        const int row = e < 2 ? r0 : r1;
-        bool ok = key < sk;
-        if (CAUSAL) ok = ok && key <= row;
-        if (HAS_SEG) {
-          const int qsv = e < 2 ? qs0 : qs1;
-          ok = ok && qsv != 0 && qsv == kseg_s[col];
+      for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * t + (e & 1), key = n0 + col;
+          bool ok = key < p.sk;
+          if (p.causal) ok = ok && key <= (e < 2 ? r0 : r1);
+          if (seg) {
+            const int qv = e < 2 ? qs0 : qs1;
+            ok = ok && qv != 0 && qv == ks_tile[col];
+          }
+          if (!ok) s[j * 4 + e] = -INFINITY;
         }
-        if (!ok) s[nb][e] = -INFINITY;
-        if (e < 2) {
-          mx0 = fmaxf(mx0, s[nb][e]);
-        } else {
-          mx1 = fmaxf(mx1, s[nb][e]);
-        }
       }
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j * 4], s[j * 4 + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j * 4 + 2], s[j * 4 + 3]));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
     // exp reference: 0 while a row has seen no unmasked key (no -inf - -inf).
-    const float ref0 = mn0 == -INFINITY ? 0.f : mn0;
-    const float ref1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float a0 = exp2f((m0 - ref0) * scale_log2);
-    const float a1 = exp2f((m1 - ref1) * scale_log2);
+    const float ref0 = mx0 == -INFINITY ? 0.f : mx0;
+    const float ref1 = mx1 == -INFINITY ? 0.f : mx1;
+    const float a0 = ex2((m0 - ref0) * sl2), a1 = ex2((m1 - ref1) * sl2);
+    const float nb0 = -ref0 * sl2, nb1 = -ref1 * sl2;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int nb = 0; nb < kBlockN / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float ref = e < 2 ? ref0 : ref1;
-        const float p =
-            s[nb][e] == -INFINITY ? 0.f : exp2f((s[nb][e] - ref) * scale_log2);
-        s[nb][e] = p;
-        if (e < 2) {
-          rs0 += p;
-        } else {
-          rs1 += p;
-        }
-      }
+    for (int j = 0; j < kBlockN / 8; ++j) {
+      s[j * 4] = ex2(fmaf(s[j * 4], sl2, nb0));
+      s[j * 4 + 1] = ex2(fmaf(s[j * 4 + 1], sl2, nb0));
+      s[j * 4 + 2] = ex2(fmaf(s[j * 4 + 2], sl2, nb1));
+      s[j * 4 + 3] = ex2(fmaf(s[j * 4 + 3], sl2, nb1));
+      rs0 += s[j * 4] + s[j * 4 + 1];
+      rs1 += s[j * 4 + 2] + s[j * 4 + 3];
     }
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
+    m0 = mx0;
+    m1 = mx1;
+
+    // P as wgmma A fragments: the accumulators of two adjacent 8-key blocks
+    // are one k16 step.
+    uint32_t pa[kBlockN / 16][4];
 #pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      acc[i][0] *= a0;
-      acc[i][1] *= a0;
-      acc[i][2] *= a1;
-      acc[i][3] *= a1;
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[kk * 8], s[kk * 8 + 1]);
+      pa[kk][1] = pack_bf16(s[kk * 8 + 2], s[kk * 8 + 3]);
+      pa[kk][2] = pack_bf16(s[kk * 8 + 4], s[kk * 8 + 5]);
+      pa[kk][3] = pack_bf16(s[kk * 8 + 6], s[kk * 8 + 7]);
+    }
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      acc[j * 4] *= a0;
+      acc[j * 4 + 1] *= a0;
+      acc[j * 4 + 2] *= a1;
+      acc[j * 4 + 3] *= a1;
     }
 
-    // O += P V: the S accumulators of two adjacent key blocks are exactly the
-    // A fragment of one k16 step.
+    // O += P V over the tile's keys, 16 a step.
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kBlockN / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const __nv_bfloat16* v0 = &vs[(j * 16 + 2 * t) * LDS + g];
-#pragma unroll
-      for (int nd = 0; nd < DP / 8; ++nd) {
-        const uint32_t b0 = pack_raw(v0[nd * 8], v0[LDS + nd * 8]);
-        const uint32_t b1 = pack_raw(v0[8 * LDS + nd * 8], v0[9 * LDS + nd * 8]);
-        mma_16816(acc[nd], pa, b0, b1);
-      }
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      Wgmma<DV>::rs(acc, pa[kk], desc_mn_major(v_s + kk * 16 * 128, kBlockN * 128));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -221,134 +374,166 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  __nv_bfloat16* ob = o + (long)b * sq * q_rs + (long)hq * d;
+  __nv_bfloat16* ob = p.o + (long)b * p.sq * q_rs + (long)hq * p.d;
 #pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (c < d) {
-      if (r0 < sq) {
+  for (int j = 0; j < DV / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (c < p.d) {
+      if (r0 < p.sq) {
         *reinterpret_cast<uint32_t*>(ob + r0 * q_rs + c) =
-            pack_bf16(acc[nd][0] * inv0, acc[nd][1] * inv0);
+            pack_bf16(acc[j * 4] * inv0, acc[j * 4 + 1] * inv0);
       }
-      if (r1 < sq) {
+      if (r1 < p.sq) {
         *reinterpret_cast<uint32_t*>(ob + r1 * q_rs + c) =
-            pack_bf16(acc[nd][2] * inv1, acc[nd][3] * inv1);
+            pack_bf16(acc[j * 4 + 2] * inv1, acc[j * 4 + 3] * inv1);
       }
     }
   }
-  if (LSE && t == 0) {
+  if (p.lse != nullptr && t == 0) {
     // m is the max of the raw scores: lse = m * scale + ln(l), with
     // scale = scale_log2 * ln(2).
-    constexpr float kLn2 = 0.6931471805599453f;
-    float* lb = lse + ((long)b * h + hq) * sq;
-    if (r0 < sq) lb[r0] = l0 > 0.f ? m0 * (scale_log2 * kLn2) + logf(l0) : -INFINITY;
-    if (r1 < sq) lb[r1] = l1 > 0.f ? m1 * (scale_log2 * kLn2) + logf(l1) : -INFINITY;
+    float* lb = p.lse + ((long)b * p.h + hq) * p.sq;
+    if (r0 < p.sq) lb[r0] = l0 > 0.f ? m0 * (sl2 * kLn2) + logf(l0) : -INFINITY;
+    if (r1 < p.sq) lb[r1] = l1 > 0.f ? m1 * (sl2 * kLn2) + logf(l1) : -INFINITY;
   }
 }
 
-struct Args {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const int* qseg;
-  const int* kseg;
-  __nv_bfloat16* o;
-  float* lse;  // written only by the LSE instantiations
-  int b, sq, sk, h, hkv, d;
-  float scale_log2;
-  cudaStream_t stream;
-};
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-template <int DP, bool CAUSAL, bool HAS_SEG, bool LSE>
-cudaError_t launch(const Args& a) {
-  dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.h, a.b);
-  flash_fwd_kernel<DP, CAUSAL, HAS_SEG, LSE><<<grid, kThreads, 0, a.stream>>>(
-      a.q, a.k, a.v, a.qseg, a.kseg, a.o, a.lse, a.sq, a.sk, a.h, a.hkv, a.d,
-      a.scale_log2);
+// libcuda's cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(f);
+    }
+  });
+  return fn;
+}
+
+// A [B, S, H, D] bf16 tensor as a 4-D tensor map read in boxes of 64 columns
+// x `rows` rows of one head, 128-byte swizzled (wgmma.cuh's layout), zeros
+// past its bounds.
+cudaError_t encode(CUtensorMap* map, const void* base, int b, int s, int h, int d, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
+                                 (cuuint64_t)s * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Sets the instantiation's dynamic shared memory limit once per device,
+// before its first launch (never inside a graph capture that follows).
+template <int DP, int DV>
+cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
+  constexpr int kBytes = Smem<DP>::kBytes;
+  static std::mutex mu;
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready[dev]) {
+      err = cudaFuncSetAttribute(flash_fwd_kernel<DP, DV>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      if (err != cudaSuccess) return err;
+      ready[dev] = true;
+    }
+  }
+  flash_fwd_kernel<DP, DV><<<dim3(p.h, p.n_qtiles, b), kThreads, kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool CAUSAL, bool HAS_SEG, bool LSE = false>
-cudaError_t dispatch_head_dim(const Args& a) {
-  if (a.d % 2 != 0 || a.d > 128 || a.hkv <= 0 || a.h % a.hkv != 0) {
+cudaError_t dispatch(Params p, int b, cudaStream_t stream) {
+  if (p.d <= 0 || p.d % 2 != 0 || p.d > 128 || p.hkv <= 0 || p.h % p.hkv != 0) {
     return cudaErrorInvalidValue;
   }
-  if (a.d <= 64) return launch<64, CAUSAL, HAS_SEG, LSE>(a);
-  if (a.d <= 80) return launch<80, CAUSAL, HAS_SEG, LSE>(a);
-  return launch<128, CAUSAL, HAS_SEG, LSE>(a);
-}
-
-template <bool LSE>
-cudaError_t dispatch_masks(const Args& a, bool causal) {
-  const bool seg = a.qseg != nullptr;
-  if (causal) {
-    return seg ? dispatch_head_dim<true, true, LSE>(a)
-               : dispatch_head_dim<true, false, LSE>(a);
+  p.n_qtiles = (p.sq + kBlockM - 1) / kBlockM;
+  if (p.n_qtiles == 0 || p.h == 0 || b == 0) return cudaSuccess;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
+                         reinterpret_cast<uintptr_t>(p.v);
+  p.tma = p.d % 8 == 0 && addr % 16 == 0 && p.sk > 0;
+  if (p.tma) {
+    cudaError_t err = encode(&p.tq, p.q, b, p.sq, p.h, p.d, kBlockM);
+    if (err == cudaSuccess) err = encode(&p.tk, p.k, b, p.sk, p.hkv, p.d, kBlockN);
+    if (err == cudaSuccess) err = encode(&p.tv, p.v, b, p.sk, p.hkv, p.d, kBlockN);
+    if (err != cudaSuccess) return err;
   }
-  return seg ? dispatch_head_dim<false, true, LSE>(a)
-             : dispatch_head_dim<false, false, LSE>(a);
+  if (p.d <= 32) return launch<32, 32>(p, b, stream);
+  if (p.d <= 64) return launch<64, 64>(p, b, stream);
+  if (p.d <= 72) return launch<80, 72>(p, b, stream);
+  return launch<128, 128>(p, b, stream);
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
+Params make_params(const void* q, const void* k, const void* v, const void* qseg,
+                   const void* kseg, void* o, void* lse, int sq, int sk, int h, int hkv,
+                   int d, bool causal, float scale) {
+  Params p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.qseg = static_cast<const int*>(qseg);
+  p.kseg = static_cast<const int*>(kseg);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.sq = sq;
+  p.sk = sk;
+  p.h = h;
+  p.hkv = hkv;
+  p.d = d;
+  p.scale_log2 = scale * kLog2e;
+  p.causal = causal;
+  return p;
+}
 
 }  // namespace
 }  // namespace radvlm
-
-extern "C" int radvlm_tower_attention(const void* q, const void* k,
-                                      const void* v, void* o, int b, int s,
-                                      int h, int d, float scale, void* stream) {
+extern "C" int radvlm_tower_attention(const void* q, const void* k, const void* v, void* o,
+                                      int b, int s, int h, int d, float scale, void* stream) {
   using namespace radvlm;
-  const Args a{static_cast<const __nv_bfloat16*>(q),
-               static_cast<const __nv_bfloat16*>(k),
-               static_cast<const __nv_bfloat16*>(v),
-               nullptr,
-               nullptr,
-               static_cast<__nv_bfloat16*>(o),
-               nullptr,
-               b, s, s, h, h, d,
-               scale * kLog2e,
-               static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dispatch_head_dim<false, false>(a));
+  const Params p = make_params(q, k, v, nullptr, nullptr, o, nullptr, s, s, h, h, d, false, scale);
+  return static_cast<int>(dispatch(p, b, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int radvlm_prefill_attention(const void* q, const void* k,
-                                        const void* v, const void* qseg,
-                                        const void* kseg, void* o, int b,
-                                        int sq, int sk, int h, int hkv, int d,
-                                        int causal, float scale, void* stream) {
+extern "C" int radvlm_prefill_attention(const void* q, const void* k, const void* v,
+                                        const void* qseg, const void* kseg, void* o, int b,
+                                        int sq, int sk, int h, int hkv, int d, int causal,
+                                        float scale, void* stream) {
   using namespace radvlm;
-  const Args a{static_cast<const __nv_bfloat16*>(q),
-               static_cast<const __nv_bfloat16*>(k),
-               static_cast<const __nv_bfloat16*>(v),
-               static_cast<const int*>(qseg),
-               static_cast<const int*>(kseg),
-               static_cast<__nv_bfloat16*>(o),
-               nullptr,
-               b, sq, sk, h, hkv, d,
-               scale * kLog2e,
-               static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dispatch_masks<false>(a, causal != 0));
+  if ((qseg == nullptr) != (kseg == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const Params p =
+      make_params(q, k, v, qseg, kseg, o, nullptr, sq, sk, h, hkv, d, causal != 0, scale);
+  return static_cast<int>(dispatch(p, b, static_cast<cudaStream_t>(stream)));
 }
 
 // K2 with the lse output: o as `radvlm_prefill_attention` gives it, bit for
-// bit, and lse f32 [B, H, Sq] for the backward kernels.
-extern "C" int radvlm_prefill_attention_lse(const void* q, const void* k,
-                                            const void* v, const void* qseg,
-                                            const void* kseg, void* o,
-                                            void* lse, int b, int sq, int sk,
-                                            int h, int hkv, int d, int causal,
-                                            float scale, void* stream) {
+// bit (the same kernel; only the epilogue writes the lse), and lse f32 [B, H,
+// Sq] for the backward kernels.
+extern "C" int radvlm_prefill_attention_lse(const void* q, const void* k, const void* v,
+                                            const void* qseg, const void* kseg, void* o,
+                                            void* lse, int b, int sq, int sk, int h, int hkv,
+                                            int d, int causal, float scale, void* stream) {
   using namespace radvlm;
-  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const __nv_bfloat16*>(q),
-               static_cast<const __nv_bfloat16*>(k),
-               static_cast<const __nv_bfloat16*>(v),
-               static_cast<const int*>(qseg),
-               static_cast<const int*>(kseg),
-               static_cast<__nv_bfloat16*>(o),
-               static_cast<float*>(lse),
-               b, sq, sk, h, hkv, d,
-               scale * kLog2e,
-               static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dispatch_masks<true>(a, causal != 0));
+  if (lse == nullptr || (qseg == nullptr) != (kseg == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p = make_params(q, k, v, qseg, kseg, o, lse, sq, sk, h, hkv, d, causal != 0, scale);
+  return static_cast<int>(dispatch(p, b, static_cast<cudaStream_t>(stream)));
 }

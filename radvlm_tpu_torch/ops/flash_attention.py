@@ -165,7 +165,7 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
 
 def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """The kernels take bf16 q/k/v on the card with an even head_dim <= 128
-    (padded inside to 64, 80 or 128)."""
+    (padded inside to a multiple of 16)."""
     kernels.require_cuda_tensors(name, *tensors)
     for t in tensors[:3]:
         if t.dtype != torch.bfloat16:

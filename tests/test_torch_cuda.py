@@ -57,7 +57,7 @@ def _assert_close(name, out, ref, rows=None):
 
 
 @pytest.mark.parametrize("shape", [(10, 729, 16, 72), (2, 200, 2, 64), (1, 77, 4, 128),
-                                   (3, 64, 1, 16)])
+                                   (3, 64, 1, 16), (1, 1000, 2, 128), (2, 129, 3, 30)])
 def test_k1_matches_plain(dev, shape):
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (_randn(gen, dev, *shape) for _ in range(3))
@@ -76,6 +76,13 @@ K2_CASES = [
     (1, 333, 333, 4, 4, 128, True, None),  # causal, no segment ids
     (2, 256, 256, 8, 2, 72, False, "packed"),  # non-causal, packed segments
     (2, 192, 512, 8, 8, 64, True, "cache"),  # prefill into a longer cache
+    # Around the 128-row query tiles and 128-key K/V tiles of the kernel:
+    (1, 1000, 1000, 7, 1, 64, True, "packed"),  # GQA 7:1; uniform kv tiles, then a mixed one
+    (2, 1000, 1000, 14, 2, 64, True, "wide_pad"),  # whole query tiles of segment 0
+    (1, 729, 729, 16, 16, 72, False, "packed"),  # D = 72, both sides of the clean/masked split
+    (1, 129, 1000, 4, 1, 128, True, "cache"),  # Sk > Sq, one row past a tile
+    (2, 200, 200, 4, 4, 16, False, None),  # D = 16
+    (1, 129, 129, 6, 3, 30, True, "packed"),  # D % 8 != 0: 4-byte staging
 ]
 
 
@@ -91,18 +98,50 @@ def test_k2_matches_plain(dev, case):
         if segs == "packed":
             qseg[:, sq // 3:] = 2
             qseg[0, -17:] = 0
+        elif segs == "wide_pad":
+            qseg[0, :600] = 0  # rows 0-511: four query tiles that attend nothing
         else:
             qseg[0, :sq // 3 + 5] = 0  # left padding: rows that attend nothing
         kseg = torch.zeros((b, sk), dtype=torch.int32, device=dev)
         kseg[:, :sq] = qseg
-    out = tfa.prefill_attention(q, k, v, q_segment_ids=qseg, kv_segment_ids=kseg,
-                                causal=causal)
+    kw = dict(q_segment_ids=qseg, kv_segment_ids=kseg, causal=causal)
+    out = tfa.prefill_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     ref = tfa.attention_plain(q, k, v, qseg, kseg, causal, d ** -0.5)
     real = None if qseg is None else qseg != 0
     _assert_close("prefill_attention", out, ref, rows=real)
     if real is not None:
         assert torch.all(out[~real] == 0)
+    # The same launch gives the same bits (no atomics).
+    assert torch.equal(out, tfa.prefill_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("d", [64, 72, 128])
+def test_k2_unaligned_views_give_the_aligned_bits(dev, d):
+    """q / k / v that start 4 bytes past a 16-byte boundary take the 4-byte
+    staging into the same shared-memory layout: the aligned copies' bits."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, s, h, hkv = 1, 300, 4, 2
+
+    def unaligned(*shape):
+        n = 1
+        for x in shape:
+            n *= x
+        buf = _randn(gen, dev, n + 2)
+        view = buf[2:].view(*shape)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    q, k, v = unaligned(b, s, h, d), unaligned(b, s, hkv, d), unaligned(b, s, hkv, d)
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    seg[0, :40] = 0
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=True)
+    out = tfa.prefill_attention(q, k, v, **kw)
+    aligned = tfa.prefill_attention(q.clone(), k.clone(), v.clone(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, aligned)
+    _assert_close("prefill_attention", out, tfa.attention_plain(q, k, v, seg, seg, True, d ** -0.5),
+                  rows=seg.bool())
 
 
 # (B, S, H, Hkv, D, layer)
@@ -544,6 +583,8 @@ BWD_CASES = [
     (2, 256, 256, 8, 2, 72, False, "packed"),  # non-causal, packed segments
     (2, 192, 512, 8, 8, 64, True, "cache"),  # Sk > Sq
     (1, 130, 130, 6, 3, 30, True, None),  # head_dim not a multiple of 8: 4-byte staging
+    (1, 1000, 1000, 7, 1, 128, True, "packed"),  # GQA 7:1, ragged 128-row tiles
+    (2, 129, 200, 4, 2, 16, False, "packed"),  # Sk > Sq, D = 16
 ]
 
 

@@ -248,7 +248,7 @@ def test_kernel_sources_and_build_dir():
     names = sorted(os.path.basename(s) for s in kernels._sources())
     assert names == ["common.cuh", "decode_attention.cu", "flash_attention.cu",
                      "flash_attention_bwd.cu", "int4_matmul.cu", "int8_matmul.cu",
-                     "w8a8_matmul.cu"]
+                     "w8a8_matmul.cu", "wgmma.cuh"]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert os.path.relpath(kernels.BUILD_DIR, repo).startswith("build")
     with open(os.path.join(repo, ".gitignore")) as f:
