@@ -89,7 +89,9 @@ Phases, each raising on failure (the last line is printed only on success):
    shapes training gives them (the 0.5B and the 7B decoder at 4096 tokens,
    the SigLIP tower's tiles): K2 writing the lse (o bit for bit the no-lse
    entry point's), K7 (dk, dv) and K8 (dq), timed beside the bound and beside
-   SDPA's backward through torch.autograd.grad (a yardstick no path uses).
+   SDPA's backward through torch.autograd.grad (a yardstick no path uses),
+   and K7 + K8 + attention_delta (the whole backward on the card) against
+   it, each 10 calls a sample.
    Here, a reference check on one small batch (loss and per-group gradient
    norms of the kernel path and of plain attention under the same bf16
    autocast, against plain attention in f32: the kernel path must be as close
@@ -284,7 +286,7 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
     return statistics.median(times)
 
 
-ATTN_BATCH = 10  # the forward attention kernels and SDPA: 10 calls a sample
+ATTN_BATCH = 10  # the attention kernels and SDPA, forward and backward: 10 calls a sample
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -478,8 +480,9 @@ def phase_kernels(dev, seed: int):
     results.update(window_kernels(dev, randn, quantized=False))
     results.update(training_kernels(dev, g, randn))
     results.update(phase_int8_kernels(dev, g))
-    print(f"  (K1, K2, K2-lse and their SDPA calls: samples of {ATTN_BATCH} calls in a row; "
-          "every other time: one call a sample, its wrapper's host time included)", flush=True)
+    print(f"  (K1, K2, K2-lse, K7, K8 and their SDPA calls: samples of {ATTN_BATCH} calls in a "
+          "row; every other time: one call a sample, its wrapper's host time included)",
+          flush=True)
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -573,23 +576,35 @@ def training_kernels(dev, g, randn):
         ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         lib_out = sdpa(ql, kl, vl, mask)
         library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
-                                                         retain_graph=True), reps=5)
+                                                         retain_graph=True),
+                             reps=5, batch=ATTN_BATCH)
         del lib_out, ql, kl, vl
         common = nbytes(q, k, v, do, lse, delta) + seg_bytes
         r_dkv = dict(max_abs_err=max(err_dk, err_dv),
-                     ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+                     ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                                batch=ATTN_BATCH),
                      plain_ms=plain_ms, library_ms=library_ms,
                      **bound(common + nbytes(dk, dv), 8 * h * d * pairs, "bf16"))
         r_dq = dict(max_abs_err=err_dq,
-                    ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)),
+                    ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                               batch=ATTN_BATCH),
                     plain_ms=plain_ms, library_ms=library_ms,
                     **bound(common + nbytes(dq), 6 * h * d * pairs, "bf16"))
+
+        def backward():  # what `_FlashAttention.backward` runs on the card
+            dl = fa.attention_delta(o, do, dlse)
+            fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl, **kw)
+            fa.flash_attention_bwd_dq(q, k, v, do, lse, dl, **kw)
+
+        pair_ms = cuda_ms(backward, batch=ATTN_BATCH)
         for name, r in (("K2-lse", r_lse), ("K7", r_dkv), ("K8", r_dq)):
             what = "SDPA forward" if name == "K2-lse" else "SDPA backward (dq, dk, dv together)"
             print(f"    {name} {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
                   f"({'forward' if name == 'K2-lse' else 'the whole backward'}), bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {what} {r['library_ms']:.4f} ms"
                   f"{against(r) if name == 'K2-lse' else ''}", flush=True)
+        print(f"    K7 + K8 + attention_delta {label}: {pair_ms:.4f} ms against SDPA backward "
+              f"{library_ms:.4f} ms: {pair_ms / library_ms:.2f}x", flush=True)
         if label == "0.5B decoder":
             results.update(prefill_attention_lse=r_lse, flash_attention_bwd_dkv=r_dkv,
                            flash_attention_bwd_dq=r_dq)
@@ -1909,7 +1924,7 @@ def phase_sft(dev, seed: int):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             ostate, m = step_fn(ostate, batch)
             torch.cuda.synchronize()
-        device_breakdown(prof, wall, "SFT step (update every step)", top=14)
+        device_breakdown(prof, wall, "SFT step (update every step)", top=20)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return counts

@@ -70,7 +70,6 @@
 #include "common.cuh"
 #include "wgmma.cuh"
 
-#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time (no -lcuda)
 #include <limits.h>
 #include <math.h>
 
@@ -116,30 +115,6 @@ struct Params {
   bool causal;
   bool tma;  // else 4-byte cp.async copies
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Rows [row0, row0 + R) of a [*, row_stride] bf16 matrix, columns [0, DP),
-// into the swizzled tile at shared address `dst` with 4-byte cp.async
-// copies: zero past `limit` rows and past `d` columns. Neighbouring threads
-// copy neighbouring column pairs of a row.
-template <int R, int DP>
-__device__ __forceinline__ void stage_tile(uint32_t dst, const __nv_bfloat16* src,
-                                           long row_stride, int row0, int limit, int d) {
-#pragma unroll 4
-  for (int it = 0; it < (R * DP / 2 + kThreads - 1) / kThreads; ++it) {
-    const int i = it * kThreads + threadIdx.x;
-    if ((R * DP / 2) % kThreads != 0 && i >= R * DP / 2) break;
-    const int r = i / (DP / 2), col = (i % (DP / 2)) * 2;
-    const bool ok = row0 + r < limit && col < d;
-    cp_async4(dst + sw128_offset<R>(r, col >> 3) + (col & 7) * 2,
-              ok ? src + (long)(row0 + r) * row_stride + col : src, ok);
-  }
-}
 
 // DP: head_dim padded to a multiple of 16 (the QK contraction); DV: the PV
 // product's N, head_dim padded to a multiple of 8.
@@ -224,11 +199,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const __grid_con
       } else {
         const long kv_off = (long)b * p.sk * kv_rs + (long)hk * p.d;
         if (tile == 0) {
-          stage_tile<kBlockM, DP>(sbase, p.q + (long)b * p.sq * q_rs + (long)hq * p.d, q_rs, q0,
-                                  p.sq, p.d);
+          stage_tile<kBlockM, DP, kThreads>(
+              sbase, p.q + (long)b * p.sq * q_rs + (long)hq * p.d, q_rs, q0, p.sq, p.d);
         }
-        stage_tile<kBlockN, DP>(ks, p.k + kv_off, kv_rs, n0, p.sk, p.d);
-        stage_tile<kBlockN, DP>(vs, p.v + kv_off, kv_rs, n0, p.sk, p.d);
+        stage_tile<kBlockN, DP, kThreads>(ks, p.k + kv_off, kv_rs, n0, p.sk, p.d);
+        stage_tile<kBlockN, DP, kThreads>(vs, p.v + kv_off, kv_rs, n0, p.sk, p.d);
       }
       if (seg && threadIdx.x < kBlockN) {
         const int key = n0 + threadIdx.x;
@@ -396,45 +371,6 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const __grid_con
     if (r0 < p.sq) lb[r0] = l0 > 0.f ? m0 * (sl2 * kLn2) + logf(l0) : -INFINITY;
     if (r1 < p.sq) lb[r1] = l1 > 0.f ? m1 * (sl2 * kLn2) + logf(l1) : -INFINITY;
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(f);
-    }
-  });
-  return fn;
-}
-
-// A [B, S, H, D] bf16 tensor as a 4-D tensor map read in boxes of 64 columns
-// x `rows` rows of one head, 128-byte swizzled (wgmma.cuh's layout), zeros
-// past its bounds.
-cudaError_t encode(CUtensorMap* map, const void* base, int b, int s, int h, int d, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
-                                 (cuuint64_t)s * h * d * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Sets the instantiation's dynamic shared memory limit once per device,

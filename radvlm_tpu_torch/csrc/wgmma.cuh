@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
-// asynchronous copies into shared memory (TMA boxes counted on mbarriers, and
-// 4-byte cp.async), the shared-memory matrix descriptors of wgmma in the
-// 128-byte swizzled layout, and wgmma itself.
+// asynchronous copies into shared memory (TMA boxes counted on mbarriers,
+// the tensor maps they read, and 4-byte cp.async), the shared-memory matrix
+// descriptors of wgmma in the 128-byte swizzled layout, wgmma itself, and
+// the thread-block cluster's barrier and distributed shared memory.
 //
 // The layout. A tile of R rows x C bf16 columns (C a multiple of 64) is kept
 // as C / 64 column blocks, each R rows of 128 bytes (64 columns), one block
@@ -21,11 +22,20 @@
 // addresses).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace radvlm {
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -53,6 +63,24 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) of a [*, row_stride] bf16 matrix, columns [0, DP),
+// into the swizzled tile at shared address `dst` with 4-byte cp.async
+// copies by the NT threads of the CTA: zero past `limit` rows and past `d`
+// columns. Neighbouring threads copy neighbouring column pairs of a row.
+template <int R, int DP, int NT>
+__device__ __forceinline__ void stage_tile(uint32_t dst, const __nv_bfloat16* src,
+                                           long row_stride, int row0, int limit, int d) {
+#pragma unroll 4
+  for (int it = 0; it < (R * DP / 2 + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if ((R * DP / 2) % NT != 0 && i >= R * DP / 2) break;
+    const int r = i / (DP / 2), col = (i % (DP / 2)) * 2;
+    const bool ok = row0 + r < limit && col < d;
+    cp_async4(dst + sw128_offset<R>(r, col >> 3) + (col & 7) * 2,
+              ok ? src + (long)(row0 + r) * row_stride + col : src, ok);
+  }
 }
 
 // Makes this thread's completed writes to shared memory (cp.async lands
@@ -146,8 +174,8 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // wgmma.mma_async m64nNk16, bf16 in, f32 accumulators: `ss` (A and B in
-// shared memory) at N = 64, the S = Q K^T of a 64-key tile; `rs` (A in
-// registers) at every head-dim N. The accumulator of
+// shared memory) at N = 64 and 128, the scores of a 64- or 128-column tile;
+// `rs` (A in registers) at every head-dim N. The accumulator of
 // warp w of the warpgroup holds rows 16w + g and 16w + g + 8 (g = lane / 4,
 // t = lane % 4): d[4j + 0, 1] = row g, columns 8j + 2t, +1; d[4j + 2, 3] =
 // row g + 8, the same columns (mma.sync's C layout, one 8-column block
@@ -225,6 +253,26 @@ struct Wgmma<72> {
 
 template <>
 struct Wgmma<128> {
+  // d[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory, both K-major
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
   // d[64 x 128] += A[64 x 16] * B[16 x 128], A in registers, B in shared memory MN-major
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
@@ -246,5 +294,72 @@ struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// This CTA's rank in its thread-block cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster: this thread's earlier writes to
+// shared memory are visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Two floats at shared address `addr` of the cluster's CTA `rank`.
+__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(f);
+    }
+  });
+  return fn;
+}
+
+// A [B, S, H, D] bf16 tensor as a 4-D tensor map read in boxes of 64 columns
+// x `rows` rows of one head, 128-byte swizzled (this file's layout), zeros
+// past its bounds.
+inline cudaError_t encode(CUtensorMap* map, const void* base, int b, int s, int h, int d,
+                          int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
+                                 (cuuint64_t)s * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace radvlm

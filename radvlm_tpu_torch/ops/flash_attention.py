@@ -286,7 +286,8 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor,
                     dlse: Optional[torch.Tensor]) -> torch.Tensor:
     """delta = rowsum(do * o) - dlse, f32 [B,H,Sq]: plain PyTorch, as the JAX
     package leaves it to XLA outside its kernels."""
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    # o promotes to f32 inside the product (exact), so only do is copied.
+    delta = (do.float() * o).sum(-1).transpose(1, 2)
     if dlse is not None:
         delta = delta - dlse.float()
     return delta.contiguous()

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K6, K9-K13) against
+"""The port's hand-written CUDA kernels (K1-K13) against
 their plain PyTorch versions on the card, at shapes beyond the main path's:
 other head dims and GQA ratios, ragged sequence tails, Sq < Sk, rows with
 nothing to attend, K and N tails of the int8 matmuls, 1-64 decode rows.
@@ -585,6 +585,13 @@ BWD_CASES = [
     (1, 130, 130, 6, 3, 30, True, None),  # head_dim not a multiple of 8: 4-byte staging
     (1, 1000, 1000, 7, 1, 128, True, "packed"),  # GQA 7:1, ragged 128-row tiles
     (2, 129, 200, 4, 2, 16, False, "packed"),  # Sk > Sq, D = 16
+    # K7's GQA group split over a cluster of c CTAs, c the largest divisor of
+    # g <= 8: g = 14 and 16 (c = 7, 8; two heads a CTA), g = 2 at D = 72,
+    # g = 71 (prime: c = 1, one CTA walks the group).
+    (1, 300, 300, 14, 1, 64, True, "packed"),
+    (1, 300, 300, 16, 1, 128, True, "left_pad"),
+    (2, 200, 200, 4, 2, 72, True, "packed"),
+    (1, 130, 130, 71, 1, 64, False, None),
 ]
 
 
@@ -681,6 +688,45 @@ def test_flash_attention_function_on_the_card(dev):
     o, lse = tfa.attention_plain(qb, kb, vb, None, None, False, 72 ** -0.5, with_lse=True)
     rq, rk, rv = tfa.attention_backward_plain(qb, kb, vb, None, None, o, lse,
                                               w.to(torch.bfloat16), None, False, 72 ** -0.5)
+    _assert_close("flash_attention_bwd_dq", dq, rq)
+    _assert_close("flash_attention_bwd_dkv", dk, rk)
+    _assert_close("flash_attention_bwd_dkv", dv, rv)
+
+
+@pytest.mark.parametrize("d", [64, 72, 128])
+def test_k7_k8_unaligned_views_give_the_aligned_bits(dev, d):
+    """q / k / v / do that start 4 bytes past a 16-byte boundary take the
+    4-byte staging into the same shared-memory layout: the aligned copies'
+    bits, and within the bound of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, h, hkv = 1, 300, 14, 2
+
+    def unaligned(*shape):
+        n = 1
+        for x in shape:
+            n *= x
+        buf = _randn(gen, dev, n + 2)
+        view = buf[2:].view(*shape)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    q, k, v = unaligned(b, s, h, d), unaligned(b, s, hkv, d), unaligned(b, s, hkv, d)
+    do = unaligned(b, s, h, d)
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    seg[0, :40] = 0
+    seg[0, 200:] = 2
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=True)
+    o, lse = tfa.prefill_attention_lse(q.clone(), k.clone(), v.clone(), **kw)
+    delta = tfa.attention_delta(o, do, None)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    aligned = [t.clone() for t in (q, k, v, do)]
+    dk_a, dv_a = tfa.flash_attention_bwd_dkv(*aligned, lse, delta, **kw)
+    dq_a = tfa.flash_attention_bwd_dq(*aligned, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq_a) and torch.equal(dk, dk_a) and torch.equal(dv, dv_a)
+    rq, rk, rv = tfa.attention_backward_plain(q, k, v, seg, seg, o, lse, do, None, True,
+                                              d ** -0.5)
     _assert_close("flash_attention_bwd_dq", dq, rq)
     _assert_close("flash_attention_bwd_dkv", dk, rk)
     _assert_close("flash_attention_bwd_dkv", dv, rv)
