@@ -345,6 +345,17 @@ def queued_ms(fn, reps: int = 10) -> float:
     raise AssertionError("queued_ms: the host never got ahead of the card")
 
 
+def timed(run, library=None, reps: int = 10) -> dict:
+    """A kernel's and its library call's times: `ms` / `library_ms` by CUDA
+    events around samples of ATTN_BATCH calls in a row, `device_ms` /
+    `library_device_ms` by torch.profiler (no host time in either). Plain
+    versions stay one call a sample."""
+    r = dict(ms=cuda_ms(run, reps=reps, batch=ATTN_BATCH), device_ms=device_ms(run, reps))
+    r["library_ms"] = None if library is None else cuda_ms(library, reps=reps, batch=ATTN_BATCH)
+    r["library_device_ms"] = None if library is None else device_ms(library, reps)
+    return r
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -470,22 +481,23 @@ def phase_kernels(dev, seed: int):
 
     visible = int((seg != 0).sum())  # only the written slots need to be read
     results["decode_attention"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: run(next(layers))),
+        max_abs_err=err, **timed(lambda: run(next(layers)), lambda: library(next(layers))),
         plain_ms=cuda_ms(lambda: plain(next(layers))),
-        library_ms=cuda_ms(lambda: library(next(layers))),
         **bound(2 * visible * 512 * 2 + nbytes(qd, out, seg), 4 * 28 * 128 * visible, "bf16"),
     )
     del ck, cv
     results.update(window_kernels(dev, randn, quantized=False))
     results.update(training_kernels(dev, g, randn))
     results.update(phase_int8_kernels(dev, g))
-    print(f"  (K1, K2, K2-lse, K7, K8 and their SDPA calls: samples of {ATTN_BATCH} calls in a "
-          "row; every other time: one call a sample, its wrapper's host time included)",
-          flush=True)
+    print(f"  (kernels and library calls: samples of {ATTN_BATCH} calls in a row, and device "
+          "time by torch.profiler in brackets where taken; plain versions: one call a sample, "
+          "the wrapper's host time included)", flush=True)
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        if r.get("library_device_ms") is not None:
+            lib += f" ({r['library_device_ms']:.4f})"
+        dev_ms = f" ({r['device_ms']:.4f})" if r.get("device_ms") is not None else ""
+        print(f"  {name}: kernel {r['ms']:.4f} ms{dev_ms}, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library call {lib}{against(r)}",
               flush=True)
     torch.cuda.empty_cache()
@@ -657,7 +669,6 @@ def window_kernels(dev, randn, *, quantized: bool, cache=None):
         pairs = sum(int(((seg != 0) & (ar <= widx[:, None] + j)).sum()) for j in range(w))
         per_key = 2 * 512 + 2 * 4 * 4 if quantized else 2 * 512 * 2
         layers = itertools.cycle(range(n_layers))
-        library_ms = None
         if not quantized:
             # The library's attention on the bf16 layer as it lies, under the
             # window's visibility mask [B, 1, W, S]. (The int8 cache would
@@ -670,15 +681,16 @@ def window_kernels(dev, randn, *, quantized: bool, cache=None):
                 return sdpa(q, cache[0][layer].view(b, s, hkv, 128),
                             cache[1][layer].view(b, s, hkv, 128), mask)
 
-            library_ms = cuda_ms(lambda: library(next(layers)))
-        r = dict(max_abs_err=err, ms=cuda_ms(lambda: run(next(layers))),
+        r = dict(max_abs_err=err,
+                 **timed(lambda: run(next(layers)),
+                         None if quantized else lambda: library(next(layers))),
                  plain_ms=cuda_ms(lambda: plain(next(layers)), reps=3, warmup=1),
-                 library_ms=library_ms,
                  **bound(any_row * per_key + nbytes(q, out, seg, widx), 4 * 28 * 128 * pairs,
                          "bf16"))
-        print(f"    {label} W={w}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library call "
-              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+        lib = r["library_ms"]
+        print(f"    {label} W={w}: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} on the device), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"library call {'none' if lib is None else f'{lib:.4f} ms'}, "
               f"{any_row * per_key / r['ms'] / 1e6:.1f} GB/s of visible K/V", flush=True)
         if w == SPEC_K + 1:
             result = r
@@ -711,17 +723,18 @@ def phase_int8_kernels(dev, g):
         torch.cuda.synchronize()
         err = check_close("w8a8_matmul", f"K3 w8a8_matmul {label} [{m},{k}]x[{k},{n}]",
                           out, plain())
-        ms = cuda_ms(run)
-        print(f"    K3 {label}: {ms:.4f} ms, {2 * m * k * n / ms / 1e9:.1f} TOP/s", flush=True)
         if label == "text gateup":
             def library():  # cuBLAS int8 GEMM, then the two scale products
                 acc = torch._int_mm(xq, wq.t())
                 return ((acc.float() * xs) * ws).to(torch.bfloat16)
 
-            results["w8a8_matmul"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=cuda_ms(plain, reps=5),
-                library_ms=cuda_ms(library, reps=5),
+            results["w8a8_matmul"] = r = dict(
+                max_abs_err=err, **timed(run, library, reps=5), plain_ms=cuda_ms(plain, reps=5),
                 **bound(nbytes(xq, xs, wq, ws, out), 2 * m * k * n, "int8"))
+            ms = r["ms"]
+        else:
+            ms = cuda_ms(run, reps=5, batch=ATTN_BATCH)
+        print(f"    K3 {label}: {ms:.4f} ms, {2 * m * k * n / ms / 1e9:.1f} TOP/s", flush=True)
         del xq, xs, wq
     # K4: 8 slots of a 4224-token int8 cache, 28 layers, each slot at its own
     # write index after its own left padding; slot 7 holds nothing.
@@ -750,8 +763,8 @@ def phase_int8_kernels(dev, g):
     layers = itertools.cycle(range(n_layers))
     visible = int((seg != 0).sum())  # per key: K and V rows, and 4 + 4 scales of 4 bytes
     results["decode_attention_q8"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: run_q8(next(layers))),
-        plain_ms=cuda_ms(lambda: plain_q8(next(layers))), library_ms=None,
+        max_abs_err=err, **timed(lambda: run_q8(next(layers))),
+        plain_ms=cuda_ms(lambda: plain_q8(next(layers))),
         **bound(visible * (2 * 512 + 2 * 4 * 4) + nbytes(qd, out, seg), 4 * 28 * 128 * visible,
                 "bf16"))
     print(f"    K4: {ck[0].numel() * 2 / results['decode_attention_q8']['ms'] / 1e6:.1f} GB/s "
@@ -773,21 +786,23 @@ def phase_int8_kernels(dev, g):
             err = check_close("int8_matmul", f"K5/K6 int8_matmul {label} [{rows},{k}]x[{k},{n}]",
                               out, i8.int8_matmul_plain(x, ws[0], sc))
             turn = itertools.cycle(ws)
-            ms = cuda_ms(lambda: i8.int8_matmul(x, next(turn), sc))
+            ms = cuda_ms(lambda: i8.int8_matmul(x, next(turn), sc), batch=ATTN_BATCH)
             dms = step_ms[(label, rows)] = device_ms(lambda: i8.int8_matmul(x, next(turn), sc))
             least = bound(nbytes(x, ws[0], sc, out), 2 * rows * k * n, "bf16")
             print(f"    K5/K6 {label} {rows} rows: {ms:.4f} ms by events, {dms:.4f} ms on the "
                   f"device ({n * k / dms / 1e6:.1f} GB/s), bound {least['bound_ms']:.4f} ms "
                   f"({least['bound_by']})", flush=True)
             if (label, rows) == ("gateup", 8):
+                lib_call = lambda: torch._weight_int8pack_mm(x, next(turn), sc)  # noqa: E731
                 results["int8_matmul"] = dict(
                     max_abs_err=err, ms=ms, device_ms=dms,
                     plain_ms=cuda_ms(lambda: i8.int8_matmul_plain(x, next(turn), sc)),
-                    library_ms=cuda_ms(
-                        lambda: torch._weight_int8pack_mm(x, next(turn), sc)), **least)
+                    library_ms=cuda_ms(lib_call, batch=ATTN_BATCH),
+                    library_device_ms=device_ms(lib_call), **least)
             if (label, rows) == ("lm_head", 8):  # K6's shape
                 plain_ms = cuda_ms(lambda: i8.int8_matmul_plain(x, next(turn), sc), reps=5)
-                lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, next(turn), sc), reps=5)
+                lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, next(turn), sc), reps=5,
+                                 batch=ATTN_BATCH)
                 print(f"    K6 lm_head 8 rows: plain {plain_ms:.4f} ms, library call "
                       f"(_weight_int8pack_mm) {lib_ms:.4f} ms", flush=True)
         del ws
@@ -823,7 +838,7 @@ def int4_kernel(dev, g, randn):
             err = check_close("int4_matmul", f"K12 int4_matmul {label} [{rows},{k}]x[{k},{n}]",
                               out, i4.int4_matmul_plain(x, ws[0], sc))
             turn = itertools.cycle(ws)
-            ms = cuda_ms(lambda: i4.int4_matmul(x, next(turn), sc))
+            ms = cuda_ms(lambda: i4.int4_matmul(x, next(turn), sc), batch=ATTN_BATCH)
             dms = step_ms[(label, rows)] = device_ms(lambda: i4.int4_matmul(x, next(turn), sc))
             least = bound(nbytes(x, ws[0], sc, out), 2 * rows * k * n, "bf16")
             print(f"    K12 {label} {rows} rows: {ms:.4f} ms by events, {dms:.4f} ms on the device "
@@ -876,16 +891,20 @@ def fused_w8a8_kernel(dev, randn, randint8):
                           out, unfused())
         if out[m // 2].abs().max() != 0:
             raise AssertionError("K13: a row of zeros must give 0")
-        ms, pair_ms = cuda_ms(run, reps=5), cuda_ms(unfused, reps=5)
-        quant_ms = cuda_ms(lambda: w8.quantize_rows(x), reps=5)
-        print(f"    K13 {label}: {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} TOP/s); "
-              f"quantize_rows + K3 {pair_ms:.4f} ms (quantize_rows alone {quant_ms:.4f})",
-              flush=True)
+        r = timed(run, library, reps=5)
+        ms = r["ms"]
+        pair_ms = cuda_ms(unfused, reps=5, batch=ATTN_BATCH)
+        pair_dev = device_ms(unfused, reps=5)
+        quant_ms = cuda_ms(lambda: w8.quantize_rows(x), reps=5, batch=ATTN_BATCH)
+        print(f"    K13 {label}: {ms:.4f} ms ({r['device_ms']:.4f} on the device; "
+              f"{2 * m * k * n / ms / 1e9:.1f} TOP/s); quantize_rows + K3 {pair_ms:.4f} ms "
+              f"({pair_dev:.4f}; quantize_rows alone {quant_ms:.4f}); quantize_rows + _int_mm + "
+              f"scales {r['library_ms']:.4f} ms ({r['library_device_ms']:.4f}): "
+              f"{ms / pair_ms:.2f}x the pair", flush=True)
         if label == "text gateup":
             results["w8a8_matmul_fused"] = dict(
-                max_abs_err=err, ms=ms,
+                max_abs_err=err, **r,
                 plain_ms=cuda_ms(lambda: w8.w8a8_matmul_fused_plain(x, wq, ws), reps=3, warmup=1),
-                library_ms=cuda_ms(library, reps=5),
                 **bound(nbytes(x, wq, ws, out), 2 * m * k * n, "int8"))
         del x, wq
     return results

@@ -1,42 +1,51 @@
-"""Time the attention kernels on the card at the shapes the main paths give
-them: the forwards (K1, K2, K2 with the lse) against SDPA, and the backward
-(K7 dk / dv, K8 dq) against SDPA's backward, optionally against other
-versions of `csrc/flash_attention.cu` / `csrc/flash_attention_bwd.cu` in
-turns.
+"""Time the port's kernels on the card at the shapes the main paths give
+them, optionally against other versions of their sources in turns:
 
-    python -m radvlm_tpu_torch.bench_attention [--only fwd|bwd] [--baseline DIR] [--ptxas]
-        [--reps N] [--batch N]
+- `--only fwd`: the attention forwards (K1, K2, K2 with the lse) against SDPA;
+- `--only bwd`: the backward (K7 dk / dv, K8 dq) against SDPA's backward;
+- `--only decode`: K9 (bf16 decode attention) and K10 at W = 5 against SDPA;
+- `--only w8a8`: K13 (fused W8A8 matmul) beside `quantize_rows` + K3 and
+  `quantize_rows` + `torch._int_mm` + the scale products;
+- no `--only`: all four.
 
-- Each shape is first held to the plain version (`kernels.error_ratio`).
+    python -m radvlm_tpu_torch.bench_kernels [--only fwd|bwd|decode|w8a8] [--baseline DIR]
+        [--ptxas] [--reps N] [--batch N]
+
+- Each shape is first held to the plain version (`kernels.error_ratio`; K13
+  bit for bit against `quantize_rows` + K3).
 - Times are medians of `--reps` samples, each sample CUDA events around
   `--batch` calls in a row (the host's launches run ahead of the card, so
   this is device time); the forward kernels and SDPA are also timed one call
-  a sample, their wrappers' host time included.
-- The backward at the three training shapes (0.5B and 7B decoders, the
-  tower): K7, K8, and K7 + K8 + `attention_delta` (what the autograd
-  Function runs) against one `torch.autograd.grad` through SDPA, which gives
-  dq, dk and dv together.
-- `--baseline DIR` (repeatable): DIR holds another `flash_attention.cu`
-  and / or `flash_attention_bwd.cu` (and the headers they include); the
-  sources there are built into a library of their own (same C entry points,
-  loaded apart), held to the same rule (reported, not asserted) and timed
-  against this checkout's kernels in the order this, each baseline, this.
-  One that does not build is reported and left out.
-- `--ptxas`: compile this checkout's two sources (and each baseline's) with
-  `-Xptxas -v` and print registers, shared memory, spills and ptxas's
-  warnings per instantiation.
+  a sample, their wrappers' host time included, and the backward, decode
+  and W8A8 sets also by torch.profiler device time (`device_ms`).
+- The decode kernels cycle through the 28 layers of a stacked cache, so
+  that one layer's K / V does not stay in the 50 MB L2 between calls.
+- `--baseline DIR` (repeatable): DIR holds other versions of the sources
+  (`flash_attention.cu`, `flash_attention_bwd.cu`, `decode_attention.cu`,
+  `w8a8_matmul.cu`, and the headers they include), e.g. the parent
+  commit's `radvlm_tpu_torch/csrc/` unpacked by `git archive` into the
+  gitignored `build/`. The sources the `--only` set needs are built into a
+  library of their own (same C entry points, loaded apart), held to the
+  same rule (reported, not asserted) and timed against this checkout's
+  kernels in the order this, each baseline, this. One that does not build
+  is reported and left out.
+- `--ptxas`: compile this checkout's sources of the set (and each
+  baseline's) with `-Xptxas -v` and print registers, shared memory, spills
+  and ptxas's warnings per instantiation.
 
 Prints one line per shape and kernel: the kernel's median ms, the library
-call's, the bound (the larger of bytes over 3.35 TB/s and the pairs the
-masks leave x 4 x D flops a product over 989 TFLOP/s), the kernel's share
-of the bound and its ratio to the library call. Needs a Hopper card and
-nvcc.
+call's, the bound (the larger of the bytes over 3.35 TB/s and the
+operations over the tensor cores' peak: the pairs the masks leave x 4 x D
+flops over 989 TFLOP/s for attention, 2 M K N over 1979 TOP/s for W8A8),
+the kernel's share of the bound and its ratio to the library call. Needs a
+Hopper card and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import os
 import statistics
 import subprocess
@@ -45,10 +54,13 @@ import torch
 
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.ops import attention as tatt
+from radvlm_tpu_torch.ops import decode_attention as da
 from radvlm_tpu_torch.ops import flash_attention as fa
+from radvlm_tpu_torch.ops import w8a8_matmul as w8
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 
 # (label, entry, B, S, H, Hkv, D, causal, segment layout)
 SHAPES = [
@@ -64,7 +76,20 @@ BWD_SHAPES = [
     ("7B decoder [1,4096,28|4,128]", 1, 4096, 28, 4, 128, True, "left_pad"),
     ("tower [5,729,16,72]", 5, 729, 16, 16, 72, False, None),
 ]
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+# The sources each --only set times.
+SET_SOURCES = {"fwd": ("flash_attention.cu",), "bwd": ("flash_attention_bwd.cu",),
+               "decode": ("decode_attention.cu",), "w8a8": ("w8a8_matmul.cu",)}
+SOURCES = tuple(src for srcs in SET_SOURCES.values() for src in srcs)
+# K9 at phase 3's shape: 4 rows of a 4096-slot cache, Qwen2-7B heads; each
+# row's written span (left padding before it, the unwritten tail after).
+DECODE_SPANS = [(300, 3600), (0, 3950), (1200, 4000), (40, 2100)]
+# K10 at W = 5 (spec_k = 4): 8 slots of a 4224-slot cache, each window's
+# first cache index and the start of its row's written span; slot 7 empty.
+WINDOW_IDX = [3500, 4224 - 5, 4000, 3100, 3890, 3200, 1000, 2000]
+WINDOW_LO = [300, 0, 1000, 40, 700, 0, 123]
+# K13 at phase 3's shapes: (label, M, K, N).
+W8A8_SHAPES = [("text gateup", 3456, 3584, 37888), ("text down", 3456, 18944, 3584),
+               ("tower fc1", 3645, 1152, 4304)]
 
 
 def segments(layout, b, s, dev):
@@ -101,12 +126,13 @@ def median_ms(fn, reps: int, batch: int = 1, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, by_kernel: bool = False):
     """The summed duration of the kernels one fn() launches, by
     torch.profiler over `reps` calls: the card's time without the host's,
     which a sample of calls in a row still holds where the host issues
     slower than the card runs (autograd.grad's backward). 0 where the
-    profiler traces no device."""
+    profiler traces no device. With `by_kernel`, also {kernel name: ms a
+    call}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,9 +142,15 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / reps
+    each = {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    total = sum(each.values())
+    return (total, each) if by_kernel else total
+
+
+def by_kernel_text(each: dict) -> str:
+    return ", ".join(f"{name.split('(')[0].split('<')[0].split(' ')[-1]} {ms:.4f}"
+                     for name, ms in sorted(each.items(), key=lambda kv: -kv[1]))
 
 
 def nvcc_cmd(src_dir: str, out: str, *flags: str, sources=SOURCES):
@@ -139,6 +171,9 @@ def load_baseline(lib_path: str) -> ctypes.CDLL:
         "radvlm_prefill_attention_lse": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
         "radvlm_flash_attention_bwd_dkv": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
         "radvlm_flash_attention_bwd_dq": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
+        "radvlm_decode_attention": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
+        "radvlm_decode_attention_window": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p],
+        "radvlm_w8a8_matmul_fused": [p, p, p, p, p, i, i, i, p],
     }
     for name, argtypes in sigs.items():
         if has(lib, name):
@@ -203,13 +238,16 @@ def attention_mask(seg, causal, b, s, dev):
     return tatt.make_attention_mask(ids, ids, causal)
 
 
-def in_turns(run, bases, args):
+def in_turns(run, bases, args, measure=None):
     """This checkout's kernel, each baseline's ((library, name) pairs), this
     one again: the median of this one's two times, and text with each
-    baseline's time."""
-    a1 = median_ms(run, args.reps, args.batch)
-    times = [median_ms(lambda base=base: run(base), args.reps, args.batch) for base, _ in bases]
-    a2 = median_ms(run, args.reps, args.batch) if bases else a1
+    baseline's time. `measure(fn)` times one fn (default: CUDA events
+    around samples of --batch calls)."""
+    if measure is None:
+        measure = lambda fn: median_ms(fn, args.reps, args.batch)  # noqa: E731
+    a1 = measure(run)
+    times = [measure(lambda base=base: run(base)) for base, _ in bases]
+    a2 = measure(run) if bases else a1
     extra = "".join(f"; {name}: {t:.4f} ms ({t / statistics.median([a1, a2]):.2f}x)"
                     for (_, name), t in zip(bases, times))
     if bases:
@@ -269,7 +307,6 @@ def base_rule(name, out, ref, rows=None) -> str:
 
 def backward(args, this, bases, dev, g) -> None:
     """K7, K8 and K7 + K8 + delta against SDPA's backward."""
-    bases = [(base, n) for base, n in bases if has(base, "radvlm_flash_attention_bwd_dkv")]
     for label, b, s, h, hkv, d, causal, layout in BWD_SHAPES:
         q, do = (torch.randn(b, s, h, d, generator=g, device=dev, dtype=torch.bfloat16)
                  for _ in range(2))
@@ -339,9 +376,173 @@ def backward(args, this, bases, dev, g) -> None:
         torch.cuda.empty_cache()
 
 
+def decode(args, this, bases, dev, g) -> None:
+    """K9 at phase 3's shape and K10 at W = 5 (whose kernel this set does
+    not redesign: its time should not move) against SDPA, layers cycled."""
+    n_layers, hkv, d = 28, 4, 128
+    scale = d ** -0.5
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    # K9: [4, 28, 128] over [4, 4096, 512].
+    b, s = 4, 4096
+    ck, cv = randn(n_layers, b, s, hkv * d), randn(n_layers, b, s, hkv * d)
+    q = randn(b, 28, d)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    for i, (lo, hi) in enumerate(DECODE_SPANS):
+        seg[i, lo:hi] = 1
+    nsplit, chunk = da._split_plan(b, hkv, s, dev)
+    part_o = torch.empty((b, 28, nsplit, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, 28, nsplit, 2), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+
+    def k9(layer, lib=this):
+        err = lib.radvlm_decode_attention(
+            q.data_ptr(), ck[layer].data_ptr(), cv[layer].data_ptr(), seg.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, 28, hkv, d, nsplit,
+            chunk, scale, kernels.stream_ptr(dev))
+        kernels.check(err, "decode_attention")
+
+    mask = (seg != 0)[:, None, None, :]
+
+    def sdpa(layer):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], ck[layer].view(b, s, hkv, d).transpose(1, 2),
+            cv[layer].view(b, s, hkv, d).transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    visible = int((seg != 0).sum())
+    n_bytes = 2 * visible * hkv * d * 2 + 2 * q.numel() * 2 + seg.numel() * 4
+    bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * 28 * d * visible / PEAK_BF16)
+    ref = da.decode_attention_plain(q, ck[27], cv[27], seg, num_kv_heads=hkv, scale=scale)
+    timed("K9 decode [4,28,128] x [4,4096,512]", "decode_attention", k9, sdpa, ref, out,
+          bound_ms, n_layers, args, this, bases)
+    del ck, cv, part_o, part_ml
+
+    # K10 at W = 5: [8, 5, 28, 128] over [8, 4224, 512].
+    b, s, w = 8, 4224, 5
+    ck, cv = randn(n_layers, b, s, hkv * d), randn(n_layers, b, s, hkv * d)
+    q = randn(b, w, 28, d)
+    widx = torch.tensor(WINDOW_IDX, dtype=torch.int32, device=dev)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    for i, lo in enumerate(WINDOW_LO):
+        seg[i, lo:int(widx[i]) + w] = 1
+    nsplit, chunk = da._split_plan(b, hkv, s, dev)
+    part_o = torch.empty((b, w, 28, nsplit, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, w, 28, nsplit, 2), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+
+    def k10(layer, lib=this):
+        err = lib.radvlm_decode_attention_window(
+            q.data_ptr(), ck[layer].data_ptr(), cv[layer].data_ptr(), seg.data_ptr(),
+            widx.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, 28,
+            hkv, d, w, nsplit, chunk, scale, kernels.stream_ptr(dev))
+        kernels.check(err, "decode_attention_window")
+
+    ar = torch.arange(s, device=dev)[None]
+    wmask = ((seg != 0)[:, None, :]
+             & (ar[:, None, :] <= (widx[:, None] + torch.arange(w, device=dev))[:, :, None]))[:, None]
+
+    def sdpa_window(layer):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), ck[layer].view(b, s, hkv, d).transpose(1, 2),
+            cv[layer].view(b, s, hkv, d).transpose(1, 2), attn_mask=wmask, enable_gqa=True)
+
+    any_row = int(((seg != 0) & (ar <= widx[:, None] + w - 1)).sum())
+    pairs = sum(int(((seg != 0) & (ar <= widx[:, None] + j)).sum()) for j in range(w))
+    n_bytes = 2 * any_row * hkv * d * 2 + 2 * q.numel() * 2 + seg.numel() * 4 + widx.numel() * 4
+    bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * 28 * d * pairs / PEAK_BF16)
+    ref = da.decode_attention_window_plain(q, ck[27], cv[27], seg, widx, num_kv_heads=hkv,
+                                           scale=scale)
+    timed("K10 window W=5 [8,5,28,128] x [8,4224,512]", "decode_attention_window", k10,
+          sdpa_window, ref, out, bound_ms, n_layers, args, this, bases)
+    del ck, cv, part_o, part_ml
+    torch.cuda.empty_cache()
+
+
+def timed(label, name, kernel, library, ref, out, bound_ms, n_layers, args, this, bases):
+    """Hold `kernel(layer, lib)` (writing `out`) at layer 27 to `ref`, then
+    time it, each baseline's and `library(layer)` with the layers cycled."""
+    kernel(27)
+    torch.cuda.synchronize()
+    err, ratio = kernels.error_ratio(name, out, ref)
+    for base, bname in bases:
+        kernel(27, base)
+        torch.cuda.synchronize()
+        print(f"    {bname}: {base_rule(name, out, ref)}", flush=True)
+    layers = itertools.cycle(range(n_layers))
+    run = lambda lib=this: kernel(next(layers), lib)  # noqa: E731
+    lib_call = lambda: library(next(layers))  # noqa: E731
+    ms = median_ms(run, args.reps, args.batch)
+    lib_ms = median_ms(lib_call, args.reps, args.batch)
+    # A call's host time (~20 us of Python and ctypes) is near the kernel's
+    # time, so the turns are taken by torch.profiler device time.
+    _, extra = in_turns(run, bases, args, lambda fn: device_ms(fn, args.reps))
+    (dev_ms, each), lib_dev = device_ms(run, args.reps, True), device_ms(lib_call, args.reps)
+    print(f"    {label}, device time by kernel: {by_kernel_text(each)}", flush=True)
+    print(f"  {label}: kernel {ms:.4f} ms ({dev_ms:.4f} by torch.profiler), SDPA {lib_ms:.4f} ms "
+          f"({lib_dev:.4f}): {ms / lib_ms:.2f}x SDPA ({dev_ms / lib_dev if lib_dev else float('nan'):.2f}x "
+          f"by device time), bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}% of it); worst "
+          f"element at {ratio:.3f} of its bound (max_abs_err {err:.3e}){extra}", flush=True)
+
+
+def w8a8(args, this, bases, dev, g) -> None:
+    """K13 at the three phase-3 shapes, bit for bit against quantize_rows +
+    K3, timed beside that pair and beside quantize_rows + torch._int_mm +
+    the scale products."""
+    for label, m, k, n in W8A8_SHAPES:
+        x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+        x[m // 2] = 0
+        wq = torch.randint(-128, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        ws = torch.full((n,), 0.02 / 127, device=dev)
+        xs = torch.empty((m,), dtype=torch.float32, device=dev)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+
+        def k13(lib=this):
+            err = lib.radvlm_w8a8_matmul_fused(x.data_ptr(), xs.data_ptr(), wq.data_ptr(),
+                                               ws.data_ptr(), out.data_ptr(), m, n, k,
+                                               kernels.stream_ptr(dev))
+            kernels.check(err, "w8a8_matmul_fused")
+
+        def unfused():
+            xq, xsr = w8.quantize_rows(x)
+            return w8.w8a8_matmul(xq, xsr, wq, ws)
+
+        def library():
+            xq, xsr = w8.quantize_rows(x)
+            return ((torch._int_mm(xq, wq.t()).float() * xsr) * ws).to(torch.bfloat16)
+
+        ref = unfused()
+        k13()
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        for base, bname in bases:
+            k13(base)
+            torch.cuda.synchronize()
+            print(f"    {bname}: {'equal' if torch.equal(out, ref) else 'NOT equal'} to "
+                  "quantize_rows + K3", flush=True)
+        ms, extra = in_turns(k13, bases, args)
+        pair_ms = median_ms(unfused, args.reps, args.batch)
+        lib_ms = median_ms(library, args.reps, args.batch)
+        (dev_ms, each), pair_dev, lib_dev = (device_ms(k13, args.reps, True),
+                                             device_ms(unfused, args.reps),
+                                             device_ms(library, args.reps))
+        print(f"    K13 {label}, device time by kernel: {by_kernel_text(each)}", flush=True)
+        n_bytes = x.numel() * 2 + wq.numel() + ws.numel() * 4 + out.numel() * 2
+        bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 2 * m * k * n / PEAK_INT8)
+        print(f"  K13 {label} [{m},{k}]x[{k},{n}]: {'equal' if same else 'NOT equal'} to "
+              f"quantize_rows + K3; kernel {ms:.4f} ms ({dev_ms:.4f} by torch.profiler; "
+              f"{2 * m * k * n / ms / 1e9:.1f} TOP/s), quantize_rows + K3 {pair_ms:.4f} "
+              f"({pair_dev:.4f}), quantize_rows + _int_mm + scales {lib_ms:.4f} ({lib_dev:.4f}): "
+              f"{ms / pair_ms:.2f}x the pair, {ms / lib_ms:.2f}x the library call; bound "
+              f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}% of it){extra}", flush=True)
+        del x, wq, out, ref
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("fwd", "bwd"))
+    ap.add_argument("--only", choices=tuple(SET_SOURCES))
     ap.add_argument("--baseline", action="append", default=[])
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--reps", type=int, default=20)
@@ -351,15 +552,17 @@ def main(argv=None) -> None:
     print(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip(),
           flush=True)
+    sets = [args.only] if args.only else list(SET_SOURCES)
+    sources = tuple(src for name in sets for src in SET_SOURCES[name])
     # Every build at once: the library of this checkout, each baseline's,
     # and the -Xptxas -v compiles (one a source).
-    out = os.path.join(kernels.BUILD_DIR, "bench_attention")
+    out = os.path.join(kernels.BUILD_DIR, "bench_kernels")
     os.makedirs(out, exist_ok=True)
     libs = [os.path.join(out, f"libbaseline{i}.so") for i in range(len(args.baseline))]
-    cmds = [nvcc_cmd(d, path, "-shared", "-Xcompiler", "-fPIC")
+    cmds = [nvcc_cmd(d, path, "-shared", "-Xcompiler", "-fPIC", sources=sources)
             for d, path in zip(args.baseline, libs)]
     dirs = [kernels.CSRC] + args.baseline if args.ptxas else []
-    ptx = [(d, src) for d in dirs for src in SOURCES if os.path.exists(os.path.join(d, src))]
+    ptx = [(d, src) for d in dirs for src in sources if os.path.exists(os.path.join(d, src))]
     cmds += [nvcc_cmd(d, os.devnull, "-Xptxas", "-v", "-c", sources=(src,)) for d, src in ptx]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -375,11 +578,13 @@ def main(argv=None) -> None:
     bases = [(load_baseline(path), d) for i, (path, d) in enumerate(zip(libs, args.baseline))
              if i not in failed]
     g = torch.Generator(device=dev).manual_seed(0)
-    if args.only != "bwd":
-        forward(args, this, [(b, n) for b, n in bases if has(b, "radvlm_prefill_attention")],
-                dev, g)
-    if args.only != "fwd":
-        backward(args, this, bases, dev, g)
+    runs = {"fwd": (forward, "radvlm_prefill_attention"),
+            "bwd": (backward, "radvlm_flash_attention_bwd_dkv"),
+            "decode": (decode, "radvlm_decode_attention"),
+            "w8a8": (w8a8, "radvlm_w8a8_matmul_fused")}
+    for name in sets:
+        fn, entry = runs[name]
+        fn(args, this, [(b, n) for b, n in bases if has(b, entry)], dev, g)
 
 
 if __name__ == "__main__":

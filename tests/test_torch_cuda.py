@@ -185,6 +185,49 @@ def test_k9_empty_row_is_zero(dev):
                                               scale=64 ** -0.5)[1])
 
 
+# (B, S, H, Hkv, D, layout): a chunk of several 64-key tiles a split (B x
+# Hkv = 32 CTAs a split, so few splits), with visible islands apart by holes
+# of 64 keys or more (whole tiles to skip inside a chunk); a hole that
+# covers a whole split's chunk; a row whose only visible keys lie in its
+# last, partial tile; D % 8 != 0 (4-byte staging).
+K9_SKIP_CASES = [
+    (8, 4096, 28, 4, 128, "islands"),
+    (8, 4096, 28, 4, 128, "empty_chunk"),
+    (4, 4000, 14, 2, 64, "last_tile"),
+    (4, 1000, 6, 3, 30, "islands"),
+]
+
+
+@pytest.mark.parametrize("case", K9_SKIP_CASES)
+def test_k9_skips_masked_tiles(dev, case):
+    b, s, h, hkv, d, layout = case
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ck, cv = _randn(gen, dev, 1, b, s, hkv * d), _randn(gen, dev, 1, b, s, hkv * d)
+    q = _randn(gen, dev, b, h, d)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    if layout == "islands":
+        for i in range(b):
+            for lo in range(13 * i, s, 300):
+                seg[i, lo: lo + 100 + 7 * i] = 1
+    elif layout == "empty_chunk":
+        seg[:, 100:] = 1
+        nsplit, chunk = tdec._split_plan(b, hkv, s, dev)
+        assert nsplit > 2 and chunk >= 3 * 64
+        seg[0, chunk: 2 * chunk] = 0  # split 1 of row 0 holds nothing
+        seg[1, : s - 1] = 0  # row 1: one key, the last
+    else:
+        seg[:, s - 30:] = 1  # only the last (partial) tile
+        seg[1] = 0  # and a row with nothing
+    out = tdec.decode_attention_stacked(q, ck, cv, seg, 0, num_kv_heads=hkv)
+    torch.cuda.synchronize()
+    ref = tdec.decode_attention_plain(q, ck[0], cv[0], seg, num_kv_heads=hkv, scale=d ** -0.5)
+    _assert_close("decode_attention", out, ref)
+    empty = (seg == 0).all(-1)
+    assert torch.all(out[empty] == 0)
+    # The same launch gives the same bits.
+    assert torch.equal(out, tdec.decode_attention_stacked(q, ck, cv, seg, 0, num_kv_heads=hkv))
+
+
 def test_mha_on_the_card_launches_the_kernels(dev):
     """The dispatch sends tower and prefill attention to K1 and K2 on a CUDA
     tensor, and what the JAX package routes to XLA to the plain path."""
@@ -354,6 +397,10 @@ WINDOW_CASES = [
     (1, 77, 8, 1, 128, 2, 1),  # one kv head for eight query heads
     (3, 300, 4, 4, 32, 7, 2),  # no GQA
 ]
+# Holes of 100 keys in every slot's history: K9 skips whole tiles there and
+# K10 does not, and their rows must still be equal.
+WINDOW_HOLES_CASE = (8, 4224, 28, 4, 128, 5, 1)
+WINDOW_CASES.append(WINDOW_HOLES_CASE)
 
 
 def _window_inputs(dev, case, quantized):
@@ -370,6 +417,10 @@ def _window_inputs(dev, case, quantized):
     seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
     for i in range(b):
         seg[i, (13 * i) % (s // 4): int(widx[i]) + w] = 1
+    if case == WINDOW_HOLES_CASE:  # 100 keys of every 300 up to the window
+        for i in range(b):
+            for lo in range(150, int(widx[i]) - 100, 300):
+                seg[i, lo: lo + 100] = 0
     if b > 2:
         seg[b - 1] = 0
     if not quantized:
@@ -522,7 +573,8 @@ def test_k12_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 # (M, K, N): K3's cases (K = 4304 is no multiple of 32; tower rows; odd N)
 # plus the down projection's K = 18944 and an M that is no multiple of 128.
-K13_CASES = K3_CASES + [(3456, 18944, 3584), (1000, 18944, 256), (129, 128, 128)]
+K13_CASES = K3_CASES + [(3456, 18944, 3584), (1000, 18944, 256), (129, 128, 128),
+                        (130, 16, 300)]  # K = 16: one k-tile, mostly zeros past K
 
 
 @pytest.mark.parametrize("case", K13_CASES)
@@ -543,6 +595,72 @@ def test_k13_equals_quantize_rows_then_k3(dev, case):
     assert torch.equal(out, tw8.w8a8_matmul(xq, xs, wq, ws))
     assert torch.equal(out, tw8.w8a8_matmul_fused_plain(x, wq, ws))
     assert torch.all(out[m // 2] == 0)
+
+
+def test_k13_rounds_half_to_even(dev):
+    """A row whose amax is 127 has the scale 1.0 exactly, so x / xs lands
+    on k + 0.5 for x = k + 0.5: round half to even, as `quantize_rows`."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    m, k, n = 64, 256, 512
+    x = _randn(gen, dev, m, k)
+    halves = torch.tensor([0.5, 1.5, 2.5, 3.5, -0.5, -2.5, 126.5, -125.5], device=dev)
+    x[3] = halves.repeat(k // 8).to(torch.bfloat16)
+    x[3, 0] = 127.0
+    xq, xs = tw8.quantize_rows(x)
+    assert float(xs[3]) == 1.0 and torch.all((x[3].float() / xs[3]).frac().abs()[1:] == 0.5)
+    eye = torch.zeros((n, k), dtype=torch.int8, device=dev)
+    eye[torch.arange(k), torch.arange(k)] = 1  # y[:, :k] = xq * xs * 1
+    ws = torch.ones(n, device=dev)
+    out = tw8.w8a8_matmul_fused(x, eye, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tw8.w8a8_matmul(xq, xs, eye, ws))
+    # x[3, 1:9] = 1.5, 2.5, 3.5, -0.5, -2.5, 126.5, -125.5, 0.5
+    assert torch.equal(out[3, 1:9].float(), torch.tensor([2., 2., 4., 0., -2., 126., -126., 0.],
+                                                        device=dev))
+
+
+def test_k13_quantizes_every_bf16_magnitude(dev):
+    """Rows whose amax spans every normal bf16 exponent, holding bf16 bit
+    patterns within eight binades below it (quotients 0.5-127, every
+    mantissa) and anywhere below it (denormals, quotients that round to 0),
+    both signs. With wq the identity and ws = 1, y[:, j] = bf16(xq[:, j] *
+    xs): two int8 values one apart land on two bf16 values, so every
+    quantized element is compared with `quantize_rows`'s."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    m, k = 1024, 4096
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    amax = (ints(1, 255, m) << 7) | ints(0, 128, m)  # bf16 bits, normal
+    near = (amax[:, None] - ints(0, 1024, m, k // 2)).clamp_min(0)
+    far = (torch.rand(m, k // 2, generator=gen, device=dev) * (amax[:, None] + 1).float()).long()
+    bits = torch.cat([near, far], 1).clamp_max(amax[:, None])
+    bits[:, 0] = amax
+    bits = bits | (ints(0, 2, m, k) << 15)
+    x = torch.where(bits >= 32768, bits - 65536, bits).to(torch.int16).view(torch.bfloat16)
+    assert torch.isfinite(x.float()).all()
+    eye = torch.eye(k, device=dev).to(torch.int8)
+    ones = torch.ones(k, device=dev)
+    out = tw8.w8a8_matmul_fused(x, eye, ones)
+    xq, xs = tw8.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tw8.w8a8_matmul(xq, xs, eye, ones))
+
+
+@pytest.mark.parametrize("case", [(3584, 4608), (18944, 3584)])
+def test_k13_row_does_not_depend_on_row_count(dev, case):
+    """Row 0 alone and among 3456 rows: the same bits."""
+    k, n = case
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x = _randn(gen, dev, 3456, k)
+    wq = _int8(gen, dev, n, k)
+    ws = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+    many = tw8.w8a8_matmul_fused(x, wq, ws)
+    one = tw8.w8a8_matmul_fused(x[:1].contiguous(), wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], many[0])
+    assert torch.equal(many, tw8.w8a8_matmul_fused(x, wq, ws))
 
 
 def test_qmm_takes_the_fused_kernel_when_asked(dev, monkeypatch):
