@@ -17,7 +17,8 @@ Phases, each raising on failure (the last line is printed only on success):
    its rows inside; bit for bit equal to quantize_rows + K3) and the
    training kernels (K2 writing its lse, K7, K8: see phase 8) against their
    plain PyTorch versions on the card at the main paths' shapes: error (K3
-   and K13 bit for bit) and both times (CUDA events, median of several
+   and K13 bit for bit; K3 at every W8A8 shape of a fill and a tower pass,
+   each with its bound and its library call) and both times (CUDA events, median of several
    runs; for the skinny decode matmuls K5/K6 and K12 also the kernels' own
    time on the device by torch.profiler, since their wrappers' host time
    exceeds it; where the profiler traces no device, by events around calls
@@ -723,18 +724,24 @@ def phase_int8_kernels(dev, g):
         torch.cuda.synchronize()
         err = check_close("w8a8_matmul", f"K3 w8a8_matmul {label} [{m},{k}]x[{k},{n}]",
                           out, plain())
-        if label == "text gateup":
-            def library():  # cuBLAS int8 GEMM, then the two scale products
-                acc = torch._int_mm(xq, wq.t())
-                return ((acc.float() * xs) * ws).to(torch.bfloat16)
 
+        def library():  # cuBLAS int8 GEMM, then the two scale products
+            acc = torch._int_mm(xq, wq.t())
+            return ((acc.float() * xs) * ws).to(torch.bfloat16)
+
+        least = bound(nbytes(xq, xs, wq, ws, out), 2 * m * k * n, "int8")
+        if label == "text gateup":
             results["w8a8_matmul"] = r = dict(
                 max_abs_err=err, **timed(run, library, reps=5), plain_ms=cuda_ms(plain, reps=5),
-                **bound(nbytes(xq, xs, wq, ws, out), 2 * m * k * n, "int8"))
-            ms = r["ms"]
+                **least)
+            ms, lib_ms = r["ms"], r["library_ms"]
         else:
             ms = cuda_ms(run, reps=5, batch=ATTN_BATCH)
-        print(f"    K3 {label}: {ms:.4f} ms, {2 * m * k * n / ms / 1e9:.1f} TOP/s", flush=True)
+            lib_ms = cuda_ms(library, reps=5, batch=ATTN_BATCH)
+        share = 100 * least["bound_ms"] / ms
+        print(f"    K3 {label}: {ms:.4f} ms, {2 * m * k * n / ms / 1e9:.1f} TOP/s, bound "
+              f"{least['bound_ms']:.4f} ms ({least['bound_by']}; {share:.1f}% of it), "
+              f"_int_mm + scales {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)", flush=True)
         del xq, xs, wq
     # K4: 8 slots of a 4224-token int8 cache, 28 layers, each slot at its own
     # write index after its own left padding; slot 7 holds nothing.

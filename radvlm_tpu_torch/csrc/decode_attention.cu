@@ -2,8 +2,10 @@
 // for Hopper (sm_90a), written by hand. K4, its counterpart over the int8
 // cache, shares the grid and the combine kernel (decode_partial_q8_kernel
 // and radvlm_decode_attention_q8 below), and so do K10 and K11, the verify
-// windows of speculative decoding over the two caches
-// (decode_window_partial_kernel and radvlm_decode_attention_window[_q8]).
+// windows of speculative decoding over the two caches: K10 is K9's kernel
+// over the W x g rows of a window (radvlm_decode_attention_window), K11 a
+// kernel of its own (decode_window_partial_kernel,
+// radvlm_decode_attention_window_q8).
 //
 // Replaces the Pallas TPU kernel radvlm_tpu/ops/decode_attention.py
 // decode_attention_stacked / _fused_heads_kernel: one query token per row,
@@ -23,8 +25,9 @@
 // K/V stages in flight (16-byte cp.async where it can), loads only the
 // tiles that hold a visible key (left padding and the unwritten tail are
 // skipped), and spreads scores and PV over 256 threads (design note at
-// decode_partial_kernel). Its per-row arithmetic is K10's, through shared
-// helpers, so a verify window's row equals K9 bit for bit.
+// decode_partial_kernel). K10 runs the same kernel over more rows, with
+// the same per-row arithmetic, so a verify window's row equals K9 bit for
+// bit.
 //
 // Choices against the TPU kernel:
 // - The TPU's scalar-prefetch layer index has no counterpart: the wrapper
@@ -42,7 +45,7 @@
 
 #include <math.h>
 
-#include <type_traits>
+#include <type_traits>  // std::integral_constant
 
 namespace radvlm {
 namespace {
@@ -51,14 +54,12 @@ constexpr int kTile = 64;  // keys per shared-memory tile (two per lane)
 constexpr int kThreads = 128;
 constexpr int kMaxGroup = 8;
 constexpr int kMaxD = 128;
-constexpr int kLds = kMaxD + 2;  // 65 words a row: column reads are conflict-free
 
-// The per-row arithmetic K9 and K10 share (K11 shares the last two with
-// K4's inline copy, which computes the same operations): a query row's
-// running max m and sum l, and its f32 output, over 64-key tiles in key
-// order. A row of a K10 window equals K9 over the keys the row sees because
-// both kernels go through these helpers in the same order: explicit
-// __fmaf_rn / __fmul_rn, so no contraction choice of the compiler can differ.
+// The per-row arithmetic of K9 and K10 (one kernel) and K11 (the last two,
+// beside K4's inline copy, which computes the same operations): a query
+// row's running max m and sum l, and its f32 output, over 64-key tiles in
+// key order: explicit __fmaf_rn / __fmul_rn, so no contraction choice of
+// the compiler can differ between instantiations.
 
 // dot += q0 * k[c] + q1 * k[c + 1] as two fused steps, c then c + 1; `k2`
 // holds the two bf16 values (k[c] in the low half).
@@ -94,39 +95,63 @@ __device__ __forceinline__ float pv_step(float acc, float p, float v) {
   return __fmaf_rn(p, v, acc);
 }
 
-// K9. A CTA serves the g query heads of one (row, kv head) over one split's
-// chunk of keys with 256 threads and a ring of kStages 64-key
-// stages (K, V and the keys' segment ids) that every thread fills with
-// cp.async: 16-byte copies where D % 8 == 0 and the cache is 16-byte
-// aligned (kVec16), 4-byte ones elsewhere, zeros past S and past D. A
-// first pass over the chunk's segment ids marks the tiles that hold a
-// visible key; only those are loaded and computed (a wholly masked tile
-// leaves m, l and o as they are: alpha = 1 and p = 0, or everything still
-// 0 while m = -inf). Scores: thread -> key tid % 64 and heads tid / 64 and
-// tid / 64 + 4, K read 16 bytes at a time, q broadcast from shared memory.
-// Softmax: one warp a head. PV: thread -> columns 2 (tid % 64), + 1 and the
-// same two heads, the sums in registers.
+// K9 and K10. A CTA serves R query rows of one (row, kv head, split): the
+// g query heads of one decode row (K9, R = g), or the W x g rows of a
+// verify window (K10, R = W g: row r is window row r / g, head r % g, and
+// sees the keys at cache indices <= widx[b] + r / g). It walks the split's
+// chunk of keys with kT threads and a ring of kSt 64-key stages (K, V and
+// the keys' segment ids) that every thread fills with cp.async: 16-byte
+// copies where D % 8 == 0 and the cache is 16-byte aligned (kVec16), 4-byte
+// ones elsewhere, zeros past S and past D. A first pass over the chunk's
+// segment ids marks the tiles that hold a key some row sees; only those
+// are loaded and computed. A tile that holds keys other rows see but none
+// row r sees leaves row r's m, l and o as they are: alpha = 1 and p = 0 (or
+// everything still 0 while m = -inf), so row r equals K9 over its own keys
+// bit for bit. K9 (256 threads, kNR = 2): scores thread -> key tid % 64
+// and rows tid / 64, + 4, K read 16 bytes at a time, q broadcast from
+// shared memory; softmax one warp a row. A window: scores and softmax
+// warp -> rows warp + 8i (16i at 512 threads), lane -> keys lane and lane +
+// 32, so each q element loaded serves two keys and the warp takes K9's
+// softmax step on its rows' scores as they sit in registers (one barrier
+// fewer). PV, both: thread -> columns 2 (tid % 64), + 1 and rows tid / 64
+// + (kT / 64) i, i < kNR, the sums in registers (a window reads p four keys
+// at a time). The window's buckets: 256 threads up to 40 rows (two CTAs an
+// SM), 512 above (one CTA, 16 warps).
 constexpr int kK9Threads = 256;
-constexpr int kStages = 3;  // the ring's depth, all of it in flight before the first tile
 constexpr int kMaxVisTiles = 1024;  // chunks beyond 65536 keys: later tiles are not skipped
 
-// Shared memory of K9 at head dims padded to dp (a multiple of 16).
-struct K9Smem {
+// The rows a CTA of `threads` threads and kNR PV rows a thread holds:
+// threads / 64 x kNR for PV, rounded up to whole rows of every warp for a
+// window's scores (40 at 256 threads and kNR = 9).
+__host__ __device__ constexpr int rows_cap(int threads, int nr) {
+  return threads / 32 * ((nr + 1) / 2);
+}
+
+// Shared memory at head dims padded to dp (a multiple of 16), for `rows`
+// query rows and a ring of `stages`.
+struct PartialSmem {
   int row;    // bytes a staged K or V row: 16-byte chunks, an odd number of them
   int tile;   // one K or V tile
   int stage;  // K, V, segment ids
   int qs, sc, ml, vis, bytes;
-  __host__ __device__ explicit K9Smem(int dp) {
+  __host__ __device__ PartialSmem(int dp, int rows, int stages) {
     row = dp * 2 + 16;
     tile = kTile * row;
     stage = 2 * tile + kTile * 4;
-    qs = kStages * stage;
-    sc = qs + kMaxGroup * dp * 4;
-    ml = sc + kMaxGroup * kTile * 4;
-    vis = ml + 3 * kMaxGroup * 4;
+    qs = stages * stage;
+    sc = qs + rows * dp * 4;
+    ml = sc + rows * kTile * 4;
+    vis = ml + 3 * rows * 4;
     bytes = vis + kMaxVisTiles;
   }
 };
+
+// The ring's depth, all of it in flight before the first tile: K9's three;
+// a 256-thread window's two, so that two CTAs share an SM (up to 40 rows at
+// D = 128); a 512-thread window's three (one CTA an SM).
+constexpr int partial_stages(bool window, int threads) {
+  return window && threads == 256 ? 2 : 3;
+}
 
 __device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -135,50 +160,63 @@ __device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src, bool 
 }
 
 // kDP: the padded head dim where it is fixed at compile time (0: d's).
-template <bool kVec16, int kDP>
-__global__ void __launch_bounds__(kK9Threads, 2) decode_partial_kernel(
-    const __nv_bfloat16* __restrict__ q,   // [B, H, D]
+template <bool kVec16, int kDP, int kT, int kNR, int kSt, bool kWindow>
+__global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
+    const __nv_bfloat16* __restrict__ q,   // [B, W, H, D] (W = 1: K9)
     const __nv_bfloat16* __restrict__ ck,  // [B, S, Hkv * D], one layer
     const __nv_bfloat16* __restrict__ cv,
-    const int* __restrict__ seg,  // [B, S]
-    float* __restrict__ part_o,   // [B, H, nsplit, D]
-    float* __restrict__ part_ml,  // [B, H, nsplit, 2]: max, sum
-    int s, int hkv, int group, int d, int chunk, float scale_log2) {
+    const int* __restrict__ seg,   // [B, S]
+    const int* __restrict__ widx,  // [B] cache index of window row 0 (kWindow)
+    float* __restrict__ part_o,    // [B, W, H, nsplit, D]
+    float* __restrict__ part_ml,   // [B, W, H, nsplit, 2]: max, sum
+    int s, int hkv, int group, int d, int w, int chunk, float scale_log2) {
+  constexpr int kWarps = kT / 32, kHG = kT / 64;  // warps; PV (and K9 scores) row groups
+  constexpr int kRowsCap = rows_cap(kT, kNR);
+  constexpr int kWR = kRowsCap / kWarps;  // a window's rows a warp in scores and softmax
   extern __shared__ __align__(16) uint8_t k9_smem[];
   const int dp = kDP > 0 ? kDP : (d + 15) / 16 * 16;
-  const K9Smem L(dp);
+  const PartialSmem L(dp, kRowsCap, kSt);
   const uint32_t sbase = smem_u32(k9_smem);
-  float* qs = reinterpret_cast<float*>(k9_smem + L.qs);  // [kMaxGroup][dp]
-  float* sc = reinterpret_cast<float*>(k9_smem + L.sc);  // [kMaxGroup][kTile]
+  float* qs = reinterpret_cast<float*>(k9_smem + L.qs);  // [kRowsCap][dp]
+  float* sc = reinterpret_cast<float*>(k9_smem + L.sc);  // [kRowsCap][kTile]
   float* m_s = reinterpret_cast<float*>(k9_smem + L.ml);
-  float* l_s = m_s + kMaxGroup;
-  float* alpha_s = l_s + kMaxGroup;
+  float* l_s = m_s + kRowsCap;
+  float* alpha_s = l_s + kRowsCap;
   uint8_t* vis = k9_smem + L.vis;  // a tile holds a visible key
 
   const int split = blockIdx.x, nsplit = gridDim.x;
   const int b = blockIdx.y / hkv, kvh = blockIdx.y % hkv;
-  const int h = hkv * group;
+  const int h = hkv * group, rows = w * group;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long hd = (long)hkv * d;
   const __nv_bfloat16* kb = ck + (long)b * s * hd + (long)kvh * d;
   const __nv_bfloat16* vb = cv + (long)b * s * hd + (long)kvh * d;
   const int* sb = seg + (long)b * s;
-  const int c0 = split * chunk, c1 = min(s, c0 + chunk);
+  // No row of a window sees a key past wi + w - 1: the chunk ends there,
+  // and a split that lies wholly above it writes m = -inf, l = 0, o = 0.
+  const int wi = kWindow ? widx[b] : 0;
+  const int c0 = split * chunk;
+  const int c1 = kWindow ? min(min(s, c0 + chunk), wi + w) : min(s, c0 + chunk);
   const int n_tiles = c0 < c1 ? (c1 - c0 + kTile - 1) / kTile : 0;
+  // Row r of the CTA in q, part_o and part_ml.
+  auto qrow = [&](int r) -> long {
+    return kWindow ? ((long)b * w + r / group) * h + kvh * group + r % group
+                   : (long)b * h + kvh * group + r;
+  };
 
 #pragma unroll 4
-  for (int i = tid; i < kMaxGroup * dp; i += kK9Threads) {
-    const int hh = i / dp, dd = i % dp;
-    qs[i] = hh < group && dd < d ? __bfloat162float(q[((long)b * h + kvh * group + hh) * d + dd])
-                                 : 0.f;
+  for (int i = tid; i < kRowsCap * dp; i += kT) {
+    const int r = i / dp, dd = i % dp;
+    qs[i] = r < rows && dd < d ? __bfloat162float(q[qrow(r) * d + dd]) : 0.f;
   }
-  if (tid < kMaxGroup) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+  for (int r = tid; r < kRowsCap; r += kT) {
+    m_s[r] = -INFINITY;
+    l_s[r] = 0.f;
+    alpha_s[r] = 0.f;
   }
   // The visible tiles, in the same phase as q: warp w ballots tiles w, w +
-  // 8, ... (tiles past kMaxVisTiles count as visible).
-  for (int t = warp; t < min(n_tiles, kMaxVisTiles); t += kK9Threads / 32) {
+  // kT / 32, ... (tiles past kMaxVisTiles count as visible).
+  for (int t = warp; t < min(n_tiles, kMaxVisTiles); t += kT / 32) {
     const int k0 = c0 + t * kTile + lane, k1 = k0 + 32;
     const bool any =
         __any_sync(0xffffffffu, (k0 < c1 && sb[k0] != 0) || (k1 < c1 && sb[k1] != 0));
@@ -198,7 +236,7 @@ __global__ void __launch_bounds__(kK9Threads, 2) decode_partial_kernel(
       const uint32_t kst = sbase + st * L.stage, vst = kst + L.tile;
       if (kVec16) {
         const int vecs = dp / 8;
-        for (int i = tid; i < kTile * vecs; i += kK9Threads) {
+        for (int i = tid; i < kTile * vecs; i += kT) {
           const int r = i / vecs, c = (i % vecs) * 8;
           const bool ok = n0 + r < c1 && c < d;
           const long off = ok ? (long)(n0 + r) * hd + c : 0;
@@ -207,7 +245,7 @@ __global__ void __launch_bounds__(kK9Threads, 2) decode_partial_kernel(
         }
       } else {
         const int pairs = dp / 2;
-        for (int i = tid; i < kTile * pairs; i += kK9Threads) {
+        for (int i = tid; i < kTile * pairs; i += kT) {
           const int r = i / pairs, c = (i % pairs) * 2;
           const bool ok = n0 + r < c1 && c < d;
           const long off = ok ? (long)(n0 + r) * hd + c : 0;
@@ -223,95 +261,196 @@ __global__ void __launch_bounds__(kK9Threads, 2) decode_partial_kernel(
     cp_async_commit();
   };
 
-  const int key = tid & (kTile - 1), hs = tid >> 6;  // scores: one key, heads hs, hs + 4
+  const int key = tid & (kTile - 1), hs = tid >> 6;  // K9's scores: one key, rows hs + 4i
   const int cp = tid & 63;                           // PV: columns 2 cp, 2 cp + 1
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  // Which of the thread's PV rows to compute. A window computes all kNR
+  // with no branch in its loops: rows past R hold q = 0 and are never
+  // stored. K9 skips its second row where g <= 4 + hs, as it always has.
+  auto live = [&](int j) { return kWindow || j == 0 || hs + kHG * j < rows; };
+  // A window's running max and sum of rows warp + kWarps j (every lane
+  // holds them).
+  float m_w[kWR], l_w[kWR];
+#pragma unroll
+  for (int j = 0; j < kWR; ++j) {
+    m_w[j] = -INFINITY;
+    l_w[j] = 0.f;
+  }
+  // A window's scores and softmax step of a tile, for the first NJ rows of
+  // this warp, warp + kWarps j: lane -> keys lane and lane + 32, so a warp
+  // holds a row's 64 scores in registers and takes K9's softmax step on
+  // them as it is. Each q element loaded serves two keys.
+  auto window_rows = [&](auto nj, const uint8_t* stage, int n0) {
+    constexpr int NJ = decltype(nj)::value;
+    const uint8_t* krow0 = stage + lane * L.row;  // keys lane and lane + 32
+    const uint8_t* krow1 = krow0 + 32 * L.row;
+    float d0[NJ], d1[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) d0[j] = d1[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < dp; c += 8) {
+      const uint4 u = *reinterpret_cast<const uint4*>(krow0 + c * 2);
+      const uint4 v = *reinterpret_cast<const uint4*>(krow1 + c * 2);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* qr = qs + (warp + kWarps * j) * dp + c;
+        const float4 a0 = *reinterpret_cast<const float4*>(qr);
+        const float4 a1 = *reinterpret_cast<const float4*>(qr + 4);
+        d0[j] = dot2(dot2(dot2(dot2(d0[j], a0.x, a0.y, u.x), a0.z, a0.w, u.y), a1.x, a1.y, u.z),
+                     a1.z, a1.w, u.w);
+        d1[j] = dot2(dot2(dot2(dot2(d1[j], a0.x, a0.y, v.x), a0.z, a0.w, v.y), a1.x, a1.y, v.z),
+                     a1.z, a1.w, v.w);
+      }
+    }
+    const int* seg_s = reinterpret_cast<const int*>(stage + 2 * L.tile);
+    const bool w0 = seg_s[lane] != 0, w1 = seg_s[lane + 32] != 0;
+    // Every row sees the keys up to wi; past it, row r sees wi + r / g more
+    // (only the window's last tile holds such keys).
+    const int past0 = n0 + lane - wi, past1 = past0 + 32;
+    const bool tail = n0 + kTile - 1 > wi;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int r = warp + kWarps * j;
+      bool v0 = w0, v1 = w1;
+      if (tail) {
+        const int jr = r / group;
+        v0 = w0 && past0 <= jr;
+        v1 = w1 && past1 <= jr;
+      }
+      float p0, p1, m_new, l_new, alpha;
+      softmax_tile(v0 ? d0[j] : -INFINITY, v1 ? d1[j] : -INFINITY, m_w[j], l_w[j], scale_log2,
+                   p0, p1, m_new, l_new, alpha);
+      m_w[j] = m_new;
+      l_w[j] = l_new;
+      sc[r * kTile + lane] = p0;
+      sc[r * kTile + lane + 32] = p1;
+      if (lane == 0) alpha_s[r] = alpha;
+    }
+  };
+  float acc[kNR][2];
+#pragma unroll
+  for (int i = 0; i < kNR; ++i) acc[i][0] = acc[i][1] = 0.f;
 
   int t_issue = next_visible(0);
 #pragma unroll
-  for (int i = 0; i < kStages; ++i) {
+  for (int i = 0; i < kSt; ++i) {
     issue(t_issue, i);
     if (t_issue < n_tiles) t_issue = next_visible(t_issue + 1);
   }
   int i = 0;
   for (int t = next_visible(0); t < n_tiles; t = next_visible(t + 1), ++i) {
-    const int st = i % kStages;
-    // Tile i is commit group i: the prologue's kStages groups, then one a
-    // loop iteration from the second on.
+    const int st = i % kSt;
+    // Tile i is commit group i: the prologue's kSt groups, then one a loop
+    // iteration from the second on.
     if (i == 0) {
-      cp_async_wait<kStages - 1>();
+      cp_async_wait<kSt - 1>();
     } else {
-      cp_async_wait<kStages - 2>();
+      cp_async_wait<kSt - 2>();
     }
     __syncthreads();  // tile t has landed; the stage of the tile before is consumed
     if (i > 0) {      // that stage takes the next tile
-      issue(t_issue, (i - 1) % kStages);
+      issue(t_issue, (i - 1) % kSt);
       if (t_issue < n_tiles) t_issue = next_visible(t_issue + 1);
     }
 
-    const uint8_t* krow = k9_smem + st * L.stage + key * L.row;
-    const int* seg_s = reinterpret_cast<const int*>(k9_smem + st * L.stage + 2 * L.tile);
-    {
-      float dot0 = 0.f, dot1 = 0.f;
-      const float* q0 = qs + hs * dp;
-      const float* q1 = qs + (hs + 4) * dp;
-      const bool two = hs + 4 < group;
-      if (hs < group) {
+    if constexpr (kWindow) {
+      // This warp's rows: exactly, where it holds kWR or kWR - 1 of them
+      // (rows past R hold q = 0 otherwise).
+      const int nj = (rows - warp + kWarps - 1) / kWarps;
+      if (nj >= kWR) {
+        window_rows(std::integral_constant<int, kWR>{}, k9_smem + st * L.stage, c0 + t * kTile);
+      } else if (nj > 0) {
+        window_rows(std::integral_constant<int, (kWR > 1 ? kWR - 1 : 1)>{},
+                    k9_smem + st * L.stage, c0 + t * kTile);
+      }
+      __syncthreads();
+    } else {  // K9: thread -> one key, rows hs and hs + 4; then one warp a row
+      const uint8_t* krow = k9_smem + st * L.stage + key * L.row;
+      const int* seg_s = reinterpret_cast<const int*>(k9_smem + st * L.stage + 2 * L.tile);
+      float dot[kNR];
+#pragma unroll
+      for (int j = 0; j < kNR; ++j) dot[j] = 0.f;
+      if (hs < rows) {
 #pragma unroll
         for (int c = 0; c < dp; c += 8) {
           const uint4 kv = *reinterpret_cast<const uint4*>(krow + c * 2);
-          const float4 a0 = *reinterpret_cast<const float4*>(q0 + c);
-          const float4 a1 = *reinterpret_cast<const float4*>(q0 + c + 4);
-          dot0 = dot2(dot2(dot2(dot2(dot0, a0.x, a0.y, kv.x), a0.z, a0.w, kv.y), a1.x, a1.y, kv.z),
-                      a1.z, a1.w, kv.w);
-          if (two) {
-            const float4 b0 = *reinterpret_cast<const float4*>(q1 + c);
-            const float4 b1 = *reinterpret_cast<const float4*>(q1 + c + 4);
-            dot1 = dot2(dot2(dot2(dot2(dot1, b0.x, b0.y, kv.x), b0.z, b0.w, kv.y), b1.x, b1.y,
-                             kv.z),
-                        b1.z, b1.w, kv.w);
+#pragma unroll
+          for (int j = 0; j < kNR; ++j) {
+            if (live(j)) {
+              const float* qr = qs + (hs + kHG * j) * dp + c;
+              const float4 a0 = *reinterpret_cast<const float4*>(qr);
+              const float4 a1 = *reinterpret_cast<const float4*>(qr + 4);
+              dot[j] = dot2(dot2(dot2(dot2(dot[j], a0.x, a0.y, kv.x), a0.z, a0.w, kv.y), a1.x,
+                                 a1.y, kv.z),
+                            a1.z, a1.w, kv.w);
+            }
           }
         }
         const bool visible = seg_s[key] != 0;
-        sc[hs * kTile + key] = visible ? dot0 : -INFINITY;
-        if (two) sc[(hs + 4) * kTile + key] = visible ? dot1 : -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kNR; ++j) {
+          if (live(j)) sc[(hs + kHG * j) * kTile + key] = visible ? dot[j] : -INFINITY;
+        }
       }
-    }
-    __syncthreads();
-    if (warp < group) {
-      float p0, p1, m_new, l_new, alpha;
-      softmax_tile(sc[warp * kTile + lane], sc[warp * kTile + lane + 32], m_s[warp], l_s[warp],
-                   scale_log2, p0, p1, m_new, l_new, alpha);
-      sc[warp * kTile + lane] = p0;
-      sc[warp * kTile + lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        alpha_s[warp] = alpha;
-        l_s[warp] = l_new;
-        m_s[warp] = m_new;
+      __syncthreads();
+      if (warp < rows) {
+        float p0, p1, m_new, l_new, alpha;
+        softmax_tile(sc[warp * kTile + lane], sc[warp * kTile + lane + 32], m_s[warp], l_s[warp],
+                     scale_log2, p0, p1, m_new, l_new, alpha);
+        sc[warp * kTile + lane] = p0;
+        sc[warp * kTile + lane + 32] = p1;
+        __syncwarp();
+        if (lane == 0) {
+          alpha_s[warp] = alpha;
+          l_s[warp] = l_new;
+          m_s[warp] = m_new;
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
-    if (2 * cp < d && hs < group) {
+    if (2 * cp < d && (kWindow || hs < rows)) {
       const uint32_t* vcol =
           reinterpret_cast<const uint32_t*>(k9_smem + st * L.stage + L.tile) + cp;
-      const bool two = hs + 4 < group;
-      const float al0 = alpha_s[hs], al1 = two ? alpha_s[hs + 4] : 1.f;
-      acc[0][0] = __fmul_rn(acc[0][0], al0);
-      acc[0][1] = __fmul_rn(acc[0][1], al0);
-      acc[1][0] = __fmul_rn(acc[1][0], al1);
-      acc[1][1] = __fmul_rn(acc[1][1], al1);
-      const float* p0 = sc + hs * kTile;
-      const float* p1 = sc + (hs + 4) * kTile;
+#pragma unroll
+      for (int j = 0; j < kNR; ++j) {
+        if (live(j)) {
+          const float al = alpha_s[hs + kHG * j];
+          acc[j][0] = __fmul_rn(acc[j][0], al);
+          acc[j][1] = __fmul_rn(acc[j][1], al);
+        }
+      }
+      if constexpr (kWindow) {  // p read four keys at a time
+#pragma unroll 2
+        for (int kk = 0; kk < kTile; kk += 4) {
+          float v0[4], v1[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint32_t v2 = vcol[(kk + u) * (L.row / 4)];
+            v0[u] = __uint_as_float(v2 << 16);
+            v1[u] = __uint_as_float(v2 & 0xffff0000u);
+          }
+#pragma unroll
+          for (int j = 0; j < kNR; ++j) {
+            const float4 p = *reinterpret_cast<const float4*>(sc + (hs + kHG * j) * kTile + kk);
+            acc[j][0] = pv_step(pv_step(pv_step(pv_step(acc[j][0], p.x, v0[0]), p.y, v0[1]),
+                                        p.z, v0[2]),
+                                p.w, v0[3]);
+            acc[j][1] = pv_step(pv_step(pv_step(pv_step(acc[j][1], p.x, v1[0]), p.y, v1[1]),
+                                        p.z, v1[2]),
+                                p.w, v1[3]);
+          }
+        }
+      } else {
 #pragma unroll 8
-      for (int kk = 0; kk < kTile; ++kk) {
-        const uint32_t v2 = vcol[kk * (L.row / 4)];
-        const float v0 = __uint_as_float(v2 << 16), v1 = __uint_as_float(v2 & 0xffff0000u);
-        acc[0][0] = pv_step(acc[0][0], p0[kk], v0);
-        acc[0][1] = pv_step(acc[0][1], p0[kk], v1);
-        if (two) {
-          acc[1][0] = pv_step(acc[1][0], p1[kk], v0);
-          acc[1][1] = pv_step(acc[1][1], p1[kk], v1);
+        for (int kk = 0; kk < kTile; ++kk) {
+          const uint32_t v2 = vcol[kk * (L.row / 4)];
+          const float v0 = __uint_as_float(v2 << 16), v1 = __uint_as_float(v2 & 0xffff0000u);
+#pragma unroll
+          for (int j = 0; j < kNR; ++j) {
+            if (live(j)) {
+              acc[j][0] = pv_step(acc[j][0], sc[(hs + kHG * j) * kTile + kk], v0);
+              acc[j][1] = pv_step(acc[j][1], sc[(hs + kHG * j) * kTile + kk], v1);
+            }
+          }
         }
       }
     }
@@ -320,19 +459,30 @@ __global__ void __launch_bounds__(kK9Threads, 2) decode_partial_kernel(
   __syncthreads();
   if (2 * cp < d) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int hh = hs + 4 * j;
-      if (hh < group) {
-        const long row = (long)b * h + kvh * group + hh;
-        *reinterpret_cast<float2*>(&part_o[(row * nsplit + split) * d + 2 * cp]) =
+    for (int j = 0; j < kNR; ++j) {
+      const int r = hs + kHG * j;
+      if (r < rows) {
+        *reinterpret_cast<float2*>(&part_o[(qrow(r) * nsplit + split) * d + 2 * cp]) =
             make_float2(acc[j][0], acc[j][1]);
       }
     }
   }
-  if (tid < group) {
-    const long row = (long)b * h + kvh * group + tid;
-    part_ml[(row * nsplit + split) * 2 + 0] = m_s[tid];
-    part_ml[(row * nsplit + split) * 2 + 1] = l_s[tid];
+  if constexpr (kWindow) {
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < kWR; ++j) {
+        const int r = warp + kWarps * j;
+        if (r < rows) {
+          part_ml[(qrow(r) * nsplit + split) * 2 + 0] = m_w[j];
+          part_ml[(qrow(r) * nsplit + split) * 2 + 1] = l_w[j];
+        }
+      }
+    }
+  } else {
+    for (int r = tid; r < rows; r += kT) {
+      part_ml[(qrow(r) * nsplit + split) * 2 + 0] = m_s[r];
+      part_ml[(qrow(r) * nsplit + split) * 2 + 1] = l_s[r];
+    }
   }
 }
 
@@ -496,33 +646,32 @@ __global__ void __launch_bounds__(kThreads) decode_partial_q8_kernel(
   }
 }
 
-// K10 / K11: the verify window of speculative decoding, W = spec_k + 1 queries
-// per slot over the bf16 (K10) or int8 (K11) cache; see the note at the
-// bottom of this file. One CTA holds the W * g query rows of one (slot, kv
-// head, key split): each staged K/V tile serves all of them.
+// K11: the verify window of speculative decoding, W = spec_k + 1 queries
+// per slot over the int8 cache; see the note at the bottom of this file.
+// One CTA holds the W * g query rows of one (slot, kv head, key split): each
+// staged K/V tile serves all of them. (K10, its bf16 counterpart, is K9's
+// kernel over W * g rows.)
 constexpr int kMaxWindow = 16;
 constexpr int kMaxRows = kMaxWindow * kMaxGroup;
 
-template <bool kQ8>
 constexpr int window_smem_bytes(int rows) {
-  return 2 * kTile * (kQ8 ? kLdQ8 : kLds * 2) +
+  return 2 * kTile * kLdQ8 +
          (2 * rows * kMaxD + rows * kTile + 3 * rows + 2 * kTile + kTile) * 4;
 }
 
-template <bool kQ8>
 __global__ void __launch_bounds__(kThreads) decode_window_partial_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B, W, H, D]
-    const void* __restrict__ ck_raw,      // [B, S, Hkv * D] bf16 or int8, one layer
-    const void* __restrict__ cv_raw,
-    const float* __restrict__ ksc,  // [B, Hkv, S] (int8 cache only)
+    const int8_t* __restrict__ ck,        // [B, S, Hkv * D] int8, one layer
+    const int8_t* __restrict__ cv,
+    const float* __restrict__ ksc,  // [B, Hkv, S]
     const float* __restrict__ vsc,
     const int* __restrict__ seg,   // [B, S]
     const int* __restrict__ widx,  // [B] cache index of window row 0
     float* __restrict__ part_o,    // [B, W, H, nsplit, D]
     float* __restrict__ part_ml,   // [B, W, H, nsplit, 2]: max, sum
     int s, int hkv, int group, int d, int w, int chunk, float scale_log2) {
-  using KV = std::conditional_t<kQ8, int8_t, __nv_bfloat16>;
-  constexpr int kLd = kQ8 ? kLdQ8 : kLds;
+  using KV = int8_t;
+  constexpr int kLd = kLdQ8;
   extern __shared__ __align__(16) unsigned char window_smem[];
   const int rows = w * group;  // row r = window row r / group, head r % group
   KV* kt = reinterpret_cast<KV*>(window_smem);
@@ -542,12 +691,10 @@ __global__ void __launch_bounds__(kThreads) decode_window_partial_kernel(
   const int h = hkv * group;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long hd = static_cast<long>(hkv) * d;
-  const KV* kb = static_cast<const KV*>(ck_raw) + static_cast<long>(b) * s * hd +
-                 static_cast<long>(kvh) * d;
-  const KV* vb = static_cast<const KV*>(cv_raw) + static_cast<long>(b) * s * hd +
-                 static_cast<long>(kvh) * d;
-  const float* ksb = kQ8 ? ksc + (static_cast<long>(b) * hkv + kvh) * s : nullptr;
-  const float* vsb = kQ8 ? vsc + (static_cast<long>(b) * hkv + kvh) * s : nullptr;
+  const KV* kb = ck + static_cast<long>(b) * s * hd + static_cast<long>(kvh) * d;
+  const KV* vb = cv + static_cast<long>(b) * s * hd + static_cast<long>(kvh) * d;
+  const float* ksb = ksc + (static_cast<long>(b) * hkv + kvh) * s;
+  const float* vsb = vsc + (static_cast<long>(b) * hkv + kvh) * s;
   const int* sb = seg + static_cast<long>(b) * s;
   const int wi = widx[b];
 
@@ -567,45 +714,29 @@ __global__ void __launch_bounds__(kThreads) decode_window_partial_kernel(
   const int c0 = split * chunk, c1 = min(min(s, c0 + chunk), wi + w);
   for (int n0 = c0; n0 < c1; n0 += kTile) {
     __syncthreads();  // the previous tile is consumed (and qs is written)
-    if constexpr (kQ8) {
-      const int vecs = d / 16;
-      for (int i = tid; i < kTile * vecs; i += kThreads) {
-        const int r = i / vecs, c = (i % vecs) * 16;
-        const int key = n0 + r;
-        uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-        if (key < c1) {
-          kk = *reinterpret_cast<const uint4*>(kb + key * hd + c);
-          vv = *reinterpret_cast<const uint4*>(vb + key * hd + c);
-        }
-        uint32_t* kd = reinterpret_cast<uint32_t*>(&kt[r * kLd + c]);
-        uint32_t* vd = reinterpret_cast<uint32_t*>(&vt[r * kLd + c]);
-        kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
-        vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
+    const int vecs = d / 16;
+    for (int i = tid; i < kTile * vecs; i += kThreads) {
+      const int r = i / vecs, c = (i % vecs) * 16;
+      const int key = n0 + r;
+      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
+      if (key < c1) {
+        kk = *reinterpret_cast<const uint4*>(kb + key * hd + c);
+        vv = *reinterpret_cast<const uint4*>(vb + key * hd + c);
       }
-    } else {
-      for (int i = tid; i < kTile * (d / 2); i += kThreads) {
-        const int r = i / (d / 2), c = (i % (d / 2)) * 2;
-        const int key = n0 + r;
-        uint32_t kk = 0u, vv = 0u;
-        if (key < c1) {
-          kk = *reinterpret_cast<const uint32_t*>(kb + key * hd + c);
-          vv = *reinterpret_cast<const uint32_t*>(vb + key * hd + c);
-        }
-        *reinterpret_cast<uint32_t*>(&kt[r * kLd + c]) = kk;
-        *reinterpret_cast<uint32_t*>(&vt[r * kLd + c]) = vv;
-      }
+      uint32_t* kd = reinterpret_cast<uint32_t*>(&kt[r * kLd + c]);
+      uint32_t* vd = reinterpret_cast<uint32_t*>(&vt[r * kLd + c]);
+      kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
+      vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
     }
     if (tid < kTile) {
       const bool in = n0 + tid < c1;
       seg_s[tid] = in ? sb[n0 + tid] : 0;
-      if constexpr (kQ8) {
-        ks_s[tid] = in ? ksb[n0 + tid] : 0.f;
-        vs_s[tid] = in ? vsb[n0 + tid] : 0.f;
-      }
+      ks_s[tid] = in ? ksb[n0 + tid] : 0.f;
+      vs_s[tid] = in ? vsb[n0 + tid] : 0.f;
     }
     __syncthreads();
 
-    // Scores, one window row at a time with K9's / K4's arithmetic: thread ->
+    // Scores, one window row at a time with K4's arithmetic: thread ->
     // key tid % 64, heads tid / 64 + 2i. Window row ww sees keys <= wi + ww.
     for (int ww = 0; ww < w; ++ww) {
       const int key = tid % kTile, h0 = tid / kTile;
@@ -614,29 +745,15 @@ __global__ void __launch_bounds__(kThreads) decode_window_partial_kernel(
 #pragma unroll
       for (int i = 0; i < kMaxGroup / 2; ++i) dot[i] = 0.f;
       const KV* krow = &kt[key * kLd];
-      if constexpr (kQ8) {
-        for (int c = 0; c < d; c += 4) {
-          const char4 k4 = *reinterpret_cast<const char4*>(krow + c);
-          const float k0 = k4.x, k1 = k4.y, k2 = k4.z, k3 = k4.w;
+      for (int c = 0; c < d; c += 4) {
+        const char4 k4 = *reinterpret_cast<const char4*>(krow + c);
+        const float k0 = k4.x, k1 = k4.y, k2 = k4.z, k3 = k4.w;
 #pragma unroll
-          for (int i = 0; i < kMaxGroup / 2; ++i) {
-            const int hh = h0 + 2 * i;
-            if (hh < group) {
-              const float* qh = qw + hh * kMaxD;
-              dot[i] += qh[c] * k0 + qh[c + 1] * k1 + qh[c + 2] * k2 + qh[c + 3] * k3;
-            }
-          }
-        }
-      } else {
-        for (int c = 0; c < d; c += 2) {
-          const uint32_t k2 = *reinterpret_cast<const uint32_t*>(krow + c);
-#pragma unroll
-          for (int i = 0; i < kMaxGroup / 2; ++i) {
-            const int hh = h0 + 2 * i;
-            if (hh < group) {
-              const float* qh = qw + hh * kMaxD;
-              dot[i] = dot2(dot[i], qh[c], qh[c + 1], k2);
-            }
+        for (int i = 0; i < kMaxGroup / 2; ++i) {
+          const int hh = h0 + 2 * i;
+          if (hh < group) {
+            const float* qh = qw + hh * kMaxD;
+            dot[i] += qh[c] * k0 + qh[c + 1] * k1 + qh[c + 2] * k2 + qh[c + 3] * k3;
           }
         }
       }
@@ -648,7 +765,7 @@ __global__ void __launch_bounds__(kThreads) decode_window_partial_kernel(
         const int hh = h0 + 2 * i;
         if (hh < group) {
           float x = -INFINITY;
-          if (visible) x = kQ8 ? dot[i] * ks_s[key] : dot[i];
+          if (visible) x = dot[i] * ks_s[key];
           sc[(ww * group + hh) * kTile + key] = x;
         }
       }
@@ -661,13 +778,8 @@ __global__ void __launch_bounds__(kThreads) decode_window_partial_kernel(
       const float x0 = sr[lane], x1 = sr[lane + 32];
       float p0, p1, m_new, l_new, alpha;
       softmax_tile(x0, x1, m_s[r], l_s[r], scale_log2, p0, p1, m_new, l_new, alpha);
-      if constexpr (kQ8) {
-        sr[lane] = x0 == -INFINITY ? 0.f : p0 * vs_s[lane];
-        sr[lane + 32] = x1 == -INFINITY ? 0.f : p1 * vs_s[lane + 32];
-      } else {
-        sr[lane] = p0;
-        sr[lane + 32] = p1;
-      }
+      sr[lane] = x0 == -INFINITY ? 0.f : p0 * vs_s[lane];
+      sr[lane + 32] = x1 == -INFINITY ? 0.f : p1 * vs_s[lane + 32];
       __syncwarp();
       if (lane == 0) {
         alpha_s[r] = alpha;
@@ -691,12 +803,7 @@ __global__ void __launch_bounds__(kThreads) decode_window_partial_kernel(
         }
         const float* sw = sc + ww * group * kTile;
         for (int key = 0; key < kTile; ++key) {
-          float vv;
-          if constexpr (kQ8) {
-            vv = static_cast<float>(vt[key * kLd + tid]);
-          } else {
-            vv = __bfloat162float(vt[key * kLd + tid]);
-          }
+          const float vv = static_cast<float>(vt[key * kLd + tid]);
 #pragma unroll
           for (int i = 0; i < kMaxGroup; ++i) {
             if (i < group) acc[i] = pv_step(acc[i], sw[i * kTile + key], vv);
@@ -769,29 +876,100 @@ __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <bool kQ8>
-int launch_window(const void* q, const void* ck, const void* cv, const void* ksc,
-                  const void* vsc, const void* seg, const void* widx, void* part_o,
-                  void* part_ml, void* out, int b, int s, int h, int hkv, int d, int w,
-                  int nsplit, int chunk, float scale, void* stream) {
-  if (hkv <= 0 || h % hkv != 0 || h / hkv > kMaxGroup || d > kMaxD ||
-      d % (kQ8 ? 16 : 2) != 0 || w < 1 || w > kMaxWindow || nsplit <= 0 || chunk <= 0) {
+using PartialKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                               const int*, const int*, float*, float*, int, int, int, int, int,
+                               int, float);
+
+// The K9 / K10 kernel of kT threads, kNR PV rows a thread (rows_cap(kT,
+// kNR) rows a CTA) and kWindow: D = 128 fixed at compile time where the
+// main paths run it (K9, and K10's windows of 5 and 16 over Qwen2-7B's g =
+// 7: 35 and 112 rows), the padded D at run time elsewhere; 4-byte copies
+// for unaligned caches and D % 8 != 0.
+template <int kT, int kNR, bool kWindow>
+PartialKernel partial_kernel(bool vec16, int d) {
+  constexpr int st = partial_stages(kWindow, kT);
+  if (!vec16) return decode_partial_kernel<false, 0, kT, kNR, st, kWindow>;
+  if constexpr (!kWindow) {
+    if (d == 64) return decode_partial_kernel<true, 64, kT, kNR, st, kWindow>;
+  }
+  if constexpr (!kWindow || (kT == 256 && kNR == 9) || (kT == 512 && kNR == 14)) {
+    if (d == 128) return decode_partial_kernel<true, 128, kT, kNR, st, kWindow>;
+  }
+  return decode_partial_kernel<true, 0, kT, kNR, st, kWindow>;
+}
+
+// Every instantiation of the bucket opted into its shared memory (above 48
+// KB it is dynamic), once.
+template <int kT, int kNR, bool kWindow>
+cudaError_t partial_attrs() {
+  static const cudaError_t attr = [] {
+    const int bytes =
+        PartialSmem(kMaxD, rows_cap(kT, kNR), partial_stages(kWindow, kT)).bytes;
+    for (bool vec16 : {false, true}) {
+      for (int d : {64, 128, 96}) {
+        const cudaError_t a = cudaFuncSetAttribute(partial_kernel<kT, kNR, kWindow>(vec16, d),
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   bytes);
+        if (a != cudaSuccess) return a;
+      }
+    }
+    return cudaSuccess;
+  }();
+  return attr;
+}
+
+// K9 (w = 1, widx null) or K10 over the rows of a (slot, kv head, split),
+// then the split combine.
+template <int kT, int kNR, bool kWindow>
+int launch_partial(const void* q, const void* ck, const void* cv, const void* seg,
+                   const void* widx, void* part_o, void* part_ml, void* out, int b, int s,
+                   int h, int hkv, int d, int w, int nsplit, int chunk, float scale,
+                   cudaStream_t st) {
+  const cudaError_t attr = partial_attrs<kT, kNR, kWindow>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const float scale_log2 = scale * kLog2e;
+  const bool vec16 = d % 8 == 0 && reinterpret_cast<uintptr_t>(ck) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(cv) % 16 == 0;
+  const int stages = partial_stages(kWindow, kT);
+  const PartialKernel kernel = partial_kernel<kT, kNR, kWindow>(vec16, d);
+  kernel<<<dim3(nsplit, b * hkv), kT,
+           PartialSmem((d + 15) / 16 * 16, rows_cap(kT, kNR), stages).bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(ck),
+      static_cast<const __nv_bfloat16*>(cv), static_cast<const int*>(seg),
+      static_cast<const int*>(widx), static_cast<float*>(part_o), static_cast<float*>(part_ml),
+      s, hkv, h / hkv, d, w, chunk, scale_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_combine_kernel<<<b * w * h, kCombineThreads, 0, st>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<__nv_bfloat16*>(out), nsplit, d, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11: the int8 window kernel, then the split combine.
+int launch_window_q8(const void* q, const void* ck, const void* cv, const void* ksc,
+                     const void* vsc, const void* seg, const void* widx, void* part_o,
+                     void* part_ml, void* out, int b, int s, int h, int hkv, int d, int w,
+                     int nsplit, int chunk, float scale, void* stream) {
+  if (hkv <= 0 || h % hkv != 0 || h / hkv > kMaxGroup || d > kMaxD || d % 16 != 0 || w < 1 ||
+      w > kMaxWindow || nsplit <= 0 || chunk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // Above 48 KB the shared memory is dynamic and opted into, once.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_window_partial_kernel<kQ8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      window_smem_bytes<kQ8>(kMaxRows));
+      decode_window_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      window_smem_bytes(kMaxRows));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * kLog2e;
   const int group = h / hkv;
-  decode_window_partial_kernel<kQ8>
-      <<<dim3(nsplit, b * hkv), kThreads, window_smem_bytes<kQ8>(w * group), st>>>(
-          static_cast<const __nv_bfloat16*>(q), ck, cv, static_cast<const float*>(ksc),
-          static_cast<const float*>(vsc), static_cast<const int*>(seg),
-          static_cast<const int*>(widx), static_cast<float*>(part_o),
-          static_cast<float*>(part_ml), s, hkv, group, d, w, chunk, scale_log2);
+  decode_window_partial_kernel<<<dim3(nsplit, b * hkv), kThreads, window_smem_bytes(w * group),
+                                 st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(ck),
+      static_cast<const int8_t*>(cv), static_cast<const float*>(ksc),
+      static_cast<const float*>(vsc), static_cast<const int*>(seg),
+      static_cast<const int*>(widx), static_cast<float*>(part_o),
+      static_cast<float*>(part_ml), s, hkv, group, d, w, chunk, scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<<<b * w * h, kCombineThreads, 0, st>>>(
@@ -814,39 +992,9 @@ extern "C" int radvlm_decode_attention(const void* q, const void* ck,
       d % 2 != 0 || nsplit <= 0 || chunk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale_log2 = scale * kLog2e;
-  using Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                         const int*, float*, float*, int, int, int, int, int, float);
-  // The Qwen2 head dims at compile time; others, and unaligned caches, at
-  // run time.
-  const Kernel kernels[4] = {decode_partial_kernel<true, 128>, decode_partial_kernel<true, 64>,
-                             decode_partial_kernel<true, 0>, decode_partial_kernel<false, 0>};
-  // Above 48 KB the shared memory is dynamic and opted into, once.
-  static const cudaError_t attr = [&] {
-    for (Kernel k : kernels) {
-      const cudaError_t a = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize, K9Smem(kMaxD).bytes);
-      if (a != cudaSuccess) return a;
-    }
-    return cudaSuccess;
-  }();
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const bool vec16 = d % 8 == 0 && reinterpret_cast<uintptr_t>(ck) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(cv) % 16 == 0;
-  const Kernel kernel = !vec16 ? kernels[3] : d == 128 ? kernels[0] : d == 64 ? kernels[1]
-                                                                              : kernels[2];
-  kernel<<<dim3(nsplit, b * hkv), kK9Threads, K9Smem((d + 15) / 16 * 16).bytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(ck),
-      static_cast<const __nv_bfloat16*>(cv), static_cast<const int*>(seg),
-      static_cast<float*>(part_o), static_cast<float*>(part_ml), s, hkv,
-      h / hkv, d, chunk, scale_log2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<<<b * h, kCombineThreads, 0, st>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<__nv_bfloat16*>(out), nsplit, d, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_partial<kK9Threads, 2, false>(q, ck, cv, seg, nullptr, part_o, part_ml, out, b,
+                                              s, h, hkv, d, 1, nsplit, chunk, scale,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 // K4: single-token GQA decode attention over one layer of the int8 KV cache.
@@ -908,15 +1056,20 @@ extern "C" int radvlm_decode_attention_q8(const void* q, const void* ck, const v
 // read as [B, W, H, D]; the TPU kernels' kv-head-major query layout has
 // nothing to do here.
 //
-// What bounds them: device-memory bandwidth, as K9 and K4: one pass over the
-// layer's K and V up to the window's end, whatever W is. That is the point
-// of the kernel: a loop of W single-query launches would read the cache W
-// times, and the plain path dequantizes the whole int8 layer first. The
-// split-S grid, the split plan and the combine kernel are K9's; a CTA keeps
-// its W * g query rows (35 at W = 5, 112 at W = 16 for Qwen2-7B) in dynamic
-// shared memory, as f32 q, running sums and the tile's scores, and walks the
-// window rows over each staged K/V tile. The dot products are plain FMA as
-// in K9 / K4, so the FMA work grows with W while the bytes do not.
+// What bounds them: one pass over the layer's K and V up to the window's
+// end, whatever W is, so a loop of W single-query launches would read the
+// cache W times, and the plain path dequantizes the whole int8 layer
+// first. The split-S grid, the split plan and the combine kernel are K9's;
+// a CTA holds the W * g query rows of a (slot, kv head, split) (35 at W =
+// 5, 112 at W = 16 for Qwen2-7B). The dot products are plain f32 FMA as in
+// K9 / K4, so the FMA work grows with W while the bytes do not: at W = 5
+// the FMA floor (~1.7 GFLOP at 67 TFLOP/s, 0.026 ms) is twice the byte
+// bound (0.013 ms) and binds. K10 is K9's kernel (decode_partial_kernel,
+// design note there) over the window's rows: sums in registers, the 64-key
+// K/V ring (two stages where that leaves room for two CTAs an SM, up to 40
+// rows at D = 128; three otherwise), and the pass that skips tiles no row
+// sees. K11 (decode_window_partial_kernel) still stages one tile at a time
+// with 128 threads and keeps its running sums in shared memory.
 //
 // Per query row the arithmetic is K9's / K4's, tile by tile in the same
 // order under the same split plan, so a window row equals what K9 / K4
@@ -927,14 +1080,33 @@ extern "C" int radvlm_decode_attention_q8(const void* q, const void* ck, const v
 // a masked score never reads its scale. A row with no visible key gives 0.
 //
 // Limits: 1 <= W <= 16, H / Hkv <= 8, D <= 128 (even; a multiple of 16 for
-// the int8 cache).
+// the int8 cache). K10 takes W x g rows a CTA in buckets: 256 threads and
+// kNR = 4, 9 PV rows a thread (up to 16, 40 rows, two CTAs an SM), 512
+// threads and kNR = 14, 16 (up to 112, 128 rows, one CTA an SM).
 extern "C" int radvlm_decode_attention_window(const void* q, const void* ck, const void* cv,
                                               const void* seg, const void* widx,
                                               void* part_o, void* part_ml, void* out, int b,
                                               int s, int h, int hkv, int d, int w, int nsplit,
                                               int chunk, float scale, void* stream) {
-  return radvlm::launch_window<false>(q, ck, cv, nullptr, nullptr, seg, widx, part_o, part_ml,
-                                      out, b, s, h, hkv, d, w, nsplit, chunk, scale, stream);
+  using namespace radvlm;
+  if (hkv <= 0 || h % hkv != 0 || h / hkv > kMaxGroup || d > kMaxD || d % 2 != 0 || w < 1 ||
+      w > kMaxWindow || nsplit <= 0 || chunk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = w * (h / hkv);  // rows_cap(threads, kNR) rows a CTA at most
+  auto launch = [&](auto threads, auto nr) {
+    return launch_partial<decltype(threads)::value, decltype(nr)::value, true>(
+        q, ck, cv, seg, widx, part_o, part_ml, out, b, s, h, hkv, d, w, nsplit, chunk, scale,
+        st);
+  };
+  using std::integral_constant;
+  constexpr integral_constant<int, 256> t256{};
+  constexpr integral_constant<int, 512> t512{};
+  if (rows <= 16) return launch(t256, integral_constant<int, 4>{});
+  if (rows <= 40) return launch(t256, integral_constant<int, 9>{});
+  if (rows <= 112) return launch(t512, integral_constant<int, 14>{});
+  return launch(t512, integral_constant<int, 16>{});
 }
 
 extern "C" int radvlm_decode_attention_window_q8(const void* q, const void* ck, const void* cv,
@@ -944,8 +1116,8 @@ extern "C" int radvlm_decode_attention_window_q8(const void* q, const void* ck, 
                                                  int s, int h, int hkv, int d, int w,
                                                  int nsplit, int chunk, float scale,
                                                  void* stream) {
-  return radvlm::launch_window<true>(q, ck, cv, ksc, vsc, seg, widx, part_o, part_ml, out, b, s,
-                                     h, hkv, d, w, nsplit, chunk, scale, stream);
+  return radvlm::launch_window_q8(q, ck, cv, ksc, vsc, seg, widx, part_o, part_ml, out, b, s, h,
+                                  hkv, d, w, nsplit, chunk, scale, stream);
 }
 
 extern "C" const char* radvlm_error_string(int err) {

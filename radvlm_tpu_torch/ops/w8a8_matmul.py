@@ -88,6 +88,7 @@ def w8a8_matmul(
     kernels.require_dtype("w8a8_matmul", torch.int8, xq=x2, wq=wq)
     kernels.require_dtype("w8a8_matmul", torch.float32, xs=s2, ws=ws)
     x2, s2 = x2.contiguous(), s2.contiguous()
+    # The kernel reads xq and wq by TMA, from 16-byte-aligned bases only.
     kernels.require_cuda_tensors("w8a8_matmul", x2, wq, align=16)
     kernels.require_cuda_tensors("w8a8_matmul", s2, ws)
     m = x2.shape[0]

@@ -267,9 +267,13 @@ def _int8(gen, dev, *shape):
 # SigLIP MLP); M = 729 x 5 tower rows; a Qwen2-7B prefill shape; odd N.
 K3_CASES = [(1, 4304, 1152), (65, 1152, 4304), (729 * 5, 4304, 1152),
             (3456, 3584, 4608), (200, 64, 129)]
+# The edges of K3's tiles: 129 rows (one past a 128-row tile) with a K whose
+# last 128-byte box is partial and N = 129 (one past a multiple of 8 and
+# 128); 65 rows (one past a 64-row warpgroup) over a few 256-column tiles.
+K3_EDGE_CASES = [(129, 4304, 129), (65, 3584, 1000), (257, 16, 520)]
 
 
-@pytest.mark.parametrize("case", K3_CASES)
+@pytest.mark.parametrize("case", K3_CASES + K3_EDGE_CASES)
 def test_k3_matches_plain_bit_for_bit(dev, case):
     m, k, n = case
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -282,6 +286,21 @@ def test_k3_matches_plain_bit_for_bit(dev, case):
     assert kernels.launch_counts()["w8a8_matmul"] == before + 1
     ref = tw8.w8a8_matmul_plain(xq, xs[:, 0], wq, ws, torch.bfloat16)
     assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+
+
+def test_k3_row_offset_view_gives_the_bits_of_a_copy(dev):
+    """xq as a view that starts a row into its storage (16-byte aligned,
+    since K % 16 == 0) reads as a copy does."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    m, k, n = 300, 1152, 520
+    xq, xs = tw8.quantize_rows(_randn(gen, dev, m + 1, k))
+    wq = _int8(gen, dev, n, k)
+    ws = torch.rand(n, generator=gen, device=dev) * 1e-3 + 1e-4
+    view = tw8.w8a8_matmul(xq[1:], xs[1:], wq, ws)
+    copy = tw8.w8a8_matmul(xq[1:].clone(), xs[1:].clone(), wq, ws)
+    torch.cuda.synchronize()
+    assert xq[1:].data_ptr() != xq.data_ptr() and torch.equal(view, copy)
+    assert torch.equal(view, tw8.w8a8_matmul_plain(xq[1:], xs[1:, 0], wq, ws, torch.bfloat16))
 
 
 # (B, S, H, Hkv, D, layer): groups 1-8, the Qwen2-7B decode shape.
@@ -381,6 +400,13 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         tw8.w8a8_matmul(xq.float(), xs, w, s)
     with pytest.raises(ValueError, match="multiple of 16"):
         tw8.w8a8_matmul(xq[:, :40].contiguous(), xs, w[:, :40].contiguous(), s)
+    # TMA reads xq and wq from 16-byte-aligned bases: a contiguous view one
+    # byte into its storage is refused, not copied or sent elsewhere.
+    flat = torch.zeros(80 * 64 + 16, device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tw8.w8a8_matmul(flat[1:1 + 80 * 64].view(80, 64), xs, w, s)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tw8.w8a8_matmul(xq, xs, flat[1:1 + 32 * 64].view(32, 64), s)
     q = torch.zeros((1, 4, 64), device=dev, dtype=torch.bfloat16)
     c = torch.zeros((1, 1, 32, 128), device=dev, dtype=torch.bfloat16)
     sc = torch.ones((1, 1, 2, 32), device=dev)
@@ -401,6 +427,10 @@ WINDOW_CASES = [
 # K10 does not, and their rows must still be equal.
 WINDOW_HOLES_CASE = (8, 4224, 28, 4, 128, 5, 1)
 WINDOW_CASES.append(WINDOW_HOLES_CASE)
+# Every window straddles a key-tile edge (widx % 64 == 62): rows 0-1 see a
+# tile that rows 2-4 see, and rows 2-4 a tile that rows 0-1 do not.
+WINDOW_EDGE_CASE = (8, 4224, 28, 4, 128, 5, 2)
+WINDOW_CASES.append(WINDOW_EDGE_CASE)
 
 
 def _window_inputs(dev, case, quantized):
@@ -414,6 +444,9 @@ def _window_inputs(dev, case, quantized):
     q = _randn(gen, dev, b, w, h, d)
     widx = torch.tensor([s - w] + [(s // 2 + 97 * i) % (s - w) for i in range(1, b)],
                         dtype=torch.int32, device=dev)
+    if case == WINDOW_EDGE_CASE:
+        widx = widx - widx % 64 + 62
+        widx = torch.where(widx > s - w, widx - 64, widx)
     seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
     for i in range(b):
         seg[i, (13 * i) % (s // 4): int(widx[i]) + w] = 1
