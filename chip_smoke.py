@@ -10,9 +10,11 @@ Phases, each raising on failure (the last line is printed only on success):
    per source, in parallel), timed;
 3. kernels: K1 (tower attention), K2 (prefill attention), K9 (decode
    attention), K3 (W8A8 matmul), K4 (int8-cache decode attention), K5/K6
-   (int8-weight decode matmul), K10 / K11 (the verify window of
-   speculative decoding over the bf16 / int8 cache, 5 and 16 queries a
-   slot), K12 (int4-weight decode matmul, 8 and 40 rows; a row's result
+   (int8-weight decode matmul at 8, 32 and 40 rows, each shape's share of
+   its byte bound and the sums of a decode step), K10 / K11 (the verify
+   window of speculative decoding over the bf16 / int8 cache, 5 and 16
+   queries a slot; K4 and K11 with their shares of the byte bound and of
+   the f32 FMA floor), K12 (int4-weight decode matmul, 8 and 40 rows; a row's result
    must not depend on the row count) and K13 (W8A8 matmul that quantizes
    its rows inside; bit for bit equal to quantize_rows + K3) and the
    training kernels (K2 writing its lse, K7, K8: see phase 8) against their
@@ -227,11 +229,13 @@ TRAIN_BUCKET = Bucket(4096, 6)
 SFT_STEPS, SFT_RESUMED_STEPS, OVERFIT_STEPS, QLORA_STEPS = 6, 2, 4, 2
 LORA_RANK = 128
 SPEC_K = 4
+K5_ROWS = (8, 32, 40)  # decode slots, and a verify step of 8 slots x (SPEC_K + 1)
 SPEC_BUCKETS = (3456, 3840)
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): what a kernel's
 # least possible time is computed from.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_F32_PER_S = 67e12  # FMA outside the tensor cores
 
 
 class CharTokenizer:
@@ -380,6 +384,17 @@ def against(r: dict) -> str:
     if r["library_ms"] is not None:
         text += f", {r['ms'] / r['library_ms']:.2f}x the library call"
     return text
+
+
+def shares(ms: float, n_bytes: float, pairs: int, d: int = 128) -> str:
+    """A decode attention kernel's device time against its byte bound (the
+    visible K/V and scales over the memory rate) and its FMA floor: the
+    (query, key) pairs x 4 D flops of its f32 dot products and PV over the
+    card's f32 rate outside the tensor cores."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_fma = 1e3 * 4 * d * pairs / PEAK_F32_PER_S
+    return (f"{100 * t_bytes / ms:.1f}% of its byte bound ({t_bytes:.4f} ms), "
+            f"{100 * t_fma / ms:.1f}% of its FMA floor ({t_fma:.4f} ms)")
 
 
 def sdpa(q, k, v, mask=None):
@@ -692,7 +707,8 @@ def window_kernels(dev, randn, *, quantized: bool, cache=None):
         print(f"    {label} W={w}: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} on the device), "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"library call {'none' if lib is None else f'{lib:.4f} ms'}, "
-              f"{any_row * per_key / r['ms'] / 1e6:.1f} GB/s of visible K/V", flush=True)
+              f"{any_row * per_key / r['ms'] / 1e6:.1f} GB/s of visible K/V; "
+              f"{shares(r['device_ms'], any_row * per_key, 28 * pairs)}", flush=True)
         if w == SPEC_K + 1:
             result = r
         del q, out
@@ -774,19 +790,22 @@ def phase_int8_kernels(dev, g):
         plain_ms=cuda_ms(lambda: plain_q8(next(layers))),
         **bound(visible * (2 * 512 + 2 * 4 * 4) + nbytes(qd, out, seg), 4 * 28 * 128 * visible,
                 "bf16"))
-    print(f"    K4: {ck[0].numel() * 2 / results['decode_attention_q8']['ms'] / 1e6:.1f} GB/s "
-          "of int8 K/V per layer", flush=True)
+    r = results["decode_attention_q8"]
+    print(f"    K4: {ck[0].numel() * 2 / r['ms'] / 1e6:.1f} GB/s of int8 K/V per layer; "
+          f"{shares(r['device_ms'], visible * (2 * 512 + 2 * 4 * 4), 28 * visible)}",
+          flush=True)
     results.update(window_kernels(dev, randn, quantized=True, cache=(ck, cv, ks, vs)))
     del ck, cv, ks, vs
     # K5/K6: the decode projections of a fused Qwen2-7B layer and the lm_head
-    # at 8 and 32 rows (decode slots). Three copies of each weight, used in
-    # turn, so that a small one does not stay in the 50 MB L2.
-    step_ms = {}
+    # at 8 and 32 rows (decode slots) and 40 (a verify step of 8 slots x 5).
+    # Three copies of each weight, used in turn, so that a small one does not
+    # stay in the 50 MB L2.
+    step_ms, step_bound = {}, {}
     for label, k, n in [("qkv", 3584, 4608), ("o", 3584, 3584), ("gateup", 3584, 37888),
                         ("down", 18944, 3584), ("lm_head", 3584, 152064)]:
         ws = [randint8(n, k) for _ in range(3)]
         sc = torch.full((n,), 0.02 / 127, device=dev)
-        for rows in (8, 32):
+        for rows in K5_ROWS:
             x = randn(rows, k)
             out = i8.int8_matmul(x, ws[0], sc)
             torch.cuda.synchronize()
@@ -796,9 +815,11 @@ def phase_int8_kernels(dev, g):
             ms = cuda_ms(lambda: i8.int8_matmul(x, next(turn), sc), batch=ATTN_BATCH)
             dms = step_ms[(label, rows)] = device_ms(lambda: i8.int8_matmul(x, next(turn), sc))
             least = bound(nbytes(x, ws[0], sc, out), 2 * rows * k * n, "bf16")
+            step_bound[(label, rows)] = least["bound_ms"]
             print(f"    K5/K6 {label} {rows} rows: {ms:.4f} ms by events, {dms:.4f} ms on the "
                   f"device ({n * k / dms / 1e6:.1f} GB/s), bound {least['bound_ms']:.4f} ms "
-                  f"({least['bound_by']})", flush=True)
+                  f"({least['bound_by']}; {100 * least['bound_ms'] / dms:.1f}% of it on the "
+                  "device)", flush=True)
             if (label, rows) == ("gateup", 8):
                 lib_call = lambda: torch._weight_int8pack_mm(x, next(turn), sc)  # noqa: E731
                 results["int8_matmul"] = dict(
@@ -813,11 +834,13 @@ def phase_int8_kernels(dev, g):
                 print(f"    K6 lm_head 8 rows: plain {plain_ms:.4f} ms, library call "
                       f"(_weight_int8pack_mm) {lib_ms:.4f} ms", flush=True)
         del ws
-    for rows in (8, 32):
-        per_step = 28 * sum(step_ms[(p, rows)] for p in ("qkv", "o", "gateup", "down"))
-        per_step += step_ms[("lm_head", rows)]
+    for rows in K5_ROWS:
+        per_step, least = (
+            28 * sum(t[(p, rows)] for p in ("qkv", "o", "gateup", "down")) + t[("lm_head", rows)]
+            for t in (step_ms, step_bound))
         print(f"    K5/K6 per decode step, {rows} rows (28 layers + lm_head): {per_step:.3f} ms "
-              "on the device", flush=True)
+              f"on the device, bound {least:.3f} ms ({100 * least / per_step:.1f}% of it)",
+              flush=True)
     results.update(int4_kernel(dev, g, randn))
     results.update(fused_w8a8_kernel(dev, randn, randint8))
     return results

@@ -4,16 +4,23 @@ them, optionally against other versions of their sources in turns:
 - `--only fwd`: the attention forwards (K1, K2, K2 with the lse) against SDPA;
 - `--only bwd`: the backward (K7 dk / dv, K8 dq) against SDPA's backward;
 - `--only decode`: K9 (bf16 decode attention) and K10 (its window) at W = 5
-  and W = 16 against SDPA, and K11 (the int8 window, no library call) at
-  W = 5;
+  and W = 16 against SDPA, then K4 (decode attention over the int8 cache;
+  beside it K9 on a bf16 copy of the same cache) and K11 (its window) at W
+  = 5 and 16 (no library call);
 - `--only w8a8`: K3 (W8A8 matmul) alone against `torch._int_mm` + the scale
   products and `torch._int_mm` alone (the cuBLAS floor for the same
   products), then K13 (fused W8A8 matmul) beside `quantize_rows` + K3 and
   `quantize_rows` + `torch._int_mm` + the scale products;
-- no `--only`: all four.
+- `--only int8mm`: K5/K6 (the weight-only int8 decode matmul) at the five
+  decode shapes of Qwen2-7B (a fused layer's qkv, o, gateup, down and the
+  lm_head) at 8 rows (a decode step of 8 slots) and 40 (a verify step of 8
+  slots x 5) against `torch._weight_int8pack_mm`, each shape also under
+  the other K splits the kernel takes, and the sums of a decode step (28
+  layers + the lm_head) against their bound;
+- no `--only`: all five.
 
-    python -m radvlm_tpu_torch.bench_kernels [--only fwd|bwd|decode|w8a8] [--baseline DIR]
-        [--ptxas] [--reps N] [--batch N]
+    python -m radvlm_tpu_torch.bench_kernels [--only fwd|bwd|decode|w8a8|int8mm]
+        [--baseline DIR] [--ptxas] [--reps N] [--batch N]
 
 - Each shape is first held to the plain version (`kernels.error_ratio`; K3
   bit for bit against its plain version, K13 against `quantize_rows` + K3).
@@ -26,13 +33,17 @@ them, optionally against other versions of their sources in turns:
   that one layer's K / V does not stay in the 50 MB L2 between calls.
 - `--baseline DIR` (repeatable): DIR holds other versions of the sources
   (`flash_attention.cu`, `flash_attention_bwd.cu`, `decode_attention.cu`,
-  `w8a8_matmul.cu`, and the headers they include), e.g. the parent
+  `w8a8_matmul.cu`, `int8_matmul.cu`, and the headers they include), e.g. the parent
   commit's `radvlm_tpu_torch/csrc/` unpacked by `git archive` into the
   gitignored `build/`. The sources the `--only` set needs are built into a
   library of their own (same C entry points, loaded apart), held to the
   same rule (reported, not asserted) and timed against this checkout's
   kernels in the order this, each baseline, this. One that does not build
-  is reported and left out.
+  is reported and left out. K5/K6 baselines run under their own split
+  plan: an earlier kernel that sums its K splits through f32 partials in
+  device memory takes a `part` buffer and its plan of ~2 CTAs an SM over
+  128-column blocks (`partials_plan`); one that refuses a buffer, this
+  checkout's plan.
 - `--ptxas`: compile this checkout's sources of the set (and each
   baseline's) with `-Xptxas -v` and print registers, shared memory, spills
   and ptxas's warnings per instantiation.
@@ -86,7 +97,8 @@ BWD_SHAPES = [
 ]
 # The sources each --only set times.
 SET_SOURCES = {"fwd": ("flash_attention.cu",), "bwd": ("flash_attention_bwd.cu",),
-               "decode": ("decode_attention.cu",), "w8a8": ("w8a8_matmul.cu",)}
+               "decode": ("decode_attention.cu",), "w8a8": ("w8a8_matmul.cu",),
+               "int8mm": ("int8_matmul.cu",)}
 SOURCES = tuple(src for srcs in SET_SOURCES.values() for src in srcs)
 # K9 at phase 3's shape: 4 rows of a 4096-slot cache, Qwen2-7B heads; each
 # row's written span (left padding before it, the unwritten tail after).
@@ -99,6 +111,12 @@ WINDOW_LO = [300, 0, 1000, 40, 700, 0, 123]
 # K13 at phase 3's shapes: (label, M, K, N).
 W8A8_SHAPES = [("text gateup", 3456, 3584, 37888), ("text down", 3456, 18944, 3584),
                ("tower fc1", 3645, 1152, 4304)]
+# K5/K6 at the decode projections of a fused Qwen2-7B layer and the lm_head:
+# (label, K, N); a decode step runs the first four 28 times.
+INT8MM_SHAPES = [("qkv", 3584, 4608), ("o", 3584, 3584), ("gateup", 3584, 37888),
+                 ("down", 18944, 3584), ("lm_head", 3584, 152064)]
+INT8MM_ROWS = (8, 40)
+N_LAYERS = 28
 
 
 def segments(layout, b, s, dev):
@@ -185,6 +203,8 @@ def load_baseline(lib_path: str) -> ctypes.CDLL:
         "radvlm_decode_attention_window_q8": [
             p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p],
         "radvlm_w8a8_matmul": [p, p, p, p, p, i, i, i, p],
+        "radvlm_int8_matmul": [p, p, p, p, p, i, i, i, i, i, p],
+        "radvlm_decode_attention_q8": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
         "radvlm_w8a8_matmul_fused": [p, p, p, p, p, i, i, i, p],
     }
     for name, argtypes in sigs.items():
@@ -389,8 +409,9 @@ def backward(args, this, bases, dev, g) -> None:
 
 
 def decode(args, this, bases, dev, g) -> None:
-    """K9 at phase 3's shape and K10 at W = 5 and 16 against SDPA, and K11
-    at W = 5 (no library call), layers cycled."""
+    """K9 at phase 3's shape and K10 at W = 5 and 16 against SDPA, K4 and
+    K11 at W = 5 and 16 (no library call), layers cycled; each with its
+    share of the byte bound and of the f32 FMA floor."""
     n_layers, hkv, d = 28, 4, 128
     scale = d ** -0.5
 
@@ -404,7 +425,7 @@ def decode(args, this, bases, dev, g) -> None:
     seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
     for i, (lo, hi) in enumerate(DECODE_SPANS):
         seg[i, lo:hi] = 1
-    nsplit, chunk = da._split_plan(b, hkv, s, dev)
+    nsplit, chunk = da._split_plan(b, hkv, s, kernels.sm_count(dev))
     part_o = torch.empty((b, 28, nsplit, d), dtype=torch.float32, device=dev)
     part_ml = torch.empty((b, 28, nsplit, 2), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
@@ -428,16 +449,58 @@ def decode(args, this, bases, dev, g) -> None:
     bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * 28 * d * visible / PEAK_BF16)
     ref = da.decode_attention_plain(q, ck[27], cv[27], seg, num_kv_heads=hkv, scale=scale)
     timed("K9 decode [4,28,128] x [4,4096,512]", "decode_attention", k9, sdpa, ref, out,
-          bound_ms, n_layers, args, this, bases)
+          bound_ms, n_layers, args, this, bases, 1e3 * 4 * 28 * d * visible / PEAK_FP32)
     del ck, cv, part_o, part_ml
 
-    # K10 at W = 5 and 16, K11 at W = 5: [8, W, 28, 128] over [8, 4224, 512].
+    # K4: [8, 28, 128] over [8, 4224, 512] int8, each slot's written span from
+    # WINDOW_LO to its window index, slot 7 empty; then K10 at W = 5 and 16
+    # and K11 at W = 5 and 16: [8, W, 28, 128] over the same caches.
     b, s = 8, 4224
     ck, cv = randn(n_layers, b, s, hkv * d), randn(n_layers, b, s, hkv * d)
     ckq, cvq = (kv_quant.quantize_kv(c, hkv) for c in (ck, cv))
-    nsplit, chunk = da._split_plan(b, hkv, s, dev)
+    nsplit, chunk = da._split_plan(b, hkv, s, kernels.sm_count(dev))
+    q = randn(b, 28, d)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    for i, lo in enumerate(WINDOW_LO):
+        seg[i, lo:min(WINDOW_IDX[i], s - 1) + 1] = 1
+    part_o = torch.empty((b, 28, nsplit, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, 28, nsplit, 2), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+
+    def k4(layer, lib=this):
+        (kq, ks), (vq, vs) = ckq, cvq
+        err = lib.radvlm_decode_attention_q8(
+            q.data_ptr(), kq[layer].data_ptr(), vq[layer].data_ptr(), ks[layer].data_ptr(),
+            vs[layer].data_ptr(), seg.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+            out.data_ptr(), b, s, 28, hkv, d, nsplit, chunk, scale, kernels.stream_ptr(dev))
+        kernels.check(err, "decode_attention_q8")
+
+    visible = int((seg != 0).sum())
+    n_bytes = visible * (2 * hkv * d + 2 * hkv * 4) + 2 * q.numel() * 2 + seg.numel() * 4
+    bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * 28 * d * visible / PEAK_BF16)
+    (kq, ks), (vq, vs) = ckq, cvq
+    ref = da.decode_attention_q8_plain(q, kq[27], vq[27], ks[27], vs[27], seg, num_kv_heads=hkv,
+                                       scale=scale)
+    timed("K4 decode [8,28,128] x [8,4224,512] int8", "decode_attention_q8", k4, None, ref, out,
+          bound_ms, n_layers, args, this,
+          [(base, n) for base, n in bases if has(base, "radvlm_decode_attention_q8")],
+          1e3 * 4 * 28 * d * visible / PEAK_FP32)
+
+    def k9_same(layer, lib=this):  # K9 on the bf16 copy of K4's cache
+        err = lib.radvlm_decode_attention(
+            q.data_ptr(), ck[layer].data_ptr(), cv[layer].data_ptr(), seg.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, 28, hkv, d, nsplit,
+            chunk, scale, kernels.stream_ptr(dev))
+        kernels.check(err, "decode_attention")
+
+    n_bytes = visible * 2 * hkv * d * 2 + 2 * q.numel() * 2 + seg.numel() * 4
+    timed("K9 decode at K4's shape [8,28,128] x [8,4224,512] bf16", "decode_attention", k9_same,
+          None, da.decode_attention_plain(q, ck[27], cv[27], seg, num_kv_heads=hkv, scale=scale),
+          out, 1e3 * n_bytes / HBM_BYTES_PER_S, n_layers, args, this, bases,
+          1e3 * 4 * 28 * d * visible / PEAK_FP32)
+    del q, part_o, part_ml, out, ref
     ar = torch.arange(s, device=dev)[None]
-    for w, quantized in ((5, False), (16, False), (5, True)):
+    for w, quantized in ((5, False), (16, False), (5, True), (16, True)):
         q = randn(b, w, 28, d)
         widx = torch.tensor([min(i, s - w) for i in WINDOW_IDX], dtype=torch.int32, device=dev)
         seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
@@ -488,18 +551,20 @@ def decode(args, this, bases, dev, g) -> None:
             ref = da.decode_attention_window_plain(q, ck[27], cv[27], seg, widx,
                                                    num_kv_heads=hkv, scale=scale)
             label, name, kernel, library = "K10", "decode_attention_window", window, sdpa_window
-        timed(f"{label} window W={w} [8,{w},28,128] x [8,4224,512] (FMA floor {fma_ms:.4f} ms)",
-              name, kernel, library, ref, out, bound_ms, n_layers, args, this,
-              [(base, n) for base, n in bases if has(base, "radvlm_" + name)])
+        timed(f"{label} window W={w} [8,{w},28,128] x [8,4224,512]", name, kernel, library, ref,
+              out, bound_ms, n_layers, args, this,
+              [(base, n) for base, n in bases if has(base, "radvlm_" + name)], fma_ms)
         del q, part_o, part_ml, out, ref, wmask
     del ck, cv, ckq, cvq
     torch.cuda.empty_cache()
 
 
-def timed(label, name, kernel, library, ref, out, bound_ms, n_layers, args, this, bases):
+def timed(label, name, kernel, library, ref, out, bound_ms, n_layers, args, this, bases,
+          fma_ms=None):
     """Hold `kernel(layer, lib)` (writing `out`) at layer 27 to `ref`, then
     time it, each baseline's and `library(layer)` (if any) with the layers
-    cycled."""
+    cycled; `fma_ms`: the f32 FMA floor of its dot products (pairs x 4 D
+    over 67 TFLOP/s), printed with the kernel's share of it."""
     kernel(27)
     torch.cuda.synchronize()
     err, ratio = kernels.error_ratio(name, out, ref)
@@ -523,9 +588,12 @@ def timed(label, name, kernel, library, ref, out, bound_ms, n_layers, args, this
         lib_dev = device_ms(lib_call, args.reps)
         versus = (f"SDPA {lib_ms:.4f} ms ({lib_dev:.4f}): {ms / lib_ms:.2f}x SDPA "
                   f"({dev_ms / lib_dev if lib_dev else float('nan'):.2f}x by device time)")
+    fma = "" if fma_ms is None else (
+        f", FMA floor {fma_ms:.4f} ms ({100 * fma_ms / dev_ms if dev_ms else float('nan'):.1f}% "
+        "of it)")
     print(f"  {label}: kernel {ms:.4f} ms ({dev_ms:.4f} by torch.profiler), {versus}, bound "
           f"{bound_ms:.4f} ms ({100 * bound_ms / dev_ms if dev_ms else float('nan'):.1f}% of it "
-          f"by device time); worst element at {ratio:.3f} of its bound (max_abs_err "
+          f"by device time){fma}; worst element at {ratio:.3f} of its bound (max_abs_err "
           f"{err:.3e}){extra}", flush=True)
 
 
@@ -632,6 +700,102 @@ def w8a8(args, this, bases, dev, g) -> None:
         torch.cuda.empty_cache()
 
 
+def partials_plan(n: int, k: int, sms: int):
+    """(nsplit, k_per_split) of the K5/K6 design that sums K splits through
+    f32 partials in device memory and a second launch: ~2 CTAs an SM over
+    128-column blocks."""
+    cols, steps = -(-n // 128), -(-k // 64)
+    nsplit = max(1, min(-(-2 * sms // cols), steps))
+    per = -(-steps // nsplit)
+    return -(-steps // per), per * 64
+
+
+def int8mm(args, this, bases, dev, g) -> None:
+    """K5/K6 at the five decode shapes and 8 / 40 rows against
+    torch._weight_int8pack_mm, held to the plain version; three copies of
+    each weight in turn (a small one would stay in the 50 MB L2), device
+    time by torch.profiler; the kernel also under each other K split it
+    takes; then the sums of a decode step (28 layers + the lm_head)."""
+    from radvlm_tpu_torch.ops import int8_matmul as i8
+
+    sms = kernels.sm_count(dev)
+    step = {}  # (label, rows) -> {version: ms}
+    for label, k, n in INT8MM_SHAPES:
+        ws = [torch.randint(-128, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+              for _ in range(3)]
+        sc = torch.rand(n, generator=g, device=dev) * 2e-4 + 1e-5
+        for m in INT8MM_ROWS:
+            x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+            out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            turn = itertools.cycle(ws)
+
+            def call(lib, plan, w, part=None):
+                err = lib.radvlm_int8_matmul(
+                    x.data_ptr(), w.data_ptr(), sc.data_ptr(), out.data_ptr(),
+                    None if part is None else part.data_ptr(), m, n, k, *plan,
+                    kernels.stream_ptr(dev))
+                return err
+
+            plan = i8._splits(n, k, sms)
+            ref = i8.int8_matmul_plain(x, ws[0], sc)
+            kernels.check(call(this, plan, ws[0]), "int8_matmul")
+            torch.cuda.synchronize()
+            err, ratio = kernels.error_ratio("int8_matmul", out, ref)
+            runs = []
+            for base, bname in bases:
+                old = partials_plan(n, k, sms)
+                part = (torch.empty((old[0], m, n), dtype=torch.float32, device=dev)
+                        if old[0] > 1 else None)
+                if call(base, old, ws[0], part) != 0:  # a baseline of this design
+                    old, part = plan, None
+                    kernels.check(call(base, old, ws[0]), bname)
+                torch.cuda.synchronize()
+                print(f"    {bname} (plan {old}): {base_rule('int8_matmul', out, ref)}", flush=True)
+                runs.append((lambda base=base, old=old, part=part:
+                             call(base, old, next(turn), part), bname))
+            run = lambda: kernels.check(call(this, plan, next(turn)), "int8_matmul")  # noqa: E731
+            measure = lambda fn: device_ms(fn, args.reps)  # noqa: E731
+            a1 = measure(run)
+            times = [measure(fn) for fn, _ in runs]
+            a2 = measure(run) if runs else a1
+            ms = statistics.median([a1, a2])
+            step[(label, m)] = {"this": ms, **{bname: t for (_, bname), t in zip(runs, times)}}
+            lib_ms = device_ms(lambda: torch._weight_int8pack_mm(x, next(turn), sc), args.reps)
+            n_bytes = n * k + n * 4 + m * k * 2 + m * n * 2
+            bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 2 * m * k * n / PEAK_BF16)
+            extra = "".join(f"; {bname}: {t:.4f} ms ({t / ms:.2f}x)"
+                            for (_, bname), t in zip(runs, times))
+            others = []
+            for c in (1, 2, 4, 8):
+                steps = -(-k // 64)
+                per = -(-steps // c)
+                alt = (-(-steps // per), per * 64)
+                if alt[0] != c or alt == plan:
+                    continue
+                alt_ms = measure(lambda alt=alt: kernels.check(call(this, alt, next(turn)), "alt"))
+                others.append(f"{c} splits {alt_ms:.4f}")
+            print(f"  K5/K6 {label} [{m},{k}]x[{k},{n}]: kernel {ms:.4f} ms ({a1:.4f} / {a2:.4f} "
+                  f"before / after the baselines; plan {plan}, {-(-n // 64) * plan[0]} units), "
+                  f"{n * k / ms / 1e6:.1f} GB/s of weights, bound {bound_ms:.4f} ms "
+                  f"({100 * bound_ms / ms:.1f}% of it), _weight_int8pack_mm {lib_ms:.4f} ms "
+                  f"({ms / lib_ms:.3f}x); worst element at {ratio:.3f} of its bound (max_abs_err "
+                  f"{err:.3e}); other splits: {', '.join(others) or 'none'}{extra}", flush=True)
+            del x, out, ref
+        del ws
+        torch.cuda.empty_cache()
+    for m in INT8MM_ROWS:
+        bound = 0.0
+        for label, k, n in INT8MM_SHAPES:
+            n_bytes = n * k + n * 4 + m * k * 2 + m * n * 2
+            bound += (1 if label == "lm_head" else N_LAYERS) * 1e3 * n_bytes / HBM_BYTES_PER_S
+        for version in step[("qkv", m)]:
+            total = sum((1 if label == "lm_head" else N_LAYERS) * step[(label, m)][version]
+                        for label, _, _ in INT8MM_SHAPES)
+            print(f"  K5/K6 per decode step, {m} rows ({N_LAYERS} layers + lm_head), {version}: "
+                  f"{total:.3f} ms on the device, bound {bound:.3f} ms "
+                  f"({100 * bound / total:.1f}% of it)", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=tuple(SET_SOURCES))
@@ -673,7 +837,8 @@ def main(argv=None) -> None:
     runs = {"fwd": (forward, "radvlm_prefill_attention"),
             "bwd": (backward, "radvlm_flash_attention_bwd_dkv"),
             "decode": (decode, "radvlm_decode_attention"),
-            "w8a8": (w8a8, "radvlm_w8a8_matmul")}
+            "w8a8": (w8a8, "radvlm_w8a8_matmul"),
+            "int8mm": (int8mm, "radvlm_int8_matmul")}
     for name in sets:
         fn, entry = runs[name]
         fn(args, this, [(b, n) for b, n in bases if has(b, entry)], dev, g)

@@ -1,4 +1,4 @@
-// Shared device helpers for the port's attention kernels (sm_90a).
+// Shared device helpers for the port's kernels (sm_90a).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +33,20 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 (one word, byte 0 first) -> two bf16 pairs, exact: lo = bytes
+// 0, 1 and hi = bytes 2, 3. Byte v + 128 goes into the low mantissa byte of
+// 2^23 (bits 0x4B0000uu), 2^23 + 128 comes off, and the upper halves of two
+// such floats are the bf16 pair (|v| <= 128 needs 8 significant bits).
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t word, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = word ^ 0x80808080u;
+  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)), 8388736.f);
+  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)), 8388736.f);
+  const float f2 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)), 8388736.f);
+  const float f3 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)), 8388736.f);
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 }  // namespace radvlm

@@ -1,11 +1,9 @@
 // K9: single-token GQA decode attention over one layer of the bf16 KV cache,
-// for Hopper (sm_90a), written by hand. K4, its counterpart over the int8
-// cache, shares the grid and the combine kernel (decode_partial_q8_kernel
-// and radvlm_decode_attention_q8 below), and so do K10 and K11, the verify
-// windows of speculative decoding over the two caches: K10 is K9's kernel
-// over the W x g rows of a window (radvlm_decode_attention_window), K11 a
-// kernel of its own (decode_window_partial_kernel,
-// radvlm_decode_attention_window_q8).
+// for Hopper (sm_90a), written by hand. One kernel (decode_partial_kernel)
+// serves it and its three relatives: K4, the same over the int8 cache (an
+// int8 source, kQ8: radvlm_decode_attention_q8 below), and K10 and K11, the
+// verify windows of speculative decoding over the two caches, which run it
+// over the W x g rows of a window (radvlm_decode_attention_window, _q8).
 //
 // Replaces the Pallas TPU kernel radvlm_tpu/ops/decode_attention.py
 // decode_attention_stacked / _fused_heads_kernel: one query token per row,
@@ -27,7 +25,8 @@
 // skipped), and spreads scores and PV over 256 threads (design note at
 // decode_partial_kernel). K10 runs the same kernel over more rows, with
 // the same per-row arithmetic, so a verify window's row equals K9 bit for
-// bit.
+// bit; K4 and K11 are the two over the int8 cache, each row equal to the
+// other's in the same way.
 //
 // Choices against the TPU kernel:
 // - The TPU's scalar-prefetch layer index has no counterpart: the wrapper
@@ -51,12 +50,10 @@ namespace radvlm {
 namespace {
 
 constexpr int kTile = 64;  // keys per shared-memory tile (two per lane)
-constexpr int kThreads = 128;
 constexpr int kMaxGroup = 8;
 constexpr int kMaxD = 128;
 
-// The per-row arithmetic of K9 and K10 (one kernel) and K11 (the last two,
-// beside K4's inline copy, which computes the same operations): a query
+// The per-row arithmetic of K9, K10, K4 and K11 (one kernel): a query
 // row's running max m and sum l, and its f32 output, over 64-key tiles in
 // key order: explicit __fmaf_rn / __fmul_rn, so no contraction choice of
 // the compiler can differ between instantiations.
@@ -95,7 +92,24 @@ __device__ __forceinline__ float pv_step(float acc, float p, float v) {
   return __fmaf_rn(p, v, acc);
 }
 
-// K9 and K10. A CTA serves R query rows of one (row, kv head, split): the
+// A visible key's score: q . k, times the key's K scale on the int8 cache
+// (K4, K11). A masked key's score is -inf by selection and never reads its
+// scale.
+template <bool kQ8>
+__device__ __forceinline__ float key_score(float dot, const float* ks, int key) {
+  return kQ8 ? __fmul_rn(dot, ks[key]) : dot;
+}
+
+// What multiplies a key's V row in the PV sum: p (0 for a masked key), times
+// the key's V scale on the int8 cache, where a masked key gives 0 by
+// selection: the scales above a verify window are stale and may be
+// anything, NaN included.
+template <bool kQ8>
+__device__ __forceinline__ float pv_weight(float p, bool visible, const float* vs, int key) {
+  return kQ8 ? (visible ? __fmul_rn(p, vs[key]) : 0.f) : p;
+}
+
+// K9, K10, K4 and K11. A CTA serves R query rows of one (row, kv head, split): the
 // g query heads of one decode row (K9, R = g), or the W x g rows of a
 // verify window (K10, R = W g: row r is window row r / g, head r % g, and
 // sees the keys at cache indices <= widx[b] + r / g). It walks the split's
@@ -116,7 +130,15 @@ __device__ __forceinline__ float pv_step(float acc, float p, float v) {
 // fewer). PV, both: thread -> columns 2 (tid % 64), + 1 and rows tid / 64
 // + (kT / 64) i, i < kNR, the sums in registers (a window reads p four keys
 // at a time). The window's buckets: 256 threads up to 40 rows (two CTAs an
-// SM), 512 above (one CTA, 16 warps).
+// SM), 512 above (one CTA, 16 warps). K4 and K11 (kQ8) are the same over
+// the int8 cache: a stage holds 64 int8 K and V rows (16-byte cp.async,
+// half K9's bytes), the keys' segment ids and their K and V scales from
+// [B, Hkv, S]; once the tile has landed, every thread turns 8 bytes at a
+// time into an exact bf16 copy (`i8x4_to_bf16`: byte permutes, no
+// conversion instruction) that the code above reads as a bf16 stage, so the
+// conversion is paid once a CTA (35 rows at W = 5), not once a row. The
+// score is (q . k) * ks[key]; p is masked before it multiplies vs[key]
+// (`key_score`, `pv_weight`).
 constexpr int kK9Threads = 256;
 constexpr int kMaxVisTiles = 1024;  // chunks beyond 65536 keys: later tiles are not skipped
 
@@ -128,17 +150,26 @@ __host__ __device__ constexpr int rows_cap(int threads, int nr) {
 }
 
 // Shared memory at head dims padded to dp (a multiple of 16), for `rows`
-// query rows and a ring of `stages`.
+// query rows and a ring of `stages`, over the bf16 cache or (q8) the int8
+// one: there a stage holds the int8 tiles and the keys' two scales, and the
+// tile in use is converted once into a bf16 copy (`cvt`) that the bf16
+// kernel's code reads as it reads a stage.
 struct PartialSmem {
-  int row;    // bytes a staged K or V row: 16-byte chunks, an odd number of them
-  int tile;   // one K or V tile
-  int stage;  // K, V, segment ids
+  int row;    // bytes a bf16 K or V row: 16-byte chunks, an odd number of them
+  int tile;   // one bf16 K or V tile
+  int row8;   // bytes an int8 K or V row (q8): an odd number of 16-byte chunks
+  int tile8;  // one int8 tile (q8)
+  int stage;  // K, V, segment ids (q8: and the keys' K and V scales)
+  int cvt;    // q8: the bf16 copy of the tile in use, K then V
   int qs, sc, ml, vis, bytes;
-  __host__ __device__ PartialSmem(int dp, int rows, int stages) {
+  __host__ __device__ PartialSmem(int dp, int rows, int stages, bool q8) {
     row = dp * 2 + 16;
     tile = kTile * row;
-    stage = 2 * tile + kTile * 4;
-    qs = stages * stage;
+    row8 = dp + 16;
+    tile8 = kTile * row8;
+    stage = q8 ? 2 * tile8 + 3 * kTile * 4 : 2 * tile + kTile * 4;
+    cvt = stages * stage;
+    qs = cvt + (q8 ? 2 * tile : 0);
     sc = qs + rows * dp * 4;
     ml = sc + rows * kTile * 4;
     vis = ml + 3 * rows * 4;
@@ -160,11 +191,14 @@ __device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src, bool 
 }
 
 // kDP: the padded head dim where it is fixed at compile time (0: d's).
-template <bool kVec16, int kDP, int kT, int kNR, int kSt, bool kWindow>
+// kQ8: the int8 cache with its scales (K4, K11), else bf16 (K9, K10).
+template <bool kVec16, int kDP, int kT, int kNR, int kSt, bool kWindow, bool kQ8>
 __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
-    const __nv_bfloat16* __restrict__ q,   // [B, W, H, D] (W = 1: K9)
-    const __nv_bfloat16* __restrict__ ck,  // [B, S, Hkv * D], one layer
-    const __nv_bfloat16* __restrict__ cv,
+    const __nv_bfloat16* __restrict__ q,  // [B, W, H, D] (W = 1: K9, K4)
+    const void* __restrict__ ck,          // [B, S, Hkv * D], one layer, bf16 or int8
+    const void* __restrict__ cv,
+    const float* __restrict__ ksc,  // q8: [B, Hkv, S] the keys' K and V scales
+    const float* __restrict__ vsc,
     const int* __restrict__ seg,   // [B, S]
     const int* __restrict__ widx,  // [B] cache index of window row 0 (kWindow)
     float* __restrict__ part_o,    // [B, W, H, nsplit, D]
@@ -175,7 +209,7 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
   constexpr int kWR = kRowsCap / kWarps;  // a window's rows a warp in scores and softmax
   extern __shared__ __align__(16) uint8_t k9_smem[];
   const int dp = kDP > 0 ? kDP : (d + 15) / 16 * 16;
-  const PartialSmem L(dp, kRowsCap, kSt);
+  const PartialSmem L(dp, kRowsCap, kSt, kQ8);
   const uint32_t sbase = smem_u32(k9_smem);
   float* qs = reinterpret_cast<float*>(k9_smem + L.qs);  // [kRowsCap][dp]
   float* sc = reinterpret_cast<float*>(k9_smem + L.sc);  // [kRowsCap][kTile]
@@ -189,8 +223,13 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
   const int h = hkv * group, rows = w * group;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long hd = (long)hkv * d;
-  const __nv_bfloat16* kb = ck + (long)b * s * hd + (long)kvh * d;
-  const __nv_bfloat16* vb = cv + (long)b * s * hd + (long)kvh * d;
+  const long kv0 = (long)b * s * hd + (long)kvh * d;  // this (row, kv head)'s first element
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(ck) + kv0;
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(cv) + kv0;
+  const int8_t* kb8 = static_cast<const int8_t*>(ck) + kv0;
+  const int8_t* vb8 = static_cast<const int8_t*>(cv) + kv0;
+  const float* ksb = kQ8 ? ksc + ((long)b * hkv + kvh) * s : nullptr;
+  const float* vsb = kQ8 ? vsc + ((long)b * hkv + kvh) * s : nullptr;
   const int* sb = seg + (long)b * s;
   // No row of a window sees a key past wi + w - 1: the chunk ends there,
   // and a split that lies wholly above it writes m = -inf, l = 0, o = 0.
@@ -233,8 +272,24 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
   auto issue = [&](int t, int st) {
     if (t < n_tiles) {
       const int n0 = c0 + t * kTile;
-      const uint32_t kst = sbase + st * L.stage, vst = kst + L.tile;
-      if (kVec16) {
+      const uint32_t kst = sbase + st * L.stage, vst = kst + (kQ8 ? L.tile8 : L.tile);
+      if (kQ8) {  // 16 int8 a copy (D is a multiple of 16); then segment ids, K and V scales
+        const int vecs = dp / 16;
+        for (int i = tid; i < kTile * vecs; i += kT) {
+          const int r = i / vecs, c = (i % vecs) * 16;
+          const bool ok = n0 + r < c1 && c < d;
+          const long off = ok ? (long)(n0 + r) * hd + c : 0;
+          cp_async16z(kst + r * L.row8 + c, kb8 + off, ok);
+          cp_async16z(vst + r * L.row8 + c, vb8 + off, ok);
+        }
+        if (tid < 3 * kTile) {
+          const int which = tid / kTile, key = n0 + tid % kTile;
+          const bool ok = key < c1;
+          const void* src = which == 0 ? static_cast<const void*>(sb + key)
+                                       : which == 1 ? ksb + key : vsb + key;
+          cp_async4(vst + L.tile8 + tid * 4, ok ? src : sb, ok);
+        }
+      } else if (kVec16) {
         const int vecs = dp / 8;
         for (int i = tid; i < kTile * vecs; i += kT) {
           const int r = i / vecs, c = (i % vecs) * 8;
@@ -253,7 +308,7 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
           cp_async4(vst + r * L.row + c * 2, vb + off, ok);
         }
       }
-      if (tid < kTile) {
+      if (!kQ8 && tid < kTile) {
         const bool ok = n0 + tid < c1;
         cp_async4(vst + L.tile + tid * 4, ok ? sb + n0 + tid : sb, ok);
       }
@@ -279,9 +334,10 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
   // this warp, warp + kWarps j: lane -> keys lane and lane + 32, so a warp
   // holds a row's 64 scores in registers and takes K9's softmax step on
   // them as it is. Each q element loaded serves two keys.
-  auto window_rows = [&](auto nj, const uint8_t* stage, int n0) {
+  auto window_rows = [&](auto nj, const uint8_t* kt, const int* seg_s, const float* ks_s,
+                         const float* vs_s, int n0) {
     constexpr int NJ = decltype(nj)::value;
-    const uint8_t* krow0 = stage + lane * L.row;  // keys lane and lane + 32
+    const uint8_t* krow0 = kt + lane * L.row;  // keys lane and lane + 32
     const uint8_t* krow1 = krow0 + 32 * L.row;
     float d0[NJ], d1[NJ];
 #pragma unroll
@@ -301,7 +357,6 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
                      a1.z, a1.w, v.w);
       }
     }
-    const int* seg_s = reinterpret_cast<const int*>(stage + 2 * L.tile);
     const bool w0 = seg_s[lane] != 0, w1 = seg_s[lane + 32] != 0;
     // Every row sees the keys up to wi; past it, row r sees wi + r / g more
     // (only the window's last tile holds such keys).
@@ -317,12 +372,13 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
         v1 = w1 && past1 <= jr;
       }
       float p0, p1, m_new, l_new, alpha;
-      softmax_tile(v0 ? d0[j] : -INFINITY, v1 ? d1[j] : -INFINITY, m_w[j], l_w[j], scale_log2,
-                   p0, p1, m_new, l_new, alpha);
+      softmax_tile(v0 ? key_score<kQ8>(d0[j], ks_s, lane) : -INFINITY,
+                   v1 ? key_score<kQ8>(d1[j], ks_s, lane + 32) : -INFINITY, m_w[j], l_w[j],
+                   scale_log2, p0, p1, m_new, l_new, alpha);
       m_w[j] = m_new;
       l_w[j] = l_new;
-      sc[r * kTile + lane] = p0;
-      sc[r * kTile + lane + 32] = p1;
+      sc[r * kTile + lane] = pv_weight<kQ8>(p0, v0, vs_s, lane);
+      sc[r * kTile + lane + 32] = pv_weight<kQ8>(p1, v1, vs_s, lane + 32);
       if (lane == 0) alpha_s[r] = alpha;
     }
   };
@@ -351,21 +407,43 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
       issue(t_issue, (i - 1) % kSt);
       if (t_issue < n_tiles) t_issue = next_visible(t_issue + 1);
     }
+    // The tile's K and V (bf16) and its keys' segment ids and scales (q8).
+    const uint8_t* stage = k9_smem + st * L.stage;
+    const uint8_t* kt = kQ8 ? k9_smem + L.cvt : stage;
+    const uint8_t* vt = kt + L.tile;
+    const int* seg_s = reinterpret_cast<const int*>(stage + 2 * (kQ8 ? L.tile8 : L.tile));
+    const float* ks_s = reinterpret_cast<const float*>(seg_s + kTile);
+    const float* vs_s = ks_s + kTile;
+    if constexpr (kQ8) {
+      // The int8 tile into its exact bf16 copy, once for all rows: 8 bytes a
+      // thread a step, one 16-byte store. The copy of the tile before is
+      // consumed (the barrier above).
+      uint8_t* cvt = k9_smem + L.cvt;
+      const int vecs = dp / 8;
+      for (int v = tid; v < 2 * kTile * vecs; v += kT) {
+        const int kv = v / (kTile * vecs), r = v / vecs % kTile, c = v % vecs * 8;
+        const uint2 w8 = *reinterpret_cast<const uint2*>(stage + kv * L.tile8 + r * L.row8 + c);
+        uint4 bf;
+        i8x4_to_bf16(w8.x, bf.x, bf.y);
+        i8x4_to_bf16(w8.y, bf.z, bf.w);
+        *reinterpret_cast<uint4*>(cvt + kv * L.tile + r * L.row + 2 * c) = bf;
+      }
+      __syncthreads();
+    }
 
     if constexpr (kWindow) {
       // This warp's rows: exactly, where it holds kWR or kWR - 1 of them
       // (rows past R hold q = 0 otherwise).
       const int nj = (rows - warp + kWarps - 1) / kWarps;
       if (nj >= kWR) {
-        window_rows(std::integral_constant<int, kWR>{}, k9_smem + st * L.stage, c0 + t * kTile);
+        window_rows(std::integral_constant<int, kWR>{}, kt, seg_s, ks_s, vs_s, c0 + t * kTile);
       } else if (nj > 0) {
-        window_rows(std::integral_constant<int, (kWR > 1 ? kWR - 1 : 1)>{},
-                    k9_smem + st * L.stage, c0 + t * kTile);
+        window_rows(std::integral_constant<int, (kWR > 1 ? kWR - 1 : 1)>{}, kt, seg_s, ks_s,
+                    vs_s, c0 + t * kTile);
       }
       __syncthreads();
-    } else {  // K9: thread -> one key, rows hs and hs + 4; then one warp a row
-      const uint8_t* krow = k9_smem + st * L.stage + key * L.row;
-      const int* seg_s = reinterpret_cast<const int*>(k9_smem + st * L.stage + 2 * L.tile);
+    } else {  // K9 / K4: thread -> one key, rows hs and hs + 4; then one warp a row
+      const uint8_t* krow = kt + key * L.row;
       float dot[kNR];
 #pragma unroll
       for (int j = 0; j < kNR; ++j) dot[j] = 0.f;
@@ -388,16 +466,19 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
         const bool visible = seg_s[key] != 0;
 #pragma unroll
         for (int j = 0; j < kNR; ++j) {
-          if (live(j)) sc[(hs + kHG * j) * kTile + key] = visible ? dot[j] : -INFINITY;
+          if (live(j)) {
+            sc[(hs + kHG * j) * kTile + key] =
+                visible ? key_score<kQ8>(dot[j], ks_s, key) : -INFINITY;
+          }
         }
       }
       __syncthreads();
       if (warp < rows) {
+        const float x0 = sc[warp * kTile + lane], x1 = sc[warp * kTile + lane + 32];
         float p0, p1, m_new, l_new, alpha;
-        softmax_tile(sc[warp * kTile + lane], sc[warp * kTile + lane + 32], m_s[warp], l_s[warp],
-                     scale_log2, p0, p1, m_new, l_new, alpha);
-        sc[warp * kTile + lane] = p0;
-        sc[warp * kTile + lane + 32] = p1;
+        softmax_tile(x0, x1, m_s[warp], l_s[warp], scale_log2, p0, p1, m_new, l_new, alpha);
+        sc[warp * kTile + lane] = pv_weight<kQ8>(p0, x0 != -INFINITY, vs_s, lane);
+        sc[warp * kTile + lane + 32] = pv_weight<kQ8>(p1, x1 != -INFINITY, vs_s, lane + 32);
         __syncwarp();
         if (lane == 0) {
           alpha_s[warp] = alpha;
@@ -408,8 +489,7 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
       __syncthreads();
     }
     if (2 * cp < d && (kWindow || hs < rows)) {
-      const uint32_t* vcol =
-          reinterpret_cast<const uint32_t*>(k9_smem + st * L.stage + L.tile) + cp;
+      const uint32_t* vcol = reinterpret_cast<const uint32_t*>(vt) + cp;
 #pragma unroll
       for (int j = 0; j < kNR; ++j) {
         if (live(j)) {
@@ -486,346 +566,7 @@ __global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) decode_partial_kernel(
   }
 }
 
-// K4: the same split-S design over the int8 cache (see the note at the
-// bottom of this file).
-constexpr int kLdQ8 = kMaxD + 4;  // 33 words a row: per-key word reads are conflict-free
-
-__global__ void __launch_bounds__(kThreads) decode_partial_q8_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, H, D]
-    const int8_t* __restrict__ ck,        // [B, S, Hkv * D] int8, one layer
-    const int8_t* __restrict__ cv,
-    const float* __restrict__ ksc,  // [B, Hkv, S] per-(token, kv-head) scales
-    const float* __restrict__ vsc,
-    const int* __restrict__ seg,  // [B, S]
-    float* __restrict__ part_o,   // [B, H, nsplit, D]
-    float* __restrict__ part_ml,  // [B, H, nsplit, 2]: max, sum
-    int s, int hkv, int group, int d, int chunk, float scale_log2) {
-  __shared__ float qs[kMaxGroup][kMaxD];
-  __shared__ __align__(16) int8_t kt[kTile * kLdQ8];
-  __shared__ __align__(16) int8_t vt[kTile * kLdQ8];
-  __shared__ float sc[kMaxGroup][kTile];
-  __shared__ float ks_s[kTile], vs_s[kTile];
-  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], alpha_s[kMaxGroup];
-  __shared__ int seg_s[kTile];
-
-  const int split = blockIdx.x, nsplit = gridDim.x;
-  const int b = blockIdx.y / hkv, kvh = blockIdx.y % hkv;
-  const int h = hkv * group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long hd = static_cast<long>(hkv) * d;
-  const int8_t* kb = ck + static_cast<long>(b) * s * hd + static_cast<long>(kvh) * d;
-  const int8_t* vb = cv + static_cast<long>(b) * s * hd + static_cast<long>(kvh) * d;
-  const float* ksb = ksc + (static_cast<long>(b) * hkv + kvh) * s;
-  const float* vsb = vsc + (static_cast<long>(b) * hkv + kvh) * s;
-  const int* sb = seg + static_cast<long>(b) * s;
-
-  for (int i = tid; i < group * d; i += kThreads) {
-    const int hh = i / d, dd = i % d;
-    qs[hh][dd] = __bfloat162float(q[(static_cast<long>(b) * h + kvh * group + hh) * d + dd]);
-  }
-  if (tid < kMaxGroup) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  float acc[kMaxGroup];
-#pragma unroll
-  for (int i = 0; i < kMaxGroup; ++i) acc[i] = 0.f;
-
-  const int c0 = split * chunk, c1 = min(s, c0 + chunk);
-  for (int n0 = c0; n0 < c1; n0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    // 16-byte loads of int8 K/V (D is a multiple of 16), stored as words.
-    const int vecs = d / 16;
-    for (int i = tid; i < kTile * vecs; i += kThreads) {
-      const int r = i / vecs, c = (i % vecs) * 16;
-      const int key = n0 + r;
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-      if (key < c1) {
-        kk = *reinterpret_cast<const uint4*>(kb + key * hd + c);
-        vv = *reinterpret_cast<const uint4*>(vb + key * hd + c);
-      }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(&kt[r * kLdQ8 + c]);
-      uint32_t* vd = reinterpret_cast<uint32_t*>(&vt[r * kLdQ8 + c]);
-      kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
-      vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
-    }
-    if (tid < kTile) {
-      const bool in = n0 + tid < c1;
-      seg_s[tid] = in ? sb[n0 + tid] : 0;
-      ks_s[tid] = in ? ksb[n0 + tid] : 0.f;
-      vs_s[tid] = in ? vsb[n0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // Scores (q . k_int8) * ks[key]: thread -> key tid % 64, heads tid / 64 + 2i.
-    {
-      const int key = tid % kTile, h0 = tid / kTile;
-      float dot[kMaxGroup / 2];
-#pragma unroll
-      for (int i = 0; i < kMaxGroup / 2; ++i) dot[i] = 0.f;
-      const int8_t* krow = &kt[key * kLdQ8];
-      for (int c = 0; c < d; c += 4) {
-        const char4 k4 = *reinterpret_cast<const char4*>(krow + c);
-        const float k0 = k4.x, k1 = k4.y, k2 = k4.z, k3 = k4.w;
-#pragma unroll
-        for (int i = 0; i < kMaxGroup / 2; ++i) {
-          const int hh = h0 + 2 * i;
-          if (hh < group) {
-            dot[i] += qs[hh][c] * k0 + qs[hh][c + 1] * k1 + qs[hh][c + 2] * k2 +
-                      qs[hh][c + 3] * k3;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kMaxGroup / 2; ++i) {
-        const int hh = h0 + 2 * i;
-        if (hh < group) sc[hh][key] = seg_s[key] != 0 ? dot[i] * ks_s[key] : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax, one warp per head; p * vs[key] goes into the PV sum.
-    for (int hh = warp; hh < group; hh += kThreads / 32) {
-      const float x0 = sc[hh][lane], x1 = sc[hh][lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_old = m_s[hh];
-      const float m_new = fmaxf(m_old, mx);
-      const float ref = m_new == -INFINITY ? 0.f : m_new;
-      const float p0 = x0 == -INFINITY ? 0.f : exp2f((x0 - ref) * scale_log2);
-      const float p1 = x1 == -INFINITY ? 0.f : exp2f((x1 - ref) * scale_log2);
-      sc[hh][lane] = p0 * vs_s[lane];
-      sc[hh][lane + 32] = p1 * vs_s[lane + 32];
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = exp2f((m_old - ref) * scale_log2);
-        alpha_s[hh] = alpha;
-        l_s[hh] = l_s[hh] * alpha + sum;
-        m_s[hh] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // O = alpha * O + (p * vs) V_int8: thread -> output column tid, all heads.
-    if (tid < d) {
-#pragma unroll
-      for (int i = 0; i < kMaxGroup; ++i) {
-        if (i < group) acc[i] *= alpha_s[i];
-      }
-      for (int key = 0; key < kTile; ++key) {
-        const float vv = static_cast<float>(vt[key * kLdQ8 + tid]);
-#pragma unroll
-        for (int i = 0; i < kMaxGroup; ++i) {
-          if (i < group) acc[i] += sc[i][key] * vv;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < d) {
-#pragma unroll
-    for (int i = 0; i < kMaxGroup; ++i) {
-      if (i < group) {
-        const long row = static_cast<long>(b) * h + kvh * group + i;
-        part_o[(row * nsplit + split) * d + tid] = acc[i];
-      }
-    }
-  }
-  if (tid < group) {
-    const long row = static_cast<long>(b) * h + kvh * group + tid;
-    part_ml[(row * nsplit + split) * 2 + 0] = m_s[tid];
-    part_ml[(row * nsplit + split) * 2 + 1] = l_s[tid];
-  }
-}
-
-// K11: the verify window of speculative decoding, W = spec_k + 1 queries
-// per slot over the int8 cache; see the note at the bottom of this file.
-// One CTA holds the W * g query rows of one (slot, kv head, key split): each
-// staged K/V tile serves all of them. (K10, its bf16 counterpart, is K9's
-// kernel over W * g rows.)
 constexpr int kMaxWindow = 16;
-constexpr int kMaxRows = kMaxWindow * kMaxGroup;
-
-constexpr int window_smem_bytes(int rows) {
-  return 2 * kTile * kLdQ8 +
-         (2 * rows * kMaxD + rows * kTile + 3 * rows + 2 * kTile + kTile) * 4;
-}
-
-__global__ void __launch_bounds__(kThreads) decode_window_partial_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, W, H, D]
-    const int8_t* __restrict__ ck,        // [B, S, Hkv * D] int8, one layer
-    const int8_t* __restrict__ cv,
-    const float* __restrict__ ksc,  // [B, Hkv, S]
-    const float* __restrict__ vsc,
-    const int* __restrict__ seg,   // [B, S]
-    const int* __restrict__ widx,  // [B] cache index of window row 0
-    float* __restrict__ part_o,    // [B, W, H, nsplit, D]
-    float* __restrict__ part_ml,   // [B, W, H, nsplit, 2]: max, sum
-    int s, int hkv, int group, int d, int w, int chunk, float scale_log2) {
-  using KV = int8_t;
-  constexpr int kLd = kLdQ8;
-  extern __shared__ __align__(16) unsigned char window_smem[];
-  const int rows = w * group;  // row r = window row r / group, head r % group
-  KV* kt = reinterpret_cast<KV*>(window_smem);
-  KV* vt = kt + kTile * kLd;
-  float* qs = reinterpret_cast<float*>(vt + kTile * kLd);  // [rows][kMaxD]
-  float* acc_s = qs + rows * kMaxD;                        // [rows][kMaxD]
-  float* sc = acc_s + rows * kMaxD;                        // [rows][kTile]
-  float* m_s = sc + rows * kTile;
-  float* l_s = m_s + rows;
-  float* alpha_s = l_s + rows;
-  float* ks_s = alpha_s + rows;
-  float* vs_s = ks_s + kTile;
-  int* seg_s = reinterpret_cast<int*>(vs_s + kTile);
-
-  const int split = blockIdx.x, nsplit = gridDim.x;
-  const int b = blockIdx.y / hkv, kvh = blockIdx.y % hkv;
-  const int h = hkv * group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long hd = static_cast<long>(hkv) * d;
-  const KV* kb = ck + static_cast<long>(b) * s * hd + static_cast<long>(kvh) * d;
-  const KV* vb = cv + static_cast<long>(b) * s * hd + static_cast<long>(kvh) * d;
-  const float* ksb = ksc + (static_cast<long>(b) * hkv + kvh) * s;
-  const float* vsb = vsc + (static_cast<long>(b) * hkv + kvh) * s;
-  const int* sb = seg + static_cast<long>(b) * s;
-  const int wi = widx[b];
-
-  for (int i = tid; i < rows * d; i += kThreads) {
-    const int r = i / d, dd = i % d;
-    const long qrow = (static_cast<long>(b) * w + r / group) * h + kvh * group + r % group;
-    qs[r * kMaxD + dd] = __bfloat162float(q[qrow * d + dd]);
-    acc_s[r * kMaxD + dd] = 0.f;
-  }
-  for (int r = tid; r < rows; r += kThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-
-  // No query of the window sees a key past wi + w - 1: the loop ends there,
-  // and a split that lies wholly above it writes m = -inf, l = 0, o = 0.
-  const int c0 = split * chunk, c1 = min(min(s, c0 + chunk), wi + w);
-  for (int n0 = c0; n0 < c1; n0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    const int vecs = d / 16;
-    for (int i = tid; i < kTile * vecs; i += kThreads) {
-      const int r = i / vecs, c = (i % vecs) * 16;
-      const int key = n0 + r;
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-      if (key < c1) {
-        kk = *reinterpret_cast<const uint4*>(kb + key * hd + c);
-        vv = *reinterpret_cast<const uint4*>(vb + key * hd + c);
-      }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(&kt[r * kLd + c]);
-      uint32_t* vd = reinterpret_cast<uint32_t*>(&vt[r * kLd + c]);
-      kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
-      vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
-    }
-    if (tid < kTile) {
-      const bool in = n0 + tid < c1;
-      seg_s[tid] = in ? sb[n0 + tid] : 0;
-      ks_s[tid] = in ? ksb[n0 + tid] : 0.f;
-      vs_s[tid] = in ? vsb[n0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // Scores, one window row at a time with K4's arithmetic: thread ->
-    // key tid % 64, heads tid / 64 + 2i. Window row ww sees keys <= wi + ww.
-    for (int ww = 0; ww < w; ++ww) {
-      const int key = tid % kTile, h0 = tid / kTile;
-      const float* qw = qs + ww * group * kMaxD;
-      float dot[kMaxGroup / 2];
-#pragma unroll
-      for (int i = 0; i < kMaxGroup / 2; ++i) dot[i] = 0.f;
-      const KV* krow = &kt[key * kLd];
-      for (int c = 0; c < d; c += 4) {
-        const char4 k4 = *reinterpret_cast<const char4*>(krow + c);
-        const float k0 = k4.x, k1 = k4.y, k2 = k4.z, k3 = k4.w;
-#pragma unroll
-        for (int i = 0; i < kMaxGroup / 2; ++i) {
-          const int hh = h0 + 2 * i;
-          if (hh < group) {
-            const float* qh = qw + hh * kMaxD;
-            dot[i] += qh[c] * k0 + qh[c + 1] * k1 + qh[c + 2] * k2 + qh[c + 3] * k3;
-          }
-        }
-      }
-      // A masked key's score never touches its scale: the scales above the
-      // accepted prefix are stale.
-      const bool visible = seg_s[key] != 0 && n0 + key <= wi + ww;
-#pragma unroll
-      for (int i = 0; i < kMaxGroup / 2; ++i) {
-        const int hh = h0 + 2 * i;
-        if (hh < group) {
-          float x = -INFINITY;
-          if (visible) x = dot[i] * ks_s[key];
-          sc[(ww * group + hh) * kTile + key] = x;
-        }
-      }
-    }
-    __syncthreads();
-
-    // Online softmax, one warp per row. p is masked, not the product p * vs.
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      float* sr = sc + r * kTile;
-      const float x0 = sr[lane], x1 = sr[lane + 32];
-      float p0, p1, m_new, l_new, alpha;
-      softmax_tile(x0, x1, m_s[r], l_s[r], scale_log2, p0, p1, m_new, l_new, alpha);
-      sr[lane] = x0 == -INFINITY ? 0.f : p0 * vs_s[lane];
-      sr[lane + 32] = x1 == -INFINITY ? 0.f : p1 * vs_s[lane + 32];
-      __syncwarp();
-      if (lane == 0) {
-        alpha_s[r] = alpha;
-        l_s[r] = l_new;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // O = alpha * O + P V: thread -> output column tid; the g heads of one
-    // window row at a time in registers, the running sums in shared memory
-    // (each thread reads and writes only its own column).
-    if (tid < d) {
-      for (int ww = 0; ww < w; ++ww) {
-        float acc[kMaxGroup];
-#pragma unroll
-        for (int i = 0; i < kMaxGroup; ++i) {
-          if (i < group) {
-            acc[i] = __fmul_rn(acc_s[(ww * group + i) * kMaxD + tid], alpha_s[ww * group + i]);
-          }
-        }
-        const float* sw = sc + ww * group * kTile;
-        for (int key = 0; key < kTile; ++key) {
-          const float vv = static_cast<float>(vt[key * kLd + tid]);
-#pragma unroll
-          for (int i = 0; i < kMaxGroup; ++i) {
-            if (i < group) acc[i] = pv_step(acc[i], sw[i * kTile + key], vv);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kMaxGroup; ++i) {
-          if (i < group) acc_s[(ww * group + i) * kMaxD + tid] = acc[i];
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int r = 0; r < rows; ++r) {
-    const long row = (static_cast<long>(b) * w + r / group) * h + kvh * group + r % group;
-    if (tid < d) part_o[(row * nsplit + split) * d + tid] = acc_s[r * kMaxD + tid];
-    if (tid == 0) {
-      part_ml[(row * nsplit + split) * 2 + 0] = m_s[r];
-      part_ml[(row * nsplit + split) * 2 + 1] = l_s[r];
-    }
-  }
-}
 
 // The split combine of K9, K4, K10 and K11: per (row, head), the f32
 // partials of the nsplit key chunks, in split order: m = max m_i, w_i =
@@ -876,40 +617,43 @@ __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-using PartialKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                               const int*, const int*, float*, float*, int, int, int, int, int,
-                               int, float);
+using PartialKernel = void (*)(const __nv_bfloat16*, const void*, const void*, const float*,
+                               const float*, const int*, const int*, float*, float*, int, int,
+                               int, int, int, int, float);
 
-// The K9 / K10 kernel of kT threads, kNR PV rows a thread (rows_cap(kT,
-// kNR) rows a CTA) and kWindow: D = 128 fixed at compile time where the
-// main paths run it (K9, and K10's windows of 5 and 16 over Qwen2-7B's g =
-// 7: 35 and 112 rows), the padded D at run time elsewhere; 4-byte copies
-// for unaligned caches and D % 8 != 0.
-template <int kT, int kNR, bool kWindow>
+// The K9 / K10 / K4 / K11 kernel of kT threads, kNR PV rows a thread
+// (rows_cap(kT, kNR) rows a CTA), kWindow and kQ8: D = 128 fixed at compile
+// time where the main paths run it (one query, and the windows of 5 and 16
+// over Qwen2-7B's g = 7: 35 and 112 rows), the padded D at run time
+// elsewhere; 4-byte copies for unaligned bf16 caches and D % 8 != 0 (the
+// int8 cache is 16-byte aligned and D a multiple of 16: the wrappers check).
+template <int kT, int kNR, bool kWindow, bool kQ8>
 PartialKernel partial_kernel(bool vec16, int d) {
   constexpr int st = partial_stages(kWindow, kT);
-  if (!vec16) return decode_partial_kernel<false, 0, kT, kNR, st, kWindow>;
+  if constexpr (!kQ8) {
+    if (!vec16) return decode_partial_kernel<false, 0, kT, kNR, st, kWindow, kQ8>;
+  }
   if constexpr (!kWindow) {
-    if (d == 64) return decode_partial_kernel<true, 64, kT, kNR, st, kWindow>;
+    if (d == 64) return decode_partial_kernel<true, 64, kT, kNR, st, kWindow, kQ8>;
   }
   if constexpr (!kWindow || (kT == 256 && kNR == 9) || (kT == 512 && kNR == 14)) {
-    if (d == 128) return decode_partial_kernel<true, 128, kT, kNR, st, kWindow>;
+    if (d == 128) return decode_partial_kernel<true, 128, kT, kNR, st, kWindow, kQ8>;
   }
-  return decode_partial_kernel<true, 0, kT, kNR, st, kWindow>;
+  return decode_partial_kernel<true, 0, kT, kNR, st, kWindow, kQ8>;
 }
 
 // Every instantiation of the bucket opted into its shared memory (above 48
 // KB it is dynamic), once.
-template <int kT, int kNR, bool kWindow>
+template <int kT, int kNR, bool kWindow, bool kQ8>
 cudaError_t partial_attrs() {
   static const cudaError_t attr = [] {
     const int bytes =
-        PartialSmem(kMaxD, rows_cap(kT, kNR), partial_stages(kWindow, kT)).bytes;
+        PartialSmem(kMaxD, rows_cap(kT, kNR), partial_stages(kWindow, kT), kQ8).bytes;
     for (bool vec16 : {false, true}) {
       for (int d : {64, 128, 96}) {
-        const cudaError_t a = cudaFuncSetAttribute(partial_kernel<kT, kNR, kWindow>(vec16, d),
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   bytes);
+        const cudaError_t a = cudaFuncSetAttribute(
+            partial_kernel<kT, kNR, kWindow, kQ8>(vec16, d),
+            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
         if (a != cudaSuccess) return a;
       }
     }
@@ -918,24 +662,25 @@ cudaError_t partial_attrs() {
   return attr;
 }
 
-// K9 (w = 1, widx null) or K10 over the rows of a (slot, kv head, split),
-// then the split combine.
-template <int kT, int kNR, bool kWindow>
-int launch_partial(const void* q, const void* ck, const void* cv, const void* seg,
-                   const void* widx, void* part_o, void* part_ml, void* out, int b, int s,
-                   int h, int hkv, int d, int w, int nsplit, int chunk, float scale,
-                   cudaStream_t st) {
-  const cudaError_t attr = partial_attrs<kT, kNR, kWindow>();
+// K9 / K4 (w = 1, widx null) or K10 / K11 over the rows of a (slot, kv head,
+// split), then the split combine. ksc / vsc: the int8 cache's scales (kQ8).
+template <int kT, int kNR, bool kWindow, bool kQ8>
+int launch_partial(const void* q, const void* ck, const void* cv, const void* ksc,
+                   const void* vsc, const void* seg, const void* widx, void* part_o,
+                   void* part_ml, void* out, int b, int s, int h, int hkv, int d, int w,
+                   int nsplit, int chunk, float scale, cudaStream_t st) {
+  const cudaError_t attr = partial_attrs<kT, kNR, kWindow, kQ8>();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const float scale_log2 = scale * kLog2e;
   const bool vec16 = d % 8 == 0 && reinterpret_cast<uintptr_t>(ck) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(cv) % 16 == 0;
+  if (kQ8 && (!vec16 || d % 16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   const int stages = partial_stages(kWindow, kT);
-  const PartialKernel kernel = partial_kernel<kT, kNR, kWindow>(vec16, d);
+  const PartialKernel kernel = partial_kernel<kT, kNR, kWindow, kQ8>(vec16, d);
   kernel<<<dim3(nsplit, b * hkv), kT,
-           PartialSmem((d + 15) / 16 * 16, rows_cap(kT, kNR), stages).bytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(ck),
-      static_cast<const __nv_bfloat16*>(cv), static_cast<const int*>(seg),
+           PartialSmem((d + 15) / 16 * 16, rows_cap(kT, kNR), stages, kQ8).bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q), ck, cv, static_cast<const float*>(ksc),
+      static_cast<const float*>(vsc), static_cast<const int*>(seg),
       static_cast<const int*>(widx), static_cast<float*>(part_o), static_cast<float*>(part_ml),
       s, hkv, h / hkv, d, w, chunk, scale_log2);
   cudaError_t err = cudaGetLastError();
@@ -946,36 +691,27 @@ int launch_partial(const void* q, const void* ck, const void* cv, const void* se
   return static_cast<int>(cudaGetLastError());
 }
 
-// K11: the int8 window kernel, then the split combine.
-int launch_window_q8(const void* q, const void* ck, const void* cv, const void* ksc,
-                     const void* vsc, const void* seg, const void* widx, void* part_o,
-                     void* part_ml, void* out, int b, int s, int h, int hkv, int d, int w,
-                     int nsplit, int chunk, float scale, void* stream) {
-  if (hkv <= 0 || h % hkv != 0 || h / hkv > kMaxGroup || d > kMaxD || d % 16 != 0 || w < 1 ||
-      w > kMaxWindow || nsplit <= 0 || chunk <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // Above 48 KB the shared memory is dynamic and opted into, once.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_window_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      window_smem_bytes(kMaxRows));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale_log2 = scale * kLog2e;
-  const int group = h / hkv;
-  decode_window_partial_kernel<<<dim3(nsplit, b * hkv), kThreads, window_smem_bytes(w * group),
-                                 st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(ck),
-      static_cast<const int8_t*>(cv), static_cast<const float*>(ksc),
-      static_cast<const float*>(vsc), static_cast<const int*>(seg),
-      static_cast<const int*>(widx), static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), s, hkv, group, d, w, chunk, scale_log2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<<<b * w * h, kCombineThreads, 0, st>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<__nv_bfloat16*>(out), nsplit, d, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+// K10 / K11: W x g rows a CTA in buckets (rows_cap(threads, kNR) rows at
+// most): 256 threads and kNR = 4, 9 (up to 16, 40 rows, two CTAs an SM),
+// 512 threads and kNR = 14, 16 (up to 112, 128 rows, one CTA an SM).
+template <bool kQ8>
+int launch_window(const void* q, const void* ck, const void* cv, const void* ksc,
+                  const void* vsc, const void* seg, const void* widx, void* part_o,
+                  void* part_ml, void* out, int b, int s, int h, int hkv, int d, int w,
+                  int nsplit, int chunk, float scale, cudaStream_t st) {
+  const int rows = w * (h / hkv);
+  auto launch = [&](auto threads, auto nr) {
+    return launch_partial<decltype(threads)::value, decltype(nr)::value, true, kQ8>(
+        q, ck, cv, ksc, vsc, seg, widx, part_o, part_ml, out, b, s, h, hkv, d, w, nsplit,
+        chunk, scale, st);
+  };
+  using std::integral_constant;
+  constexpr integral_constant<int, 256> t256{};
+  constexpr integral_constant<int, 512> t512{};
+  if (rows <= 16) return launch(t256, integral_constant<int, 4>{});
+  if (rows <= 40) return launch(t256, integral_constant<int, 9>{});
+  if (rows <= 112) return launch(t512, integral_constant<int, 14>{});
+  return launch(t512, integral_constant<int, 16>{});
 }
 
 }  // namespace
@@ -992,9 +728,9 @@ extern "C" int radvlm_decode_attention(const void* q, const void* ck,
       d % 2 != 0 || nsplit <= 0 || chunk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_partial<kK9Threads, 2, false>(q, ck, cv, seg, nullptr, part_o, part_ml, out, b,
-                                              s, h, hkv, d, 1, nsplit, chunk, scale,
-                                              static_cast<cudaStream_t>(stream));
+  return launch_partial<kK9Threads, 2, false, false>(
+      q, ck, cv, nullptr, nullptr, seg, nullptr, part_o, part_ml, out, b, s, h, hkv, d, 1, nsplit,
+      chunk, scale, static_cast<cudaStream_t>(stream));
 }
 
 // K4: single-token GQA decode attention over one layer of the int8 KV cache.
@@ -1006,8 +742,14 @@ extern "C" int radvlm_decode_attention(const void* q, const void* ck,
 // (q . k_t) * ks[t] * scale, and p_t * vs[t] multiplies the raw int8 V row.
 //
 // What bounds it: device-memory bandwidth, half the bytes of K9 per key
-// (plus 8 bytes of scales per key and kv head). Same split-S grid and
-// combine kernel as K9; K/V tiles come in with 16-byte loads.
+// (plus 8 bytes of scales per key and kv head). It is K9's kernel with an
+// int8 source (decode_partial_kernel, kQ8): the same split plan, 256
+// threads, a ring of three 64-key stages of int8 K and V (16-byte cp.async)
+// with the keys' segment ids and scales, the pass that skips tiles with no
+// visible key, and the same per-row arithmetic; the tile in use is turned
+// once into an exact bf16 copy that K9's score and PV code reads. So the
+// conversion costs once a CTA, not once a row, and K11's window rows, the
+// same kernel over W x g rows, equal K4's bit for bit.
 //
 // Choices against the TPU kernel:
 // - p * vs stays f32 in the PV sum (the TPU kernel rounds it to bf16 before
@@ -1017,7 +759,7 @@ extern "C" int radvlm_decode_attention(const void* q, const void* ck,
 // - slots of a batch decode at different write indices: only the segment
 //   ids mask, as on the TPU.
 //
-// Limits: D a multiple of 16 and <= 128, H / Hkv <= 8.
+// Limits: D a multiple of 16 and <= 128, H / Hkv <= 8, a 16-byte aligned cache.
 extern "C" int radvlm_decode_attention_q8(const void* q, const void* ck, const void* cv,
                                           const void* ksc, const void* vsc,
                                           const void* seg, void* part_o, void* part_ml,
@@ -1029,20 +771,9 @@ extern "C" int radvlm_decode_attention_q8(const void* q, const void* ck, const v
       d % 16 != 0 || nsplit <= 0 || chunk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale_log2 = scale * kLog2e;
-  decode_partial_q8_kernel<<<dim3(nsplit, b * hkv), kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(ck),
-      static_cast<const int8_t*>(cv), static_cast<const float*>(ksc),
-      static_cast<const float*>(vsc), static_cast<const int*>(seg),
-      static_cast<float*>(part_o), static_cast<float*>(part_ml), s, hkv, h / hkv, d,
-      chunk, scale_log2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<<<b * h, kCombineThreads, 0, st>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<__nv_bfloat16*>(out), nsplit, d, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_partial<kK9Threads, 2, false, true>(
+      q, ck, cv, ksc, vsc, seg, nullptr, part_o, part_ml, out, b, s, h, hkv, d, 1, nsplit, chunk,
+      scale, static_cast<cudaStream_t>(stream));
 }
 
 // K10 / K11: the verify window of speculative decoding. W = spec_k + 1
@@ -1064,12 +795,13 @@ extern "C" int radvlm_decode_attention_q8(const void* q, const void* ck, const v
 // 5, 112 at W = 16 for Qwen2-7B). The dot products are plain f32 FMA as in
 // K9 / K4, so the FMA work grows with W while the bytes do not: at W = 5
 // the FMA floor (~1.7 GFLOP at 67 TFLOP/s, 0.026 ms) is twice the byte
-// bound (0.013 ms) and binds. K10 is K9's kernel (decode_partial_kernel,
-// design note there) over the window's rows: sums in registers, the 64-key
-// K/V ring (two stages where that leaves room for two CTAs an SM, up to 40
-// rows at D = 128; three otherwise), and the pass that skips tiles no row
-// sees. K11 (decode_window_partial_kernel) still stages one tile at a time
-// with 128 threads and keeps its running sums in shared memory.
+// bound (0.013 ms over the bf16 cache, half that over the int8 one) and
+// binds. Both are K9's kernel (decode_partial_kernel, design note there)
+// over the window's rows: sums in registers, the 64-key K/V ring (two
+// stages where that leaves room for two CTAs an SM, up to 40 rows at D =
+// 128; three otherwise), and the pass that skips tiles no row sees; K11
+// reads the int8 source of K4, each tile converted once into bf16 for all
+// W x g rows.
 //
 // Per query row the arithmetic is K9's / K4's, tile by tile in the same
 // order under the same split plan, so a window row equals what K9 / K4
@@ -1080,9 +812,8 @@ extern "C" int radvlm_decode_attention_q8(const void* q, const void* ck, const v
 // a masked score never reads its scale. A row with no visible key gives 0.
 //
 // Limits: 1 <= W <= 16, H / Hkv <= 8, D <= 128 (even; a multiple of 16 for
-// the int8 cache). K10 takes W x g rows a CTA in buckets: 256 threads and
-// kNR = 4, 9 PV rows a thread (up to 16, 40 rows, two CTAs an SM), 512
-// threads and kNR = 14, 16 (up to 112, 128 rows, one CTA an SM).
+// the int8 cache). Both take W x g rows a CTA in the buckets of
+// launch_window.
 extern "C" int radvlm_decode_attention_window(const void* q, const void* ck, const void* cv,
                                               const void* seg, const void* widx,
                                               void* part_o, void* part_ml, void* out, int b,
@@ -1093,20 +824,9 @@ extern "C" int radvlm_decode_attention_window(const void* q, const void* ck, con
       w > kMaxWindow || nsplit <= 0 || chunk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = w * (h / hkv);  // rows_cap(threads, kNR) rows a CTA at most
-  auto launch = [&](auto threads, auto nr) {
-    return launch_partial<decltype(threads)::value, decltype(nr)::value, true>(
-        q, ck, cv, seg, widx, part_o, part_ml, out, b, s, h, hkv, d, w, nsplit, chunk, scale,
-        st);
-  };
-  using std::integral_constant;
-  constexpr integral_constant<int, 256> t256{};
-  constexpr integral_constant<int, 512> t512{};
-  if (rows <= 16) return launch(t256, integral_constant<int, 4>{});
-  if (rows <= 40) return launch(t256, integral_constant<int, 9>{});
-  if (rows <= 112) return launch(t512, integral_constant<int, 14>{});
-  return launch(t512, integral_constant<int, 16>{});
+  return launch_window<false>(q, ck, cv, nullptr, nullptr, seg, widx, part_o, part_ml, out, b,
+                              s, h, hkv, d, w, nsplit, chunk, scale,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int radvlm_decode_attention_window_q8(const void* q, const void* ck, const void* cv,
@@ -1116,8 +836,13 @@ extern "C" int radvlm_decode_attention_window_q8(const void* q, const void* ck, 
                                                  int s, int h, int hkv, int d, int w,
                                                  int nsplit, int chunk, float scale,
                                                  void* stream) {
-  return radvlm::launch_window_q8(q, ck, cv, ksc, vsc, seg, widx, part_o, part_ml, out, b, s, h,
-                                  hkv, d, w, nsplit, chunk, scale, stream);
+  using namespace radvlm;
+  if (hkv <= 0 || h % hkv != 0 || h / hkv > kMaxGroup || d > kMaxD || d % 16 != 0 || w < 1 ||
+      w > kMaxWindow || nsplit <= 0 || chunk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_window<true>(q, ck, cv, ksc, vsc, seg, widx, part_o, part_ml, out, b, s, h, hkv,
+                             d, w, nsplit, chunk, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* radvlm_error_string(int err) {

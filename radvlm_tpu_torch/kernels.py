@@ -257,6 +257,12 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors: what the split plans size their
+    grids by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -56,16 +56,14 @@ def decode_attention_plain(
     return o.to(q.dtype)
 
 
-def _num_splits(batch: int, hkv: int, s: int, device: torch.device) -> int:
-    """Enough CTAs for about two per SM, with chunks of whole key tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, -(-2 * sms // (batch * hkv)))
-    return max(1, min(want, -(-s // _SPLIT_GRAIN)))
-
-
-def _split_plan(b: int, hkv: int, s: int, device: torch.device):
-    """(nsplit, chunk): whole key tiles per CTA, about two CTAs per SM."""
-    nsplit = _num_splits(b, hkv, s, device)
+def _split_plan(b: int, hkv: int, s: int, sms: int):
+    """(nsplit, chunk): the key chunks of K9 / K4 and their windows on a card
+    of `sms` SMs. Enough CTAs (nsplit x B x Hkv) for about two per SM, each
+    chunk whole 64-key tiles. Depends on the cache's shape and the SM count,
+    never on the window's width, so a window row is summed over the same
+    chunks as the one-query kernel's row."""
+    want = max(1, -(-2 * sms // (b * hkv)))
+    nsplit = max(1, min(want, -(-s // _SPLIT_GRAIN)))
     chunk = -(-s // nsplit)
     chunk = -(-chunk // _SPLIT_GRAIN) * _SPLIT_GRAIN
     return -(-s // chunk), chunk
@@ -113,7 +111,7 @@ def decode_attention_stacked(
             "decode_attention: the kernel takes an even head_dim <= 128 and up to "
             f"8 query heads per kv head, got D={d}, H={h}, Hkv={num_kv_heads}"
         )
-    nsplit, chunk = _split_plan(b, num_kv_heads, s, q.device)
+    nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))
     part_o = torch.empty((b, h, nsplit, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, h, nsplit, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
@@ -202,7 +200,7 @@ def decode_attention_stacked_q8(
             f"of 16 and up to 8 query heads per kv head, got D={d}, H={h}, "
             f"Hkv={num_kv_heads}"
         )
-    nsplit, chunk = _split_plan(b, num_kv_heads, s, q.device)
+    nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))
     part_o = torch.empty((b, h, nsplit, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, h, nsplit, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
@@ -345,7 +343,7 @@ def decode_attention_stacked_window(
             f"{name}: the kernel takes an even head_dim <= 128 and up to 8 query heads "
             f"per kv head, got D={d}, H={h}, Hkv={num_kv_heads}"
         )
-    nsplit, chunk = _split_plan(b, num_kv_heads, s, q.device)  # K9's plan
+    nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))  # K9's plan
     part_o, part_ml, out = _window_scratch(q, nsplit)
     err = kernels.lib().radvlm_decode_attention_window(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), seg.data_ptr(), window_idx.data_ptr(),
@@ -402,7 +400,7 @@ def decode_attention_stacked_window_q8(
             f"{name}: the kernel takes a head_dim <= 128 that is a multiple of 16 and up "
             f"to 8 query heads per kv head, got D={d}, H={h}, Hkv={num_kv_heads}"
         )
-    nsplit, chunk = _split_plan(b, num_kv_heads, s, q.device)  # K4's plan
+    nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))  # K4's plan
     part_o, part_ml, out = _window_scratch(q, nsplit)
     err = kernels.lib().radvlm_decode_attention_window_q8(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ks.data_ptr(), vs.data_ptr(),

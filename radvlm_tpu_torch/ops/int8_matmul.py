@@ -21,8 +21,9 @@ import torch
 from radvlm_tpu_torch import kernels
 
 MAX_ROWS = 64  # the kernel's row limit, and quant.qmm's dispatch bound
-_BLOCK_N = 128  # the kernel's columns per CTA
-_STEP_K = 64  # the kernel's K per step; K splits are whole steps
+_BLOCK_N = 64  # the kernel's output columns a work unit
+_STEP_K = 64  # K splits are whole 64-wide steps
+_MAX_SPLIT = 8  # a K split is one CTA of a thread-block cluster (portable size)
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -31,12 +32,19 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> 
     return ((x.float() @ w.float().t()) * scale.float()).to(x.dtype)
 
 
-def _splits(n: int, k: int, device: torch.device) -> Tuple[int, int]:
-    """(nsplit, k_per_split): split K over enough CTAs for ~2 per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    cols = -(-n // _BLOCK_N)
+def _splits(n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(nsplit, k_per_split): the kernel's K split for an [N, K] weight on a
+    card of `sms` SMs. The work units are 64-column blocks x K splits, and
+    the kernel runs one CTA an SM. With fewer blocks than SMs, K is split in
+    2, 4 or 8 while the units still fit on the SMs at once (one unit a CTA,
+    the splits of a block one cluster); with more, persistent CTAs walk the
+    blocks whole. Depends on N, K and the SM count only, never on the row
+    count, so a row's sums do not depend on how many rows come with it."""
+    blocks = -(-n // _BLOCK_N)
     steps = -(-k // _STEP_K)
-    nsplit = max(1, min(-(-2 * sms // cols), steps))
+    nsplit = 1
+    while 2 * nsplit <= min(_MAX_SPLIT, steps) and 2 * nsplit * blocks <= sms:
+        nsplit *= 2
     per = -(-steps // nsplit)
     return -(-steps // per), per * _STEP_K
 
@@ -66,14 +74,11 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.
     x2 = x2.contiguous()
     kernels.require_cuda_tensors("int8_matmul", x2, w, align=16)
     kernels.require_cuda_tensors("int8_matmul", scale)
-    nsplit, k_per_split = _splits(n, k, x.device)
-    part = (torch.empty((nsplit, m, n), dtype=torch.float32, device=x.device)
-            if nsplit > 1 else None)
+    nsplit, k_per_split = _splits(n, k, kernels.sm_count(x.device))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     err = kernels.lib().radvlm_int8_matmul(
-        x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), m, n, k, nsplit, k_per_split,
-        kernels.stream_ptr(x.device),
+        x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), None,
+        m, n, k, nsplit, k_per_split, kernels.stream_ptr(x.device),
     )
     kernels.check(err, "int8_matmul")
     kernels.count_launch("int8_matmul")

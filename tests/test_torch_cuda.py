@@ -14,8 +14,9 @@ one bf16 ulp of the row's largest value plus 1e-3 for K1/K2 (p rounded to
 bf16 after exp2 in the kernel, after exp in the plain version) and 1e-4
 for K9 and K4 (f32 p, summed in another order) and for their windowed
 variants K10 and K11, 1e-4 for K5/K6 (exact products, f32 sums in another
-order). A row of a K10 / K11 window must also equal, bit for bit, what K9 /
-K4 gives for the same visible keys. K3 sums exactly in int32 and must
+order; a row's result must not depend on how many rows it comes with). A
+row of a K10 / K11 window must also equal, bit for bit, what K9 / K4 gives
+for the same visible keys. K3 sums exactly in int32 and must
 equal its plain version (f64 sums) bit for bit. K12 rounds each weight to
 bf16 after its group scale, as its plain version does, so products are
 exact and only the order of the f32 sums differs (1e-4); a row's result must
@@ -211,7 +212,7 @@ def test_k9_skips_masked_tiles(dev, case):
                 seg[i, lo: lo + 100 + 7 * i] = 1
     elif layout == "empty_chunk":
         seg[:, 100:] = 1
-        nsplit, chunk = tdec._split_plan(b, hkv, s, dev)
+        nsplit, chunk = tdec._split_plan(b, hkv, s, kernels.sm_count(dev))
         assert nsplit > 2 and chunk >= 3 * 64
         seg[0, chunk: 2 * chunk] = 0  # split 1 of row 0 holds nothing
         seg[1, : s - 1] = 0  # row 1: one key, the last
@@ -348,9 +349,10 @@ def test_k4_empty_row_is_zero(dev):
 
 
 # (rows, K, N): 1-64 rows; the Qwen2-7B qkv / down / gateup / lm_head
-# shapes; an odd N and a K that is no multiple of 64.
+# shapes (40 rows: a verify step of 8 slots x 5); an odd N and a K that is
+# no multiple of 64.
 K5_CASES = [(1, 3584, 4608), (8, 18944, 3584), (33, 3584, 37888), (64, 3584, 4608),
-            (8, 3584, 152064), (5, 112, 131), (64, 48, 3), (17, 4864, 896)]
+            (8, 3584, 152064), (40, 3584, 37888), (5, 112, 131), (64, 48, 3), (17, 4864, 896)]
 
 
 @pytest.mark.parametrize("case", K5_CASES)
@@ -365,6 +367,25 @@ def test_k5_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["int8_matmul"] == before + 1
     _assert_close("int8_matmul", out, ti8.int8_matmul_plain(x, w, scale))
+
+
+@pytest.mark.parametrize("case", [(3584, 4608), (18944, 3584), (3584, 37888), (3584, 152064)])
+def test_k5_row_does_not_depend_on_row_count(dev, case):
+    """Rows 0-7 alone, among 40 and among 64 rows, and row 0 alone: the same
+    bits (greedy speculative tokens must equal plain greedy tokens)."""
+    k, n = case
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = _randn(gen, dev, 64, k)
+    w = _int8(gen, dev, n, k)
+    scale = torch.rand(n, generator=gen, device=dev) * 2e-4 + 1e-5
+    y8 = ti8.int8_matmul(x[:8].contiguous(), w, scale)
+    y1 = ti8.int8_matmul(x[:1].contiguous(), w, scale)
+    y40 = ti8.int8_matmul(x[:40].contiguous(), w, scale)
+    y64 = ti8.int8_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(y8, y40[:8]) and torch.equal(y8, y64[:8]) and torch.equal(y1, y8[:1])
+    # The same launch gives the same bits (the K splits are summed in a fixed order).
+    assert torch.equal(y40, ti8.int8_matmul(x[:40].contiguous(), w, scale))
 
 
 def test_qlinear_routes_by_row_count_on_the_card(dev):
