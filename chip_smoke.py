@@ -14,8 +14,10 @@ Phases, each raising on failure (the last line is printed only on success):
    its byte bound and the sums of a decode step), K10 / K11 (the verify
    window of speculative decoding over the bf16 / int8 cache, 5 and 16
    queries a slot; K4 and K11 with their shares of the byte bound and of
-   the f32 FMA floor), K12 (int4-weight decode matmul, 8 and 40 rows; a row's result
-   must not depend on the row count) and K13 (W8A8 matmul that quantizes
+   the f32 FMA floor), K12 (int4-weight decode matmul, 8 and 40 rows, each
+   shape's share of its byte bound, gateup beside K5/K6's; a row's result
+   must not depend on the row count, and 64 one-hot rows must give 64
+   dequantized weights bit for bit) and K13 (W8A8 matmul that quantizes
    its rows inside; bit for bit equal to quantize_rows + K3) and the
    training kernels (K2 writing its lse, K7, K8: see phase 8) against their
    plain PyTorch versions on the card at the main paths' shapes: error (K3
@@ -841,24 +843,33 @@ def phase_int8_kernels(dev, g):
         print(f"    K5/K6 per decode step, {rows} rows (28 layers + lm_head): {per_step:.3f} ms "
               f"on the device, bound {least:.3f} ms ({100 * least / per_step:.1f}% of it)",
               flush=True)
-    results.update(int4_kernel(dev, g, randn))
+    results.update(int4_kernel(dev, g, randn, step_ms[("gateup", 8)]))
     results.update(fused_w8a8_kernel(dev, randn, randint8))
     return results
 
 
-def int4_kernel(dev, g, randn):
+def int4_kernel(dev, g, randn, k56_gateup_ms: float):
     """K12 at the four decode projections of a fused Qwen2-7B layer, 8 rows
     (a decode step of 8 slots) and 40 (a verify step of 8 slots x 5
-    queries), against its plain version; rows 0-7 of the 40 must equal the 8
-    bit for bit. Enough copies of each weight, used in turn, that none
-    stays in the 50 MB L2."""
-    results, step_ms = {}, {}
+    queries), against its plain version and its byte bound, gateup beside
+    K5/K6's (`k56_gateup_ms`, device time at 8 rows); rows 0-7 of the 40 must
+    equal the 8 bit for bit, and 64 one-hot rows must give 64 of the
+    dequantized weights bit for bit. Enough copies of each weight, used in
+    turn, that none stays in the 50 MB L2."""
+    results, step_ms, step_bound = {}, {}, {}
     for label, k, n in [("qkv", 3584, 4608), ("o", 3584, 3584), ("gateup", 3584, 37888),
                         ("down", 18944, 3584)]:
         copies = max(3, -(-100_000_000 // (n * k // 2)))
         ws = [torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
               for _ in range(copies)]
         sc = torch.rand(k // i4.GROUP, n, generator=g, device=dev) * (0.03 / 7) + 0.005 / 7
+        # One-hot rows: each output is one weight, bf16(f32(nibble) * scale).
+        ks = torch.randperm(k, generator=g, device=dev)[:64]
+        onehot = torch.zeros((64, k), device=dev, dtype=torch.bfloat16)
+        onehot[torch.arange(64, device=dev), ks] = 1.0
+        picked = i4.int4_matmul(onehot, ws[0], sc)
+        if not torch.equal(picked, i4.dequantize_weight_int4(ws[0], sc)[:, ks].t()):
+            raise AssertionError(f"K12 {label}: a one-hot row is not the dequantized weight")
         x40 = randn(40, k)
         outs = {}
         for rows in (8, 40):
@@ -871,10 +882,15 @@ def int4_kernel(dev, g, randn):
             ms = cuda_ms(lambda: i4.int4_matmul(x, next(turn), sc), batch=ATTN_BATCH)
             dms = step_ms[(label, rows)] = device_ms(lambda: i4.int4_matmul(x, next(turn), sc))
             least = bound(nbytes(x, ws[0], sc, out), 2 * rows * k * n, "bf16")
+            step_bound[(label, rows)] = least["bound_ms"]
             print(f"    K12 {label} {rows} rows: {ms:.4f} ms by events, {dms:.4f} ms on the device "
                   f"({nbytes(ws[0], sc) / dms / 1e6:.1f} GB/s of nibbles and scales), bound "
-                  f"{least['bound_ms']:.4f} ms ({least['bound_by']})", flush=True)
+                  f"{least['bound_ms']:.4f} ms ({least['bound_by']}; "
+                  f"{100 * least['bound_ms'] / dms:.1f}% of it on the device)", flush=True)
             if (label, rows) == ("gateup", 8):
+                print(f"    K12 gateup 8 rows against K5/K6's int8 gateup in this run "
+                      f"({k56_gateup_ms:.4f} ms on the device): {dms / k56_gateup_ms:.2f}x",
+                      flush=True)
                 results["int4_matmul"] = dict(
                     max_abs_err=err, ms=ms, device_ms=dms,
                     plain_ms=cuda_ms(lambda: i4.int4_matmul_plain(x, next(turn), sc),
@@ -883,12 +899,14 @@ def int4_kernel(dev, g, randn):
         if not torch.equal(outs[8], outs[40][:8]):
             raise AssertionError(f"K12 {label}: a row's result depends on the row count")
         del ws
-    print("    K12: rows 0-7 alone equal rows 0-7 among 40 bit for bit at all four shapes",
-          flush=True)
+    print("    K12: rows 0-7 alone equal rows 0-7 among 40, and 64 one-hot rows equal 64 "
+          "dequantized weights, bit for bit at all four shapes", flush=True)
     for rows in (8, 40):
-        per_step = 28 * sum(step_ms[(p, rows)] for p in ("qkv", "o", "gateup", "down"))
+        per_step, least = (28 * sum(t[(p, rows)] for p in ("qkv", "o", "gateup", "down"))
+                           for t in (step_ms, step_bound))
         print(f"    K12 per decode step, {rows} rows (28 layers, no lm_head): {per_step:.3f} ms "
-              "on the device", flush=True)
+              f"on the device, bound {least:.3f} ms ({100 * least / per_step:.1f}% of it)",
+              flush=True)
     return results
 
 

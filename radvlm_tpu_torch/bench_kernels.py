@@ -17,9 +17,15 @@ them, optionally against other versions of their sources in turns:
   slots x 5) against `torch._weight_int8pack_mm`, each shape also under
   the other K splits the kernel takes, and the sums of a decode step (28
   layers + the lm_head) against their bound;
-- no `--only`: all five.
+- `--only int4`: K12 (the W4A16 decode matmul) at the four int4 decode
+  shapes of Qwen2-7B (qkv, o, gateup, down; the lm_head stays int8) at 8
+  and 40 rows, enough weight copies in turn that none stays in L2, each
+  shape also under the other K splits the kernel takes, the sums of a
+  decode step (28 layers), and K5/K6 at gateup with 8 rows beside it (no
+  PyTorch call computes K12's function: the byte bound is its yardstick);
+- no `--only`: all six.
 
-    python -m radvlm_tpu_torch.bench_kernels [--only fwd|bwd|decode|w8a8|int8mm]
+    python -m radvlm_tpu_torch.bench_kernels [--only fwd|bwd|decode|w8a8|int8mm|int4]
         [--baseline DIR] [--ptxas] [--reps N] [--batch N]
 
 - Each shape is first held to the plain version (`kernels.error_ratio`; K3
@@ -33,7 +39,7 @@ them, optionally against other versions of their sources in turns:
   that one layer's K / V does not stay in the 50 MB L2 between calls.
 - `--baseline DIR` (repeatable): DIR holds other versions of the sources
   (`flash_attention.cu`, `flash_attention_bwd.cu`, `decode_attention.cu`,
-  `w8a8_matmul.cu`, `int8_matmul.cu`, and the headers they include), e.g. the parent
+  `w8a8_matmul.cu`, `int8_matmul.cu`, `int4_matmul.cu`, and the headers they include), e.g. the parent
   commit's `radvlm_tpu_torch/csrc/` unpacked by `git archive` into the
   gitignored `build/`. The sources the `--only` set needs are built into a
   library of their own (same C entry points, loaded apart), held to the
@@ -43,7 +49,7 @@ them, optionally against other versions of their sources in turns:
   plan: an earlier kernel that sums its K splits through f32 partials in
   device memory takes a `part` buffer and its plan of ~2 CTAs an SM over
   128-column blocks (`partials_plan`); one that refuses a buffer, this
-  checkout's plan.
+  checkout's plan; K12 baselines likewise.
 - `--ptxas`: compile this checkout's sources of the set (and each
   baseline's) with `-Xptxas -v` and print registers, shared memory, spills
   and ptxas's warnings per instantiation.
@@ -98,7 +104,7 @@ BWD_SHAPES = [
 # The sources each --only set times.
 SET_SOURCES = {"fwd": ("flash_attention.cu",), "bwd": ("flash_attention_bwd.cu",),
                "decode": ("decode_attention.cu",), "w8a8": ("w8a8_matmul.cu",),
-               "int8mm": ("int8_matmul.cu",)}
+               "int8mm": ("int8_matmul.cu",), "int4": ("int4_matmul.cu",)}
 SOURCES = tuple(src for srcs in SET_SOURCES.values() for src in srcs)
 # K9 at phase 3's shape: 4 rows of a 4096-slot cache, Qwen2-7B heads; each
 # row's written span (left padding before it, the unwritten tail after).
@@ -117,6 +123,10 @@ INT8MM_SHAPES = [("qkv", 3584, 4608), ("o", 3584, 3584), ("gateup", 3584, 37888)
                  ("down", 18944, 3584), ("lm_head", 3584, 152064)]
 INT8MM_ROWS = (8, 40)
 N_LAYERS = 28
+# K12 at the decode projections of a fused Qwen2-7B layer (the lm_head stays
+# int8 in an int4 model): (label, K, N).
+INT4_SHAPES = INT8MM_SHAPES[:4]
+INT4_GATEUP_N = 37888
 
 
 def segments(layout, b, s, dev):
@@ -204,6 +214,7 @@ def load_baseline(lib_path: str) -> ctypes.CDLL:
             p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p],
         "radvlm_w8a8_matmul": [p, p, p, p, p, i, i, i, p],
         "radvlm_int8_matmul": [p, p, p, p, p, i, i, i, i, i, p],
+        "radvlm_int4_matmul": [p, p, p, p, p, i, i, i, i, i, p],
         "radvlm_decode_attention_q8": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p],
         "radvlm_w8a8_matmul_fused": [p, p, p, p, p, i, i, i, p],
     }
@@ -700,100 +711,153 @@ def w8a8(args, this, bases, dev, g) -> None:
         torch.cuda.empty_cache()
 
 
-def partials_plan(n: int, k: int, sms: int):
-    """(nsplit, k_per_split) of the K5/K6 design that sums K splits through
-    f32 partials in device memory and a second launch: ~2 CTAs an SM over
-    128-column blocks."""
-    cols, steps = -(-n // 128), -(-k // 64)
+def partials_plan(n: int, k: int, sms: int, step: int):
+    """(nsplit, k_per_split) of the earlier skinny-matmul design that sums K
+    splits through f32 partials in device memory and a second launch (a
+    baseline that takes a `part` buffer): ~2 CTAs an SM over 128-column
+    blocks, whole `step`s of K."""
+    cols, steps = -(-n // 128), -(-k // step)
     nsplit = max(1, min(-(-2 * sms // cols), steps))
     per = -(-steps // nsplit)
-    return -(-steps // per), per * 64
+    return -(-steps // per), per * step
 
 
-def int8mm(args, this, bases, dev, g) -> None:
-    """K5/K6 at the five decode shapes and 8 / 40 rows against
-    torch._weight_int8pack_mm, held to the plain version; three copies of
-    each weight in turn (a small one would stay in the 50 MB L2), device
-    time by torch.profiler; the kernel also under each other K split it
-    takes; then the sums of a decode step (28 layers + the lm_head)."""
-    from radvlm_tpu_torch.ops import int8_matmul as i8
-
+def skinny(args, this, bases, dev, g, *, tag, entry, name, shapes, weights, scale, plain,
+           plan_of, old_step, grain, library=None, beside=None) -> None:
+    """A skinny decode matmul (K5/K6 or K12) at `shapes` [(label, K, N)] and
+    8 / 40 rows, held to its plain version; the weight copies `weights(n,
+    k)` makes, used in turn (a small one would stay in the 50 MB L2); device
+    time by torch.profiler in turns against each baseline; the kernel also
+    under each other K split it takes (whole `grain`s of K); beside it
+    `library(x, w, sc)` where one PyTorch call computes the same function,
+    and `beside(label, m, x, ms)` for a comparison line; then the sums of a
+    decode step (28 layers, and the lm_head once)."""
     sms = kernels.sm_count(dev)
     step = {}  # (label, rows) -> {version: ms}
-    for label, k, n in INT8MM_SHAPES:
-        ws = [torch.randint(-128, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
-              for _ in range(3)]
-        sc = torch.rand(n, generator=g, device=dev) * 2e-4 + 1e-5
+    bounds = {}  # (label, rows) -> ms
+    measure = lambda fn: device_ms(fn, args.reps)  # noqa: E731
+    for label, k, n in shapes:
+        ws, sc = weights(n, k), scale(n, k)
         for m in INT8MM_ROWS:
             x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
             out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
             turn = itertools.cycle(ws)
 
             def call(lib, plan, w, part=None):
-                err = lib.radvlm_int8_matmul(
+                return getattr(lib, entry)(
                     x.data_ptr(), w.data_ptr(), sc.data_ptr(), out.data_ptr(),
                     None if part is None else part.data_ptr(), m, n, k, *plan,
                     kernels.stream_ptr(dev))
-                return err
 
-            plan = i8._splits(n, k, sms)
-            ref = i8.int8_matmul_plain(x, ws[0], sc)
-            kernels.check(call(this, plan, ws[0]), "int8_matmul")
+            plan = plan_of(n, k, sms)
+            ref = plain(x, ws[0], sc)
+            kernels.check(call(this, plan, ws[0]), name)
             torch.cuda.synchronize()
-            err, ratio = kernels.error_ratio("int8_matmul", out, ref)
+            err, ratio = kernels.error_ratio(name, out, ref)
             runs = []
             for base, bname in bases:
-                old = partials_plan(n, k, sms)
+                old = partials_plan(n, k, sms, old_step)
                 part = (torch.empty((old[0], m, n), dtype=torch.float32, device=dev)
                         if old[0] > 1 else None)
                 if call(base, old, ws[0], part) != 0:  # a baseline of this design
                     old, part = plan, None
                     kernels.check(call(base, old, ws[0]), bname)
                 torch.cuda.synchronize()
-                print(f"    {bname} (plan {old}): {base_rule('int8_matmul', out, ref)}", flush=True)
+                print(f"    {bname} (plan {old}): {base_rule(name, out, ref)}", flush=True)
                 runs.append((lambda base=base, old=old, part=part:
                              call(base, old, next(turn), part), bname))
-            run = lambda: kernels.check(call(this, plan, next(turn)), "int8_matmul")  # noqa: E731
-            measure = lambda fn: device_ms(fn, args.reps)  # noqa: E731
+            run = lambda: kernels.check(call(this, plan, next(turn)), name)  # noqa: E731
             a1 = measure(run)
             times = [measure(fn) for fn, _ in runs]
             a2 = measure(run) if runs else a1
             ms = statistics.median([a1, a2])
             step[(label, m)] = {"this": ms, **{bname: t for (_, bname), t in zip(runs, times)}}
-            lib_ms = device_ms(lambda: torch._weight_int8pack_mm(x, next(turn), sc), args.reps)
-            n_bytes = n * k + n * 4 + m * k * 2 + m * n * 2
-            bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 2 * m * k * n / PEAK_BF16)
+            w_bytes = ws[0].numel() * ws[0].element_size() + sc.numel() * 4
+            n_bytes = w_bytes + m * k * 2 + m * n * 2
+            bound_ms = bounds[(label, m)] = max(1e3 * n_bytes / HBM_BYTES_PER_S,
+                                                1e3 * 2 * m * k * n / PEAK_BF16)
             extra = "".join(f"; {bname}: {t:.4f} ms ({t / ms:.2f}x)"
                             for (_, bname), t in zip(runs, times))
+            lib_text = ""
+            if library is not None:
+                lib_ms = measure(lambda: library(x, next(turn), sc))
+                lib_text = f", {library.__name__} {lib_ms:.4f} ms ({ms / lib_ms:.3f}x)"
             others = []
             for c in (1, 2, 4, 8):
-                steps = -(-k // 64)
+                steps = -(-k // grain)
                 per = -(-steps // c)
-                alt = (-(-steps // per), per * 64)
+                alt = (-(-steps // per), per * grain)
                 if alt[0] != c or alt == plan:
                     continue
                 alt_ms = measure(lambda alt=alt: kernels.check(call(this, alt, next(turn)), "alt"))
                 others.append(f"{c} splits {alt_ms:.4f}")
-            print(f"  K5/K6 {label} [{m},{k}]x[{k},{n}]: kernel {ms:.4f} ms ({a1:.4f} / {a2:.4f} "
+            print(f"  {tag} {label} [{m},{k}]x[{k},{n}]: kernel {ms:.4f} ms ({a1:.4f} / {a2:.4f} "
                   f"before / after the baselines; plan {plan}, {-(-n // 64) * plan[0]} units), "
-                  f"{n * k / ms / 1e6:.1f} GB/s of weights, bound {bound_ms:.4f} ms "
-                  f"({100 * bound_ms / ms:.1f}% of it), _weight_int8pack_mm {lib_ms:.4f} ms "
-                  f"({ms / lib_ms:.3f}x); worst element at {ratio:.3f} of its bound (max_abs_err "
-                  f"{err:.3e}); other splits: {', '.join(others) or 'none'}{extra}", flush=True)
+                  f"{w_bytes / ms / 1e6:.1f} GB/s of weights, bound {bound_ms:.4f} ms "
+                  f"({100 * bound_ms / ms:.1f}% of it){lib_text}; worst element at {ratio:.3f} "
+                  f"of its bound (max_abs_err {err:.3e}); other splits: "
+                  f"{', '.join(others) or 'none'}{extra}", flush=True)
+            if beside is not None:
+                beside(label, m, x, ms)
             del x, out, ref
         del ws
         torch.cuda.empty_cache()
     for m in INT8MM_ROWS:
-        bound = 0.0
-        for label, k, n in INT8MM_SHAPES:
-            n_bytes = n * k + n * 4 + m * k * 2 + m * n * 2
-            bound += (1 if label == "lm_head" else N_LAYERS) * 1e3 * n_bytes / HBM_BYTES_PER_S
-        for version in step[("qkv", m)]:
-            total = sum((1 if label == "lm_head" else N_LAYERS) * step[(label, m)][version]
-                        for label, _, _ in INT8MM_SHAPES)
-            print(f"  K5/K6 per decode step, {m} rows ({N_LAYERS} layers + lm_head), {version}: "
-                  f"{total:.3f} ms on the device, bound {bound:.3f} ms "
-                  f"({100 * bound / total:.1f}% of it)", flush=True)
+        times = {label: (1 if label == "lm_head" else N_LAYERS) for label, _, _ in shapes}
+        bound = sum(c * bounds[(label, m)] for label, c in times.items())
+        for version in step[(shapes[0][0], m)]:
+            total = sum(c * step[(label, m)][version] for label, c in times.items())
+            print(f"  {tag} per decode step, {m} rows ({N_LAYERS} layers"
+                  f"{' + lm_head' if 'lm_head' in times else ''}), {version}: {total:.3f} ms on "
+                  f"the device, bound {bound:.3f} ms ({100 * bound / total:.1f}% of it)",
+                  flush=True)
+
+
+def int8mm(args, this, bases, dev, g) -> None:
+    """K5/K6 at the five decode shapes against torch._weight_int8pack_mm,
+    three copies of each weight."""
+    from radvlm_tpu_torch.ops import int8_matmul as i8
+
+    def _weight_int8pack_mm(x, w, sc):
+        return torch._weight_int8pack_mm(x, w, sc)
+
+    skinny(args, this, bases, dev, g, tag="K5/K6", entry="radvlm_int8_matmul",
+           name="int8_matmul", shapes=INT8MM_SHAPES,
+           weights=lambda n, k: [torch.randint(-128, 128, (n, k), generator=g, device=dev,
+                                               dtype=torch.int8) for _ in range(3)],
+           scale=lambda n, k: torch.rand(n, generator=g, device=dev) * 2e-4 + 1e-5,
+           plain=i8.int8_matmul_plain, plan_of=i8._splits, old_step=64, grain=64,
+           library=_weight_int8pack_mm)
+
+
+def int4mm(args, this, bases, dev, g) -> None:
+    """K12 at the four int4 decode shapes (no PyTorch call computes its
+    function: the byte bound is its yardstick), enough weight copies to miss
+    L2, and K5/K6 at gateup with 8 rows beside it."""
+    from radvlm_tpu_torch.ops import int4_matmul as i4
+    from radvlm_tpu_torch.ops import int8_matmul as i8
+
+    def k56_gateup(label, m, x, ms):
+        if (label, m) != ("gateup", 8):
+            return
+        n, k = INT4_GATEUP_N, x.shape[1]
+        w8 = [torch.randint(-128, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+              for _ in range(3)]
+        s8 = torch.rand(n, generator=g, device=dev) * 2e-4 + 1e-5
+        turn8 = itertools.cycle(w8)
+        k56 = device_ms(lambda: i8.int8_matmul(x, next(turn8), s8), args.reps)
+        print(f"  K5/K6 gateup [8,{k}]x[{k},{n}] int8, same run: {k56:.4f} ms; K12 "
+              f"{ms / k56:.2f}x of it", flush=True)
+
+    skinny(args, this, bases, dev, g, tag="K12", entry="radvlm_int4_matmul",
+           name="int4_matmul", shapes=INT4_SHAPES,
+           weights=lambda n, k: [
+               torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+               for _ in range(max(3, -(-100_000_000 // (n * k // 2))))],
+           scale=lambda n, k: (torch.rand(k // i4.GROUP, n, generator=g, device=dev)
+                               * (0.03 / 7) + 0.005 / 7),
+           plain=i4.int4_matmul_plain, plan_of=i4._splits, old_step=i4.GROUP,
+           grain=i4._STAGE_K, beside=k56_gateup)
 
 
 def main(argv=None) -> None:
@@ -838,7 +902,8 @@ def main(argv=None) -> None:
             "bwd": (backward, "radvlm_flash_attention_bwd_dkv"),
             "decode": (decode, "radvlm_decode_attention"),
             "w8a8": (w8a8, "radvlm_w8a8_matmul"),
-            "int8mm": (int8mm, "radvlm_int8_matmul")}
+            "int8mm": (int8mm, "radvlm_int8_matmul"),
+            "int4": (int4mm, "radvlm_int4_matmul")}
     for name in sets:
         fn, entry = runs[name]
         fn(args, this, [(b, n) for b, n in bases if has(b, entry)], dev, g)

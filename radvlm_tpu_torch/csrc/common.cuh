@@ -21,6 +21,11 @@ __device__ __forceinline__ uint32_t pack_raw(const __nv_bfloat16& lo,
   return a | (b << 16);
 }
 
+// Word j (0-3) of a 16-byte vector.
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
 // d += A(16x16, row-major) * B(16x8, col-major); bf16 inputs, f32 sums.
 // Fragment layout (g = lane / 4, t = lane % 4):
 //   a[0] = A[g][2t..2t+1]   a[1] = A[g+8][2t..]   a[2] = A[g][2t+8..]

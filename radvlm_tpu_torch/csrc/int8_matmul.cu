@@ -60,8 +60,6 @@
 #include "common.cuh"
 #include "wgmma.cuh"
 
-#include <mutex>
-
 namespace radvlm {
 namespace {
 
@@ -77,7 +75,6 @@ constexpr int kRedPitch = kBlockN + 4;            // floats a row of the warps' 
 constexpr int kMaxStages = 8;
 constexpr int kSmemBytes = 232448;                // the most a CTA may opt into
 constexpr int kMaxCluster = 8;
-constexpr int kMaxDevices = 64;
 
 // Shared memory for rows padded to mp (a multiple of 8) and `stages` stages:
 // the ring (1024-byte aligned stages of two weight boxes and four x boxes of
@@ -112,19 +109,6 @@ struct I8Params {
   int nsplit;
   int nblocks;  // 64-column blocks
 };
-
-// The float at shared address `addr` of the cluster's CTA `rank`.
-__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
 
 // NT: n8 tiles of x rows (M padded to 8 NT).
 template <int NT>
@@ -301,55 +285,13 @@ __global__ void __launch_bounds__(kI8Threads, 1)
   if (c > 1) cluster_sync();  // no CTA leaves while another reads it
 }
 
-using I8Kernel = void (*)(const I8Params);
-
 template <int NT>
 cudaError_t launch_nt(const I8Params& p, cudaStream_t st) {
   constexpr int kMp = 8 * NT;
   constexpr int bytes = I8Smem(kMp, ring_stages(kMp)).bytes;
   static_assert(ring_stages(kMp) >= 2, "a ring of at least two stages");
   static_assert(bytes <= kSmemBytes, "shared memory");
-  const I8Kernel kernel = int8_matmul_kernel<NT>;
-  static std::mutex mu;
-  static bool ready[kMaxDevices] = {};
-  static int resident[kMaxDevices] = {};  // CTAs the card holds at once
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int ctas = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (!ready[dev]) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return err;
-      int per_sm = 0, sms = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kI8Threads, bytes);
-      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err != cudaSuccess) return err;
-      if (per_sm * sms < 1) return cudaErrorInvalidConfiguration;
-      resident[dev] = per_sm * sms;
-      ready[dev] = true;
-    }
-    ctas = resident[dev];
-  }
-  cudaLaunchConfig_t cfg = {};
-  // Persistent CTAs walk the blocks; a K-split cluster holds one block (the
-  // plan splits K only while the blocks' clusters fit on the card).
-  cfg.gridDim = dim3(p.nsplit > 1 ? p.nblocks * p.nsplit : min(p.nblocks, ctas));
-  cfg.blockDim = dim3(kI8Threads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.nsplit;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = p.nsplit > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_units<int8_matmul_kernel<NT>>(p, kI8Threads, bytes, p.nsplit, p.nblocks, st);
 }
 
 }  // namespace

@@ -385,6 +385,15 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// The float at shared address `addr` of the cluster's CTA `rank`.
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 // Two floats at shared address `addr` of the cluster's CTA `rank`.
 __device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr, uint32_t rank) {
   uint32_t remote;
@@ -454,6 +463,55 @@ inline cudaError_t encode(CUtensorMap* map, const void* base, int b, int s, int 
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launches `Kernel` (one CTA an SM, `bytes` of dynamic shared memory) over
+// `nblocks` work units: with nsplit == 1 as persistent CTAs, at most as
+// many as the card holds at once, which walk the units; with nsplit > 1 as
+// one thread-block cluster of nsplit CTAs a unit (the caller's plan splits
+// only while the clusters fit on the card). The shared-memory attribute is
+// set, and the card's CTA count read, once a device. Used by the skinny
+// decode matmuls (K5/K6, K12).
+template <auto Kernel, typename Params>
+cudaError_t launch_units(const Params& p, int threads, int bytes, int nsplit, int nblocks,
+                         cudaStream_t st) {
+  constexpr int kDevices = 64;
+  static std::mutex mu;
+  static int resident[kDevices] = {};  // CTAs the card holds at once; 0: not read yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kDevices) return cudaErrorInvalidDevice;
+  int ctas = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (resident[dev] == 0) {
+      err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+      int per_sm = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads, bytes);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return err;
+      if (per_sm * sms < 1) return cudaErrorInvalidConfiguration;
+      resident[dev] = per_sm * sms;
+    }
+    ctas = resident[dev];
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit > 1 ? nblocks * nsplit : (nblocks < ctas ? nblocks : ctas));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = nsplit > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, Kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace radvlm

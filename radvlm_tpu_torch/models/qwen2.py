@@ -35,6 +35,7 @@ from radvlm_tpu_torch.ops.decode_attention import (
     decode_attention_stacked_q8,
     decode_attention_stacked_window,
     decode_attention_stacked_window_q8,
+    kernel_takes as decode_kernel_takes,
 )
 from radvlm_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv, quantize_kv_row
 from radvlm_tpu_torch.ops.quant import dequantize_array
@@ -145,18 +146,24 @@ def _qkv(cfg: Qwen2Config, blk: Qwen2Block, y: torch.Tensor, positions: torch.Te
     return q, k, v
 
 
-def decode_kernel_eligible(cfg: Qwen2Config, cache_max_len: int, attn_impl: str) -> bool:
-    """Does the K9 decode kernel serve this config? The one predicate that
-    both `_block_cached` and `generation.engine.kernel_provenance` call.
+def decode_kernel_eligible(cfg: Qwen2Config, cache_max_len: int, attn_impl: str,
+                           quantized: bool = False) -> bool:
+    """Do the decode kernels serve this config: K9 / K10 over the bf16 cache,
+    K4 / K11 over the int8 one (`quantized`)? The one predicate that both
+    `_block_cached` and `generation.engine.kernel_provenance` call.
     Excluded, as in the JAX package: a sliding window, a non-rope position
-    scheme, impl="xla". On a CPU tensor the wrapper runs the plain version;
-    on a CUDA tensor it launches the kernel or raises for a shape the
-    kernel does not take."""
+    scheme, impl="xla". Excluded too: a head shape the kernels do not take
+    (`decode_attention.kernel_takes`: head_dim above 128, and for the int8
+    cache one that is no multiple of 16; a GQA group above 8), which the
+    JAX package's decode route takes on the TPU. On a CPU tensor the
+    wrappers run their plain versions; on a CUDA tensor they launch the
+    kernel or raise, so this predicate holds exactly where they launch."""
     return (
         attn_impl in ("auto", "flash")
         and cache_max_len > 0
         and cfg.sliding_window == 0
         and cfg.pos_embedding == "rope"
+        and decode_kernel_takes(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, quantized)
     )
 
 
@@ -169,7 +176,7 @@ def cached_attention_route(cfg: Qwen2Config, cache_max_len: int, attn_impl: str,
     verify) through K10 / K11; "plain": plain attention over the
     (dequantized) layer with the query offset - longer windows (a resume
     delta), a scalar offset, or a config the kernels exclude."""
-    if decode_kernel_eligible(cfg, cache_max_len, attn_impl):
+    if decode_kernel_eligible(cfg, cache_max_len, attn_impl, quantized):
         suffix = "_q8" if quantized else ""
         if s == 1:
             return "kernel" + suffix

@@ -11,6 +11,8 @@ from typing import Optional, Union
 
 import torch
 
+from radvlm_tpu_torch.ops.flash_attention import kernel_takes
+
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 Offset = Union[int, torch.Tensor]
@@ -112,11 +114,14 @@ def flash_eligible(
     gradient) serve this call?
 
     The one predicate `mha` and `generation.engine.kernel_provenance` both
-    call. Only what the JAX package itself routes to XLA stays plain: a
-    sliding window, ALiBi, a non-zero query offset, impl="xla". On a CPU
+    call. What the JAX package itself routes to XLA stays plain (a sliding
+    window, ALiBi, a non-zero query offset, impl="xla"), and so does a head
+    dim the kernels do not take (`flash_attention.kernel_takes`: above 128,
+    or odd), which the JAX package's flash route takes on the TPU. On a CPU
     tensor the kernels' wrappers run their plain versions; on a CUDA tensor
-    they launch the kernel or raise (e.g. for a head_dim above 128)."""
-    if impl == "xla" or window or alibi:
+    they launch the kernel or raise, so this predicate holds exactly where
+    they launch."""
+    if impl == "xla" or window or alibi or not kernel_takes(q.shape[-1]):
         return False
     return isinstance(q_offset, int) and q_offset == 0 and k.shape[1] >= q.shape[1]
 

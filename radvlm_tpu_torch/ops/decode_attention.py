@@ -27,6 +27,29 @@ import torch
 from radvlm_tpu_torch import kernels
 
 _SPLIT_GRAIN = 64  # the kernel's key tile
+MAX_HEAD_DIM = 128  # the widest head the kernels take
+MAX_GROUP = 8  # the most query heads a kv head the kernels take
+
+
+def kernel_takes(head_dim: int, num_heads: int, num_kv_heads: int, quantized: bool) -> bool:
+    """The head shapes the decode kernels take: K9 / K10 (bf16 cache) an even
+    head_dim <= 128, K4 / K11 (int8 cache, 16-byte copies of a key row) a
+    head_dim <= 128 that is a multiple of 16; both a GQA group of at most 8.
+    The wrappers raise on a CUDA tensor outside it, and
+    `models.qwen2.decode_kernel_eligible` routes such a config to the plain
+    path."""
+    grain = 16 if quantized else 2
+    return (head_dim <= MAX_HEAD_DIM and head_dim % grain == 0
+            and num_heads % num_kv_heads == 0 and num_heads // num_kv_heads <= MAX_GROUP)
+
+
+def _require_heads(name: str, d: int, h: int, num_kv_heads: int, quantized: bool) -> None:
+    if not kernel_takes(d, h, num_kv_heads, quantized):
+        what = "a multiple of 16" if quantized else "even"
+        raise ValueError(
+            f"{name}: the kernel takes a head_dim <= {MAX_HEAD_DIM} that is {what} and up to "
+            f"{MAX_GROUP} query heads per kv head, got D={d}, H={h}, Hkv={num_kv_heads}"
+        )
 
 
 def decode_attention_plain(
@@ -106,11 +129,7 @@ def decode_attention_stacked(
     for t in (q, ck, cv):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"decode_attention: the kernel takes bf16, got {t.dtype}")
-    if d > 128 or d % 2 or h % num_kv_heads or h // num_kv_heads > 8:
-        raise ValueError(
-            "decode_attention: the kernel takes an even head_dim <= 128 and up to "
-            f"8 query heads per kv head, got D={d}, H={h}, Hkv={num_kv_heads}"
-        )
+    _require_heads("decode_attention", d, h, num_kv_heads, False)
     nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))
     part_o = torch.empty((b, h, nsplit, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, h, nsplit, 2), dtype=torch.float32, device=q.device)
@@ -194,12 +213,7 @@ def decode_attention_stacked_q8(
     kernels.require_dtype("decode_attention_q8", torch.float32, k_scale=ks, v_scale=vs)
     kernels.require_cuda_tensors("decode_attention_q8", ck, cv, align=16)
     kernels.require_cuda_tensors("decode_attention_q8", q, ks, vs, seg)
-    if d > 128 or d % 16 or h % num_kv_heads or h // num_kv_heads > 8:
-        raise ValueError(
-            "decode_attention_q8: the kernel takes a head_dim <= 128 that is a multiple "
-            f"of 16 and up to 8 query heads per kv head, got D={d}, H={h}, "
-            f"Hkv={num_kv_heads}"
-        )
+    _require_heads("decode_attention_q8", d, h, num_kv_heads, True)
     nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))
     part_o = torch.empty((b, h, nsplit, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, h, nsplit, 2), dtype=torch.float32, device=q.device)
@@ -338,11 +352,7 @@ def decode_attention_stacked_window(
     seg = kv_segment_ids.to(torch.int32).contiguous()
     kernels.require_dtype(name, torch.bfloat16, q=q, ck=ck, cv=cv)
     kernels.require_cuda_tensors(name, q, ck, cv, seg, window_idx)
-    if d > 128 or d % 2 or h % num_kv_heads or h // num_kv_heads > 8:
-        raise ValueError(
-            f"{name}: the kernel takes an even head_dim <= 128 and up to 8 query heads "
-            f"per kv head, got D={d}, H={h}, Hkv={num_kv_heads}"
-        )
+    _require_heads(name, d, h, num_kv_heads, False)
     nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))  # K9's plan
     part_o, part_ml, out = _window_scratch(q, nsplit)
     err = kernels.lib().radvlm_decode_attention_window(
@@ -395,11 +405,7 @@ def decode_attention_stacked_window_q8(
     kernels.require_dtype(name, torch.float32, k_scale=ks, v_scale=vs)
     kernels.require_cuda_tensors(name, ck, cv, align=16)
     kernels.require_cuda_tensors(name, q, ks, vs, seg, window_idx)
-    if d > 128 or d % 16 or h % num_kv_heads or h // num_kv_heads > 8:
-        raise ValueError(
-            f"{name}: the kernel takes a head_dim <= 128 that is a multiple of 16 and up "
-            f"to 8 query heads per kv head, got D={d}, H={h}, Hkv={num_kv_heads}"
-        )
+    _require_heads(name, d, h, num_kv_heads, True)
     nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))  # K4's plan
     part_o, part_ml, out = _window_scratch(q, nsplit)
     err = kernels.lib().radvlm_decode_attention_window_q8(

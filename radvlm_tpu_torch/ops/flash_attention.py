@@ -163,16 +163,28 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return float(q.shape[-1] ** -0.5 if scale is None else scale)
 
 
+MAX_HEAD_DIM = 128  # the widest head K1 / K2 / K7 / K8 take
+
+
+def kernel_takes(head_dim: int) -> bool:
+    """The head dims K1 / K2 / K7 / K8 take: even and at most 128 (padded
+    inside to a multiple of 16). The wrappers raise on a CUDA tensor outside
+    it, and `ops.attention.flash_eligible` routes such a call to the plain
+    path."""
+    return head_dim <= MAX_HEAD_DIM and head_dim % 2 == 0
+
+
 def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take bf16 q/k/v on the card with an even head_dim <= 128
-    (padded inside to a multiple of 16)."""
+    """The kernels take bf16 q/k/v on the card with a head dim that
+    `kernel_takes`."""
     kernels.require_cuda_tensors(name, *tensors)
     for t in tensors[:3]:
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: the kernel takes bf16, got {t.dtype}")
     d = tensors[0].shape[-1]
-    if d > 128 or d % 2:
-        raise ValueError(f"{name}: the kernel takes an even head_dim <= 128, got {d}")
+    if not kernel_takes(d):
+        raise ValueError(
+            f"{name}: the kernel takes an even head_dim <= {MAX_HEAD_DIM}, got {d}")
 
 
 def tower_attention(

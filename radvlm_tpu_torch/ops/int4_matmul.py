@@ -34,10 +34,10 @@ from typing import Tuple
 import torch
 
 from radvlm_tpu_torch import kernels
-from radvlm_tpu_torch.ops.int8_matmul import MAX_ROWS
+from radvlm_tpu_torch.ops.int8_matmul import MAX_ROWS, split_plan
 
-GROUP = 128  # k per scale group, and the kernel's K per step
-_BLOCK_N = 128  # the kernel's columns per CTA
+GROUP = 128  # k per scale group
+_STAGE_K = 512  # the kernel's K a stage (4 groups): its K splits are whole stages
 
 
 # --- the JAX package's layout: kernels [..., D, F] --------------------------
@@ -135,15 +135,11 @@ def int4_matmul_plain(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor
     return (x.float() @ w.float().t()).to(x.dtype)
 
 
-def _splits(n: int, k: int, device: torch.device) -> Tuple[int, int]:
-    """(nsplit, k_per_split): split K in whole groups over enough CTAs for
-    ~2 per SM. It depends on N and K only, never on the row count."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    cols = -(-n // _BLOCK_N)
-    steps = k // GROUP
-    nsplit = max(1, min(-(-2 * sms // cols), steps))
-    per = -(-steps // nsplit)
-    return -(-steps // per), per * GROUP
+def _splits(n: int, k: int, sms: int) -> Tuple[int, int]:
+    """K12's plan (`int8_matmul.split_plan`, K5/K6's blocks and rule): whole
+    512-k stages of the kernel, so whole 128-k scale groups, and no stage
+    straddles a split."""
+    return split_plan(n, k, sms, _STAGE_K)
 
 
 def int4_matmul(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -168,14 +164,11 @@ def int4_matmul(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor) -> t
     x2 = x2.contiguous()
     kernels.require_cuda_tensors("int4_matmul", x2, weight, align=16)
     kernels.require_cuda_tensors("int4_matmul", scale)
-    nsplit, k_per_split = _splits(n, k, x.device)
-    part = (torch.empty((nsplit, m, n), dtype=torch.float32, device=x.device)
-            if nsplit > 1 else None)
+    nsplit, k_per_split = _splits(n, k, kernels.sm_count(x.device))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     err = kernels.lib().radvlm_int4_matmul(
-        x2.data_ptr(), weight.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), m, n, k, nsplit, k_per_split,
-        kernels.stream_ptr(x.device),
+        x2.data_ptr(), weight.data_ptr(), scale.data_ptr(), out.data_ptr(), None,
+        m, n, k, nsplit, k_per_split, kernels.stream_ptr(x.device),
     )
     kernels.check(err, "int4_matmul")
     kernels.count_launch("int4_matmul")

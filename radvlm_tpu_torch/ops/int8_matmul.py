@@ -32,21 +32,28 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> 
     return ((x.float() @ w.float().t()) * scale.float()).to(x.dtype)
 
 
-def _splits(n: int, k: int, sms: int) -> Tuple[int, int]:
-    """(nsplit, k_per_split): the kernel's K split for an [N, K] weight on a
-    card of `sms` SMs. The work units are 64-column blocks x K splits, and
-    the kernel runs one CTA an SM. With fewer blocks than SMs, K is split in
-    2, 4 or 8 while the units still fit on the SMs at once (one unit a CTA,
-    the splits of a block one cluster); with more, persistent CTAs walk the
-    blocks whole. Depends on N, K and the SM count only, never on the row
-    count, so a row's sums do not depend on how many rows come with it."""
+def split_plan(n: int, k: int, sms: int, step: int) -> Tuple[int, int]:
+    """(nsplit, k_per_split): the K split of a skinny decode matmul (K5/K6,
+    K12) for a weight of N output columns and K inputs on a card of `sms`
+    SMs, in whole `step`s of K. The work units are 64-column blocks x K
+    splits, and the kernels run one CTA an SM. With fewer blocks than SMs, K
+    is split in 2, 4 or 8 while the units still fit on the SMs at once (one
+    unit a CTA, the splits of a block one cluster); with more, persistent
+    CTAs walk the blocks whole. Depends on N, K and the SM count only, never
+    on the row count, so a row's sums do not depend on how many rows come
+    with it."""
     blocks = -(-n // _BLOCK_N)
-    steps = -(-k // _STEP_K)
+    steps = -(-k // step)
     nsplit = 1
     while 2 * nsplit <= min(_MAX_SPLIT, steps) and 2 * nsplit * blocks <= sms:
         nsplit *= 2
     per = -(-steps // nsplit)
-    return -(-steps // per), per * _STEP_K
+    return -(-steps // per), per * step
+
+
+def _splits(n: int, k: int, sms: int) -> Tuple[int, int]:
+    """K5/K6's plan: whole 64-wide steps of K."""
+    return split_plan(n, k, sms, _STEP_K)
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

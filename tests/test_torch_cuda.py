@@ -24,9 +24,13 @@ not depend on how many rows it comes with. K13 must equal `quantize_rows`
 followed by K3 bit for bit.
 """
 
+import copy
+import dataclasses
+
 import pytest
 import torch
 
+from radvlm_tpu_torch import config as tcfg
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as tdec
@@ -36,6 +40,8 @@ from radvlm_tpu_torch.ops import int8_matmul as ti8
 from radvlm_tpu_torch.ops import kv_quant as tkv
 from radvlm_tpu_torch.ops import quant as tq
 from radvlm_tpu_torch.ops import w8a8_matmul as tw8
+from radvlm_tpu_torch.models import convert
+from radvlm_tpu_torch.models import qwen2 as tqwen
 from radvlm_tpu_torch.models.layers import Q4Linear, QLinear
 
 pytestmark = pytest.mark.cuda
@@ -243,6 +249,49 @@ def test_mha_on_the_card_launches_the_kernels(dev):
     torch.cuda.synchronize()
     assert {k: n for k, n in kernels.launch_counts().items() if n} == {
         "tower_attention": 1, "prefill_attention": 1}
+
+
+@pytest.mark.parametrize("cache_format", ["bf16", "int8"])
+def test_head_dim_256_decoder_runs_on_the_card(dev, cache_format):
+    """Gemma's head dim of 256, which no attention kernel takes: the
+    predicates send prefill and decode to the plain path, so a tiny bf16
+    decoder prefills and decodes on the card without a raise, launches no
+    attention kernel, and gives the CPU run's logits (the same plain
+    attention; bf16 matmuls whose f32 sums run in another order: 2e-2 of the
+    largest logit)."""
+    base = tcfg.tiny_test_config()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, head_dim=256))
+    text = cfg.text
+    cpu = convert.init_params(cfg, torch.Generator().manual_seed(0), device="cpu").text
+    card = copy.deepcopy(cpu).to(dev)
+    tokens = torch.randint(2, text.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    seg = torch.ones((2, 9), dtype=torch.int32)
+    pos = torch.arange(9)[None].repeat(2, 1)
+    cseg = torch.zeros((2, 32), dtype=torch.int32)
+    cseg[:, :9] = 1
+
+    def run(model, device):
+        cache = (tqwen.init_kv_cache_q8(text, 2, 32, device=device) if cache_format == "int8"
+                 else tqwen.init_kv_cache(text, 2, 32, device=device))
+        on = lambda t: t.to(device)  # noqa: E731
+        with torch.inference_mode():
+            tqwen.forward(model, text, input_embeds=tqwen.embed_tokens(model, on(tokens[:, :8]), text),
+                          positions=on(pos[:, :8]), segment_ids=on(seg[:, :8]), kv_cache=cache,
+                          cache_index=0, cache_segment_ids=on(cseg))
+            step, _ = tqwen.forward(
+                model, text, input_embeds=tqwen.embed_tokens(model, on(tokens[:, 8:]), text),
+                positions=on(pos[:, 8:]), segment_ids=on(seg[:, 8:]), kv_cache=cache,
+                cache_index=on(torch.tensor([8, 8])), cache_segment_ids=on(cseg))
+        return step.float().cpu()
+
+    kernels.reset_launch_counts()
+    out = run(card, dev)
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts()[name] for name in (
+        "prefill_attention", "decode_attention", "decode_attention_q8"))
+    ref = run(cpu, "cpu")
+    assert torch.isfinite(out).all() and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-2 * float(ref.abs().max()))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -591,6 +640,31 @@ def test_k12_row_does_not_depend_on_row_count(dev, case):
     y64 = ti4.int4_matmul(x, w, scale)
     torch.cuda.synchronize()
     assert torch.equal(y8, y40[:8]) and torch.equal(y8, y64[:8]) and torch.equal(y1, y8[:1])
+
+
+# (K, N): the four int4 decode projections of Qwen2-7B and two odd widths
+# (scales that TMA cannot read: a row pitch that is no multiple of 16 bytes).
+K12_EXACT_SHAPES = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584), (128, 131),
+                    (256, 3)]
+
+
+@pytest.mark.parametrize("case", K12_EXACT_SHAPES)
+def test_k12_dequantizes_each_weight_exactly(dev, case):
+    """x of one-hot rows picks one k a row, so each output is one weight:
+    K12 must give bf16(f32(nibble) * scale) bit for bit, for every nibble
+    of the matrix (64 k a launch), with group scales spread over 2^-40 ..
+    2^7, as `dequantize_weight_int4` (the dequant route's weights) does."""
+    k, n = case
+    gen = torch.Generator(device=dev).manual_seed(24)
+    w = torch.randint(0, 256, (n, k // 2), generator=gen, device=dev, dtype=torch.uint8)
+    scale = torch.exp2(torch.rand(k // 128, n, generator=gen, device=dev) * 47.0 - 40.0)
+    ref = ti4.dequantize_weight_int4(w, scale)  # [N, K] bf16
+    for k0 in range(0, k, 64):
+        ks = torch.arange(k0, min(k, k0 + 64), device=dev)
+        x = torch.zeros((len(ks), k), device=dev, dtype=torch.bfloat16)
+        x[torch.arange(len(ks), device=dev), ks] = 1.0
+        out = ti4.int4_matmul(x, w, scale)
+        assert torch.equal(out, ref[:, ks].t()), k0
 
 
 def test_k12_dequant_route_uses_the_same_weights(dev):

@@ -20,6 +20,8 @@ Tolerances, with their reasons:
   rounds to bf16 (stated at each test).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -322,8 +324,10 @@ def test_int8_prefill_and_per_row_decode_match_jax(rng, tiny_q, monkeypatch):
 def test_per_row_window_is_written_and_routed():
     """A per-row window of s > 1 tokens is written at each row's own offset,
     quantized (scales [B, s, Hkv] into [L, B, Hkv, S]), and attended through
-    K11's plain version on the CPU."""
+    K11's plain version on the CPU (the text head dim widened from 12 to 16,
+    the smallest K11 takes; at 12 the route is plain)."""
     cfg = cfglib.tiny_test_config()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, head_dim=16))
     model = convert.random_quantized_params(cfg, torch.Generator().manual_seed(0),
                                             device="cpu", dtype=torch.float32)
     cache = qwen2.init_kv_cache_q8(cfg.text, 2, 128)

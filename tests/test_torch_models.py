@@ -10,6 +10,8 @@ kernel keeps them f32: 5e-4 on logits there (measured 1.8e-4 on logits of
 magnitude 0.4).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,9 +24,12 @@ from radvlm_tpu.models import qwen2 as jq
 from radvlm_tpu.models import radvlm as jrad
 from radvlm_tpu.models import siglip as jsig
 from radvlm_tpu.generation import engine as jeng
+from radvlm_tpu_torch import config as tcfg
 from radvlm_tpu_torch.config import radvlm_7b
 from radvlm_tpu_torch.generation import engine as teng
 from radvlm_tpu_torch.models import convert, qwen2, radvlm, siglip
+from radvlm_tpu_torch.ops import attention as tatt
+from radvlm_tpu_torch.ops import decode_attention as tdec
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -246,6 +251,88 @@ def test_kernel_provenance_reports_the_predicates():
                                 decode_rows=8)
     assert (q8["fill_lm_head"], q8["decode_lm_head"], q8["decode_matmul"]) == (
         "dequant", "dequant", "int8")
+
+
+def _widened(head_dim: int, num_heads: int = 4, num_kv_heads: int = 2):
+    """The port's tiny config with the tower's and the decoder's heads
+    `head_dim` wide (the tower: 2 heads)."""
+    cfg = tcfg.tiny_test_config()
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, hidden_size=2 * head_dim),
+        text=dataclasses.replace(cfg.text, head_dim=head_dim, num_heads=num_heads,
+                                 num_kv_heads=num_kv_heads))
+
+
+# (head_dim, query heads, kv heads) -> (flash kernels, bf16-cache decode
+# kernels, int8-cache decode kernels): what the wrappers take on the card.
+ROUTE_CASES = {
+    (64, 4, 2): (True, True, True),
+    (128, 4, 2): (True, True, True),
+    (72, 4, 2): (True, True, False),  # the int8-cache kernels want a multiple of 16
+    (256, 4, 2): (False, False, False),  # Gemma's head dim: every kernel refuses it
+    (128, 16, 1): (True, False, False),  # a GQA group of 16: the decode kernels take 8
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES), ids=lambda c: "d{}_h{}_kv{}".format(*c))
+def test_routes_hold_exactly_what_the_kernels_take(case):
+    """The dispatch predicates send a call to a kernel only where its wrapper
+    launches it on a CUDA tensor (no raise on the card), and to the plain
+    path otherwise; `kernel_provenance` reports the same routes for the
+    tower, prefill, decode and verify stages, without a card."""
+    flash, decode, decode_q8 = ROUTE_CASES[case]
+    d, h, hkv = case
+    cfg = _widened(d, h, hkv)
+    meta = torch.device("meta")
+    q = torch.empty((1, 64, h, d), device=meta)
+    kv = torch.empty((1, 64, hkv, d), device=meta)
+    assert tatt.flash_eligible(q, kv) is flash
+    assert qwen2.decode_kernel_eligible(cfg.text, 128, "auto") is decode
+    assert qwen2.decode_kernel_eligible(cfg.text, 128, "auto", quantized=True) is decode_q8
+    assert tdec.kernel_takes(d, h, hkv, False) is decode
+    assert tdec.kernel_takes(d, h, hkv, True) is decode_q8
+    for fmt, kernel in (("bf16", decode), ("int8", decode_q8)):
+        prov = teng.kernel_provenance(cfg, prompt_len=96, max_new_tokens=16, cache_format=fmt,
+                                      decode_rows=8, spec_k=4)
+        suffix = "_q8" if fmt == "int8" else ""
+        assert prov["tower_attention"] == ("kernel" if flash else "plain")
+        assert prov["prefill_attention"] == ("kernel" if flash else "plain")
+        assert prov["decode_attention"] == ("kernel" + suffix if kernel else "plain")
+        assert prov["verify_attention"] == ("window" + suffix if kernel else "plain")
+
+
+def test_head_dim_256_decoder_runs_the_plain_routes():
+    """A tiny decoder with Gemma's head dim of 256 prefills and decodes (bf16
+    and int8 cache) through the plain routes: the same logits as the plain
+    attention the predicates name (the wrappers' plain versions are never
+    reached)."""
+    cfg = _widened(256).text
+    model = convert.init_params(_widened(256), torch.Generator().manual_seed(0), device="cpu",
+                                dtype=torch.float32).text
+    tokens = torch.randint(2, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    seg = torch.ones((2, 9), dtype=torch.int32)
+    pos = torch.arange(9)[None].repeat(2, 1)
+    full, _ = qwen2.forward(model, cfg, input_embeds=qwen2.embed_tokens(model, tokens, cfg),
+                            positions=pos, segment_ids=seg)
+    for cache in (qwen2.init_kv_cache(cfg, 2, 32, dtype=torch.float32, device="cpu"),
+                  qwen2.init_kv_cache_q8(cfg, 2, 32, device="cpu")):
+        cseg = torch.zeros((2, 32), dtype=torch.int32)
+        cseg[:, :9] = 1
+        with torch.inference_mode():
+            qwen2.forward(model, cfg, input_embeds=qwen2.embed_tokens(model, tokens[:, :8], cfg),
+                          positions=pos[:, :8], segment_ids=seg[:, :8], kv_cache=cache,
+                          cache_index=0, cache_segment_ids=cseg)
+            step, _ = qwen2.forward(
+                model, cfg, input_embeds=qwen2.embed_tokens(model, tokens[:, 8:], cfg),
+                positions=pos[:, 8:], segment_ids=seg[:, 8:], kv_cache=cache,
+                cache_index=torch.tensor([8, 8]), cache_segment_ids=cseg)
+        quantized = len(cache) == 4
+        assert qwen2.cached_attention_route(cfg, 32, "auto", 1, True, quantized) == "plain"
+        # The int8 cache quantizes K / V per token and head: 3e-2, as in
+        # tests/test_torch_int8.py; the f32 cache only reorders f32 sums.
+        tol = 3e-2 if quantized else 1e-5
+        np.testing.assert_allclose(step[:, 0].numpy(), full[:, 8].detach().numpy(),
+                                   atol=tol, rtol=tol)
 
 
 def test_engine_prefill_cache_layout_matches_jax(rng, tiny):

@@ -1,6 +1,8 @@
 """Speculative decoding in the port against the JAX package, on the CPU at
-the tiny config (inputs from a numpy seed; the same weights on both sides
-through the weight bridge).
+the tiny config with its text head dim widened from 12 to 16, the smallest
+that the int8-cache kernels K4 / K11 take, so that the int8 engine routes
+through them as it does on the card (inputs from a numpy seed; the same
+weights on both sides through the weight bridge).
 
 - `generation/spec.py`: `write_history`, `propose_ngram`, `greedy_accept`
   and `history_from_prompt` equal the JAX functions exactly (integers).
@@ -17,6 +19,8 @@ through the weight bridge).
   stream accepts more than one token per verify step; `RADVLM_SPEC_K` sets
   the default; `kernel_provenance` names the verify window's routes.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +44,11 @@ from radvlm_tpu_torch.models import multimodal as tmm
 from radvlm_tpu_torch.models import qwen2 as tqwen
 
 ENGINE = dict(num_slots=2, max_len=256, prompt_buckets=(128,), pad_tiles=2, steps_per_sync=4)
+
+
+def _tiny_config():
+    cfg = cfglib.tiny_test_config()
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, head_dim=16))
 
 
 def _t(a, dtype=torch.int32):
@@ -110,7 +119,7 @@ def test_propose_ngram_cases_of_the_jax_tests():
 
 @pytest.fixture(scope="module")
 def text_model():
-    cfg = cfglib.tiny_test_config().text
+    cfg = _tiny_config().text
     params = jax.tree.map(np.asarray, jqwen.init_params(cfg, jax.random.key(0)))
     model = tqwen.Qwen2Decoder(cfg, dtype=torch.float32)
     convert.load_qwen2(model, params)
@@ -195,7 +204,7 @@ def test_verify_window_matches_stepwise_decode(text_model, cache_format):
 
 @pytest.fixture(scope="module")
 def tiny():
-    cfg = cfglib.tiny_test_config()
+    cfg = _tiny_config()
     params = jax.tree.map(np.asarray, jrad.init_params(cfg, jax.random.key(7)))
     return cfg, params, convert.radvlm_from_jax(params, cfg, device="cpu")
 

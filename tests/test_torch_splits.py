@@ -1,11 +1,12 @@
 """The split plans of the port's decode kernels, on the CPU.
 
-`int8_matmul._splits` (K5/K6) cuts the work into 64-column blocks x K
-splits; `decode_attention._split_plan` (K9 / K4 and their windows K10 /
+`int8_matmul._splits` (K5/K6) and `int4_matmul._splits` (K12) cut the work
+into 64-column blocks x K splits (K12's in whole 128-k scale groups);
+`decode_attention._split_plan` (K9 / K4 and their windows K10 /
 K11) cuts the cache into key chunks. Each plan takes the card's SM count,
 covers K (or S) in whole steps of the kernel, and depends on the weight's
 (or the cache's) shape only: a row's sums must not depend on how many rows
-(K5/K6) or window queries (K10 / K11) come with it, or greedy speculative
+(K5/K6, K12) or window queries (K10 / K11) come with it, or greedy speculative
 tokens stop being plain greedy tokens. The wrappers are driven here on meta
 tensors with a stand-in for the kernel library, which records the plan each
 launch would get.
@@ -18,6 +19,7 @@ import torch
 
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.ops import decode_attention as tdec
+from radvlm_tpu_torch.ops import int4_matmul as ti4
 from radvlm_tpu_torch.ops import int8_matmul as ti8
 
 # (label, K, N): the Qwen2-7B decode projections of a fused layer and the lm_head.
@@ -54,6 +56,42 @@ def test_k5_plan_units_at_132_sms():
     assert units == {"qkv": 72, "o": 112, "gateup": 592, "down": 112, "lm_head": 2376}
 
 
+# K12 at the four decode projections of a fused Qwen2-7B layer (the lm_head
+# stays int8), and the edge shapes of tests/test_torch_cuda.py's K12_CASES:
+# one group and an odd N, two groups and N = 3, the 0.5B down projection.
+K12_SHAPES = K5_SHAPES[:4]
+K12_EDGE_SHAPES = [("one_group", 128, 131), ("narrow", 256, 3), ("0.5b", 4864, 896)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("shape", K12_SHAPES + K12_EDGE_SHAPES, ids=lambda s: s[0])
+def test_k12_plan_covers_k_in_whole_groups(shape, sms):
+    """Every block's K splits are whole 512-k stages of the kernel (so whole
+    128-k scale groups) that cover K once, a split is one CTA of a cluster
+    (at most 8), and the units fit the SMs at once wherever K is split."""
+    _, k, n = shape
+    nsplit, per = ti4._splits(n, k, sms)
+    assert 1 <= nsplit <= 8 and per % 512 == 0 and per % ti4.GROUP == 0
+    ranges = [(r * per, min(k, (r + 1) * per)) for r in range(nsplit)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(lo < hi and lo % 128 == 0 for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert nsplit == 1 or -(-n // 64) * nsplit <= sms
+
+
+def test_k12_plan_units_at_132_sms():
+    """The grid of the four int4 shapes on an H100 (132 SMs), as K5/K6's:
+    work units (64-column blocks x K splits). o and down split K in two
+    (112 CTAs, clusters of two), qkv's 72 blocks do not fit twice, gateup's
+    592 blocks are walked by 132 persistent CTAs (4-5 each). K = 3584 is 7
+    stages (o: 4 + 3), 18944 is 37 (down: 19 + 18)."""
+    plans = {label: ti4._splits(n, k, 132) for label, k, n in K12_SHAPES}
+    assert plans == {"qkv": (1, 3584), "o": (2, 2048), "gateup": (1, 3584),
+                     "down": (2, 9728)}
+    units = {label: -(-n // 64) * plans[label][0] for label, k, n in K12_SHAPES}
+    assert units == {"qkv": 72, "o": 112, "gateup": 592, "down": 112}
+
+
 @pytest.fixture
 def fake_lib(monkeypatch):
     """The kernel library replaced by one that records each launch's
@@ -68,7 +106,7 @@ def fake_lib(monkeypatch):
         return fn
 
     lib = types.SimpleNamespace(**{name: record(name) for name in (
-        "radvlm_int8_matmul", "radvlm_decode_attention", "radvlm_decode_attention_q8",
+        "radvlm_int8_matmul", "radvlm_int4_matmul", "radvlm_decode_attention", "radvlm_decode_attention_q8",
         "radvlm_decode_attention_window", "radvlm_decode_attention_window_q8")})
     counts = kernels.launch_counts()
     monkeypatch.setattr(kernels, "lib", lambda: lib)
@@ -97,6 +135,25 @@ def test_k5_wrapper_plan_does_not_depend_on_rows(fake_lib, label, k, n):
         plans.add((nsplit, per))
     assert [args[5] for _, args in fake_lib] == [1, 8, 40, 64]
     assert plans == {ti8._splits(n, k, 132)}
+
+
+@pytest.mark.parametrize("label,k,n", K12_SHAPES)
+def test_k12_wrapper_plan_does_not_depend_on_rows(fake_lib, label, k, n):
+    """1, 8, 40 and 64 rows of x against the same int4 weight: one plan, the
+    weight's, and no scratch for partials (the splits meet in a cluster)."""
+    w = torch.empty((n, k // 2), device="meta", dtype=torch.uint8)
+    scale = torch.empty((k // 128, n), device="meta")
+    for m in (1, 8, 40, 64):
+        out = ti4.int4_matmul(torch.empty((m, k), device="meta", dtype=torch.bfloat16), w, scale)
+        assert out.shape == (m, n)
+    plans = set()
+    for name, args in fake_lib:
+        assert name == "radvlm_int4_matmul"
+        part, m, n_, k_, nsplit, per = args[4:10]
+        assert part is None and (n_, k_) == (n, k)
+        plans.add((nsplit, per))
+    assert [args[5] for _, args in fake_lib] == [1, 8, 40, 64]
+    assert plans == {ti4._splits(n, k, 132)}
 
 
 # (B, Hkv, S): the decode and verify steps of 8 slots, K9's phase-3 batch,
