@@ -88,6 +88,21 @@ Phases, each raising on failure (the last line is printed only on success):
    3 greedy requests must give phase 5's tokens exactly (K13 is bit-equal
    to quantize_rows + K3) with K13 launched and K3 not, and a fill group of
    2 prompts is timed through K3 and through K13 in turns;
+7c. batch evaluation on the int8 model of phase 5: a synthetic test split
+   written under build/ from --seed in the public archives' layouts (a
+   MIMIC-CXR-JPG and a VinDr-CXR tree: CSVs by the stdlib csv module, 16
+   CXR-sized JPEGs each), then `build_task_dataset` + `run_task` (the
+   continuous engine: 8 slots, the int8 KV cache, 32 new tokens) over the
+   16 samples of abnormality_classification and of abnormality_grounding.
+   Every sample must have a result cell carrying its question, answer and
+   ground truth, both files (`{model}_{task}_output.json`,
+   `{model}_{task}.json`) must hold the run's cells and metrics, the metric
+   keys must be the JAX package's for the task, and a second run of the
+   first task must give every text again. K1, K2, K3, K4 and K5/K6 must
+   have launched. Samples/s of each task (with the card's name and power
+   limit), the feeder's host seconds against the engine's host_stats, and
+   the provenance are printed. (report_generation is left out: the card's
+   machine has no `rouge_score`, which its metrics need);
 8. SFT, the training path: radvlm_0_5b at full width and depth, f32 master
    weights made on the card from --seed, every part tunable, remat on. Phase
    3 first holds the training kernels to their plain versions at the three
@@ -129,6 +144,7 @@ import gc
 import io
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -142,7 +158,9 @@ import torch
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import radvlm_0_5b, radvlm_7b
 from radvlm_tpu_torch.data.loader import Bucket, LlavaJsonDataset, PrefetchLoader
-from radvlm_tpu_torch.eval.harness import VLMRunner, batch_to_device
+from radvlm_tpu_torch.data.datasets import CHEXPERT_PATHOLOGIES
+from radvlm_tpu_torch.eval.harness import (GT_FIELDS, VLMRunner, batch_to_device,
+                                           build_task_dataset, run_task)
 from radvlm_tpu_torch.generation import engine
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
 from radvlm_tpu_torch.models import convert, multimodal, quant_io, radvlm
@@ -169,6 +187,8 @@ INT8_BUCKETS = (3072, 3456, 3840, 4096)
 SPEC_REQUESTS = 6  # concurrent greedy requests of the spec phase (3 with the bf16 cache)
 INT4_REQUESTS = 6  # concurrent, in the artifact phase
 FUSED_REQUESTS = 3  # greedy requests of the fused-W8A8 phase
+EVAL_SAMPLES, EVAL_SLOTS = 16, 8  # per task of the evaluation phase
+EVAL_TASKS = ("abnormality_classification", "abnormality_grounding")
 QUESTIONS = ("Write the findings section of the report.", "Is there a pleural effusion?",
              "Describe the cardiac silhouette.", "Is there a pneumothorax?")
 
@@ -221,6 +241,9 @@ PATH_KERNELS = {
                   "int4_matmul", "decode_attention_window_q8"),
     "fused": ("tower_attention", "prefill_attention", "w8a8_matmul_fused",
               "decode_attention_q8", "int8_matmul"),
+    # Evaluation (run_task) on the int8 model: phase 5's path.
+    "eval": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
+             "int8_matmul"),
     # Full finetuning: every attention is under a gradient, the tower's too.
     "sft": ("prefill_attention_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
     # QLoRA: the decoder as above, the frozen tower through K1.
@@ -1776,6 +1799,151 @@ def phase_fused(ctx):
     return counts
 
 
+def write_eval_split(root: str, rng, n: int) -> None:
+    """A synthetic test split under `root` in the layouts of the public
+    archives (those of tests/test_datasets.py): MIMIC-CXR-JPG (metadata,
+    split, CheXpert labels with missing and uncertain values, reports) and
+    VinDr-CXR (two radiologists' boxes an image, fused by WBF), `n` frontal
+    CXR-sized JPEGs each. CSVs by the stdlib csv module, images by PIL."""
+    import csv
+
+    from PIL import Image
+
+    def table(path, rows):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+
+    def jpg(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(cxr_image(rng)).save(path, quality=90)
+
+    mimic, vindr = os.path.join(root, "MIMIC-CXR-JPG"), os.path.join(root, "VinDr-CXR")
+    dicoms = [(f"dcm{i:03d}", 10000000 + i, 50000 + i) for i in range(n)]
+    table(f"{mimic}/mimic-cxr-2.0.0-metadata.csv",
+          [["dicom_id", "subject_id", "study_id", "ViewPosition", "Rows", "Columns"]]
+          + [[d, s, st, ("PA", "AP")[i % 2], 3000, 2500] for i, (d, s, st) in enumerate(dicoms)])
+    table(f"{mimic}/mimic-cxr-2.0.0-split.csv", [["dicom_id", "subject_id", "study_id", "split"]]
+          + [[d, s, st, "test"] for d, s, st in dicoms])
+    labels = CHEXPERT_PATHOLOGIES[:6] + ["No Finding"]
+    table(f"{mimic}/mimic-cxr-2.0.0-chexpert.csv", [["subject_id", "study_id"] + labels]
+          + [[s, st] + [rng.choice(["1.0", "0.0", "-1.0", "", ""]) for _ in labels]
+             for _, s, st in dicoms])
+    sentences = ["The heart size is normal.", "There is a small left pleural effusion.",
+                 "No pneumothorax.", "Mild pulmonary edema.", "Lines and tubes in place."]
+    table(f"{mimic}/reports.csv", [["study", "findings", "impression", "last_paragraph"]]
+          + [[f"s{st}", " ".join(rng.choice(sentences, 3)), "No acute process.", ""]
+             for _, _, st in dicoms])
+    for d, s, st in dicoms:
+        jpg(f"{mimic}/files/p{str(s)[:2]}/p{s}/s{st}/{d}.jpg")
+    classes = ["Cardiomegaly", "Pleural effusion", "Nodule/Mass", "Aortic enlargement"]
+    ann = [["image_id", "class_name", "rad_id", "x_min", "y_min", "x_max", "y_max"]]
+    for i in range(n):
+        x, y = rng.uniform(100, 1200, 2)
+        for rad in ("R1", "R2"):
+            jit = rng.uniform(-20, 20, 4)
+            ann.append([f"img{i:03d}", classes[i % len(classes)], rad, x + jit[0], y + jit[1],
+                        x + 500 + jit[2], y + 400 + jit[3]])
+        jpg(f"{vindr}/test_jpg/img{i:03d}.jpg")
+    table(f"{vindr}/annotations/annotations_test.csv", ann)
+    with open(f"{vindr}/annotations/image_resolutions_test.json", "w") as f:
+        json.dump({f"img{i:03d}": [2048, 2500] for i in range(n)}, f)
+
+
+def metric_keys_ok(task: str, metrics: dict) -> bool:
+    """The JAX package's metric keys for `task` (eval/metrics/__init__.py)."""
+    keys = set(metrics)
+    if task == "abnormality_classification":
+        return keys == {"Precision(macro)", "Precision(micro)", "Recall(macro)", "Recall(micro)",
+                        "F1 Score(macro)", "F1 Score(micro)",
+                        *(p.lower() for p in CHEXPERT_PATHOLOGIES)}
+    if task == "abnormality_grounding":
+        return keys - {"avg_iou"} == {"mAP_0.5"}
+    return keys == {"blue", "ciderd", "rouge1", "rouge2", "rougel"}  # report_generation
+
+
+def phase_eval(ctx, seed: int):
+    """Batch evaluation on phase 5's int8 model: `build_task_dataset` +
+    `run_task` (the continuous engine, int8 KV cache) over a synthetic split
+    of each task in EVAL_TASKS; every sample's result cell, both files and
+    the metrics are checked."""
+    model, cfg, tok = ctx["model"], ctx["cfg"], ctx["tok"]
+    # Phase 5's runner fused the model in place: this one must not fuse again.
+    runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
+                       batch_size=EVAL_SLOTS, fuse=False, kv_quant=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_eval_{os.getpid()}")
+    try:
+        t0 = time.perf_counter()
+        write_eval_split(root, np.random.default_rng(seed + 13), EVAL_SAMPLES)
+        print(f"  synthetic split ({EVAL_SAMPLES} MIMIC-CXR + {EVAL_SAMPLES} VinDr-CXR JPEGs): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        out_dir = os.path.join(root, "results")
+        first = {}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for task in EVAL_TASKS:
+            dataset = build_task_dataset(task, root)
+            if len(dataset) != EVAL_SAMPLES:
+                raise AssertionError(f"{task}: {len(dataset)} samples, not {EVAL_SAMPLES}")
+            stats: dict = {}
+            t0 = time.perf_counter()
+            results, metrics = run_task(runner, dataset, task, output_dir=out_dir,
+                                        model_name="radvlm-7b-int8", with_clinical=False,
+                                        stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cells = {c["idx"]: c for c in results}
+            if sorted(cells) != list(range(EVAL_SAMPLES)):
+                raise AssertionError(f"{task}: result cells for {sorted(cells)}")
+            for i, cell in cells.items():
+                s = dataset[i]
+                if (not isinstance(cell["output"], str)
+                        or cell["instr"] != s["instr"]["question"]
+                        or cell["answer"] != s["instr"]["answer"]
+                        or any(cell[f] != s[f] for f in GT_FIELDS[task])):
+                    raise AssertionError(f"{task}: cell {i} does not carry its sample: {cell}")
+            base = os.path.join(out_dir, f"radvlm-7b-int8_{task}")
+            with open(base + "_output.json") as f:
+                saved_cells = json.load(f)
+            with open(base + ".json") as f:
+                saved_metrics = json.load(f)
+            if saved_cells != json.loads(json.dumps(results)) or saved_metrics != {
+                    k: float(v) for k, v in metrics.items()}:
+                raise AssertionError(f"{task}: the files do not hold the run's cells and metrics")
+            if not metric_keys_ok(task, metrics) or not all(
+                    math.isfinite(v) for v in saved_metrics.values()):
+                raise AssertionError(f"{task}: metrics {metrics}")
+            hs = stats["host_stats"]
+            if hs["fills"] != EVAL_SAMPLES or hs["tokens"] == 0:
+                raise AssertionError(f"{task}: engine host_stats {hs}")
+            first[task] = cells
+            print(f"  {task}: {EVAL_SAMPLES} samples in {wall:.3f} s, "
+                  f"{EVAL_SAMPLES / wall:.3f} samples/s ({EVAL_SLOTS} slots, {NEW_TOKENS} new "
+                  f"tokens, bucket {stats['bucket']}, {hs['tokens']} tokens); "
+                  f"{nvidia_smi_line()}", flush=True)
+            print(f"  {task} host seconds: bucket sizing pass {stats['sizing_s']:.3f} s, feeder "
+                  f"build_mm {stats['build_s']:.3f} s, engine wall {stats['engine_wall_s']:.3f} s; "
+                  f"engine host_stats { {k: round(v, 3) for k, v in hs.items()} }", flush=True)
+            print(f"  {task} metrics: { {k: round(v, 4) for k, v in metrics.items()} }",
+                  flush=True)
+        counts = kernels.launch_counts()
+        print(f"  launches in the measured run: {counts}", flush=True)
+        print(f"  provenance: {stats['provenance']}", flush=True)
+        require_launched("eval", counts)
+        # Greedy evaluation is deterministic: a second run of the first task
+        # (requests finish in another order) must give every sample's text again.
+        task = EVAL_TASKS[0]
+        again, _ = run_task(runner, build_task_dataset(task, root), task, with_clinical=False)
+        if {c["idx"]: c["output"] for c in again} != {
+                i: c["output"] for i, c in first[task].items()}:
+            raise AssertionError(f"{task}: a second run gave other texts")
+        print(f"  a second run of {task} gave every sample's text again", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def write_training_data(root: str, rng, n_pairs: int) -> str:
     """A llava-json under `root`: `n_pairs` cells with a synthetic CXR-sized
     PNG each (portrait, 560 x 400-448: ~3.1k tokens with its text) and as
@@ -2117,6 +2285,11 @@ def main():
 
     header("[7b/9] fused W8A8 (K13) on the int8 model")
     counts["fused"] = phase_fused(ctx)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[7c/9] evaluation: build_task_dataset + run_task on the int8 model")
+    counts["eval"] = phase_eval(ctx, args.seed)
     del ctx  # the int8 model goes before the trainers' come
     gc.collect()
     torch.cuda.empty_cache()

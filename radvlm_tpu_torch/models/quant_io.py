@@ -145,3 +145,14 @@ def load_quantized(path: str, device=None) -> Tuple[radvlm.RadVLM, RadVLMConfig]
     dtype = flat["image_newline"].dtype
     model = convert.radvlm_from_jax(_unflatten_tree(flat), cfg, device=device, dtype=dtype)
     return model, cfg
+
+
+def load_checkpoint(path: str, device=None) -> Tuple[radvlm.RadVLM, RadVLMConfig]:
+    """(unfused model on `device`, cfg) from a pre-quantized directory
+    (`load_quantized`) or an HF safetensors directory (loaded in bf16)."""
+    if is_quantized_dir(path):
+        return load_quantized(path, device=device)
+    from radvlm_tpu_torch.models.hf_import import config_from_hf_dir, load_radvlm_checkpoint
+
+    cfg = config_from_hf_dir(path)
+    return load_radvlm_checkpoint(path, cfg, device=device, dtype=torch.bfloat16), cfg

@@ -70,22 +70,14 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
         raise NotImplementedError(
             "--fleet / --fleet-tp: fleets of engines are not ported (ROADMAP M12)")
 
-    import torch
-
     from radvlm_tpu_torch.eval.harness import HFTokenizer, VLMRunner
-    from radvlm_tpu_torch.models.hf_import import config_from_hf_dir, load_radvlm_checkpoint
-    from radvlm_tpu_torch.models.quant_io import is_quantized_dir, load_quantized
+    from radvlm_tpu_torch.models.quant_io import is_quantized_dir, load_checkpoint
 
-    if is_quantized_dir(args.checkpoint):
-        model, cfg = load_quantized(args.checkpoint, device=args.device)
-    else:
-        cfg = config_from_hf_dir(args.checkpoint)
-        model = load_radvlm_checkpoint(args.checkpoint, cfg, device=args.device,
-                                       dtype=torch.bfloat16)
-        if args.int8:
-            from radvlm_tpu_torch.ops.quant import quantize_model
+    model, cfg = load_checkpoint(args.checkpoint, device=args.device)
+    if args.int8 and not is_quantized_dir(args.checkpoint):
+        from radvlm_tpu_torch.ops.quant import quantize_model
 
-            quantize_model(model)
+        quantize_model(model)
     tok = tokenizer if tokenizer is not None else HFTokenizer(args.tokenizer or args.checkpoint)
     # The runner fuses the projections of this one copy in place.
     runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=args.max_new_tokens)

@@ -162,13 +162,16 @@ def test_port_runs_with_jax_blocked():
     makes any import of it raise), every module imports, the tiny model
     generates tokens, the int8 continuous engine serves requests, with
     speculative decoding too, an int4 model saved as an artifact loads
-    back and serves the same tokens, and the trainer takes a full-finetune
-    step and two QLoRA steps (optax, orbax and flax blocked too)."""
+    back and serves the same tokens, the trainer takes a full-finetune
+    step and two QLoRA steps (optax, orbax and flax blocked too), and
+    evaluation runs `run_task` on a classification and a grounding split
+    and `eval.cli` on a saved int8 artifact (pandas and sklearn blocked
+    too)."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["radvlm_tpu"] = None
-        for name in ("optax", "orbax", "flax"):
+        for name in ("optax", "orbax", "flax", "pandas", "sklearn"):
             sys.modules[name] = None
         import importlib, pkgutil
         import numpy as np, torch
@@ -260,9 +263,67 @@ def test_port_runs_with_jax_blocked():
         for _ in range(2):  # B starts at 0: A moves from the second step on
             lstate, metrics = lstep(lstate, qbase, batch)
         assert all(float(ad["b"].detach().abs().max()) > 0 for ad in lstate.params.values())
+        # Evaluation: a MIMIC-CXR and a VinDr-CXR split written with csv and
+        # PIL, run_task on the int8 continuous engine, eval.cli on an artifact.
+        import csv, os
+        from PIL import Image
+        from radvlm_tpu_torch.eval import cli as eval_cli
+        from radvlm_tpu_torch.eval.harness import build_task_dataset, run_task
+
+        def write(path, rows):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w", newline="") as f:
+                csv.writer(f).writerows(rows)
+
+        def jpg(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(img[:40, :36]).save(path)
+
+        data = tempfile.mkdtemp()
+        mimic, vindr = f"{data}/MIMIC-CXR-JPG", f"{data}/VinDr-CXR"
+        dicoms = [("d1", 10000001, 501, "PA"), ("d2", 10000002, 502, "AP"),
+                  ("d3", 10000003, 503, "LATERAL")]
+        write(f"{mimic}/mimic-cxr-2.0.0-metadata.csv", [["dicom_id", "subject_id", "study_id",
+              "ViewPosition"]] + [list(d) for d in dicoms])
+        write(f"{mimic}/mimic-cxr-2.0.0-split.csv", [["dicom_id", "subject_id", "study_id",
+              "split"]] + [[d, s, st, "test"] for d, s, st, _ in dicoms])
+        write(f"{mimic}/mimic-cxr-2.0.0-chexpert.csv", [["subject_id", "study_id",
+              "Cardiomegaly", "Edema"], [10000001, 501, 1.0, ""], [10000002, 502, -1.0, 1.0]])
+        write(f"{mimic}/reports.csv", [["study", "findings", "impression", "last_paragraph"]]
+              + [[f"s{st}", "Heart size normal.", "", ""] for _, _, st, _ in dicoms])
+        for d, s, st, _ in dicoms:
+            jpg(f"{mimic}/files/p{str(s)[:2]}/p{s}/s{st}/{d}.jpg")
+        write(f"{vindr}/annotations/annotations_test.csv",
+              [["image_id", "class_name", "rad_id", "x_min", "y_min", "x_max", "y_max"],
+               ["a", "Cardiomegaly", "R1", 100, 100, 400, 400],
+               ["a", "Cardiomegaly", "R2", 110, 100, 410, 400],
+               ["b", "Nodule/Mass", "R1", 500, 600, 800, 900]])
+        with open(f"{vindr}/annotations/image_resolutions_test.json", "w") as f:
+            f.write('{"a": [1000, 1000], "b": [1000, 1200]}')
+        for i in "ab":
+            jpg(f"{vindr}/test_jpg/{i}.jpg")
+        qrunner = VLMRunner(model=random_quantized_params(cfg, torch.Generator().manual_seed(4),
+                                                          device="cpu", dtype=torch.float32,
+                                                          fuse=False),
+                            cfg=cfg, tokenizer=Tok(), max_new_tokens=3, batch_size=2,
+                            kv_quant=True)
+        for task, n in (("abnormality_classification", 2), ("abnormality_grounding", 2)):
+            results, metrics = run_task(qrunner, build_task_dataset(task, data), task,
+                                        output_dir=f"{data}/out", with_clinical=False)
+            assert len(results) == n and metrics, (task, results, metrics)
+        art = f"{data}/artifact"
+        quant_io.save_quantized(random_quantized_params(
+            cfg, torch.Generator().manual_seed(5), device="cpu", dtype=torch.float32,
+            fuse=False), cfg, art)
+        metrics = eval_cli.main(["--task", "abnormality_grounding", "--checkpoint", art,
+                                 "--data-dir", data, "--output-dir", f"{data}/cli",
+                                 "--max-new-tokens", "3", "--batch-size", "2", "--device",
+                                 "cpu"], tokenizer=Tok())
+        assert os.path.exists(f"{data}/cli/radvlm_abnormality_grounding.json")
+        assert "mAP_0.5" in metrics
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
-        for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax"):
+        for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn"):
             assert not [k for k in loaded if k.split(".")[0] == blocked], blocked
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
