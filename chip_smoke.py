@@ -103,6 +103,34 @@ Phases, each raising on failure (the last line is printed only on success):
    limit), the feeder's host seconds against the engine's host_stats, and
    the provenance are printed. (report_generation is left out: the card's
    machine has no `rouge_score`, which its metrics need);
+7d. text-LM serving, the GREEN judge and the local LLM client: an HF Llama
+   directory at meta-llama/Llama-2-7b-hf's widths and depth (32 layers,
+   MHA: 32 heads and 32 KV heads of 128, vocab 32000) with random bf16
+   weights made on the card from --seed is written under build/ by
+   `safetensors_io.write_file` (size, seconds and free disk printed; it
+   fails before writing if the disk is short; deleted afterwards).
+   `make_torch_judge` (TextLMEngine: 8 slots, 64 new tokens, the bf16
+   cache, a byte tokenizer of this script) loads it; a reference check of
+   one GREEN prompt (prefill and first-decode logits, `check_against_f32`),
+   then `green_batched` over 16 synthetic report pairs with the launch
+   counts reset: K2 and K9 must have launched; pairs/s, decode tokens/s and
+   host_stats are printed; then `judge_kernels` holds K2 (a fill of the
+   prompt bucket, left-padded to the run's shortest and longest prompt) and
+   K9 (the engine's own cache after the run, its first and last layer) to
+   their plain versions at the judge's shapes; a repeat of the batch and
+   each request alone must give the same tokens; a decode chunk runs under
+   the sync check, timed and profiled (so does one of the int8 judge
+   below). Then, the bf16 judge freed, the int8 judge as a
+   `LocalTorchClient` (llama_2 template): the int8 reference check of one
+   GREEN prompt with the bf16 cache (`check_int8_against_f32`), then
+   `synth.filter_reports` over 8 synthetic reports (8 files; K2, K3, K5/K6
+   and K9 must have launched, and the provenance must name the W8A8 fill
+   and the int8 decode), `judge_kernels` again, now with K3 at a fill's
+   rows and K5/K6 at 8 rows on the last layer's and the lm_head's own int8
+   weights, and `evaluate_conversations` over 4 two-turn conversations replayed on
+   phase 5's int8 model, the client as the judge: every replay must give
+   two answers and the judge must be called once a sample (with random
+   weights its scores may not parse: n is printed, not checked);
 8. SFT, the training path: radvlm_0_5b at full width and depth, f32 master
    weights made on the card from --seed, every part tunable, remat on. Phase
    3 first holds the training kernels to their plain versions at the three
@@ -139,6 +167,7 @@ import argparse
 import base64
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import io
@@ -150,6 +179,7 @@ import shutil
 import statistics
 import subprocess
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -163,13 +193,15 @@ from radvlm_tpu_torch.eval.harness import (GT_FIELDS, VLMRunner, batch_to_device
                                            build_task_dataset, run_task)
 from radvlm_tpu_torch.generation import engine
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
-from radvlm_tpu_torch.models import convert, multimodal, quant_io, radvlm
+from radvlm_tpu_torch.models import convert, multimodal, quant_io, radvlm, safetensors_io
+from radvlm_tpu_torch.models.layers import QLinear
 from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as da
 from radvlm_tpu_torch.ops import flash_attention as fa
 from radvlm_tpu_torch.ops import int4_matmul as i4
 from radvlm_tpu_torch.ops import int8_matmul as i8
 from radvlm_tpu_torch.ops import kv_quant
+from radvlm_tpu_torch.ops import quant as tquant
 from radvlm_tpu_torch.ops import w8a8_matmul as w8
 from radvlm_tpu_torch.serve import openai_api as oai
 from radvlm_tpu_torch.serve import worker_cli
@@ -191,6 +223,21 @@ EVAL_SAMPLES, EVAL_SLOTS = 16, 8  # per task of the evaluation phase
 EVAL_TASKS = ("abnormality_classification", "abnormality_grounding")
 QUESTIONS = ("Write the findings section of the report.", "Is there a pleural effusion?",
              "Describe the cardiac silhouette.", "Is there a pneumothorax?")
+# The text-LM phase: the GREEN judge at meta-llama/Llama-2-7b-hf's config.json
+# (the base of StanfordAIMI/GREEN-radllama2-7b), random bf16 weights.
+LLAMA2_7B = {"architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 4096,
+             "intermediate_size": 11008, "num_hidden_layers": 32, "num_attention_heads": 32,
+             "num_key_value_heads": 32, "vocab_size": 32000, "rms_norm_eps": 1e-5,
+             "rope_theta": 10000.0, "max_position_embeddings": 4096, "hidden_act": "silu",
+             "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+             "torch_dtype": "bfloat16"}
+JUDGE_PAIRS, JUDGE_SLOTS, JUDGE_NEW = 16, 8, 64  # GREEN report pairs, slots, tokens a reply
+JUDGE_REPORTS, JUDGE_CONVERSATIONS, CONV_NEW_TOKENS = 8, 4, 16
+REPORT_SENTENCES = ("The heart size is normal.", "There is a small left pleural effusion.",
+                    "No pneumothorax.", "Mild pulmonary edema.", "Lines and tubes in place.",
+                    "Compared to the prior study, the cardiomediastinal silhouette is stable.",
+                    "There is a right lower lobe opacity, possibly atelectasis.",
+                    "Moderate cardiomegaly.", "No acute cardiopulmonary process.")
 
 # name -> (source, the TPU kernel it replaces, the phase whose run counts it)
 KERNELS = {
@@ -244,6 +291,10 @@ PATH_KERNELS = {
     # Evaluation (run_task) on the int8 model: phase 5's path.
     "eval": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
              "int8_matmul"),
+    # The GREEN judge (Llama-2-7B, MHA) on TextLMEngine: bf16, then int8
+    # (W8A8 fills, weight-only int8 decode), both over the bf16 cache.
+    "text_lm": ("prefill_attention", "decode_attention"),
+    "text_lm_int8": ("prefill_attention", "w8a8_matmul", "int8_matmul", "decode_attention"),
     # Full finetuning: every attention is under a gradient, the tower's too.
     "sft": ("prefill_attention_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
     # QLoRA: the decoder as above, the frozen tower through K1.
@@ -287,6 +338,30 @@ class CharTokenizer:
 
     def decode(self, ids):
         return "".join(self._char(i) for i in ids)
+
+
+class JudgeTokenizer(CharTokenizer):
+    """CharTokenizer behind the methods TextLMEngine calls on an HF
+    tokenizer, for a judge of `vocab_size` ids: text beyond ASCII (another
+    model's answers, decoded by CharTokenizer) maps to the id `unk` where
+    its id would fall outside the judge's vocabulary, and every id the
+    judge emits decodes to a character of its own."""
+
+    eos_token_id, pad_token_id, unk_token_id = 1, 0, None
+    unk = 2  # the id of a NUL byte, which no prompt holds
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def __call__(self, text, add_special_tokens=True):
+        ids = [i if i < self.vocab_size else self.unk for i in self.encode(text)]
+        return types.SimpleNamespace(input_ids=ids)
+
+    def decode(self, ids, skip_special_tokens=True):
+        return super().decode(ids)
+
+    def convert_tokens_to_ids(self, token):
+        return None  # no stop string is one token here
 
 
 def nvidia_smi_line() -> str:
@@ -999,30 +1074,34 @@ def prompt(runner: VLMRunner, question: str) -> str:
 
 
 def reference_check(runner: VLMRunner, rng):
-    """The slice on one small input at full width, three ways: kernels in
-    bf16, plain attention (attn_impl="xla") in bf16, and plain attention on
-    an f32 copy of the same weights (the reference). Prefill logits and one
-    decode step; the kernel path must be about as close to the f32
-    reference as the plain bf16 path is (within 2x, or 1e-2)."""
+    """The slice on one small input at full width (`check_against_f32`)."""
     cfg, tok = runner.cfg, runner.tokenizer
     img = rng.integers(0, 255, size=(384, 384, 3), dtype=np.uint8)
     ids = multimodal.tokenize_with_images(tok.encode, prompt(runner, "Any effusion?"))
     batch = multimodal.collate([multimodal.build_sample(ids, [img], cfg)],
                                pad_to_multiple=512, left_pad=True)
-    batch = batch_to_device(batch, runner.device)
+    check_against_f32(runner.model, cfg, batch_to_device(batch, runner.device))
+
+
+def check_against_f32(model, cfg, batch, label: str = "") -> None:
+    """One input three ways: kernels in bf16, plain attention
+    (attn_impl="xla") in bf16, and plain attention on an f32 copy of the
+    same (fused) weights (the reference). Prefill logits and one decode
+    step; the kernel path must be about as close to the f32 reference as
+    the plain bf16 path is (within 2x, or 1e-2)."""
     l = batch["tokens"].shape[1]
     max_len = engine.cache_length(l, 8)
     ref32 = radvlm.fuse_for_inference(
-        radvlm.RadVLM(cfg, device=runner.device, dtype=torch.float32), cfg)
-    ref32.load_state_dict(runner.model.state_dict())
+        radvlm.RadVLM(cfg, device=model.device, dtype=torch.float32), cfg)
+    ref32.load_state_dict(model.state_dict())
     logits, tok0 = {}, None
-    for name, model, impl in (("f32 plain", ref32, "xla"), ("kernels", runner.model, "auto"),
-                              ("bf16 plain", runner.model, "xla")):
-        cache, cache_seg, lg = engine.prefill(model, cfg, batch, max_len, attn_impl=impl)
+    for name, m, impl in (("f32 plain", ref32, "xla"), ("kernels", model, "auto"),
+                          ("bf16 plain", model, "xla")):
+        cache, cache_seg, lg = engine.prefill(m, cfg, batch, max_len, attn_impl=impl)
         if tok0 is None:  # every path decodes the reference's greedy token
             tok0 = lg.argmax(-1)
-        _, _, lg1 = engine.decode_step(model, cfg, cache, cache_seg, tok0,
-                                       batch["lengths"].to(runner.device), l, attn_impl=impl)
+        _, _, lg1 = engine.decode_step(m, cfg, cache, cache_seg, tok0,
+                                       batch["lengths"].to(model.device), l, attn_impl=impl)
         logits[name] = (lg.float(), lg1.float())
         del cache
     del ref32
@@ -1035,8 +1114,8 @@ def reference_check(runner: VLMRunner, rng):
             if out.shape != ref.shape or not torch.isfinite(out).all():
                 raise AssertionError(f"reference check: {name} {stage} logits malformed")
             err[name] = float((out - ref).abs().max() / ref.abs().max())
-        print(f"  {stage} logits [{ref.shape[0]},{ref.shape[1]}], prompt {l} tokens, max rel "
-              f"err vs f32: kernels {err['kernels']:.3e}, plain bf16 {err['bf16 plain']:.3e}; "
+        print(f"  {label}{stage} logits [{ref.shape[0]},{ref.shape[1]}], prompt {l} tokens, max "
+              f"rel err vs f32: kernels {err['kernels']:.3e}, plain bf16 {err['bf16 plain']:.3e}; "
               f"argmax f32 {int(ref.argmax())}, kernels {int(logits['kernels'][i].argmax())}",
               flush=True)
         if not err["kernels"] <= max(2 * err["bf16 plain"], 1e-2):
@@ -1204,35 +1283,77 @@ def profile_stages(model, cfg, batch, new_tokens: int):
 
 
 def reference_check_int8(model, cfg, tok, rng) -> None:
-    """The int8 path on one small input at full width, three ways: the
-    kernels (W8A8 prefill, int8 cache, K3/K4/K5), the same int8 weights
-    weight-only (RADVLM_W8A8=0) with plain attention and a bf16 cache, and
-    the reference: plain attention on an f32 copy of the dequantized
-    weights. Prefill logits and one decode step. The kernel path must stay
-    within 2x the weight-only path's error plus 0.03: on the CPU, W8A8 and
-    the int8 cache add ~1e-3 per two layers of the tiny config over the
-    weight-only path (PERF.md), ~0.015 over Qwen2-7B's 28 layers, doubled."""
+    """`check_int8_against_f32` on one small image prompt, the kernels
+    writing the int8 cache (K3/K4/K5)."""
     img = rng.integers(0, 255, size=(384, 384, 3), dtype=np.uint8)
     ids = multimodal.tokenize_with_images(
         tok.encode, "<|im_start|>user\n<image>\nAny effusion?<|im_end|>\n<|im_start|>assistant\n")
     batch = multimodal.collate([multimodal.build_sample(ids, [img], cfg)],
                                pad_to_multiple=128, left_pad=True)
-    batch = batch_to_device(batch, model.device)
+    check_int8_against_f32(model, cfg, batch_to_device(batch, model.device), "int8", "int8 ")
+
+
+@contextlib.contextmanager
+def plain_matmuls():
+    """The quantized projections through the plain versions of K3 and K5/K6:
+    `ops.quant.qmm` calls the wrappers by these names. For a reference path
+    of the kernel path's own arithmetic."""
+    def w8a8_plain(xq, xs, wq, ws, *, out_dtype=torch.bfloat16):
+        lead, k = xq.shape[:-1], xq.shape[-1]
+        return w8.w8a8_matmul_plain(xq.reshape(-1, k), xs.reshape(-1).float(), wq, ws.float(),
+                                    out_dtype).reshape(*lead, wq.shape[0])
+
+    def int8_plain(x, w, scale):
+        lead, k = x.shape[:-1], x.shape[-1]
+        return i8.int8_matmul_plain(x.reshape(-1, k), w, scale).reshape(*lead, w.shape[0])
+
+    saved = tquant.w8a8_matmul, tquant.int8_matmul
+    tquant.w8a8_matmul, tquant.int8_matmul = w8a8_plain, int8_plain
+    try:
+        yield
+    finally:
+        tquant.w8a8_matmul, tquant.int8_matmul = saved
+
+
+def check_int8_against_f32(model, cfg, batch, cache_format: str, label: str,
+                           same_arithmetic: bool = False) -> None:
+    """The int8 path on one input at full width, three ways: the kernels
+    (W8A8 prefill, K5/K6 decode, the cache in `cache_format`), the same
+    int8 weights weight-only (RADVLM_W8A8=0) with plain attention and a
+    bf16 cache, and the reference: plain attention on an f32 copy of the
+    dequantized weights. Prefill logits and one decode step. The kernel
+    path must stay within 2x the weight-only path's error plus 0.03: on the
+    CPU, W8A8 and the int8 cache add ~1e-3 per two layers of the tiny
+    config over the weight-only path (PERF.md), ~0.015 over Qwen2-7B's 28
+    layers, doubled.
+
+    With `same_arithmetic`, a fourth path runs the kernel path's own
+    arithmetic (W8A8, the cache in `cache_format`) through the plain
+    versions of its kernels (`plain_matmuls`, plain attention), and the
+    kernel path must instead be about as close to the reference as that
+    path is (within 2x, or 1e-2), the rule `check_against_f32` holds the
+    bf16 kernels to. The int8 judge needs it: at Llama-2-7B's widths with
+    random weights, W8A8 itself moves the logits several times as far as
+    the weight-only path's bf16 rounding does (PERF.md, §6)."""
     l = batch["tokens"].shape[1]
     max_len = engine.cache_length(l, 8)
     ref32 = convert.dequantized_copy(model, cfg, torch.float32)
     logits, tok0 = {}, None
-    paths = (("f32 plain", ref32, "xla", "bf16", "1"), ("kernels", model, "auto", "int8", "1"),
-             ("weight-only plain", model, "xla", "bf16", "0"))
+    paths = [("f32 plain", ref32, "xla", "bf16", "1"),
+             ("kernels", model, "auto", cache_format, "1"),
+             ("weight-only plain", model, "xla", "bf16", "0")]
+    if same_arithmetic:
+        paths.append(("W8A8 plain", model, "xla", cache_format, "1"))
     for name, m, impl, fmt, w8a8 in paths:
         os.environ["RADVLM_W8A8"] = w8a8
         try:
-            cache, cache_seg, lg = engine.prefill(m, cfg, batch, max_len, attn_impl=impl,
-                                                  cache_format=fmt)
-            if tok0 is None:  # every path decodes the reference's greedy token
-                tok0 = lg.argmax(-1)
-            _, _, lg1 = engine.decode_step(m, cfg, cache, cache_seg, tok0, batch["lengths"], l,
-                                           attn_impl=impl)
+            with plain_matmuls() if name == "W8A8 plain" else contextlib.nullcontext():
+                cache, cache_seg, lg = engine.prefill(m, cfg, batch, max_len, attn_impl=impl,
+                                                      cache_format=fmt)
+                if tok0 is None:  # every path decodes the reference's greedy token
+                    tok0 = lg.argmax(-1)
+                _, _, lg1 = engine.decode_step(m, cfg, cache, cache_seg, tok0, batch["lengths"],
+                                               l, attn_impl=impl)
         finally:
             os.environ.pop("RADVLM_W8A8")
         logits[name] = (lg.float(), lg1.float())
@@ -1242,15 +1363,22 @@ def reference_check_int8(model, cfg, tok, rng) -> None:
     for i, stage in enumerate(("prefill", "decode")):
         ref = logits["f32 plain"][i]
         err = {}
-        for name in ("kernels", "weight-only plain"):
+        for name, _, _, _, _ in paths[1:]:
             out = logits[name][i]
             if out.shape != ref.shape or not torch.isfinite(out).all():
                 raise AssertionError(f"int8 reference check: {name} {stage} logits malformed")
             err[name] = float((out - ref).abs().max() / ref.abs().max())
-        bound = 2 * err["weight-only plain"] + 0.03
-        print(f"  int8 {stage} logits [{ref.shape[0]},{ref.shape[1]}], prompt {l} tokens, max rel "
-              f"err vs f32: kernels {err['kernels']:.3e}, weight-only plain "
-              f"{err['weight-only plain']:.3e} (bound {bound:.3e}); argmax f32 "
+        if same_arithmetic:
+            bound = max(2 * err["W8A8 plain"], 1e-2)
+            plain = logits["W8A8 plain"][i]
+            gap = float((logits["kernels"][i] - plain).abs().max() / ref.abs().max())
+            w8a8_plain = (f", W8A8 plain {err['W8A8 plain']:.3e} (argmax {int(plain.argmax())}; "
+                          f"the kernels off it by {gap:.3e})")
+        else:
+            bound, w8a8_plain = 2 * err["weight-only plain"] + 0.03, ""
+        print(f"  {label}{stage} logits [{ref.shape[0]},{ref.shape[1]}], prompt {l} tokens, max "
+              f"rel err vs f32: kernels {err['kernels']:.3e}, weight-only plain "
+              f"{err['weight-only plain']:.3e}{w8a8_plain} (bound {bound:.3e}); argmax f32 "
               f"{int(ref.argmax())}, kernels {int(logits['kernels'][i].argmax())}", flush=True)
         if not err["kernels"] <= bound:
             raise AssertionError(f"int8 reference check: kernel path off the f32 {stage} logits")
@@ -1349,7 +1477,8 @@ def phase_int8(dev, seed: int):
 
 @torch.inference_mode()
 def engine_chunks(b, cfg, tok, req, image, label: str = "int8") -> float:
-    """Every slot filled (the engine thread is stopped), then three greedy
+    """Every slot filled with `req`'s prompt (and `image`, if not None; the
+    engine thread is stopped), then three greedy
     decode chunks (verify chunks on a spec engine): one under
     torch.cuda.set_sync_debug_mode("error"), which raises on any host sync
     inside it; one timed by the host's clock; one under torch.profiler
@@ -1358,7 +1487,7 @@ def engine_chunks(b, cfg, tok, req, image, label: str = "int8") -> float:
     from torch.profiler import ProfilerActivity, profile
 
     sample = multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, req["prompt"]),
-                                     [image], cfg)
+                                     [] if image is None else [image], cfg)
     for _ in range(b.num_slots):
         b.submit(sample, 4 * b.steps_per_sync)
     pending = []
@@ -1944,6 +2073,313 @@ def phase_eval(ctx, seed: int):
     return counts
 
 
+def write_judge(path: str, seed: int, dev) -> int:
+    """An HF Llama directory at LLAMA2_7B's widths and depth under `path`:
+    random bf16 weights made on the card from `seed` (matrices N(0, 0.02),
+    norm scales 1), written by `safetensors_io.write_file`, and its
+    config.json. Fails before writing if the disk cannot hold it. Returns
+    the bytes written."""
+    c = LLAMA2_7B
+    d, f, v = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    shapes = {"model.embed_tokens.weight": (v, d), "model.norm.weight": (d,),
+              "lm_head.weight": (v, d)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        shapes.update({p + "input_layernorm.weight": (d,),
+                       p + "post_attention_layernorm.weight": (d,),
+                       p + "mlp.gate_proj.weight": (f, d), p + "mlp.up_proj.weight": (f, d),
+                       p + "mlp.down_proj.weight": (d, f)})
+        shapes.update({p + f"self_attn.{n}_proj.weight": (d, d) for n in "qkvo"})
+    size = 2 * sum(math.prod(s) for s in shapes.values())
+    os.makedirs(path)
+    free = shutil.disk_usage(path).free
+    print(f"  judge checkpoint: {len(shapes)} tensors, {size / 1e9:.3f} GB; "
+          f"{free / 1e9:.1f} GB free on its disk before the write", flush=True)
+    if free < size + 2 ** 30:
+        raise AssertionError(f"{free} bytes free, the judge checkpoint needs {size} + 1 GiB")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tensors = {}
+    for name, shape in shapes.items():
+        t = torch.empty(shape, device=dev, dtype=torch.bfloat16)
+        tensors[name] = t.fill_(1.0) if name.endswith("norm.weight") else t.normal_(
+            0.0, 0.02, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    safetensors_io.write_file(tensors, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(c, fh, indent=2)
+    del tensors
+    torch.cuda.empty_cache()
+    print(f"  wrote it in {time.perf_counter() - t0:.2f} s", flush=True)
+    return size
+
+
+def green_pairs(rng, n: int):
+    """`n` synthetic (reference, candidate) report pairs from REPORT_SENTENCES."""
+    pick = lambda k: " ".join(rng.choice(REPORT_SENTENCES, k, replace=False))
+    return [(pick(int(rng.integers(3, 6))), pick(int(rng.integers(2, 5)))) for _ in range(n)]
+
+
+def record_lengths(b) -> list:
+    """The prompt lengths `b.submit` receives from now on, in a list."""
+    lengths, submit = [], b.submit
+
+    def recording_submit(sample, *args, **kw):
+        lengths.append(sample.length)
+        return submit(sample, *args, **kw)
+
+    b.submit = recording_submit
+    return lengths
+
+
+def judge_kernels(eng, prompt_lengths, seed: int, label: str) -> None:
+    """The kernels of a judge's path at the judge's own shapes, against
+    their plain versions: K2 on a fill of the prompt bucket left-padded to
+    the shortest and to the longest prompt (MHA, 32 heads of 128), K9 on
+    the engine's own bf16 cache after its run (every slot, the first and the
+    last layer) and, for the int8 judge, K3 at a fill's rows and K5/K6 at
+    the slots' rows on the last layer's and the lm_head's own weights."""
+    b, tcfg, text = eng.batcher, eng.cfg.text, eng.model.text
+    dev = eng.model.device
+    if b.kv_quant:
+        raise AssertionError(f"{label}: the judge's cache is int8, its path has no K9")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    h, hkv, hd = tcfg.num_heads, tcfg.num_kv_heads, tcfg.head_dim
+    rows = min(x for x in b.prompt_buckets if x >= max(prompt_lengths))
+    q, k, v = randn(2, rows, h, hd), randn(2, rows, hkv, hd), randn(2, rows, hkv, hd)
+    seg = torch.ones((2, rows), dtype=torch.int32, device=dev)
+    seg[0, :rows - min(prompt_lengths)] = 0
+    seg[1, :rows - max(prompt_lengths)] = 0
+    out = fa.prefill_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, causal=True)
+    torch.cuda.synchronize()
+    check_close("prefill_attention", f"{label} K2 prefill_attention [2,{rows},{h}|{hkv},{hd}]",
+                out, fa.attention_plain(q, k, v, seg, seg, True, hd ** -0.5), rows=seg.bool())
+    if out[~seg.bool()].abs().max() != 0:
+        raise AssertionError(f"{label} K2: padding rows must be 0")
+    del q, k, v, out
+    ck, cv = b.cache
+    visible = (b.cache_seg != 0).sum(1).tolist()
+    if min(visible) == 0:
+        raise AssertionError(f"{label} K9: a slot of the engine's cache holds no key: {visible}")
+    qd = randn(b.num_slots, h, hd)
+    for layer in (0, tcfg.num_layers - 1):
+        out = da.decode_attention_stacked(qd, ck, cv, b.cache_seg, layer, num_kv_heads=hkv)
+        torch.cuda.synchronize()
+        check_close("decode_attention", f"{label} K9 decode_attention [{b.num_slots},{h},{hd}] x "
+                    f"layer {layer} of the engine's cache [{b.num_slots},{b.max_len},{hkv * hd}] "
+                    f"({min(visible)}-{max(visible)} keys a slot)", out,
+                    da.decode_attention_plain(qd, ck[layer], cv[layer], b.cache_seg,
+                                              num_kv_heads=hkv, scale=hd ** -0.5))
+    if not isinstance(text.lm_head, QLinear):
+        return
+    blk = text.layers[-1]
+    for name, lin in (("qkv", blk.qkv), ("o", blk.o), ("gateup", blk.gateup),
+                      ("down", blk.down), ("lm_head", text.lm_head)):
+        n, kk = lin.weight.shape
+        if name != "lm_head":  # the lm_head of a fill is weight-only
+            xq, xs = w8.quantize_rows(randn(rows, kk))
+            out = w8.w8a8_matmul(xq, xs, lin.weight, lin.scale)
+            torch.cuda.synchronize()
+            check_close("w8a8_matmul", f"{label} K3 w8a8_matmul {name} [{rows},{kk}]x[{kk},{n}]",
+                        out, w8.w8a8_matmul_plain(xq, xs[:, 0], lin.weight, lin.scale,
+                                                  torch.bfloat16))
+            del xq, xs, out
+        x = randn(b.num_slots, kk)
+        out = i8.int8_matmul(x, lin.weight, lin.scale)
+        torch.cuda.synchronize()
+        check_close("int8_matmul", f"{label} K5/K6 int8_matmul {name} "
+                    f"[{b.num_slots},{kk}]x[{kk},{n}]", out,
+                    i8.int8_matmul_plain(x, lin.weight, lin.scale))
+
+
+def phase_text_lm(ctx, seed: int):
+    """The GREEN judge and the local LLM client at Llama-2-7B's full width
+    and depth (TextLMEngine on the continuous engine, the bf16 cache): a
+    checkpoint written under build/, the bf16 judge scoring JUDGE_PAIRS
+    report pairs through `make_torch_judge` + `green_batched`, then the int8
+    judge as a `LocalTorchClient` driving `synth.filter_reports` and judging
+    `evaluate_conversations`, whose replay runs on phase 5's int8 model.
+    Returns the launch counts of the bf16 and the int8 judge's runs."""
+    from radvlm_tpu_torch.data.llm_clients import LocalTorchClient
+    from radvlm_tpu_torch.data.synth import filter_reports
+    from radvlm_tpu_torch.eval.conversations import evaluate_conversations
+    from radvlm_tpu_torch.eval.green_cli import make_torch_judge
+    from radvlm_tpu_torch.eval.metrics.clinical import green_batched, green_prompt
+
+    t_phase = time.perf_counter()
+    dev = ctx["model"].device
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_judge_{os.getpid()}")
+    tok = JudgeTokenizer(LLAMA2_7B["vocab_size"])
+    rng = np.random.default_rng(seed + 17)
+    counts = {}
+    try:
+        write_judge(root, seed + 5, dev)
+
+        # The bf16 judge.
+        t0 = time.perf_counter()
+        judge = make_torch_judge(root, num_slots=JUDGE_SLOTS, max_new_tokens=JUDGE_NEW,
+                                 tokenizer=tok)
+        eng = judge.engine
+        b = eng.batcher
+        torch.cuda.synchronize()
+        print(f"  bf16 judge: load {time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card "
+              f"(phase 5's int8 model included), cache [{b.num_slots} x {b.max_len}], "
+              f"buckets {b.prompt_buckets}", flush=True)
+        pairs = green_pairs(rng, JUDGE_PAIRS)
+        prompts = [green_prompt(r, h) for r, h in pairs]
+        try:
+            ids = tok(prompts[0]).input_ids
+            batch = multimodal.collate([multimodal.build_sample(ids, [], eng.cfg)],
+                                       pad_tiles=1, pad_to_multiple=128, left_pad=True)
+            check_against_f32(eng.model, eng.cfg, batch_to_device(batch, dev), "judge ")
+            responses = []
+
+            def batch_judge(ps):
+                out = judge(ps)
+                responses.extend(out)
+                return out
+
+            fill_lengths = record_lengths(b)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            b.host_stats = dict.fromkeys(b.host_stats, 0)
+            t0 = time.perf_counter()
+            mean, scores = green_batched([r for r, _ in pairs], [h for _, h in pairs],
+                                         batch_judge)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts["text_lm"] = kernels.launch_counts()
+            hs = dict(b.host_stats)
+            if len(responses) != JUDGE_PAIRS or len(scores) != JUDGE_PAIRS or not all(
+                    responses):
+                raise AssertionError(f"GREEN: {len(responses)} responses, scores {scores}")
+            lengths = sorted(len(tok(p).input_ids) for p in prompts)
+            print(f"  GREEN over {JUDGE_PAIRS} pairs (prompts {lengths[0]}-{lengths[-1]} tokens, "
+                  f"{JUDGE_SLOTS} slots, {JUDGE_NEW} new tokens): {wall:.3f} s, "
+                  f"{JUDGE_PAIRS / wall:.3f} pairs/s, {hs['tokens']} tokens, "
+                  f"{hs['tokens'] / wall:.1f} decode tokens/s; mean {mean:.4f} over "
+                  f"{sum(s is not None for s in scores)} parsed; {nvidia_smi_line()}", flush=True)
+            print(f"  host_stats: { {k: round(v, 3) for k, v in hs.items()} }", flush=True)
+            print(f"  launches in the measured run: {counts['text_lm']}", flush=True)
+            print(f"  provenance: {b.kernel_provenance()}", flush=True)
+            require_launched("text_lm", counts["text_lm"])
+            judge_kernels(eng, fill_lengths, seed + 19, "bf16 judge")
+            if judge(prompts) != responses:
+                raise AssertionError("a repeat of the GREEN batch gave other tokens")
+            t0 = time.perf_counter()
+            alone = [eng.generate(p) for p in prompts]
+            if alone != responses:
+                bad = [i for i, (a, r) in enumerate(zip(alone, responses)) if a != r]
+                raise AssertionError(f"requests {bad} gave other tokens alone than in the batch")
+            print(f"  a repeat of the batch gave the same tokens, and each request alone "
+                  f"({time.perf_counter() - t0:.2f} s for {JUDGE_PAIRS}) its batch tokens",
+                  flush=True)
+        finally:
+            eng.shutdown()
+        engine_chunks(b, eng.cfg, tok, {"prompt": prompts[0]}, None, label="bf16 judge")
+        del judge, eng, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The int8 judge as the pipelines' local LLM client.
+        t0 = time.perf_counter()
+        client = LocalTorchClient(root, int8=True, num_slots=JUDGE_SLOTS, max_tokens=JUDGE_NEW,
+                                  template="llama_2", tokenizer=tok)
+        b = client.engine.batcher
+        torch.cuda.synchronize()
+        print(f"  int8 judge (LocalTorchClient, llama_2 template): load + quantize "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card", flush=True)
+        try:
+            ids = tok(prompts[0]).input_ids
+            batch = multimodal.collate([multimodal.build_sample(ids, [], client.engine.cfg)],
+                                       pad_tiles=1, pad_to_multiple=128, left_pad=True)
+            check_int8_against_f32(client.engine.model, client.engine.cfg,
+                                   batch_to_device(batch, dev), "bf16", "int8 judge ",
+                                   same_arithmetic=True)
+            reports = [{"study_id": f"s{i:02d}", "txt": text}
+                       for i, (text, _) in enumerate(green_pairs(rng, JUDGE_REPORTS))]
+            out_dir = os.path.join(root, "filtered_reports")
+            fill_lengths = record_lengths(b)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            b.host_stats = dict.fromkeys(b.host_stats, 0)
+            t0 = time.perf_counter()
+            n = filter_reports(reports, client, out_dir, num_workers=JUDGE_REPORTS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts["text_lm_int8"] = kernels.launch_counts()
+            hs = dict(b.host_stats)
+            files = sorted(os.listdir(out_dir))
+            if n != JUDGE_REPORTS or files != [f"{r['study_id']}.txt" for r in reports]:
+                raise AssertionError(f"filter_reports wrote {n}: {files}")
+            print(f"  filter_reports over {JUDGE_REPORTS} reports ({JUDGE_REPORTS} threads): "
+                  f"{wall:.3f} s, {JUDGE_REPORTS / wall:.3f} reports/s, {hs['tokens']} tokens, "
+                  f"{hs['tokens'] / wall:.1f} decode tokens/s; {nvidia_smi_line()}", flush=True)
+            print(f"  host_stats: { {k: round(v, 3) for k, v in hs.items()} }", flush=True)
+            print(f"  launches in the measured run: {counts['text_lm_int8']}", flush=True)
+            prov = b.kernel_provenance()
+            print(f"  provenance: {prov}", flush=True)
+            if prov["prefill_matmul"] != "w8a8" or prov["decode_matmul"] != "int8":
+                raise AssertionError(f"the int8 judge's matmul routes: {prov}")
+            require_launched("text_lm_int8", counts["text_lm_int8"])
+            judge_kernels(client.engine, fill_lengths, seed + 23, "int8 judge")
+
+            # Conversations replayed on phase 5's int8 model, judged by the client.
+            runner = VLMRunner(model=ctx["model"], cfg=ctx["cfg"], tokenizer=ctx["tok"],
+                               max_new_tokens=CONV_NEW_TOKENS, batch_size=1,
+                               pad_to_multiple=128, fuse=False)
+            answers, verdicts = [], []
+            replay = runner.generate_batch
+
+            def counted_replay(prompts_, images_, **kw):
+                out = replay(prompts_, images_, **kw)
+                answers.extend(out)
+                return out
+
+            runner.generate_batch = counted_replay
+
+            class CountingJudge:
+                def complete(self, p):
+                    verdicts.append(client.complete(p))
+                    return verdicts[-1]
+
+            convs = [{"img": cxr_image(rng), "conversation": [
+                {"from": "human", "value": QUESTIONS[i % 4]}, {"from": "gpt", "value": "No."},
+                {"from": "human", "value": QUESTIONS[(i + 1) % 4]},
+                {"from": "gpt", "value": "Stable."}]} for i in range(JUDGE_CONVERSATIONS)]
+            t0 = time.perf_counter()
+            res = evaluate_conversations(runner, convs, CountingJudge(),
+                                         output_path=os.path.join(root, "conv_eval.json"))
+            wall = time.perf_counter() - t0
+            if len(answers) != 2 * JUDGE_CONVERSATIONS or len(verdicts) != JUDGE_CONVERSATIONS \
+                    or not all(isinstance(a, str) for a in answers) or not all(verdicts):
+                raise AssertionError(f"conversations: {len(answers)} answers, "
+                                     f"{len(verdicts)} verdicts")
+            print(f"  evaluate_conversations over {JUDGE_CONVERSATIONS} two-turn conversations: "
+                  f"{wall:.3f} s ({2 * JUDGE_CONVERSATIONS} replays of {CONV_NEW_TOKENS} tokens "
+                  f"on the radvlm_7b int8 model, {JUDGE_CONVERSATIONS} verdicts of "
+                  f"{JUDGE_NEW} tokens); mean {res['mean_score']:.2f} over n = {int(res['n'])} "
+                  f"parsed (random weights)", flush=True)
+        finally:
+            client.shutdown()
+        engine_chunks(b, client.engine.cfg, tok, {"prompt": prompts[0]}, None,
+                      label="int8 judge")
+        del client, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 7d: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def write_training_data(root: str, rng, n_pairs: int) -> str:
     """A llava-json under `root`: `n_pairs` cells with a synthetic CXR-sized
     PNG each (portrait, 560 x 400-448: ~3.1k tokens with its text) and as
@@ -2290,6 +2726,11 @@ def main():
 
     header("[7c/9] evaluation: build_task_dataset + run_task on the int8 model")
     counts["eval"] = phase_eval(ctx, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[7d/9] text-LM serving: the GREEN judge (Llama-2-7B) and the local LLM client")
+    counts.update(phase_text_lm(ctx, args.seed))
     del ctx  # the int8 model goes before the trainers' come
     gc.collect()
     torch.cuda.empty_cache()

@@ -290,16 +290,13 @@ def _run_continuous(
         longest = max(longest, mm.length)
     bucket = -(-longest // 128) * 128
     max_len = bucket + (-(-runner.max_new_tokens // 128) * 128)
-    kv_quant = runner.kv_quant
-    if kv_quant is None:
-        kv_quant = os.environ.get("RADVLM_KV_INT8", "0") == "1"
     batcher = ContinuousBatcher(
         runner.model, runner.cfg, gen,
         num_slots=runner.batch_size,
         max_len=max_len,
         prompt_buckets=(bucket,),
         attn_impl=runner.attn_impl,
-        kv_quant=kv_quant,
+        kv_quant=runner.kv_quant,
     )
     sizing_s = time.perf_counter() - t0
     # Pass 2: a feeder thread builds and submits samples under a bounded
@@ -370,7 +367,7 @@ def _run_continuous(
     if stats is not None:
         stats.update(
             sizing_s=sizing_s, build_s=build_s[0], engine_wall_s=time.perf_counter() - t0,
-            bucket=bucket, max_len=max_len, kv_quant=kv_quant,
+            bucket=bucket, max_len=max_len, kv_quant=batcher.kv_quant,
             host_stats=dict(batcher.host_stats), provenance=batcher.kernel_provenance(),
         )
     return results

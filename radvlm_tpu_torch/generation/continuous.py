@@ -238,7 +238,7 @@ class ContinuousBatcher:
         seed: int = 0,
         steps_per_sync: int = 8,
         pipeline_depth: int = 2,
-        kv_quant: bool = False,
+        kv_quant: Optional[bool] = None,  # None -> RADVLM_KV_INT8 (default off)
         fill_batch: int = 1,
         mesh: Optional[Any] = None,
         spec_k: Optional[int] = None,  # None -> RADVLM_SPEC_K (default 0)
@@ -255,6 +255,8 @@ class ContinuousBatcher:
         self.attn_impl = attn_impl
         self.steps_per_sync = max(1, steps_per_sync)
         self.pipeline_depth = max(0, pipeline_depth)
+        if kv_quant is None:
+            kv_quant = os.environ.get("RADVLM_KV_INT8", "0") == "1"
         self.kv_quant = bool(kv_quant)
         self.fill_batch = max(1, int(fill_batch))
         if spec_k is None:

@@ -50,7 +50,7 @@ class BatchWorker:
         prompt_bucket: int = 4096,
         controller_address: Optional[str] = None,
         worker_address: str = "",
-        kv_quant: bool = False,
+        kv_quant: Optional[bool] = None,  # None -> RADVLM_KV_INT8 (the batcher reads it)
         fleet: Optional[int] = None,
         **engine_kw,  # ContinuousBatcher options: prompt_buckets, steps_per_sync, ...
     ):

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -86,7 +85,6 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
     if args.engine == "continuous":
         from radvlm_tpu_torch.serve.batch_worker import BatchWorker
 
-        engine_kw.setdefault("kv_quant", os.environ.get("RADVLM_KV_INT8", "0") == "1")
         return BatchWorker(
             runner,
             model_names=model_names,

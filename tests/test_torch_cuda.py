@@ -90,6 +90,7 @@ K2_CASES = [
     (1, 129, 1000, 4, 1, 128, True, "cache"),  # Sk > Sq, one row past a tile
     (2, 200, 200, 4, 4, 16, False, None),  # D = 16
     (1, 129, 129, 6, 3, 30, True, "packed"),  # D % 8 != 0: 4-byte staging
+    (2, 2048, 2048, 32, 32, 128, True, "left_pad"),  # Llama-2-7B (the GREEN judge), MHA
 ]
 
 
@@ -157,6 +158,7 @@ K9_CASES = [
     (2, 1000, 14, 2, 64, 0),  # Qwen2-0.5B, S not a multiple of 64
     (1, 77, 8, 1, 128, 1),  # one kv head for eight query heads
     (3, 300, 4, 4, 32, 2),  # no GQA
+    (8, 3584, 32, 32, 128, 1),  # Llama-2-7B (the GREEN judge): 8 slots, MHA
 ]
 
 
@@ -316,7 +318,10 @@ def _int8(gen, dev, *shape):
 # (M, K, N): K = 4304 is no multiple of 32 and fc1 has 4304 columns (the
 # SigLIP MLP); M = 729 x 5 tower rows; a Qwen2-7B prefill shape; odd N.
 K3_CASES = [(1, 4304, 1152), (65, 1152, 4304), (729 * 5, 4304, 1152),
-            (3456, 3584, 4608), (200, 64, 129)]
+            (3456, 3584, 4608), (200, 64, 129),
+            # Llama-2-7B (the int8 GREEN judge), a 2048-token fill: fused qkv,
+            # o, fused gateup, down.
+            (2048, 4096, 12288), (2048, 4096, 4096), (2048, 4096, 22016), (2048, 11008, 4096)]
 # The edges of K3's tiles: 129 rows (one past a 128-row tile) with a K whose
 # last 128-byte box is partial and N = 129 (one past a multiple of 8 and
 # 128); 65 rows (one past a 64-row warpgroup) over a few 256-column tiles.
@@ -399,9 +404,13 @@ def test_k4_empty_row_is_zero(dev):
 
 # (rows, K, N): 1-64 rows; the Qwen2-7B qkv / down / gateup / lm_head
 # shapes (40 rows: a verify step of 8 slots x 5); an odd N and a K that is
-# no multiple of 64.
+# no multiple of 64; the Llama-2-7B judge's five decode projections.
 K5_CASES = [(1, 3584, 4608), (8, 18944, 3584), (33, 3584, 37888), (64, 3584, 4608),
-            (8, 3584, 152064), (40, 3584, 37888), (5, 112, 131), (64, 48, 3), (17, 4864, 896)]
+            (8, 3584, 152064), (40, 3584, 37888), (5, 112, 131), (64, 48, 3), (17, 4864, 896),
+            # Llama-2-7B (the int8 GREEN judge) at 8 slots: fused qkv, o,
+            # fused gateup, down, lm_head.
+            (8, 4096, 12288), (8, 4096, 4096), (8, 4096, 22016), (8, 11008, 4096),
+            (8, 4096, 32000)]
 
 
 @pytest.mark.parametrize("case", K5_CASES)

@@ -166,7 +166,9 @@ def test_port_runs_with_jax_blocked():
     step and two QLoRA steps (optax, orbax and flax blocked too), and
     evaluation runs `run_task` on a classification and a grounding split
     and `eval.cli` on a saved int8 artifact (pandas and sklearn blocked
-    too)."""
+    too), and a tiny Llama judge serves `green_cli.main` through
+    `TextLMEngine`, and through the int8 `LocalTorchClient` drives
+    `filter_reports` and judges `evaluate_conversations`."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -321,6 +323,74 @@ def test_port_runs_with_jax_blocked():
                                  "cpu"], tokenizer=Tok())
         assert os.path.exists(f"{data}/cli/radvlm_abnormality_grounding.json")
         assert "mAP_0.5" in metrics
+        # Text-LM serving and the LLM-judged evaluation: a tiny Llama written
+        # by the port's safetensors writer, the GREEN CLI on TextLMEngine, the
+        # int8 local client driving filter_reports and judging a conversation.
+        import json
+        from radvlm_tpu_torch.data.llm_clients import LocalTorchClient
+        from radvlm_tpu_torch.data.synth import filter_reports
+        from radvlm_tpu_torch.eval import green_cli
+        from radvlm_tpu_torch.eval.conversations import evaluate_conversations
+        from radvlm_tpu_torch.models.safetensors_io import write_file
+
+        class HFTok:  # the methods TextLMEngine calls on an HF tokenizer
+            eos_token_id, pad_token_id, unk_token_id = 1, 0, None
+
+            def __call__(self, text, add_special_tokens=True):
+                return type("Encoding", (), {"input_ids": Tok.encode(text)})()
+
+            def decode(self, ids, skip_special_tokens=True):
+                return "".join(chr(0x100 + i) for i in ids)
+
+            def convert_tokens_to_ids(self, token):
+                return None
+
+        lm = f"{data}/llama"
+        os.makedirs(lm)
+        g = torch.Generator().manual_seed(6)
+        d, f, v = 32, 64, 300
+        shapes = {"model.embed_tokens.weight": (v, d), "model.norm.weight": (d,),
+                  "lm_head.weight": (v, d)}
+        for i in range(2):
+            p = f"model.layers.{i}."
+            shapes.update({p + "input_layernorm.weight": (d,),
+                           p + "post_attention_layernorm.weight": (d,),
+                           p + "mlp.gate_proj.weight": (f, d), p + "mlp.up_proj.weight": (f, d),
+                           p + "mlp.down_proj.weight": (d, f)})
+            shapes.update({p + f"self_attn.{n}_proj.weight": (d, d) for n in "qkvo"})
+        write_file({k: torch.randn(s, generator=g) * 0.1 for k, s in shapes.items()},
+                   f"{lm}/model.safetensors")
+        with open(f"{lm}/config.json", "w") as fh:
+            json.dump({"model_type": "llama", "vocab_size": v, "hidden_size": d,
+                       "intermediate_size": f, "num_hidden_layers": 2,
+                       "num_attention_heads": 4, "num_key_value_heads": 4,
+                       "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+                       "max_position_embeddings": 4096, "tie_word_embeddings": False}, fh)
+        with open(f"{data}/outputs.json", "w") as fh:
+            json.dump([{"txt": "No acute findings.", "output": "Normal chest."}], fh)
+        mean, scores = green_cli.main(["--outputs", f"{data}/outputs.json", "--judge-model", lm,
+                                       "--judge-slots", "2", "--device", "cpu"],
+                                      tokenizer=HFTok())
+        assert len(scores) == 1
+        client = LocalTorchClient(lm, template="llama_2", max_tokens=4, num_slots=2,
+                                  int8=True, device="cpu", tokenizer=HFTok())
+        calls = []
+
+        class Judge:
+            def complete(self, prompt):
+                calls.append(prompt)
+                return client.complete(prompt)
+
+        try:
+            reports = [{"study_id": f"s{i}", "txt": f"Report {i}."} for i in range(3)]
+            assert filter_reports(reports, client, f"{data}/filtered", num_workers=3) == 3
+            convs = [{"img": img, "conversation": [{"from": "human", "value": "Effusion?"},
+                                                   {"from": "gpt", "value": "No."}]}]
+            res = evaluate_conversations(runner, convs, Judge(), output_path=f"{data}/conv.json")
+        finally:
+            client.shutdown()
+        assert len(calls) == 1 and set(res) == {"mean_score", "n"}
+        assert os.path.exists(f"{data}/conv.json")
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn"):
