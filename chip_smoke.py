@@ -114,7 +114,7 @@ Phases, each raising on failure (the last line is printed only on success):
    one GREEN prompt (prefill and first-decode logits, `check_against_f32`),
    then `green_batched` over 16 synthetic report pairs with the launch
    counts reset: K2 and K9 must have launched; pairs/s, decode tokens/s and
-   host_stats are printed; then `judge_kernels` holds K2 (a fill of the
+   host_stats are printed; then `engine_kernels` holds K2 (a fill of the
    prompt bucket, left-padded to the run's shortest and longest prompt) and
    K9 (the engine's own cache after the run, its first and last layer) to
    their plain versions at the judge's shapes; a repeat of the batch and
@@ -125,7 +125,7 @@ Phases, each raising on failure (the last line is printed only on success):
    GREEN prompt with the bf16 cache (`check_int8_against_f32`), then
    `synth.filter_reports` over 8 synthetic reports (8 files; K2, K3, K5/K6
    and K9 must have launched, and the provenance must name the W8A8 fill
-   and the int8 decode), `judge_kernels` again, now with K3 at a fill's
+   and the int8 decode), `engine_kernels` again, now with K3 at a fill's
    rows and K5/K6 at 8 rows on the last layer's and the lm_head's own int8
    weights, and `evaluate_conversations` over 4 two-turn conversations replayed on
    phase 5's int8 model, the client as the judge: every replay must give
@@ -155,7 +155,40 @@ Phases, each raising on failure (the last line is printed only on success):
    the card, rank-128 adapters, 2 steps of one packed 4096-token row through
    `training.loop.train`: the adapters change, the base's bytes do not, K7
    and K8 launch 28 times a step at head_dim 128, K1 serves the frozen
-   tower, K3 and K5/K6 never launch.
+   tower, K3 and K5/K6 never launch;
+10. DPO and GRPO, radvlm_0_5b at full width and depth, f32 master weights
+   made on the card from --seed, the language model tunable (the tower and
+   projector frozen, the trainers' default), remat on. DPO: a reference check
+   of the DPO loss and its per-group gradient norms on one small pair batch
+   (the rule of phase 8, against a reference model whose final norm is
+   perturbed), then `dpo.train_dpo` over a preference json of synthetic
+   CXR-sized PNGs written under build/: 2 pairs a micro-step in the 4096
+   bucket, 4 steps with a checkpoint, then a fresh model of the same seed
+   resumes from it for 2 more (its reference the starting point, its policy
+   the checkpoint's). The first step's loss must be ln 2 to within 1e-3
+   (policy = reference); K1 (4 tower passes a step), K2 (the reference's two
+   decoder passes), K2-lse, K7 and K8 (the policy's two) must launch exactly
+   that often and nothing else must; 4 constant-rate steps on one pair batch
+   must raise the reward margin; one step is profiled. 10b. GRPO:
+   `grpo.train_grpo` over a GRPO-REC jsonl of synthetic CXR images with the
+   rec reward, 2 prompts x 4 completions a wave, temperature 1, 32 new
+   tokens, the rollouts through a ContinuousBatcher (8 slots, the 4096
+   prompt bucket, max_len 4608, 6 pad tiles, the bf16 cache) over a bf16
+   copy of the policy, 2 waves at mu = 1 and then a run of one wave at
+   mu = 2. A byte tokenizer that reads one id in 8 as a box lets the random
+   model's completions earn rewards that differ. Every wave's first update
+   must be unclipped, each run's first at KL < 1e-5 (the policy is its
+   reference), and after every weight sync the rollout copy must equal a
+   fresh bf16 copy of the policy, tensor for tensor. K1, K2 (fills and the
+   reference and score passes) and K9 (decode) must launch in the rollouts,
+   K2-lse, K7 and K8 in the updates, with exact counts (K9's a multiple of
+   the layers); seconds a wave (rollout, reward, update, sync), decode
+   tokens/s and peak memory are printed. The rollout engine is the one
+   `train_grpo` builds itself (a recording subclass of ContinuousBatcher
+   shows it to the phase). After the run `engine_kernels` holds K2 (a fill
+   of the 4096 bucket left-padded to the shortest and the longest rollout
+   prompt, 2 rows, GQA 14|2 x 64) and K9 (the last engine's own cache and
+   segment ids, every slot, layers 0 and 23) against their plain versions.
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -188,10 +221,12 @@ import torch
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import radvlm_0_5b, radvlm_7b
 from radvlm_tpu_torch.data.loader import Bucket, LlavaJsonDataset, PrefetchLoader
+from radvlm_tpu_torch.data.chat import QWEN_CHATML
 from radvlm_tpu_torch.data.datasets import CHEXPERT_PATHOLOGIES
 from radvlm_tpu_torch.eval.harness import (GT_FIELDS, VLMRunner, batch_to_device,
                                            build_task_dataset, run_task)
 from radvlm_tpu_torch.generation import engine
+from radvlm_tpu_torch.generation.engine import GenerationConfig
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
 from radvlm_tpu_torch.models import convert, multimodal, quant_io, radvlm, safetensors_io
 from radvlm_tpu_torch.models.layers import QLinear
@@ -207,6 +242,8 @@ from radvlm_tpu_torch.serve import openai_api as oai
 from radvlm_tpu_torch.serve import worker_cli
 from radvlm_tpu_torch.serve.batch_worker import BatchWorker
 from radvlm_tpu_torch.serve.worker import ModelWorker
+from radvlm_tpu_torch.training import dpo as dpo_lib
+from radvlm_tpu_torch.training import grpo as grpo_lib
 from radvlm_tpu_torch.training import loop as train_loop
 from radvlm_tpu_torch.training import lora as lora_lib
 from radvlm_tpu_torch.training import optimizer as optim
@@ -300,9 +337,23 @@ PATH_KERNELS = {
     # QLoRA: the decoder as above, the frozen tower through K1.
     "qlora": ("tower_attention", "prefill_attention_lse", "flash_attention_bwd_dkv",
               "flash_attention_bwd_dq"),
+    # DPO of radvlm_0_5b, the tower frozen: K1 in every pass, K2 in the
+    # reference's (no gradient), K2-lse, K7 and K8 in the policy's.
+    "dpo": ("tower_attention", "prefill_attention", "prefill_attention_lse",
+            "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+    # GRPO: the rollouts' fills (K1, K2) and decode over the bf16 cache (K9),
+    # the updates as DPO's.
+    "grpo": ("tower_attention", "prefill_attention", "decode_attention", "prefill_attention_lse",
+             "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
 }
 TRAIN_BUCKET = Bucket(4096, 6)
 SFT_STEPS, SFT_RESUMED_STEPS, OVERFIT_STEPS, QLORA_STEPS = 6, 2, 4, 2
+# Phase 10: DPO pairs a micro-step and steps (then a resume for more), GRPO
+# waves at mu = 1 and then at mu = 2, and the GRPO rollout engine.
+DPO_PAIRS, DPO_STEPS, DPO_RESUMED_STEPS = 2, 4, 2
+GRPO_CELLS, GRPO_WAVES = 4, 2
+GRPO = dict(prompts_per_wave=2, group_size=4, temperature=1.0, max_new_tokens=32, reward="rec")
+GRPO_SLOTS, GRPO_MAX_LEN, GRPO_PAD_TILES = 8, 4608, 6
 LORA_RANK = 128
 SPEC_K = 4
 K5_ROWS = (8, 32, 40)  # decode slots, and a verify step of 8 slots x (SPEC_K + 1)
@@ -2132,17 +2183,17 @@ def record_lengths(b) -> list:
     return lengths
 
 
-def judge_kernels(eng, prompt_lengths, seed: int, label: str) -> None:
-    """The kernels of a judge's path at the judge's own shapes, against
+def engine_kernels(b, prompt_lengths, seed: int, label: str) -> None:
+    """The kernels of a ContinuousBatcher's path at its own shapes, against
     their plain versions: K2 on a fill of the prompt bucket left-padded to
-    the shortest and to the longest prompt (MHA, 32 heads of 128), K9 on
-    the engine's own bf16 cache after its run (every slot, the first and the
-    last layer) and, for the int8 judge, K3 at a fill's rows and K5/K6 at
-    the slots' rows on the last layer's and the lm_head's own weights."""
-    b, tcfg, text = eng.batcher, eng.cfg.text, eng.model.text
-    dev = eng.model.device
+    the shortest and to the longest prompt it was given, K9 on the engine's
+    own bf16 cache after its run (every slot, the first and the last layer)
+    and, for an int8 model, K3 at a fill's rows and K5/K6 at the slots' rows
+    on the last layer's and the lm_head's own weights."""
+    tcfg, text = b.cfg.text, b.model.text
+    dev = b.model.device
     if b.kv_quant:
-        raise AssertionError(f"{label}: the judge's cache is int8, its path has no K9")
+        raise AssertionError(f"{label}: the engine's cache is int8, its path has no K9")
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
@@ -2269,7 +2320,7 @@ def phase_text_lm(ctx, seed: int):
             print(f"  launches in the measured run: {counts['text_lm']}", flush=True)
             print(f"  provenance: {b.kernel_provenance()}", flush=True)
             require_launched("text_lm", counts["text_lm"])
-            judge_kernels(eng, fill_lengths, seed + 19, "bf16 judge")
+            engine_kernels(b, fill_lengths, seed + 19, "bf16 judge")
             if judge(prompts) != responses:
                 raise AssertionError("a repeat of the GREEN batch gave other tokens")
             t0 = time.perf_counter()
@@ -2329,7 +2380,7 @@ def phase_text_lm(ctx, seed: int):
             if prov["prefill_matmul"] != "w8a8" or prov["decode_matmul"] != "int8":
                 raise AssertionError(f"the int8 judge's matmul routes: {prov}")
             require_launched("text_lm_int8", counts["text_lm_int8"])
-            judge_kernels(client.engine, fill_lengths, seed + 23, "int8 judge")
+            engine_kernels(b, fill_lengths, seed + 23, "int8 judge")
 
             # Conversations replayed on phase 5's int8 model, judged by the client.
             runner = VLMRunner(model=ctx["model"], cfg=ctx["cfg"], tokenizer=ctx["tok"],
@@ -2666,6 +2717,411 @@ def phase_qlora(dev, seed: int):
     return counts
 
 
+class BoxTokenizer(CharTokenizer):
+    """CharTokenizer whose decode reads every id divisible by 8 as a whole
+    box, "[x0, y0, x1, y1]" with coordinates taken from the id (a BPE
+    vocabulary has multi-character tokens too). A random model samples
+    nearly uniform ids, so through CharTokenizer it would never write a box
+    and every REC reward would be 0: no advantage, no update. Here about one
+    token in 8 is a box, at coordinates that differ, so the rewards of a
+    group differ and the policy moves."""
+
+    def decode(self, ids):
+        out = []
+        for i in ids:
+            if i % 8:
+                out.append(self._char(i))
+                continue
+            x0, y0 = (i // 8) % 6 / 10, (i // 48) % 6 / 10
+            out.append(f" [{x0:.2f}, {y0:.2f}, {x0 + 0.35:.2f}, {y0 + 0.4:.2f}] ")
+        return "".join(out)
+
+
+def write_preference_data(root: str, rng, n_pairs: int) -> str:
+    """A preference json under `root`: `n_pairs` cells, each a synthetic
+    CXR-sized PNG (portrait, 560 x 400-448), a question, and a chosen and a
+    rejected reply of different lengths (~3.1k tokens a side). Returns the
+    json's path."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    findings = ("No focal consolidation, pleural effusion or pneumothorax. The cardiac silhouette "
+                "is within normal limits. No acute osseous abnormality.")
+    cells = []
+    for i in range(n_pairs):
+        name = f"cxr{i}.png"
+        img = rng.integers(0, 255, size=(560, int(rng.integers(400, 448)), 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(root, name))
+        cells.append({"image": name, "prompt": "<image>\n" + QUESTIONS[i % len(QUESTIONS)],
+                      "chosen": findings, "rejected": REPORT_SENTENCES[i % len(REPORT_SENTENCES)]})
+    path = os.path.join(root, "prefs.json")
+    with open(path, "w") as f:
+        json.dump(cells, f)
+    return path
+
+
+def write_rec_data(root: str, rng, n: int) -> str:
+    """A GRPO-REC jsonl under `root` in `data/export.grpo_rec_cell`'s format:
+    `n` cells, each a synthetic CXR-sized PNG, a grounding question and its
+    solution box as JSON. Returns the jsonl's path."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    for i in range(n):
+        name = f"rec{i}.png"
+        Image.fromarray(cxr_image(rng)).save(os.path.join(root, name))
+        x0, y0 = float(rng.uniform(0.05, 0.5)), float(rng.uniform(0.05, 0.5))
+        box = [round(x0, 2), round(y0, 2), round(x0 + 0.3, 2), round(y0 + 0.35, 2)]
+        finding = CHEXPERT_PATHOLOGIES[i % len(CHEXPERT_PATHOLOGIES)]
+        lines.append(json.dumps({
+            "id": f"rec{i}", "image": name,
+            "problem": f"<image>\nLocate the {finding.lower()} on this chest X-ray. Output the "
+                       "bounding box as [x_min, y_min, x_max, y_max].",
+            "solution": json.dumps({"bbox": [box], "label": finding})}))
+    path = os.path.join(root, "rec.jsonl")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def dpo_reference_check(model, cfg, tok, rng) -> None:
+    """The DPO loss and per-group gradient norms on one small pair batch,
+    three ways as `training_reference_check`: the train step's path (bf16
+    autocast; K1, K2, K2-lse, K7, K8), plain attention under the same
+    autocast, and plain attention in f32 (the reference). The reference
+    model is the policy with its final norm's scale perturbed, so the loss
+    is not ln 2 by construction. The kernel path must be within 2x the
+    plain bf16 path's relative error, or 1e-2."""
+    img = rng.integers(0, 255, size=(384, 384, 3), dtype=np.uint8)
+    ids = multimodal.tokenize_with_images(
+        tok.encode, "<|im_start|>user\n<image>\nAny effusion?<|im_end|>\n<|im_start|>assistant\n")
+    sides = []
+    for reply in ("No pleural effusion.<|im_end|>\n", "Small left effusion.<|im_end|>\n"):
+        r = tok.encode(reply)
+        sample = multimodal.build_sample(ids + r, [img], cfg, labels=[-100] * len(ids) + r)
+        sides.append(batch_to_device(multimodal.collate([sample], pad_to_multiple=128),
+                                     model.device))
+    ref = dpo_lib.frozen_copy(model)
+    with torch.no_grad():
+        ref.text.norm.mul_(1 + 0.1 * torch.randn(ref.text.norm.shape, device=model.device,
+                                                 generator=torch.Generator(device=model.device)
+                                                 .manual_seed(0)))
+    got = {}
+    for name, impl, autocast in (("f32 plain", "xla", False), ("kernels", "auto", True),
+                                 ("bf16 plain", "xla", True)):
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            loss, _ = dpo_lib.dpo_loss(model, ref, cfg, dpo_lib.DPOConfig(), *sides,
+                                       attn_impl=impl)
+        loss.backward()
+        got[name] = dict(loss=float(loss.detach()), **group_grad_norms(model))
+    del ref
+    ref_vals = got["f32 plain"]
+    for key in ref_vals:
+        err = {n: abs(got[n][key] - ref_vals[key]) / abs(ref_vals[key])
+               for n in ("kernels", "bf16 plain")}
+        limit = max(2 * err["bf16 plain"], 1e-2)
+        print(f"  {key}: f32 plain {ref_vals[key]:.6f}, kernels {got['kernels'][key]:.6f} (rel "
+              f"err {err['kernels']:.3e}), bf16 plain {got['bf16 plain'][key]:.6f} (rel err "
+              f"{err['bf16 plain']:.3e}); limit {limit:.3e}", flush=True)
+        if not (np.isfinite(got["kernels"][key]) and err["kernels"] <= limit):
+            raise AssertionError(f"DPO reference check: kernel path off the f32 {key}")
+
+
+def dpo_counts_per_step(cfg) -> dict:
+    """Launches of one DPO step with the tower frozen and remat on: two
+    policy passes (a K1 per tower layer, a K2-lse per decoder layer in the
+    forward and again in the recompute, a K7 and a K8 in the backward) and
+    two reference passes (K1 and K2, no gradient)."""
+    t, v = cfg.text.num_layers, cfg.vision.num_layers
+    return {"tower_attention": 4 * v, "prefill_attention": 2 * t,
+            "prefill_attention_lse": 4 * t, "flash_attention_bwd_dkv": 2 * t,
+            "flash_attention_bwd_dq": 2 * t}
+
+
+def require_counts(label: str, counts: dict, want: dict) -> None:
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times, not {n}")
+    idle = [k for k, n in counts.items() if n and k not in want]
+    if idle:
+        raise AssertionError(f"{label}: kernels off the path launched: {idle}")
+
+
+def phase_dpo(dev, seed: int):
+    """DPO of radvlm_0_5b at full width and depth through `dpo.train_dpo`."""
+    cfg, tok = radvlm_0_5b(), CharTokenizer()
+    t0 = time.perf_counter()
+    model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+                                dtype=torch.float32)
+    train_cfg = optim.TrainConfig(learning_rate=1e-6, lr_schedule="constant", warmup_ratio=0.0,
+                                  grad_accum_steps=1, mm_tunable_parts="mm_language_model")
+    labels = optim.mark_trainable(model, train_cfg)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for n, p in model.named_parameters() if n in labels)
+    print(f"  radvlm_0_5b: {n_train / 1e6:.1f} M trainable f32 parameters (the language model; "
+          f"tower and projector frozen), init {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(seed + 5)
+    dpo_reference_check(model, cfg, tok, rng)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_dpo_{os.getpid()}")
+    try:
+        n_pairs = DPO_PAIRS * (DPO_STEPS + DPO_RESUMED_STEPS)
+        data_path = write_preference_data(root, rng, n_pairs)
+        run = train_loop.RunConfig(
+            model=cfg, train=train_cfg, data_path=data_path, image_root=root,
+            micro_batch_size=DPO_PAIRS, max_steps=DPO_STEPS, log_every=1,
+            buckets=(TRAIN_BUCKET,), checkpoint_dir=os.path.join(root, "ckpt"),
+            save_steps=DPO_STEPS, seed=seed)
+        seen, t_prev = [], [time.perf_counter()]
+
+        def on_metrics(step, m):
+            now = time.perf_counter()
+            seen.append((step, m, now - t_prev[0]))
+            t_prev[0] = now
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = dpo_lib.train_dpo(run, tok.encode, init_params=model, metrics_callback=on_metrics)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        for step, m, dt in seen:
+            print(f"  DPO step {step}: loss {m['loss']:.6f}, reward_accuracy "
+                  f"{m['reward_accuracy']:.2f}, chosen_reward {m['chosen_reward']:.3e}, "
+                  f"rejected_reward {m['rejected_reward']:.3e}, reward_margin "
+                  f"{m['reward_margin']:.3e}, grad_norm {m['grad_norm']:.4f}, {dt:.3f} s",
+                  flush=True)
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"DPO step {step}: a metric is not finite")
+        if [s for s, _, _ in seen] != list(range(1, DPO_STEPS + 1)):
+            raise AssertionError(f"DPO ran steps {[s for s, _, _ in seen]}")
+        if abs(seen[0][1]["loss"] - math.log(2.0)) > 1e-3:
+            raise AssertionError("the first DPO step's loss is not ln 2 (policy = reference)")
+        steady = [dt for _, _, dt in seen[1:]]
+        print(f"  DPO: {DPO_STEPS} steps of {DPO_PAIRS} pairs, median "
+              f"{statistics.median(steady):.3f} s a step past the first, peak memory {peak / 2**30:.2f} GiB; the whole call "
+              f"{t_run:.2f} s (set-up and the checkpoint's write included)", flush=True)
+        print(f"  launches in the measured run: {counts}", flush=True)
+        require_launched("dpo", counts)
+        require_counts("DPO", counts,
+                       {k: DPO_STEPS * n for k, n in dpo_counts_per_step(cfg).items()})
+        size = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(os.path.join(root, "ckpt")) for f in fs)
+        print(f"  checkpoint at step {DPO_STEPS}: {size / 1e9:.3f} GB", flush=True)
+        # Resume from a fresh model of the same seed: the reference is the
+        # starting point again, the policy comes back from the checkpoint.
+        del state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                                    device=dev, dtype=torch.float32)
+        seen.clear()
+        state = dpo_lib.train_dpo(
+            dataclasses.replace(run, max_steps=DPO_STEPS + DPO_RESUMED_STEPS), tok.encode,
+            init_params=model, metrics_callback=on_metrics)
+        resumed = [s for s, _, _ in seen]
+        print(f"  resumed from step {DPO_STEPS}: steps {resumed}, {state.opt_state.count} updates "
+              f"in all; step {resumed[0]}: loss {seen[0][1]['loss']:.6f}, chosen_reward "
+              f"{seen[0][1]['chosen_reward']:.3e}", flush=True)
+        if resumed != list(range(DPO_STEPS + 1, DPO_STEPS + DPO_RESUMED_STEPS + 1)) or \
+                state.opt_state.count != DPO_STEPS + DPO_RESUMED_STEPS:
+            raise AssertionError("the resumed DPO run lost its step or update count")
+        if seen[0][1]["chosen_reward"] == 0.0:
+            raise AssertionError("the resumed policy equals its reference: the restore failed")
+        # A constant rate on one pair batch, the reference the policy now:
+        # the margin must rise.
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        const = dataclasses.replace(train_cfg, learning_rate=1e-5)
+        opt = optim.make_optimizer(model, const)
+        ostate = tstep.TrainState(step=0, params=model, opt_state=opt)
+        ref = dpo_lib.frozen_copy(model)
+        step_fn = dpo_lib.make_dpo_step(cfg, dpo_lib.DPOConfig(), opt)
+        with open(data_path) as f:
+            cells = json.load(f)
+        dataset = dpo_lib.DPOPairDataset(cells=cells, image_root=root, cfg=cfg,
+                                         tokenize_fn=tok.encode, max_len=TRAIN_BUCKET.max_len)
+        idxs = list(range(DPO_PAIRS))
+        chosen, rejected = (batch_to_device(b, dev) for b in
+                            dpo_lib._build_pair_batch(dataset, idxs, TRAIN_BUCKET))
+        margins = []
+        for _ in range(OVERFIT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ostate, m = step_fn(ostate, ref, chosen, rejected)
+            margins.append(float(m["reward_margin"]))
+            wall = time.perf_counter() - t0
+        print(f"  {OVERFIT_STEPS} steps on one pair batch at a constant 1e-5: reward_margin "
+              f"{[f'{x:.4e}' for x in margins]}", flush=True)
+        if not (all(np.isfinite(margins)) and margins[-1] > margins[0]):
+            raise AssertionError("the reward margin did not rise")
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ostate, m = step_fn(ostate, ref, chosen, rejected)
+            torch.cuda.synchronize()
+        device_breakdown(prof, wall, "DPO step (2 pairs, 4 passes)", top=16)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def same_as_fresh_copy(engine_model, policy, cfg) -> int:
+    """Compare every parameter of the rollout engine's copy with a fresh
+    `rollout_model(policy)` (the bf16 cast of the policy, the fused weights
+    `fuse_linears`' cat of their parts); raises on a difference. Returns
+    the number of tensors compared."""
+    fresh = dict(grpo_lib.rollout_model(policy, cfg).named_parameters())
+    got = dict(engine_model.named_parameters())
+    if got.keys() != fresh.keys():
+        raise AssertionError("the rollout copy's parameters are not a fresh copy's")
+    differ = [n for n in got if not torch.equal(got[n], fresh[n])]
+    if differ:
+        raise AssertionError(f"the rollout copy differs from the policy at {differ[:4]}")
+    return len(got)
+
+
+def grpo_counts(cfg, waves: int, updates: int, scores: int) -> dict:
+    """Launches of GRPO waves with the tower frozen and remat on, the decode
+    steps aside: a fill a rollout (K1 a tower layer, K2 a decoder layer),
+    and a wave's update passes: a reference pass a update and a score pass
+    a mu > 1 wave (K1, K2), a policy pass a update (K1, K2-lse twice, K7,
+    K8)."""
+    t, v = cfg.text.num_layers, cfg.vision.num_layers
+    fills = waves * GRPO["prompts_per_wave"] * GRPO["group_size"]
+    return {"tower_attention": (fills + 2 * updates + scores) * v,
+            "prefill_attention": (fills + updates + scores) * t,
+            "prefill_attention_lse": 2 * updates * t,
+            "flash_attention_bwd_dkv": updates * t, "flash_attention_bwd_dq": updates * t}
+
+
+def recorded_engines(lengths: list):
+    """A ContinuousBatcher class that keeps each engine built from it in the
+    list it returns, and the prompt lengths each one's `submit` receives in
+    `lengths`; set in place of `grpo.train_grpo`'s, it shows the driver's
+    own rollout engine to the phase."""
+    engines = []
+
+    class RecordingBatcher(ContinuousBatcher):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            engines.append(self)
+            submit = self.submit
+
+            def recording_submit(sample, *a, **k):
+                lengths.append(sample.length)
+                return submit(sample, *a, **k)
+
+            self.submit = recording_submit
+
+    return RecordingBatcher, engines
+
+
+def phase_grpo(dev, seed: int):
+    """GRPO of radvlm_0_5b at full width and depth through `grpo.train_grpo`:
+    two waves at mu = 1, then a run of one wave at mu = 2; then K2 and K9
+    at the rollouts' shapes, on the last engine's own cache."""
+    cfg, tok = radvlm_0_5b(), BoxTokenizer()
+    t0 = time.perf_counter()
+    model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 1),
+                                device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    print(f"  radvlm_0_5b f32 policy: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_grpo_{os.getpid()}")
+    lengths = []
+    recording, engines = recorded_engines(lengths)
+    built_by_train_grpo = grpo_lib.ContinuousBatcher
+    grpo_lib.ContinuousBatcher = recording
+    try:
+        data_path = write_rec_data(root, np.random.default_rng(seed + 6), GRPO_CELLS)
+        run = train_loop.RunConfig(
+            model=cfg, train=optim.TrainConfig(learning_rate=1e-6, lr_schedule="constant",
+                                               warmup_ratio=0.0, grad_accum_steps=1,
+                                               mm_tunable_parts="mm_language_model"),
+            data_path=data_path, image_root=root, log_every=1, seed=seed)
+        engine_kw = dict(num_slots=GRPO_SLOTS, rollout_max_len=GRPO_MAX_LEN,
+                         prompt_buckets=(TRAIN_BUCKET.max_len,), pad_tiles=GRPO_PAD_TILES,
+                         eos_token_ids=tok.eos_token_ids)
+        seen = []
+
+        def on_wave(step, m):
+            n = same_as_fresh_copy(engines[-1].model, model, cfg)
+            seen.append((step, m))
+            print(f"  GRPO step {step}: loss {m['loss']:.6f}, kl {m['kl']:.3e} (first update "
+                  f"{m['first_kl']:.3e}), clip_frac {m['clip_frac']:.3f} (first update "
+                  f"{m['first_clip_frac']:.3f}), reward mean {m['reward_mean']:.4f} std "
+                  f"{m['reward_std']:.4f}, {m['completion_tokens']:.1f} completion tokens; wave "
+                  f"{m['sec_per_wave']:.3f} s: rollout {m['rollout_s']:.3f}, reward "
+                  f"{m['reward_s']:.4f}, update {m['update_s']:.3f}, sync {m['sync_s']:.4f}; "
+                  f"{m['rollout_tokens_per_sec']:.1f} decode tokens/s; the rollout copy equals "
+                  f"the policy ({n} tensors)", flush=True)
+
+        start = {n: p.clone() for n, p in grpo_lib.rollout_model(model, cfg).named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = grpo_lib.train_grpo(
+            dataclasses.replace(run, max_steps=GRPO_WAVES), tok.encode, tok.decode, QWEN_CHATML,
+            grpo_cfg=grpo_lib.GRPOConfig(mu=1, **GRPO), init_params=model,
+            metrics_callback=on_wave, **engine_kw)
+        waves_mu1 = len(seen)
+        del state
+        engines.clear()  # the first run's engine goes before the second's comes
+        gc.collect()
+        state = grpo_lib.train_grpo(
+            dataclasses.replace(run, max_steps=2), tok.encode, tok.decode, QWEN_CHATML,
+            grpo_cfg=grpo_lib.GRPOConfig(mu=2, **GRPO), init_params=model,
+            metrics_callback=on_wave, **engine_kw)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        (engine_,) = engines
+        if [s for s, _ in seen] != [1, 2, 2] or waves_mu1 != GRPO_WAVES or state.step != 2:
+            raise AssertionError(f"GRPO ran waves ending at steps {[s for s, _ in seen]}")
+        for i, (_, m) in enumerate(seen):
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"GRPO wave {i + 1}: a metric is not finite")
+            if m["first_clip_frac"] != 0.0:
+                raise AssertionError(f"GRPO wave {i + 1}: the first update clipped")
+        for i in (0, GRPO_WAVES):  # each run's first wave: the policy is its reference
+            if not seen[i][1]["first_kl"] < 1e-5:
+                raise AssertionError(f"GRPO wave {i + 1}: KL {seen[i][1]['first_kl']} to a "
+                                     "reference equal to the policy")
+        moved = sum(not torch.equal(p, start[n]) for n, p in engine_.model.named_parameters())
+        if not moved:
+            raise AssertionError("no rollout weight moved: the updates changed nothing")
+        print(f"  the rollout engine: a {next(engine_.model.parameters()).dtype} copy, "
+              f"{'int8' if engine_.kv_quant else 'bf16'} KV cache, {engine_.num_slots} slots, "
+              f"max_len {engine_.max_len}, prompt buckets {engine_.prompt_buckets}, "
+              f"{engine_.pad_tiles} pad tiles; prompts of {min(lengths)}-{max(lengths)} tokens",
+              flush=True)
+        print(f"  GRPO: {len(seen)} waves, {GRPO_WAVES + 2} updates, {t_run:.2f} s in all; "
+              f"peak memory {peak / 2**30:.2f} GiB; {moved} rollout tensors moved", flush=True)
+        print(f"  launches in the measured run: {counts}", flush=True)
+        require_launched("grpo", counts)
+        want = grpo_counts(cfg, len(seen), GRPO_WAVES + 2, 1)
+        k9 = counts["decode_attention"]
+        if k9 % cfg.text.num_layers:
+            raise AssertionError(f"K9 launched {k9} times, not a multiple of the layers")
+        print(f"  {k9 // cfg.text.num_layers} decode steps of {GRPO_SLOTS} slots in the rollouts",
+              flush=True)
+        require_counts("GRPO", counts, dict(want, decode_attention=k9))
+        engine_kernels(engine_, lengths, seed + 29, "GRPO rollouts")
+    finally:
+        grpo_lib.ContinuousBatcher = built_by_train_grpo
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def post_json(url: str, req: dict) -> dict:
     body = json.dumps(req).encode()
     with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=600) as resp:
@@ -2681,32 +3137,32 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     dev = torch.device("cuda:0")
     smi = nvidia_smi_line()
-    print(f"[1/9] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+    print(f"[1/10] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
     t_start = t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.lib()
-    print(f"[2/9] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
+    print(f"[2/10] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
 
     def header(text):
         print(f"{text} (at {time.perf_counter() - t_start:.0f} s)", flush=True)
 
-    header("[3/9] kernels against their plain versions")
+    header("[3/10] kernels against their plain versions")
     results = phase_kernels(dev, 1234 + args.seed)
 
-    header("[4/9] bf16 slice: radvlm_7b, random bf16 weights")
+    header("[4/10] bf16 slice: radvlm_7b, random bf16 weights")
     counts = {"bf16": phase_slice(dev, args.seed)}
     gc.collect()  # the bf16 model (15 GiB) goes before the int8 one comes
     torch.cuda.empty_cache()
 
-    header("[5/9] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
+    header("[5/10] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
     counts["int8"], ctx = phase_int8(dev, args.seed)
     gc.collect()  # phase 5's KV cache goes before the spec engines' come
     torch.cuda.empty_cache()
 
-    header(f"[6/9] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
+    header(f"[6/10] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
     counts["spec_int8"] = phase_spec(ctx, True, SPEC_REQUESTS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2714,34 +3170,44 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7/9] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
+    header("[7/10] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
     counts["int4"] = phase_artifact(dev, args.seed, ctx)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7b/9] fused W8A8 (K13) on the int8 model")
+    header("[7b/10] fused W8A8 (K13) on the int8 model")
     counts["fused"] = phase_fused(ctx)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7c/9] evaluation: build_task_dataset + run_task on the int8 model")
+    header("[7c/10] evaluation: build_task_dataset + run_task on the int8 model")
     counts["eval"] = phase_eval(ctx, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7d/9] text-LM serving: the GREEN judge (Llama-2-7B) and the local LLM client")
+    header("[7d/10] text-LM serving: the GREEN judge (Llama-2-7B) and the local LLM client")
     counts.update(phase_text_lm(ctx, args.seed))
     del ctx  # the int8 model goes before the trainers' come
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[8/9] SFT: radvlm_0_5b, f32 master weights, every part tunable, training.loop.train")
+    header("[8/10] SFT: radvlm_0_5b, f32 master weights, every part tunable, training.loop.train")
     counts["sft"] = phase_sft(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[9/9] QLoRA: radvlm_7b, int8 base, rank-128 adapters, training.loop.train")
+    header("[9/10] QLoRA: radvlm_7b, int8 base, rank-128 adapters, training.loop.train")
     counts["qlora"] = phase_qlora(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[10/10] DPO: radvlm_0_5b, f32 master weights, the tower frozen, dpo.train_dpo")
+    counts["dpo"] = phase_dpo(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[10b/10] GRPO: radvlm_0_5b, rollouts through ContinuousBatcher, grpo.train_grpo")
+    counts["grpo"] = phase_grpo(dev, args.seed)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

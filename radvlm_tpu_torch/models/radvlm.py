@@ -11,6 +11,8 @@
 `loss_fn` is the training loss: next-token cross entropy over the supervised
 positions, the unembedding taken in chunks of 1024 positions that are
 recomputed in the backward, so the [B, L, vocab] f32 logits never exist.
+`token_logprobs` gives the same positions' log-probabilities one by one, in
+the same chunks (the DPO and GRPO losses).
 """
 
 from __future__ import annotations
@@ -151,12 +153,17 @@ def forward(
 CE_CHUNK = 1024
 
 
-def _chunk_nll(model: RadVLM, cfg: RadVLMConfig, hidden, labels, mask) -> torch.Tensor:
-    """Summed NLL of one block of positions: unembed, f32 log_softmax, gather."""
+def _chunk_logp(model: RadVLM, cfg: RadVLMConfig, hidden, labels) -> torch.Tensor:
+    """log p(label) at each position of one block: unembed, f32
+    log_softmax, gather."""
     logits = qwen2.unembed(model.text, cfg.text, hidden)
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    return torch.sum(nll * mask)
+    return torch.gather(logp, -1, labels[..., None].long())[..., 0]
+
+
+def _chunk_nll(model: RadVLM, cfg: RadVLMConfig, hidden, labels, mask) -> torch.Tensor:
+    """Summed NLL of one block of positions."""
+    return -torch.sum(_chunk_logp(model, cfg, hidden, labels) * mask)
 
 
 def _chunked_ce(model: RadVLM, cfg: RadVLMConfig, hidden: torch.Tensor,
@@ -177,6 +184,43 @@ def _chunked_ce(model: RadVLM, cfg: RadVLMConfig, hidden: torch.Tensor,
             _chunk_nll, model, cfg, hidden[:, s:s + chunk], safe_labels[:, s:s + chunk],
             mask[:, s:s + chunk], use_reentrant=False)
     return total
+
+
+def _shifted(batch: Dict[str, torch.Tensor]):
+    """(safe labels, mask) of next-token prediction: labels[i] supervises
+    position i - 1, IGNORE_INDEX and segment 0 never count."""
+    shift_labels = batch["labels"][:, 1:]
+    mask = (shift_labels != IGNORE_INDEX) & (batch["segment_ids"][:, 1:] != 0)
+    return torch.where(mask, shift_labels, torch.zeros_like(shift_labels)), mask
+
+
+def token_logprobs(
+    model: RadVLM,
+    cfg: RadVLMConfig,
+    batch: Dict[str, torch.Tensor],
+    *,
+    remat: bool = True,
+    attn_impl: str = "auto",
+    chunk: int = CE_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token log p(labels[i] | prefix) over the shifted positions:
+    ([B, L-1] f32 log-probabilities, [B, L-1] f32 mask). The counterpart of
+    the JAX package's `grpo.token_logprobs` over `radvlm.forward`'s logits
+    (the same shift, mask and f32 log_softmax per position; unsupervised
+    positions hold log p(token 0), as there). The unembedding runs in
+    `chunk`-position blocks, each under a non-reentrant checkpoint when a
+    gradient is taken (as `_chunked_ce`), so no [B, L, vocab] logits tensor
+    ever exists."""
+    hidden, _ = forward(model, cfg, batch, remat=remat, attn_impl=attn_impl, return_hidden=True)
+    hidden = hidden[:, :-1]
+    safe_labels, mask = _shifted(batch)
+    grad = torch.is_grad_enabled() and hidden.requires_grad
+    parts = []
+    for s in range(0, hidden.shape[1], chunk):
+        args = (model, cfg, hidden[:, s:s + chunk], safe_labels[:, s:s + chunk])
+        parts.append(checkpoint(_chunk_logp, *args, use_reentrant=False) if grad
+                     else _chunk_logp(*args))
+    return torch.cat(parts, dim=1), mask.float()
 
 
 def loss_fn(
@@ -200,11 +244,10 @@ def loss_fn(
     if "labels_next" in batch:
         shift_labels = batch["labels_next"]
         mask = shift_labels != IGNORE_INDEX
+        safe_labels = torch.where(mask, shift_labels, torch.zeros_like(shift_labels))
     else:
         hidden = hidden[:, :-1]
-        shift_labels = batch["labels"][:, 1:]
-        mask = (shift_labels != IGNORE_INDEX) & (batch["segment_ids"][:, 1:] != 0)
-    safe_labels = torch.where(mask, shift_labels, torch.zeros_like(shift_labels))
+        safe_labels, mask = _shifted(batch)
     total = _chunked_ce(model, cfg, hidden, safe_labels, mask, chunk)
     count = mask.sum().clamp_min(1)
     loss = total / count

@@ -67,13 +67,52 @@ class RunConfig:
     device: Optional[str] = None
 
 
-def _check_mesh(mesh_shape: Optional[Dict[str, int]]) -> None:
+def check_mesh(mesh_shape: Optional[Dict[str, int]]) -> None:
     for axis, n in (mesh_shape or {}).items():
         if n not in (1, -1):
             raise NotImplementedError(
                 f"mesh axis {axis}={n}: meshes, ring attention and pipeline stages are not "
                 "ported (ROADMAP M12); the port trains on one card"
             )
+
+
+def load_model(run: RunConfig, device: torch.device, init_params: Optional[radvlm.RadVLM] = None,
+               hf_checkpoint: Optional[str] = None) -> radvlm.RadVLM:
+    """The run's starting model, unfused on `device`: `init_params` as it
+    is, else f32 weights from `hf_checkpoint`, else a random f32 init seeded
+    with `run.seed`."""
+    if init_params is not None:
+        return init_params
+    if hf_checkpoint:
+        from radvlm_tpu_torch.models.hf_import import load_radvlm_checkpoint
+
+        return load_radvlm_checkpoint(hf_checkpoint, run.model, device=device,
+                                      dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(run.seed)
+    return convert.init_params(run.model, gen, device=device, dtype=torch.float32)
+
+
+def open_checkpoints(run: RunConfig, state: ts.TrainState):
+    """(manager, state, start epoch, batches to skip): the checkpoint
+    manager of `run.checkpoint_dir` (None without one), with `state`
+    restored in place from its latest step when `run.resume`, and the data
+    position saved beside that step."""
+    if not run.checkpoint_dir:
+        return None, state, 0, 0
+    manager = ckpt_lib.CheckpointManager(
+        run.checkpoint_dir, max_to_keep=run.max_to_keep, save_interval_steps=run.save_steps,
+    )
+    start_epoch, skip_batches = 0, 0
+    last = manager.latest_step()
+    if run.resume and last is not None:
+        state = ckpt_lib.restore_state(manager, last, state)
+        data_state = ckpt_lib.load_data_state(run.checkpoint_dir, last)
+        if data_state:
+            start_epoch = int(data_state["epoch"])
+            skip_batches = int(data_state["batch_in_epoch"])
+        log.info("resumed from step %d (epoch %d, skipping %d batches)",
+                 last, start_epoch, skip_batches)
+    return manager, state, start_epoch, skip_batches
 
 
 def train(
@@ -89,20 +128,9 @@ def train(
     `init_params` is an unfused `RadVLM` on the run's device (f32 for full
     finetuning; it is trained in place), else the model comes from
     `hf_checkpoint` or a random init seeded with `run.seed`."""
-    _check_mesh(run.mesh_shape)
+    check_mesh(run.mesh_shape)
     device = resolve(run.device)
-
-    # --- params ---
-    if init_params is not None:
-        model = init_params
-    elif hf_checkpoint:
-        from radvlm_tpu_torch.models.hf_import import load_radvlm_checkpoint
-
-        model = load_radvlm_checkpoint(hf_checkpoint, run.model, device=device,
-                                       dtype=torch.float32)
-    else:
-        gen = torch.Generator(device=device).manual_seed(run.seed)
-        model = convert.init_params(run.model, gen, device=device, dtype=torch.float32)
+    model = load_model(run, device, init_params, hf_checkpoint)
 
     lora_base = None
     if run.quantize_base and not run.lora_rank:
@@ -124,22 +152,7 @@ def train(
             run.model, run.train, model, remat=run.remat, attn_impl=run.attn_impl,
         )
 
-    # --- resume ---
-    manager = None
-    start_epoch, skip_batches = 0, 0
-    if run.checkpoint_dir:
-        manager = ckpt_lib.CheckpointManager(
-            run.checkpoint_dir, max_to_keep=run.max_to_keep, save_interval_steps=run.save_steps,
-        )
-        last = manager.latest_step()
-        if run.resume and last is not None:
-            state = ckpt_lib.restore_state(manager, last, state)
-            data_state = ckpt_lib.load_data_state(run.checkpoint_dir, last)
-            if data_state:
-                start_epoch = int(data_state["epoch"])
-                skip_batches = int(data_state["batch_in_epoch"])
-            log.info("resumed from step %d (epoch %d, skipping %d batches)",
-                     last, start_epoch, skip_batches)
+    manager, state, start_epoch, skip_batches = open_checkpoints(run, state)
 
     # --- data ---
     cells = load_mixture(run.data_path)

@@ -168,7 +168,8 @@ def test_port_runs_with_jax_blocked():
     and `eval.cli` on a saved int8 artifact (pandas and sklearn blocked
     too), and a tiny Llama judge serves `green_cli.main` through
     `TextLMEngine`, and through the int8 `LocalTorchClient` drives
-    `filter_reports` and judges `evaluate_conversations`."""
+    `filter_reports` and judges `evaluate_conversations`, and `dpo_cli` and
+    `grpo_cli` each take a step."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -391,6 +392,28 @@ def test_port_runs_with_jax_blocked():
             client.shutdown()
         assert len(calls) == 1 and set(res) == {"mean_score", "n"}
         assert os.path.exists(f"{data}/conv.json")
+        # Preference and RL finetuning through their CLIs: DPO on a
+        # preference json, GRPO on a GRPO-REC jsonl (engine rollouts).
+        from radvlm_tpu_torch.training import dpo_cli, grpo_cli
+        Image.fromarray(img).save(f"{data}/cxr.png")
+        with open(f"{data}/prefs.json", "w") as fh:
+            json.dump([{"image": "cxr.png", "prompt": "<image>\\nAny effusion?",
+                        "chosen": "Small left effusion.", "rejected": "Normal."}] * 2, fh)
+        with open(f"{data}/rec.jsonl", "w") as fh:
+            fh.write(json.dumps({"image": "cxr.png", "problem": "<image>find the heart",
+                                 "solution": '{"bbox": [[0.1, 0.2, 0.5, 0.6]]}'}) + "\\n")
+        common = ["--model-size", "tiny", "--image-folder", data, "--device", "cpu",
+                  "--max-steps", "1", "--warmup-ratio", "0"]
+        state = dpo_cli.main(common + ["--data-path", f"{data}/prefs.json", "--output-dir",
+                                       f"{data}/dpo", "--micro-batch-size", "2"], tokenizer=Tok())
+        assert state.step == 1
+        state = grpo_cli.main(common + ["--data-path", f"{data}/rec.jsonl", "--output-dir",
+                                        f"{data}/grpo", "--group-size", "2",
+                                        "--prompts-per-wave", "1", "--max-new-tokens", "2",
+                                        "--num-slots", "2", "--rollout-max-len", "256",
+                                        "--prompt-bucket", "128", "--pad-tiles", "2"],
+                              tokenizer=Tok())
+        assert state.step == 1
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn"):
