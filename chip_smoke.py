@@ -93,16 +93,17 @@ Phases, each raising on failure (the last line is printed only on success):
    MIMIC-CXR-JPG and a VinDr-CXR tree: CSVs by the stdlib csv module, 16
    CXR-sized JPEGs each), then `build_task_dataset` + `run_task` (the
    continuous engine: 8 slots, the int8 KV cache, 32 new tokens) over the
-   16 samples of abnormality_classification and of abnormality_grounding.
-   Every sample must have a result cell carrying its question, answer and
-   ground truth, both files (`{model}_{task}_output.json`,
-   `{model}_{task}.json`) must hold the run's cells and metrics, the metric
-   keys must be the JAX package's for the task, and a second run of the
-   first task must give every text again. K1, K2, K3, K4 and K5/K6 must
-   have launched. Samples/s of each task (with the card's name and power
+   16 samples of abnormality_classification, of abnormality_grounding and
+   of report_generation (scored by the port's own ROUGE, BLEU-4 and
+   CIDEr-D). Every sample must have a result cell carrying its question,
+   answer and ground truth (a report's `txt`), both files
+   (`{model}_{task}_output.json`, `{model}_{task}.json`) must hold the
+   run's cells and metrics, the metric keys must be the JAX package's for
+   the task and every value finite, and a second run of the first task
+   must give every text again. K1, K2, K3, K4 and K5/K6 must have
+   launched. Samples/s of each task (with the card's name and power
    limit), the feeder's host seconds against the engine's host_stats, and
-   the provenance are printed. (report_generation is left out: the card's
-   machine has no `rouge_score`, which its metrics need);
+   the provenance are printed;
 7d. text-LM serving, the GREEN judge and the local LLM client: an HF Llama
    directory at meta-llama/Llama-2-7b-hf's widths and depth (32 layers,
    MHA: 32 heads and 32 KV heads of 128, vocab 32000) with random bf16
@@ -131,6 +132,23 @@ Phases, each raising on failure (the last line is printed only on success):
    phase 5's int8 model, the client as the judge: every replay must give
    two answers and the judge must be called once a sample (with random
    weights its scores may not parse: n is printed, not checked);
+7e. the serving front on the int8 model of phase 5: the port's
+   `Controller` on 127.0.0.1:0, a `BatchWorker` registered with it through
+   `controller_address` (8 slots, the int8 cache, phase 5's buckets, 8-step
+   chunks) and the web UI (`WebApp` + `make_handler`) on a third port,
+   launch counts reset, then HTTP only: `/api/new` lists the model; a
+   first `/api/chat` turn with one CXR-sized image (greedy, 32 new tokens)
+   must give the text of the same rendered prompt sent straight to the
+   worker (through the chat CLI's `stream_request`) and arrive in more than
+   one piece, the first before the last; a second turn must be one delta
+   prefill (`resume_fills` + 1) whose text is a full prefill's (or differs
+   at a near tie, as in phase 6); `/api/regenerate` must give the full
+   prefill's text again without a resume; `/v1/chat/completions` through
+   the controller, plain and streamed, must give the worker's own answer;
+   the conversation log (under build/, deleted) must hold one chat record
+   a turn with the image as its sha256. K1, K2, K3, K4 and K5/K6 must have
+   launched. The first and last chunk times, direct and through web ->
+   controller -> worker, are printed with the card's name and power limit;
 8. SFT, the training path: radvlm_0_5b at full width and depth, f32 master
    weights made on the card from --seed, every part tunable, remat on. Phase
    3 first holds the training kernels to their plain versions at the three
@@ -203,6 +221,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import io
 import itertools
 import json
@@ -211,9 +230,11 @@ import os
 import shutil
 import statistics
 import subprocess
+import threading
 import time
 import types
 import urllib.request
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -221,10 +242,11 @@ import torch
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import radvlm_0_5b, radvlm_7b
 from radvlm_tpu_torch.data.loader import Bucket, LlavaJsonDataset, PrefetchLoader
-from radvlm_tpu_torch.data.chat import QWEN_CHATML
+from radvlm_tpu_torch.data.chat import QWEN_CHATML, TEMPLATES, render_generation_prompt
 from radvlm_tpu_torch.data.datasets import CHEXPERT_PATHOLOGIES
 from radvlm_tpu_torch.eval.harness import (GT_FIELDS, VLMRunner, batch_to_device,
                                            build_task_dataset, run_task)
+from radvlm_tpu_torch.eval.metrics import evaluate_reports
 from radvlm_tpu_torch.generation import engine
 from radvlm_tpu_torch.generation.engine import GenerationConfig
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
@@ -238,7 +260,10 @@ from radvlm_tpu_torch.ops import int8_matmul as i8
 from radvlm_tpu_torch.ops import kv_quant
 from radvlm_tpu_torch.ops import quant as tquant
 from radvlm_tpu_torch.ops import w8a8_matmul as w8
+from radvlm_tpu_torch.serve import cli as chat_cli
+from radvlm_tpu_torch.serve import controller as front
 from radvlm_tpu_torch.serve import openai_api as oai
+from radvlm_tpu_torch.serve import web as web_ui
 from radvlm_tpu_torch.serve import worker_cli
 from radvlm_tpu_torch.serve.batch_worker import BatchWorker
 from radvlm_tpu_torch.serve.worker import ModelWorker
@@ -257,7 +282,8 @@ SPEC_REQUESTS = 6  # concurrent greedy requests of the spec phase (3 with the bf
 INT4_REQUESTS = 6  # concurrent, in the artifact phase
 FUSED_REQUESTS = 3  # greedy requests of the fused-W8A8 phase
 EVAL_SAMPLES, EVAL_SLOTS = 16, 8  # per task of the evaluation phase
-EVAL_TASKS = ("abnormality_classification", "abnormality_grounding")
+EVAL_TASKS = ("abnormality_classification", "abnormality_grounding", "report_generation")
+FRONT_MODEL, FRONT_STEPS = "radvlm-7b-int8", 8  # the serving front's worker: 8-step chunks
 QUESTIONS = ("Write the findings section of the report.", "Is there a pleural effusion?",
              "Describe the cardiac silhouette.", "Is there a pneumothorax?")
 # The text-LM phase: the GREEN judge at meta-llama/Llama-2-7b-hf's config.json
@@ -328,6 +354,9 @@ PATH_KERNELS = {
     # Evaluation (run_task) on the int8 model: phase 5's path.
     "eval": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
              "int8_matmul"),
+    # The serving front (web UI -> controller -> BatchWorker) on the int8 model.
+    "front": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
+              "int8_matmul"),
     # The GREEN judge (Llama-2-7B, MHA) on TextLMEngine: bf16, then int8
     # (W8A8 fills, weight-only int8 decode), both over the bf16 cache.
     "text_lm": ("prefill_attention", "decode_attention"),
@@ -2079,6 +2108,7 @@ def phase_eval(ctx, seed: int):
             for i, cell in cells.items():
                 s = dataset[i]
                 if (not isinstance(cell["output"], str)
+                        or (task == "report_generation" and not cell.get("txt"))
                         or cell["instr"] != s["instr"]["question"]
                         or cell["answer"] != s["instr"]["answer"]
                         or any(cell[f] != s[f] for f in GT_FIELDS[task])):
@@ -2107,6 +2137,18 @@ def phase_eval(ctx, seed: int):
                   f"engine host_stats { {k: round(v, 3) for k, v in hs.items()} }", flush=True)
             print(f"  {task} metrics: { {k: round(v, 4) for k, v in metrics.items()} }",
                   flush=True)
+            if task == "report_generation":
+                # A random model's replies share no word with the reports:
+                # the scorers are also read on the split's own reports.
+                refs = [cells[i]["txt"] for i in range(EVAL_SAMPLES)]
+                same = evaluate_reports(refs, refs, with_clinical=False)
+                other = evaluate_reports(refs, refs[1:] + refs[:1], with_clinical=False)
+                if not (same["rouge1"] == same["rouge2"] == same["rougel"] == 1.0
+                        and 0 < other["rougel"] < 1 and 0 < other["rouge2"] < other["rouge1"]):
+                    raise AssertionError(f"report metrics on the reports: {same}, {other}")
+                print(f"  report metrics, each report against itself: "
+                      f"{ {k: round(v, 4) for k, v in same.items()} }; against the next one: "
+                      f"{ {k: round(v, 4) for k, v in other.items()} }", flush=True)
         counts = kernels.launch_counts()
         print(f"  launches in the measured run: {counts}", flush=True)
         print(f"  provenance: {stats['provenance']}", flush=True)
@@ -2121,6 +2163,170 @@ def phase_eval(ctx, seed: int):
         print(f"  a second run of {task} gave every sample's text again", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def stream_timed(url: str, body: dict):
+    """POST `body` and read the streamed answer piece by piece as it arrives
+    (the port's `serve.controller.pieces`): (the body, seconds to each piece)."""
+    t0 = time.perf_counter()
+    raw, times = b"", []
+    for piece in front.pieces(front.open_post(url, body, 600)):
+        times.append(time.perf_counter() - t0)
+        raw += piece
+    return raw, times
+
+
+def chunks_of(raw: bytes) -> list:
+    return [json.loads(c) for c in raw.split(b"\0") if c]
+
+
+def final_text(label: str, chunks: list) -> str:
+    """The last text of a stream's chunks, which must hold no error chunk."""
+    if not chunks or any(c.get("error_code") for c in chunks):
+        raise AssertionError(f"front {label}: stream failed: {chunks[-1:]}")
+    return chunks[-1]["text"]
+
+
+def direct_stream(addr: str, payload: dict):
+    """The worker's own stream through the chat CLI's `stream_request`:
+    (the final text, seconds to each chunk)."""
+    t0 = time.perf_counter()
+    chunks, times = [], []
+    for chunk in chat_cli.stream_request(addr, payload):
+        times.append(time.perf_counter() - t0)
+        chunks.append(chunk)
+    return final_text("direct", chunks), times
+
+
+def sse_text(raw: bytes) -> str:
+    text = ""
+    for line in raw.decode().splitlines():
+        if line.startswith("data: ") and line != "data: [DONE]":
+            text += json.loads(line[6:])["choices"][0]["delta"].get("content") or ""
+    return text
+
+
+def phase_front(ctx, seed: int):
+    """The serving front on phase 5's int8 model: the port's `Controller`, a
+    `BatchWorker` registered with it (8 slots, the int8 cache, phase 5's
+    buckets, 8-step chunks) and the web UI (`WebApp` + `make_handler`),
+    driven over HTTP only: a first chat turn equal to the worker's direct
+    answer, a second turn by delta prefill held to a full prefill, a
+    regenerate, the OpenAI gateway streamed and not, the conversation log,
+    and the stream's first chunk arriving before its last through both
+    hops. Times to the first and last chunk, direct and through the front,
+    are printed."""
+    model, cfg, tok = ctx["model"], ctx["cfg"], ctx["tok"]
+    runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
+                       batch_size=1, pad_to_multiple=128, fuse=False)
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           f"smoke_front_{os.getpid()}")
+    image = cxr_image(np.random.default_rng(seed + 17))
+    b64 = png_b64(image)
+    ctl = front.Controller(host="127.0.0.1", port=0)
+    ctl.serve_forever(background=True)
+    caddr = f"http://127.0.0.1:{ctl.port}"
+    worker = web = None
+    try:
+        worker = BatchWorker(runner, model_names=[FRONT_MODEL], num_slots=8, max_len=4224,
+                             kv_quant=True, prompt_buckets=INT8_BUCKETS,
+                             steps_per_sync=FRONT_STEPS, pipeline_depth=2, fill_batch=2,
+                             controller_address=caddr)
+        b = worker.batcher
+        waddr = f"http://127.0.0.1:{worker.serve_forever(host='127.0.0.1', port=0, background=True)}"
+        app = web_ui.WebApp(caddr, log_dir=log_dir)
+        web = ThreadingHTTPServer(("127.0.0.1", 0), web_ui.make_handler(app))
+        threading.Thread(target=web.serve_forever, daemon=True).start()
+        uaddr = f"http://127.0.0.1:{web.server_address[1]}"
+        print(f"  controller, BatchWorker (warmup {worker.warmup_seconds:.2f} s) and web UI up",
+              flush=True)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        # A new session lists the worker's model.
+        new = post_json(uaddr + "/api/new", {})
+        if new["models"] != [FRONT_MODEL]:
+            raise AssertionError(f"front: /api/new lists {new['models']}")
+        gen = {"session_id": new["session_id"], "model": FRONT_MODEL,
+               "max_new_tokens": NEW_TOKENS, "temperature": 0.0}
+        template = TEMPLATES[app.template]
+        q1, q2 = QUESTIONS[1], QUESTIONS[2]
+        turns = [("user", "<image>\n" + q1)]
+        # Turn 1 through the web UI and the controller, and the same
+        # prompt and image straight to the worker: the same text.
+        direct = {"model": FRONT_MODEL, "prompt": render_generation_prompt(turns, template=template),
+                  "images": [b64], "max_new_tokens": NEW_TOKENS, "temperature": 0.0}
+        text_direct, t_direct = direct_stream(waddr, direct)
+        # The web UI sends a session id, whose request keeps its KV and so is
+        # not refilled early: the same prompt direct with a session id of
+        # its own is what the two hops are compared with.
+        text_kept, t_kept = direct_stream(waddr, dict(direct, session_id="direct-1"))
+        raw, t_web = stream_timed(uaddr + "/api/chat", dict(gen, text=q1, images=[b64]))
+        reply1 = final_text("turn 1", chunks_of(raw))
+        if not reply1 or not reply1 == text_direct == text_kept:
+            raise AssertionError("front: turn 1 through the web UI is not the worker's direct text")
+        # Streaming is real through the two hops.
+        n_chunks = len(chunks_of(raw))
+        if not (len(t_web) >= 2 and t_web[0] < t_web[-1] and len(t_direct) >= 2):
+            raise AssertionError(f"front: the stream came in one piece ({t_web})")
+        print(f"  turn 1 ({n_chunks} chunks, {len(t_web)} pieces), first / last chunk: direct to "
+              f"the worker {t_direct[0]:.4f} / {t_direct[-1]:.4f} s; direct with a session id "
+              f"{t_kept[0]:.4f} / {t_kept[-1]:.4f} s; web -> controller -> worker "
+              f"{t_web[0]:.4f} / {t_web[-1]:.4f} s; {nvidia_smi_line()}", flush=True)
+        # Turn 2 extends the stored conversation: a delta prefill, held
+        # to a full prefill of the same conversation (no session id).
+        fills = b.resume_fills
+        raw, t_turn2 = stream_timed(uaddr + "/api/chat", dict(gen, text=q2))
+        reply2 = final_text("turn 2", chunks_of(raw))
+        if b.resume_fills != fills + 1:
+            raise AssertionError(f"front: turn 2 was not one delta prefill "
+                                 f"(resume_fills {fills} -> {b.resume_fills})")
+        conversation = render_generation_prompt(turns + [("assistant", reply1), ("user", q2)],
+                                                template=template)
+        full2, t_full2 = direct_stream(waddr, dict(direct, prompt=conversation))
+        same_tokens_or_near_tie("front turn 2", ctx, conversation, image, reply2, full2, True)
+        # Regenerate: the same prompt again, a prefix of the stored
+        # conversation, so a full prefill: the full prefill's text.
+        raw, t_regen = stream_timed(uaddr + "/api/regenerate", gen)
+        regen = final_text("regenerate", chunks_of(raw))
+        if b.resume_fills != fills + 1 or regen != full2:
+            raise AssertionError("front: regenerate is not a full prefill of turn 2's text")
+        print(f"  turn 2 by delta prefill: first chunk {t_turn2[0]:.4f} s, last "
+              f"{t_turn2[-1]:.4f} s; its full prefill direct {t_full2[0]:.4f} / "
+              f"{t_full2[-1]:.4f} s; regenerate {t_regen[0]:.4f} / {t_regen[-1]:.4f} s; "
+              f"{'same text' if reply2 == full2 else 'texts differ at a near tie'}", flush=True)
+        # The OpenAI gateway, plain and streamed, against the worker.
+        body = chat_body([q1], image, None)
+        want = post_json(waddr + "/v1/chat/completions", body)["choices"][0]["message"]["content"]
+        got = post_json(caddr + "/v1/chat/completions", body)["choices"][0]["message"]["content"]
+        raw, t_sse = stream_timed(caddr + "/v1/chat/completions", dict(body, stream=True))
+        if not want or got != want or sse_text(raw) != want:
+            raise AssertionError("front: the gateway's answer is not the worker's")
+        print(f"  /v1/chat/completions through the controller = the worker's, plain and streamed "
+              f"(first event {t_sse[0]:.4f} s, last {t_sse[-1]:.4f} s)", flush=True)
+        # The conversation log: one chat record a turn, the image hashed.
+        logs = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+        records = []
+        for path in logs:
+            with open(path) as f:
+                records += [json.loads(line) for line in f]
+        sha = hashlib.sha256(b64.encode()).hexdigest()
+        texts = [r["state"]["messages"][-1][1] for r in records]
+        if (len(logs) != 1 or [r["type"] for r in records] != ["chat"] * 3
+                or any(r["images"] != [sha] for r in records) or texts != [reply1, reply2, regen]):
+            raise AssertionError(f"front: conversation log {records}")
+        print("  conversation log: 3 chat records, the image as its sha256", flush=True)
+    finally:
+        if web is not None:
+            web.shutdown()
+            web.server_close()
+        if worker is not None:
+            worker.shutdown()
+        ctl.shutdown()
+        shutil.rmtree(log_dir, ignore_errors=True)
+    counts = kernels.launch_counts()
+    print(f"  launches in the measured run: {counts}", flush=True)
+    require_launched("front", counts)
     return counts
 
 
@@ -3187,6 +3393,11 @@ def main():
 
     header("[7d/10] text-LM serving: the GREEN judge (Llama-2-7B) and the local LLM client")
     counts.update(phase_text_lm(ctx, args.seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[7e/10] the serving front: web UI -> controller -> BatchWorker on the int8 model")
+    counts["front"] = phase_front(ctx, args.seed)
     del ctx  # the int8 model goes before the trainers' come
     gc.collect()
     torch.cuda.empty_cache()

@@ -213,6 +213,7 @@ def tokenize_chat_supervised(
     *,
     template: ChatTemplate = QWEN_CHATML,
     system: Optional[str] = None,
+    ref_masking: bool = False,
 ) -> Tuple[List[int], List[int]]:
     """Render and tokenize a training conversation with supervised masking.
 
@@ -221,7 +222,12 @@ def tokenize_chat_supervised(
     content and terminator and IGNORE_INDEX elsewhere (system and user
     turns, the assistant role prefix, image sentinels). Each turn is
     rendered and tokenized on its own, which is exact for chatml: turn
-    boundaries are literal token sequences."""
+    boundaries are literal token sequences.
+
+    `ref_masking=True` gives the reference's `preprocess_qwen` semantics:
+    the whole assistant render is supervised (prefix included), and the
+    tokens of "\\n", <|im_start|> and <|im_end|> are unmasked in every turn,
+    each only where the tokenizer encodes it as a single token."""
     from radvlm_tpu_torch.models.multimodal import tokenize_with_images
 
     ids: List[int] = []
@@ -240,13 +246,20 @@ def tokenize_chat_supervised(
             add(template.user_fmt.format(content=content), False)
         elif role == "assistant":
             fmt = template.assistant_fmt.format(content=content)
-            if fmt.startswith(template.assistant_prefix):
+            if ref_masking or not fmt.startswith(template.assistant_prefix):
+                add(fmt, True)
+            else:
                 add(template.assistant_prefix, False)
                 add(fmt[len(template.assistant_prefix):], True)
-            else:
-                add(fmt, True)
         else:
             raise ValueError(f"unknown role {role!r}")
+    if ref_masking:
+        unmask = set()
+        for text in ("\n", "<|im_start|>", "<|im_end|>"):
+            enc = tokenize_fn(text)
+            if len(enc) == 1:
+                unmask.add(enc[0])
+        labels = [t if (t >= 0 and t in unmask) else l for t, l in zip(ids, labels)]
     return ids, labels
 
 

@@ -1,13 +1,16 @@
 """NLG metrics: BLEU-4 (coco-style), ROUGE-1/2/L, CIDEr-D (the port's own copy
-of `radvlm_tpu/eval/metrics/nlg.py`; `rouge_score` is imported inside `rouge`).
+of `radvlm_tpu/eval/metrics/nlg.py`).
 
 Bit-matched rebuilds of the vendored vilmedic scorers the reference evaluates
 reports with (`radvlm/evaluation/vilmedic/utils.py:36-66`):
 - BLEU: coco-caption corpus BLEU-4 — whitespace tokens, clipped modified n-gram
   precision with tiny/small smoothing constants, 'closest' reference-length option,
   brevity penalty exp(1 - 1/ratio) (`NLG/bleu/bleu_scorer.py`);
-- ROUGE-1/2/L: the `rouge_score` package with stemming, mean F-measure
-  (`NLG/rouge/rouge.py`);
+- ROUGE-1/2/L: mean F-measure with stemming (`NLG/rouge/rouge.py`), scored by
+  the port's own `eval/metrics/rouge.py`, which equals the `rouge_score`
+  package with nltk's Porter stemmer float for float. It is the one
+  implementation on the CPU and on the card: the port does not switch to
+  `rouge_score` where that package imports, so one code path is trusted;
 - CIDEr-D: tf-idf n-gram (1..4) similarity with count clipping and gaussian length
   penalty sigma=6, corpus idf from the reference set, score x10
   (`NLG/ciderD/ciderD_scorer.py` — including its bigram-based length quirk).
@@ -22,6 +25,8 @@ from collections import Counter, defaultdict
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from radvlm_tpu_torch.eval.metrics.rouge import score as _rouge_score
 
 _TINY = 1e-15
 _SMALL = 1e-9
@@ -81,20 +86,17 @@ def bleu4(
 
 
 # ---------------------------------------------------------------------------
-# ROUGE (rouge_score package, stemmed — same as the vendored wrapper)
+# ROUGE (stemmed, rouge_score's semantics - see eval/metrics/rouge.py)
 # ---------------------------------------------------------------------------
 
 
 def rouge(
     refs: Sequence[str], hyps: Sequence[str], kind: str = "rougeL"
 ) -> Tuple[float, List[float]]:
-    from rouge_score import rouge_scorer
-
     kind = {"rouge1": "rouge1", "rouge2": "rouge2", "rougel": "rougeL"}[
         kind.lower()
     ]
-    scorer = rouge_scorer.RougeScorer([kind], use_stemmer=True)
-    f1s = [scorer.score(r, h)[kind].fmeasure for r, h in zip(refs, hyps)]
+    f1s = [_rouge_score(r, h, kind) for r, h in zip(refs, hyps)]
     return float(np.mean(f1s)) if f1s else 0.0, f1s
 
 

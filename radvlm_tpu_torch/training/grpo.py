@@ -116,8 +116,7 @@ def rec_reward(text: str, gt_boxes: Sequence[Sequence[float]], gc: GRPOConfig) -
 
 def report_reward(text: str, solution: str, gc: GRPOConfig) -> float:
     """Report-generation reward: 0.5 ROUGE-L F + 0.5 BLEU-4 against the
-    ground-truth report (the evaluation's scorers; ROUGE needs
-    `rouge_score`)."""
+    ground-truth report (the evaluation's scorers)."""
     if not text.strip() or not solution.strip():
         return 0.0
     rl, _ = rouge([solution], [text], kind="rougeL")

@@ -165,3 +165,83 @@ def test_load_mixture_matches_jax(data, tmp_path):
     assert got == jexport.load_mixture(recipe) and len(got) == 7 + 2 + 1 + 14
     with pytest.raises(ValueError):
         texport.apply_sampling_strategy(cells, "middle:3")
+
+
+_SPECIALS = {"<|im_start|>": 1, "<|im_end|>": 2, "<image>": 3}
+
+
+def _chatml_tok(split_newline):
+    """ChatML-style tokenizer: the specials are single ids, other text is
+    bytes; with `split_newline` "\\n" encodes as two tokens."""
+
+    def tok(s):
+        out, i = [], 0
+        while i < len(s):
+            for sp, tid in _SPECIALS.items():
+                if s.startswith(sp, i):
+                    out.append(tid)
+                    i += len(sp)
+                    break
+            else:
+                out.extend([256 + 10, 300] if (split_newline and s[i] == "\n") else [256 + ord(s[i])])
+                i += 1
+        return out
+
+    return tok
+
+
+def _preprocess_qwen_oracle(tok, source, system_message="You are a helpful assistant."):
+    """The reference's `preprocess_qwen` (train.py:560-633) in semantics:
+    per-turn renders, system and user turns masked, assistant turns fully
+    supervised (role prefix included), the single-token ids of "\\n",
+    <|im_start|> and <|im_end|> unmasked everywhere, <image> replaced by the
+    sentinel with its label untouched."""
+    from radvlm_tpu_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+
+    unmask = [enc[0] for enc in map(tok, ("\n", "<|im_start|>", "<|im_end|>")) if len(enc) == 1]
+    render = lambda role, content: tok(f"<|im_start|>{role}\n{content}<|im_end|>\n")
+    input_id, target = [], []
+    enc = render("system", system_message)
+    input_id += enc
+    target += [IGNORE_INDEX] * len(enc)
+    for role, content in source:
+        enc = render(role, content)
+        input_id += enc
+        target += [IGNORE_INDEX] * len(enc) if role in ("user", "system") else enc
+    for idx, t in enumerate(input_id):
+        if t in unmask:
+            target[idx] = t
+        if t == _SPECIALS["<image>"]:
+            input_id[idx] = IMAGE_TOKEN_INDEX
+    return input_id, target
+
+
+@pytest.mark.parametrize("ref_masking,split_newline", [(False, False), (True, False), (True, True)],
+                         ids=["default", "ref_masking", "two_token_newline"])
+def test_ref_masking_matches_jax_and_preprocess_qwen(ref_masking, split_newline):
+    from radvlm_tpu.data import chat as jchat
+    from radvlm_tpu_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+
+    tok = _chatml_tok(split_newline)
+    turns = [
+        ("user", "<image>\nWhat do you see?"),
+        ("assistant", "Cardiomegaly.\nNo effusion."),
+        ("user", "Where?"),
+        ("assistant", "At [0.30, 0.40, 0.70, 0.80]."),
+    ]
+    ids, labels = tokenize_chat_supervised(tok, turns, ref_masking=ref_masking)
+    assert (ids, labels) == jchat.tokenize_chat_supervised(tok, turns, ref_masking=ref_masking)
+    supervised = [t for t, l in zip(ids, labels) if l != IGNORE_INDEX]
+    assert labels[ids.index(IMAGE_TOKEN_INDEX)] == IGNORE_INDEX
+    if not ref_masking:
+        # The role prefix is prompt: <|im_start|> is never supervised.
+        assert _SPECIALS["<|im_start|>"] not in supervised
+        assert (ids, labels) == tokenize_chat_supervised(tok, turns)
+        return
+    assert (ids, labels) == _preprocess_qwen_oracle(tok, turns)
+    assert _SPECIALS["<|im_start|>"] in supervised
+    user_end = ids.index(_SPECIALS["<|im_end|>"], ids.index(IMAGE_TOKEN_INDEX))
+    user_newlines = [i for i in range(user_end) if ids[i] == 256 + 10]
+    assert user_newlines
+    for i in user_newlines:  # a "\n" of a user turn: unmasked only as one token
+        assert (labels[i] == IGNORE_INDEX) == split_newline

@@ -169,15 +169,20 @@ def test_port_runs_with_jax_blocked():
     too), and a tiny Llama judge serves `green_cli.main` through
     `TextLMEngine`, and through the int8 `LocalTorchClient` drives
     `filter_reports` and judges `evaluate_conversations`, and `dpo_cli` and
-    `grpo_cli` each take a step."""
+    `grpo_cli` each take a step, and the serving front answers a chat turn
+    from the web UI through the controller and a worker, and the report
+    metrics score with the port's own ROUGE (requests, rouge_score and nltk
+    blocked too)."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["radvlm_tpu"] = None
-        for name in ("optax", "orbax", "flax", "pandas", "sklearn"):
+        for name in ("optax", "orbax", "flax", "pandas", "sklearn", "requests", "rouge_score",
+                     "nltk"):
             sys.modules[name] = None
         import importlib, pkgutil
         import numpy as np, torch
+        torch.set_num_threads(1)  # one thread: the suite runs its test workers beside it
         import radvlm_tpu_torch
         for m in pkgutil.walk_packages(radvlm_tpu_torch.__path__, "radvlm_tpu_torch."):
             importlib.import_module(m.name)
@@ -414,9 +419,55 @@ def test_port_runs_with_jax_blocked():
                                         "--prompt-bucket", "128", "--pad-tiles", "2"],
                               tokenizer=Tok())
         assert state.step == 1
+        # The serving front: a registry dispatch, then the web UI over the
+        # controller and a ModelWorker for one chat turn; the report metrics.
+        import base64, io, threading, urllib.request
+        from http.server import ThreadingHTTPServer
+        from radvlm_tpu_torch.eval.metrics import evaluate_reports
+        from radvlm_tpu_torch.serve.controller import Controller, Registry
+        from radvlm_tpu_torch.serve.web import WebApp, make_handler
+        from radvlm_tpu_torch.serve.worker import ModelWorker
+        reg = Registry()
+        reg.register("http://w", ["m"])
+        assert reg.get_worker_address("m") == "http://w"
+        ctl = Controller(host="127.0.0.1", port=0)
+        ctl.serve_forever(background=True)
+        worker = ModelWorker(runner, model_names=["tiny"],
+                             controller_address=f"http://127.0.0.1:{ctl.port}")
+        worker.serve_forever(host="127.0.0.1", port=0, background=True)
+        web = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(
+            WebApp(f"http://127.0.0.1:{ctl.port}", log_dir=f"{data}/logs")))
+        threading.Thread(target=web.serve_forever, daemon=True).start()
+
+        def post(path, obj):
+            req = urllib.request.Request(f"http://127.0.0.1:{web.server_address[1]}{path}",
+                                         data=json.dumps(obj).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.read()
+
+        try:
+            new = json.loads(post("/api/new", {}))
+            assert new["models"] == ["tiny"]
+            png = io.BytesIO()
+            Image.fromarray(img).save(png, format="PNG")
+            raw = post("/api/chat", {"session_id": new["session_id"], "model": "tiny",
+                                     "text": "hi", "max_new_tokens": 2,
+                                     "images": [base64.b64encode(png.getvalue()).decode()]})
+            chunks = [json.loads(m) for m in raw.split(b"\\0") if m]
+            assert chunks and all(c["error_code"] == 0 for c in chunks), chunks
+        finally:
+            web.shutdown()
+            web.server_close()
+            worker.shutdown()
+            ctl.shutdown()
+        metrics = evaluate_reports(["No acute process.", "Small left pleural effusion."],
+                                   ["No acute findings.", "Left pleural effusions."],
+                                   with_clinical=False)
+        assert 0 < metrics["rougel"] < 1 and metrics["rouge1"] > 0, metrics
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
-        for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn"):
+        for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn",
+                        "requests", "rouge_score", "nltk"):
             assert not [k for k in loaded if k.split(".")[0] == blocked], blocked
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
