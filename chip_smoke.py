@@ -206,7 +206,33 @@ Phases, each raising on failure (the last line is printed only on success):
    shows it to the phase). After the run `engine_kernels` holds K2 (a fill
    of the 4096 bucket left-padded to the shortest and the longest rollout
    prompt, 2 rows, GQA 14|2 x 64) and K9 (the last engine's own cache and
-   segment ids, every slot, layers 0 and 23) against their plain versions.
+   segment ids, every slot, layers 0 and 23) against their plain versions;
+11. the decoder families, each radvlm_7b's SigLIP tower and mlp2x_gelu
+   projector into a decoder preset at full width, weights born int8 on the
+   card from --seed (an MoE's router and experts dense bf16, as the JAX
+   quantizer leaves them): the int8 reference check on one small image
+   prompt, then a BatchWorker (8 slots, the int8 cache, 8-step chunks)
+   serving concurrent greedy requests with CXR-sized images over HTTP,
+   launch counts from 0 after its warmup. The provenance must name the
+   kernel route for the prefill and decode attention where the dispatch's
+   predicates take it (K2 and K4 launched) and the plain route elsewhere
+   (neither launched); K1, K3 and K5/K6 launch in every family and no
+   other kernel does; a prefill of the last prompt on the engine's routes
+   gives finite logits. After the run `engine_kernels` holds the path's
+   kernels at the family's own shapes against their plain versions: K2 (a
+   fill of the served bucket left-padded to the shortest and the longest
+   prompt) and K4 (the engine's own int8 cache and segment ids, every slot,
+   the first and the last layer) where the family takes them, K3 at a
+   fill's rows and K5/K6 at the 8 slots' rows on the last layer's own int8
+   projections and lm_head (not the dense experts, not a tied head). 11a: LLaVA-Mixtral-8x7B (8 experts of 14336, top-2, exact mode)
+   cut to 8 of its 32 layers (the bf16 experts take 2.82 GB a layer),
+   buckets 3072-4096, 4 requests. 11b: LLaVA-MPT-7B (ALiBi, LayerNorm, a
+   non-gated GELU MLP, a tied lm_head; plain attention) at full depth; its
+   2048 positions keep the prompts to one 384-px tile ("pad") in the 1024
+   bucket, 4 requests. Both time and profile a decode chunk of every slot.
+   11c: Llama-3-8B (the kernels), Mistral-7B (its 4096-token window: plain
+   attention; one prompt of 4080 tokens, so decode crosses the window) and
+   Gemma-2B (head_dim 256: plain attention), full depth, 2 requests each.
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -240,7 +266,8 @@ import numpy as np
 import torch
 
 from radvlm_tpu_torch import kernels
-from radvlm_tpu_torch.config import radvlm_0_5b, radvlm_7b
+from radvlm_tpu_torch.config import (gemma_2b, llama3_8b, mistral_7b, mixtral_8x7b, mpt_7b,
+                                     radvlm_0_5b, radvlm_7b)
 from radvlm_tpu_torch.data.loader import Bucket, LlavaJsonDataset, PrefetchLoader
 from radvlm_tpu_torch.data.chat import QWEN_CHATML, TEMPLATES, render_generation_prompt
 from radvlm_tpu_torch.data.datasets import CHEXPERT_PATHOLOGIES
@@ -387,6 +414,18 @@ LORA_RANK = 128
 SPEC_K = 4
 K5_ROWS = (8, 32, 40)  # decode slots, and a verify step of 8 slots x (SPEC_K + 1)
 SPEC_BUCKETS = (3456, 3840)
+# Phase 11: the decoder families. Mixtral's bf16 experts take 2.82 GB a
+# layer, so 8 of its 32 layers (and the f32 copy of the reference check)
+# fit the card; MPT has 2048 positions, so its prompts are one 384-px tile
+# in the 1024 bucket; one Mistral prompt of 4080 real tokens in the 4096
+# bucket, whose 32 decode steps cross its 4096-token window.
+MIXTRAL_LAYERS, FAMILY_SLOTS, FAMILY_STEPS = 8, 8, 8  # layers, slots, steps a chunk
+MPT_BUCKETS, MPT_MAX_LEN = (1024,), 1152
+MISTRAL_LONG_PROMPT = 4080
+FAMILY_BUCKETS = (3840, 4096)  # 11c: the buckets its prompts fill, warmed up alone
+FAMILY_KERNELS = ("tower_attention", "w8a8_matmul", "int8_matmul")  # K1, K3, K5/K6
+# K2 and K4: not under ALiBi, a sliding window or head_dim 256.
+FAMILY_ATTENTION = ("prefill_attention", "decode_attention_q8")
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): what a kernel's
 # least possible time is computed from.
 HBM_BYTES_PER_S = 3.35e12
@@ -1362,7 +1401,7 @@ def profile_stages(model, cfg, batch, new_tokens: int):
         device_breakdown(prof, walls[stage], stage, profiled_wall=wall)
 
 
-def reference_check_int8(model, cfg, tok, rng) -> None:
+def reference_check_int8(model, cfg, tok, rng, label: str = "int8 ") -> None:
     """`check_int8_against_f32` on one small image prompt, the kernels
     writing the int8 cache (K3/K4/K5)."""
     img = rng.integers(0, 255, size=(384, 384, 3), dtype=np.uint8)
@@ -1370,7 +1409,7 @@ def reference_check_int8(model, cfg, tok, rng) -> None:
         tok.encode, "<|im_start|>user\n<image>\nAny effusion?<|im_end|>\n<|im_start|>assistant\n")
     batch = multimodal.collate([multimodal.build_sample(ids, [img], cfg)],
                                pad_to_multiple=128, left_pad=True)
-    check_int8_against_f32(model, cfg, batch_to_device(batch, model.device), "int8", "int8 ")
+    check_int8_against_f32(model, cfg, batch_to_device(batch, model.device), "int8", label)
 
 
 @contextlib.contextmanager
@@ -2389,17 +2428,20 @@ def record_lengths(b) -> list:
     return lengths
 
 
-def engine_kernels(b, prompt_lengths, seed: int, label: str) -> None:
+def engine_kernels(b, prompt_lengths, seed: int, label: str, attention: bool = True) -> None:
     """The kernels of a ContinuousBatcher's path at its own shapes, against
-    their plain versions: K2 on a fill of the prompt bucket left-padded to
-    the shortest and to the longest prompt it was given, K9 on the engine's
-    own bf16 cache after its run (every slot, the first and the last layer)
-    and, for an int8 model, K3 at a fill's rows and K5/K6 at the slots' rows
-    on the last layer's and the lm_head's own weights."""
+    their plain versions. Where the engine's attention takes the kernels
+    (`attention`): K2 on a fill of the prompt bucket left-padded to the
+    shortest and to the longest prompt it was given, then K9 (bf16 cache)
+    or K4 (int8 cache) on the engine's own cache and segment ids after its
+    run (every slot, the first and the last layer; a slot that holds no key
+    must give 0, and one slot at least must hold keys; K9's path fills
+    every slot). For an int8 model, K3 at a fill's rows and K5/K6 at the
+    slots' rows on the last layer's own int8 projections (qkv, o, gateup
+    or MPT's up, down; an MoE's dense experts are no kernel's) and the
+    lm_head's, where it is one (a tied head is the dequantized embedding)."""
     tcfg, text = b.cfg.text, b.model.text
     dev = b.model.device
-    if b.kv_quant:
-        raise AssertionError(f"{label}: the engine's cache is int8, its path has no K9")
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
@@ -2407,43 +2449,65 @@ def engine_kernels(b, prompt_lengths, seed: int, label: str) -> None:
 
     h, hkv, hd = tcfg.num_heads, tcfg.num_kv_heads, tcfg.head_dim
     rows = min(x for x in b.prompt_buckets if x >= max(prompt_lengths))
-    q, k, v = randn(2, rows, h, hd), randn(2, rows, hkv, hd), randn(2, rows, hkv, hd)
-    seg = torch.ones((2, rows), dtype=torch.int32, device=dev)
-    seg[0, :rows - min(prompt_lengths)] = 0
-    seg[1, :rows - max(prompt_lengths)] = 0
-    out = fa.prefill_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, causal=True)
-    torch.cuda.synchronize()
-    check_close("prefill_attention", f"{label} K2 prefill_attention [2,{rows},{h}|{hkv},{hd}]",
-                out, fa.attention_plain(q, k, v, seg, seg, True, hd ** -0.5), rows=seg.bool())
-    if out[~seg.bool()].abs().max() != 0:
-        raise AssertionError(f"{label} K2: padding rows must be 0")
-    del q, k, v, out
-    ck, cv = b.cache
-    visible = (b.cache_seg != 0).sum(1).tolist()
-    if min(visible) == 0:
-        raise AssertionError(f"{label} K9: a slot of the engine's cache holds no key: {visible}")
-    qd = randn(b.num_slots, h, hd)
-    for layer in (0, tcfg.num_layers - 1):
-        out = da.decode_attention_stacked(qd, ck, cv, b.cache_seg, layer, num_kv_heads=hkv)
+    if attention:
+        q, k, v = randn(2, rows, h, hd), randn(2, rows, hkv, hd), randn(2, rows, hkv, hd)
+        seg = torch.ones((2, rows), dtype=torch.int32, device=dev)
+        seg[0, :rows - min(prompt_lengths)] = 0
+        seg[1, :rows - max(prompt_lengths)] = 0
+        out = fa.prefill_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg, causal=True)
         torch.cuda.synchronize()
-        check_close("decode_attention", f"{label} K9 decode_attention [{b.num_slots},{h},{hd}] x "
-                    f"layer {layer} of the engine's cache [{b.num_slots},{b.max_len},{hkv * hd}] "
-                    f"({min(visible)}-{max(visible)} keys a slot)", out,
-                    da.decode_attention_plain(qd, ck[layer], cv[layer], b.cache_seg,
-                                              num_kv_heads=hkv, scale=hd ** -0.5))
-    if not isinstance(text.lm_head, QLinear):
-        return
+        check_close("prefill_attention",
+                    f"{label} K2 prefill_attention [2,{rows},{h}|{hkv},{hd}]",
+                    out, fa.attention_plain(q, k, v, seg, seg, True, hd ** -0.5),
+                    rows=seg.bool())
+        if out[~seg.bool()].abs().max() != 0:
+            raise AssertionError(f"{label} K2: padding rows must be 0")
+        del q, k, v, out
+        name, kn = ("decode_attention_q8", "K4") if b.kv_quant else ("decode_attention", "K9")
+        visible = (b.cache_seg != 0).sum(1).tolist()
+        if max(visible) == 0 or (not b.kv_quant and min(visible) == 0):
+            raise AssertionError(f"{label} {kn}: slots of the engine's cache hold no key: "
+                                 f"{visible}")
+        qd = randn(b.num_slots, h, hd)
+        for layer in (0, tcfg.num_layers - 1):
+            if b.kv_quant:
+                ck, cv, ks, vs = b.cache
+                out = da.decode_attention_stacked_q8(qd, ck, cv, ks, vs, b.cache_seg, layer,
+                                                     num_kv_heads=hkv)
+                ref = da.decode_attention_q8_plain(qd, ck[layer], cv[layer], ks[layer],
+                                                   vs[layer], b.cache_seg, num_kv_heads=hkv,
+                                                   scale=hd ** -0.5)
+            else:
+                ck, cv = b.cache
+                out = da.decode_attention_stacked(qd, ck, cv, b.cache_seg, layer,
+                                                  num_kv_heads=hkv)
+                ref = da.decode_attention_plain(qd, ck[layer], cv[layer], b.cache_seg,
+                                                num_kv_heads=hkv, scale=hd ** -0.5)
+            torch.cuda.synchronize()
+            empty = [i for i, n in enumerate(visible) if n == 0]
+            if empty and out[empty].abs().max() != 0:
+                raise AssertionError(f"{label} {kn}: slots {empty} hold no key and must give 0")
+            check_close(name, f"{label} {kn} {name} [{b.num_slots},{h}|{hkv},{hd}] x layer "
+                        f"{layer} of the engine's cache [{b.num_slots},{b.max_len},{hkv * hd}] "
+                        f"({min(visible)}-{max(visible)} keys a slot)", out, ref)
     blk = text.layers[-1]
-    for name, lin in (("qkv", blk.qkv), ("o", blk.o), ("gateup", blk.gateup),
-                      ("down", blk.down), ("lm_head", text.lm_head)):
+    if not isinstance(blk.o, QLinear):
+        return
+    lins = [(n, getattr(blk, n)) for n in ("qkv", "o", "gateup", "up", "down")
+            if isinstance(getattr(blk, n, None), QLinear)]
+    if isinstance(text.lm_head, QLinear):
+        lins.append(("lm_head", text.lm_head))
+    fill_rows = b.fill_batch * rows
+    for name, lin in lins:
         n, kk = lin.weight.shape
         if name != "lm_head":  # the lm_head of a fill is weight-only
-            xq, xs = w8.quantize_rows(randn(rows, kk))
+            xq, xs = w8.quantize_rows(randn(fill_rows, kk))
             out = w8.w8a8_matmul(xq, xs, lin.weight, lin.scale)
             torch.cuda.synchronize()
-            check_close("w8a8_matmul", f"{label} K3 w8a8_matmul {name} [{rows},{kk}]x[{kk},{n}]",
-                        out, w8.w8a8_matmul_plain(xq, xs[:, 0], lin.weight, lin.scale,
-                                                  torch.bfloat16))
+            check_close("w8a8_matmul", f"{label} K3 w8a8_matmul {name} "
+                        f"[{fill_rows},{kk}]x[{kk},{n}]", out,
+                        w8.w8a8_matmul_plain(xq, xs[:, 0], lin.weight, lin.scale,
+                                             torch.bfloat16))
             del xq, xs, out
         x = randn(b.num_slots, kk)
         out = i8.int8_matmul(x, lin.weight, lin.scale)
@@ -3328,6 +3392,192 @@ def phase_grpo(dev, seed: int):
     return counts
 
 
+def question_of_length(runner, cfg, tok, question: str, image, target: int) -> str:
+    """A chat prompt about `image` whose sample is exactly `target` tokens:
+    `question` followed by filler text (CharTokenizer: one token a
+    character)."""
+    def length(q):
+        ids = multimodal.tokenize_with_images(tok.encode, prompt(runner, q))
+        return multimodal.build_sample(ids, [image], cfg).length
+
+    filler = " Compare with the prior study of this patient and describe any interval change."
+    need = target - length(question)
+    if need < 0:
+        raise AssertionError(f"the image alone takes {length(question)} tokens, over {target}")
+    text = question + (filler * (need // len(filler) + 1))[:need]
+    if length(text) != target:
+        raise AssertionError(f"prompt of {length(text)} tokens, wanted {target}")
+    return prompt(runner, text)
+
+
+def require_family_launches(label: str, counts, kernel_attention: bool) -> None:
+    """K1, K3 and K5/K6 launched, and K2 and K4 exactly where the family's
+    attention takes the kernels; no other kernel."""
+    launched = FAMILY_KERNELS + (FAMILY_ATTENTION if kernel_attention else ())
+    missing = [k for k in launched if counts[k] == 0]
+    stray = [k for k, n in counts.items() if n and k not in launched]
+    if missing or stray:
+        raise AssertionError(f"{label}: kernels never launched {missing}, launched off the "
+                             f"path {stray}")
+
+
+def serve_family(dev, seed: int, label: str, cfg, *, buckets, max_len: int, pad_tiles: int,
+                 n_requests: int, kernel_attention: bool, profile: bool, long_prompt: int = 0,
+                 cut: str = "", fill_batch: int = 2):
+    """One decoder family at full width: weights born int8 on the card from
+    `seed` (the experts of an MoE dense bf16), the int8 reference check,
+    then a BatchWorker (8 slots, the int8 cache, 8-step chunks) serving `n_requests`
+    concurrent greedy requests with CXR-sized images over HTTP, launch
+    counts from 0 after its warmup. The provenance must name the kernel
+    route for the prefill and decode attention where `kernel_attention`
+    (K2, K4 launched) and the plain route elsewhere (neither launched); K1,
+    K3 and K5/K6 launch in every family, nothing else does. With `profile`
+    a decode chunk of every slot is timed and profiled. Then
+    `engine_kernels` holds the path's kernels at the family's shapes on the
+    engine's own cache and weights against their plain versions."""
+    t_phase = time.perf_counter()
+    t = cfg.text
+    model = convert.random_quantized_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                                            device=dev)
+    torch.cuda.synchronize()
+    int8_gb = sum(p.numel() for p in model.parameters() if p.dtype == torch.int8) / 1e9
+    dense_gb = sum(p.numel() * p.element_size() for p in model.parameters()
+                   if p.dtype != torch.int8) / 1e9
+    print(f"  {label}: {t.num_layers} layers{cut}, hidden {t.hidden_size}, heads {t.num_heads}|"
+          f"{t.num_kv_heads} x {t.head_dim}, MLP {t.intermediate_size}"
+          + (f", {t.num_experts} experts of {t.moe_intermediate_size} (top-"
+             f"{t.num_experts_per_tok})" if t.num_experts else "")
+          + f", {t.pos_embedding}, window {t.sliding_window}; {int8_gb:.3f} GB int8 + "
+          f"{dense_gb:.3f} GB dense, {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the "
+          f"card, init {time.perf_counter() - t_phase:.2f} s", flush=True)
+    tok = CharTokenizer()
+    rng = np.random.default_rng(seed + 11)
+    t_check = time.perf_counter()
+    # Mixtral's f32 copy (45 GB of experts) fits beside its 8 int8 layers.
+    reference_check_int8(model, cfg, tok, rng, f"{label} ")
+    print(f"  reference check {time.perf_counter() - t_check:.2f} s", flush=True)
+    runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
+                       batch_size=1, pad_to_multiple=128)
+    # No session ids are sent: sessions off skips their warmup's two runs.
+    saved_cap = os.environ.get("RADVLM_SESSION_CAP")
+    os.environ["RADVLM_SESSION_CAP"] = "0"
+    try:
+        worker = BatchWorker(runner, model_names=[label], num_slots=FAMILY_SLOTS,
+                             max_len=max_len, kv_quant=True, prompt_buckets=buckets,
+                             steps_per_sync=FAMILY_STEPS, pipeline_depth=4,
+                             fill_batch=fill_batch, pad_tiles=pad_tiles)
+    finally:
+        if saved_cap is None:
+            os.environ.pop("RADVLM_SESSION_CAP")
+        else:
+            os.environ["RADVLM_SESSION_CAP"] = saved_cap
+    b = worker.batcher
+    print(f"  warmup {worker.warmup_seconds:.2f} s: "
+          f"{ {k: round(v, 3) for k, v in b.warmup_timings.items()} }", flush=True)
+    images = [cxr_image(rng) for _ in range(n_requests)]
+    prompts = [prompt(runner, QUESTIONS[i % len(QUESTIONS)]) for i in range(n_requests)]
+    if long_prompt:
+        prompts[-1] = question_of_length(runner, cfg, tok, QUESTIONS[0], images[-1], long_prompt)
+    reqs = [{"prompt": p, "images": [png_b64(im)], "max_new_tokens": NEW_TOKENS,
+             "temperature": 0.0} for p, im in zip(prompts, images)]
+    samples = [multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, p), [im], cfg)
+               for p, im in zip(prompts, images)]
+    lengths = [smp.length for smp in samples]
+    print(f"  prompts: {lengths} tokens, buckets {sorted({b._bucket_for(n) for n in lengths})}, "
+          f"{NEW_TOKENS} new tokens each; positions up to {max(lengths) + NEW_TOKENS} of "
+          f"{t.max_position_embeddings}", flush=True)
+    if max(lengths) + NEW_TOKENS > t.max_position_embeddings or max(lengths) > max(buckets):
+        raise AssertionError(f"{label}: prompts run past the model's positions or the buckets")
+    port = worker.serve_forever(host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        b.host_stats = dict.fromkeys(b.host_stats, 0)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(n_requests) as pool:
+            outs = list(pool.map(lambda r: post_json(base + "/worker_generate", r), reqs))
+        t_load = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        worker.shutdown()
+    counts = kernels.launch_counts()
+    for i, out in enumerate(outs):
+        if out.get("error_code") != 0 or not out.get("text"):
+            raise AssertionError(f"{label} request {i} failed: {out}")
+    n_tok = b.host_stats["tokens"]
+    print(f"  {n_requests} concurrent requests: {t_load:.3f} s, {n_tok} tokens, "
+          f"{n_tok / t_load:.1f} tokens/s (prefills included)", flush=True)
+    print(f"  host_stats: { {k: round(v, 3) for k, v in b.host_stats.items()} }", flush=True)
+    prov = b.kernel_provenance()
+    print(f"  provenance: {prov}", flush=True)
+    print(f"  launches in the measured run: {counts}", flush=True)
+    attention = ("kernel", "kernel_q8") if kernel_attention else ("plain", "plain")
+    want = dict(tower_attention="kernel", prefill_attention=attention[0],
+                decode_attention=attention[1], prefill_matmul="w8a8", decode_matmul="int8")
+    wrong = {k: prov[k] for k, v in want.items() if prov[k] != v}
+    if wrong:
+        raise AssertionError(f"{label}: provenance {wrong}, expected {want}")
+    require_family_launches(label, counts, kernel_attention)
+    # The served prompt's logits through a prefill on the engine's own
+    # routes (the kernels where the dispatch takes them): finite, of the
+    # vocabulary's width.
+    batch = batch_to_device(multimodal.collate([samples[-1]], pad_to_multiple=128,
+                                               left_pad=True), dev)
+    with torch.inference_mode():
+        _, _, lg = engine.prefill(model, cfg, batch,
+                                  engine.cache_length(lengths[-1], NEW_TOKENS),
+                                  cache_format="int8")
+    if lg.shape != (1, t.vocab_size) or not torch.isfinite(lg).all():
+        raise AssertionError(f"{label}: prefill logits malformed")
+    if profile:
+        t_chunks = time.perf_counter()
+        engine_chunks(b, cfg, tok, reqs[0], images[0], label)
+        print(f"  decode chunks {time.perf_counter() - t_chunks:.2f} s", flush=True)
+    t_check = time.perf_counter()
+    engine_kernels(b, lengths, seed + 31, label, attention=kernel_attention)
+    print(f"  the path's kernels at its own shapes {time.perf_counter() - t_check:.2f} s",
+          flush=True)
+    torch.cuda.synchronize()
+    print(f"  {label}: {time.perf_counter() - t_phase:.1f} s; {nvidia_smi_line()}", flush=True)
+    del worker, runner, b, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_families(dev, seed: int, header) -> dict:
+    """Phase 11: LLaVA-Mixtral (depth cut), LLaVA-MPT-7B, then Llama-3-8B,
+    Mistral-7B and Gemma-2B, each radvlm_7b's tower and projector into the
+    family's decoder at full width."""
+    counts = {}
+    cfg = dataclasses.replace(radvlm_7b(), text=dataclasses.replace(
+        mixtral_8x7b(), num_layers=MIXTRAL_LAYERS))
+    header(f"[11a/11] LLaVA-Mixtral-8x7B, {MIXTRAL_LAYERS} of 32 layers (the bf16 experts: "
+           "2.82 GB a layer)")
+    counts["mixtral"] = serve_family(dev, seed, "mixtral_8x7b", cfg, buckets=INT8_BUCKETS,
+                                     max_len=4224, pad_tiles=6, n_requests=4,
+                                     kernel_attention=True, profile=True,
+                                     cut=" (of 32: depth cut)")
+    # MPT has 2048 positions: one 384-px tile an image ("pad") in the 1024 bucket.
+    cfg = dataclasses.replace(radvlm_7b(), text=mpt_7b(), image_aspect_ratio="pad")
+    header("[11b/11] LLaVA-MPT-7B, full depth, one 384-px tile an image, the 1024 bucket")
+    counts["mpt"] = serve_family(dev, seed, "mpt_7b", cfg, buckets=MPT_BUCKETS,
+                                 max_len=MPT_MAX_LEN, pad_tiles=1, n_requests=4,
+                                 kernel_attention=False, profile=True)
+    for name, preset, kernel_attention, long_prompt in (
+            ("llama3_8b", llama3_8b, True, 0),
+            ("mistral_7b", mistral_7b, False, MISTRAL_LONG_PROMPT),
+            ("gemma_2b", gemma_2b, False, 0)):
+        header(f"[11c/11] LLaVA-{name}, full depth")
+        counts[name] = serve_family(
+            dev, seed, name, dataclasses.replace(radvlm_7b(), text=preset()),
+            buckets=FAMILY_BUCKETS, max_len=4224, pad_tiles=6, n_requests=2,
+            kernel_attention=kernel_attention, profile=False, long_prompt=long_prompt,
+            fill_batch=1)
+    return counts
+
+
 def post_json(url: str, req: dict) -> dict:
     body = json.dumps(req).encode()
     with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=600) as resp:
@@ -3343,32 +3593,32 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     dev = torch.device("cuda:0")
     smi = nvidia_smi_line()
-    print(f"[1/10] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+    print(f"[1/11] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
     t_start = t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.lib()
-    print(f"[2/10] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
+    print(f"[2/11] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
 
     def header(text):
         print(f"{text} (at {time.perf_counter() - t_start:.0f} s)", flush=True)
 
-    header("[3/10] kernels against their plain versions")
+    header("[3/11] kernels against their plain versions")
     results = phase_kernels(dev, 1234 + args.seed)
 
-    header("[4/10] bf16 slice: radvlm_7b, random bf16 weights")
+    header("[4/11] bf16 slice: radvlm_7b, random bf16 weights")
     counts = {"bf16": phase_slice(dev, args.seed)}
     gc.collect()  # the bf16 model (15 GiB) goes before the int8 one comes
     torch.cuda.empty_cache()
 
-    header("[5/10] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
+    header("[5/11] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
     counts["int8"], ctx = phase_int8(dev, args.seed)
     gc.collect()  # phase 5's KV cache goes before the spec engines' come
     torch.cuda.empty_cache()
 
-    header(f"[6/10] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
+    header(f"[6/11] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
     counts["spec_int8"] = phase_spec(ctx, True, SPEC_REQUESTS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3376,49 +3626,54 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7/10] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
+    header("[7/11] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
     counts["int4"] = phase_artifact(dev, args.seed, ctx)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7b/10] fused W8A8 (K13) on the int8 model")
+    header("[7b/11] fused W8A8 (K13) on the int8 model")
     counts["fused"] = phase_fused(ctx)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7c/10] evaluation: build_task_dataset + run_task on the int8 model")
+    header("[7c/11] evaluation: build_task_dataset + run_task on the int8 model")
     counts["eval"] = phase_eval(ctx, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7d/10] text-LM serving: the GREEN judge (Llama-2-7B) and the local LLM client")
+    header("[7d/11] text-LM serving: the GREEN judge (Llama-2-7B) and the local LLM client")
     counts.update(phase_text_lm(ctx, args.seed))
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7e/10] the serving front: web UI -> controller -> BatchWorker on the int8 model")
+    header("[7e/11] the serving front: web UI -> controller -> BatchWorker on the int8 model")
     counts["front"] = phase_front(ctx, args.seed)
     del ctx  # the int8 model goes before the trainers' come
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[8/10] SFT: radvlm_0_5b, f32 master weights, every part tunable, training.loop.train")
+    header("[8/11] SFT: radvlm_0_5b, f32 master weights, every part tunable, training.loop.train")
     counts["sft"] = phase_sft(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[9/10] QLoRA: radvlm_7b, int8 base, rank-128 adapters, training.loop.train")
+    header("[9/11] QLoRA: radvlm_7b, int8 base, rank-128 adapters, training.loop.train")
     counts["qlora"] = phase_qlora(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[10/10] DPO: radvlm_0_5b, f32 master weights, the tower frozen, dpo.train_dpo")
+    header("[10/11] DPO: radvlm_0_5b, f32 master weights, the tower frozen, dpo.train_dpo")
     counts["dpo"] = phase_dpo(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[10b/10] GRPO: radvlm_0_5b, rollouts through ContinuousBatcher, grpo.train_grpo")
+    header("[10b/11] GRPO: radvlm_0_5b, rollouts through ContinuousBatcher, grpo.train_grpo")
     counts["grpo"] = phase_grpo(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[11/11] the decoder families: MoE, MPT and the LLaVA presets, weights born int8")
+    counts.update(phase_families(dev, args.seed, header))
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

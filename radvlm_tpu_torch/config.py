@@ -6,9 +6,9 @@ do that). Port code reads fields and never tests a config's class.
 The JAX `RadVLMConfig` has two properties, `tokens_per_tile` and
 `feature_grid_side`, that reach its resampler module; here they are the
 functions `tokens_per_tile(cfg)` and `feature_grid_side(cfg)` (identity
-resampler only, the RadVLM configuration). Of the presets only the RadVLM
-and Qwen2 ones are kept; the other decoder families are not ported
-(ROADMAP M10).
+resampler only, the RadVLM configuration). Every decoder preset is kept
+(Qwen2, Llama-3, Mistral, Mixtral, Gemma, MPT); the RadVLM presets are
+the two SigLIP + Qwen2 ones.
 """
 
 from __future__ import annotations
@@ -131,6 +131,117 @@ class Qwen2Config:
 
 def qwen2_7b() -> Qwen2Config:
     return Qwen2Config()
+
+
+def llama3_8b() -> Qwen2Config:
+    """Llama-3.1-8B-Instruct widths (the reference's llava_llama family)."""
+    return Qwen2Config(
+        vocab_size=128256,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=500_000.0,
+        rope_scaling=8.0,
+        rope_scaling_type="llama3",
+        rope_low_freq_factor=1.0,
+        rope_high_freq_factor=4.0,
+        rope_original_max_position=8192,
+        rms_norm_eps=1e-5,
+        attention_bias=False,
+        max_position_embeddings=131072,
+    )
+
+
+def mistral_7b() -> Qwen2Config:
+    """Mistral-7B-Instruct widths (the reference's llava_mistral family)."""
+    return Qwen2Config(
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=10000.0,
+        rms_norm_eps=1e-5,
+        attention_bias=False,
+        sliding_window=4096,
+        max_position_embeddings=32768,
+    )
+
+
+def mixtral_8x7b() -> Qwen2Config:
+    """Mixtral-8x7B widths (the reference's llava_mixtral family,
+    `language_model/llava_mixtral.py`): Mistral attention + every-layer
+    8-expert top-2 sparse MoE with renormalized top-k weights and no shared
+    expert (HF `MixtralSparseMoeBlock`)."""
+    return Qwen2Config(
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=1e6,
+        rms_norm_eps=1e-5,
+        attention_bias=False,
+        max_position_embeddings=32768,
+        num_experts=8,
+        num_experts_per_tok=2,
+        moe_intermediate_size=14336,
+        shared_expert_intermediate_size=0,
+        norm_topk_prob=True,
+    )
+
+
+def gemma_2b() -> Qwen2Config:
+    """Gemma-2B widths (the reference's llava_gemma family): MQA with
+    head_dim 256, GeGLU MLP, (1+w) RMSNorm, sqrt(d)-scaled embeddings,
+    tied lm_head."""
+    return Qwen2Config(
+        vocab_size=256000,
+        hidden_size=2048,
+        intermediate_size=16384,
+        num_layers=18,
+        num_heads=8,
+        num_kv_heads=1,
+        head_dim=256,
+        rope_theta=10000.0,
+        rms_norm_eps=1e-6,
+        attention_bias=False,
+        tie_word_embeddings=True,
+        hidden_act="gelu_tanh",
+        rms_norm_offset=True,
+        embed_normalizer=True,
+        max_position_embeddings=8192,
+    )
+
+
+def mpt_7b() -> Qwen2Config:
+    """MPT-7B widths (the reference's llava_mpt family): MHA with ALiBi,
+    weight-only LayerNorm, non-gated exact-GELU MLP (expansion 4x), tied
+    lm_head, no biases anywhere."""
+    return Qwen2Config(
+        vocab_size=50432,
+        hidden_size=4096,
+        intermediate_size=16384,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=32,
+        head_dim=128,
+        rms_norm_eps=1e-5,
+        attention_bias=False,
+        tie_word_embeddings=True,
+        hidden_act="gelu",
+        pos_embedding="alibi",
+        norm_kind="layernorm",
+        mlp_gated=False,
+        max_position_embeddings=2048,
+    )
 
 
 def qwen2_0_5b() -> Qwen2Config:

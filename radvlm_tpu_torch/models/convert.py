@@ -11,6 +11,9 @@ its [V, D] rows and [V, 1] scales. int4 `{__q4__, __scale__}` nodes
 (`quantize_params(bits=4)`; packed [.., in/2, out] in the concat layout,
 scales [.., in/128, out]) become `Q4Linear` modules: the nibbles are
 repacked once into the K12 kernel's layout, the group scales keep theirs.
+An MoE layer's `mlp/moe` node (router, expert tables [L, E, in, out],
+Qwen2-MoE's shared expert and its gate) fills the block's `MoE` module;
+the expert tables keep their [in, out] layout. MPT's MLP has no `gate`.
 `radvlm_to_tree` is the inverse, for an unfused model: the same keys,
 shapes, dtypes and bytes the JAX package's tree has (the artifact writer,
 `models/quant_io.py`, stores that tree; the training checkpoint,
@@ -138,20 +141,35 @@ def load_qwen2(model: qwen2.Qwen2Decoder, tree: Tree) -> None:
     if model.lm_head is not None:
         _linear(model, "lm_head", tree["lm_head"])
     lt = tree["layers"]
-    if "moe" in lt["mlp"]:
-        raise NotImplementedError("MoE decoders are not ported (ROADMAP M10)")
     fused = "qkv" in lt["attn"]
     if fused:
         qwen2.fuse_projections(model)
+    mlp = lt["mlp"]
     for i, blk in enumerate(model.layers):
         _copy(blk.ln1, lt["ln1"], i)
         _copy(blk.ln2, lt["ln2"], i)
         attn = ("qkv", "o") if fused else ("q", "k", "v", "o")
-        mlp = ("gateup", "down") if fused else ("gate", "up", "down")
         for name in attn:
             _linear(blk, name, lt["attn"][name], i)
-        for name in mlp:
-            _linear(blk, name, lt["mlp"][name], i)
+        if "moe" in mlp:
+            _load_moe(blk.moe, mlp["moe"], i)
+            continue
+        for name in ("gateup", "gate", "up", "down"):  # MPT has no gate
+            if name in mlp:
+                _linear(blk, name, mlp[name], i)
+
+
+def _load_moe(moe: qwen2.MoE, tree: Tree, i: int) -> None:
+    """Layer `i` of the JAX `mlp/moe` node -> a block's `MoE` module."""
+    _linear(moe, "router", tree["router"], i)
+    for name in ("gate", "up", "down"):
+        _copy(getattr(moe, name), tree["experts"][name], i)
+    if moe.shared is not None:
+        for name in ("gate", "up", "down"):
+            _linear(moe.shared, name, tree["shared"][name], i)
+        _linear(moe, "shared_gate", tree["shared_gate"], i)
+    elif "shared" in tree:
+        raise ValueError("the JAX tree has a shared expert the config does not")
 
 
 def radvlm_from_jax(
@@ -314,6 +332,19 @@ def radvlm_to_tree(model: radvlm.RadVLM) -> Dict[str, Any]:
         return torch.stack([getattr(layer, name).data.cpu() for layer in layers])
 
     tl, vl = list(text.layers), list(tower.layers)
+    if hasattr(tl[0], "moe"):
+        moes = [blk.moe for blk in tl]
+        moe: Dict[str, Any] = {
+            "router": _linear_node(col(moes, "router")),
+            "experts": {n: stacked(moes, n) for n in ("gate", "up", "down")},
+        }
+        if moes[0].shared is not None:
+            shared = [m.shared for m in moes]
+            moe["shared"] = {n: _linear_node(col(shared, n)) for n in ("gate", "up", "down")}
+            moe["shared_gate"] = _linear_node(col(moes, "shared_gate"))
+        mlp: Dict[str, Any] = {"moe": moe}
+    else:  # MPT's MLP has no gate
+        mlp = {n: _linear_node(col(tl, n)) for n in ("gate", "up", "down") if hasattr(tl[0], n)}
     if text.embed_scale is not None:
         embedding = {Q_KEY: text.embed.data.cpu(), SCALE_KEY: text.embed_scale.data.cpu()}
     else:
@@ -324,7 +355,7 @@ def radvlm_to_tree(model: radvlm.RadVLM) -> Dict[str, Any]:
             "ln1": stacked(tl, "ln1"),
             "ln2": stacked(tl, "ln2"),
             "attn": {n: _linear_node(col(tl, n)) for n in ("q", "k", "v", "o")},
-            "mlp": {n: _linear_node(col(tl, n)) for n in ("gate", "up", "down")},
+            "mlp": mlp,
         },
         "norm": text.norm.data.cpu(),
     }

@@ -1,6 +1,14 @@
-"""Qwen2 decoder in PyTorch (counterpart of `radvlm_tpu/models/qwen2.py`),
-the dense rope families: RMSNorm, rotary embeddings, GQA with optional QKV
-bias, SwiGLU/GeGLU MLP.
+"""Qwen2 decoder in PyTorch (counterpart of `radvlm_tpu/models/qwen2.py`):
+one decoder for every family the config describes. The rope families
+(Qwen2, Llama, Mistral, Gemma): RMSNorm, rotary embeddings, GQA with
+optional QKV bias, a SwiGLU / GeGLU MLP. MPT: ALiBi instead of rope, a
+weight-only LayerNorm, a non-gated exact-GELU MLP (`up -> act -> down`).
+MoE (Qwen2-MoE, Mixtral): the MLP of every layer is a `MoE` block, a
+softmax router over the experts, top-k, and the experts' SwiGLUs stacked
+[E, in, out] (the JAX layout of one layer), plus Qwen2-MoE's shared expert
+behind a sigmoid gate. As in the JAX package, the experts are plain
+matrix products outside any kernel (cuBLAS on the card), and they stay
+dense when the model is quantized.
 
 The JAX layer scan becomes a Python loop over `layers`. The KV cache keeps
 the JAX package's stacked layout [L, B, Smax, Hkv*D] (kv heads folded into
@@ -10,15 +18,16 @@ K/V (`collect_kv`), decode writes the new token's K/V into the cache IN
 PLACE - at one index for every row, or at each row's own index (continuous
 batching) - and reads it through the K9 (bf16) or K4 (int8) decode kernel; a
 per-row window of 2..16 tokens (the verify step of speculative decoding) is
-written at each row's own offset and read through K10 / K11. Projections
+written at each row's own offset and read through K10 / K11. ALiBi and a
+sliding window take plain attention (the kernels have neither). Projections
 are `Linear` or, for int8 / int4 weights, `QLinear` / `Q4Linear`
 (`ops.quant.qmm` / `q4mm`); the token embedding may be int8 with one scale
-per row. Not ported yet (they raise):
-MoE, the ALiBi/LayerNorm MPT family, sequence-parallel decode.
+per row. Sequence-parallel decode is not ported (ROADMAP M12).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -28,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from radvlm_tpu_torch.config import Qwen2Config
 from radvlm_tpu_torch.models.layers import Linear, QLinear, empty_param, fuse_linears
-from radvlm_tpu_torch.ops.attention import apply_rope, mha, rms_norm
+from radvlm_tpu_torch.ops.attention import apply_rope, layer_norm, mha, rms_norm
 from radvlm_tpu_torch.ops.decode_attention import (
     MAX_WINDOW,
     decode_attention_stacked,
@@ -46,11 +55,36 @@ Cache = Tuple[torch.Tensor, ...]
 CacheIndex = Union[int, torch.Tensor]
 
 
-def _check_supported(cfg: Qwen2Config) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError("MoE decoders are not ported (ROADMAP M10)")
-    if cfg.pos_embedding != "rope" or cfg.norm_kind != "rmsnorm" or not cfg.mlp_gated:
-        raise NotImplementedError("the MPT family (ALiBi) is not ported (ROADMAP M10)")
+class SharedExpert(nn.Module):
+    """Qwen2-MoE's always-on expert: a SwiGLU of width
+    `shared_expert_intermediate_size`."""
+
+    def __init__(self, d: int, m: int, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.gate = Linear.empty(d, m, False, **kw)
+        self.up = Linear.empty(d, m, False, **kw)
+        self.down = Linear.empty(m, d, False, **kw)
+
+
+class MoE(nn.Module):
+    """The sparse MLP of one layer (the JAX package's `mlp/moe` node): the
+    router `Linear(d, E)`, the experts' SwiGLU tables `gate` / `up`
+    [E, d, m] and `down` [E, m, d] (kernels in [in, out] layout, as in the
+    JAX tree), and for Qwen2-MoE `shared` with `shared_gate` `Linear(d, 1)`.
+    Mixtral (`shared_expert_intermediate_size == 0`) has no shared expert."""
+
+    def __init__(self, cfg: Qwen2Config, *, device=None, dtype=None):
+        super().__init__()
+        d, e, m = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+        ms = cfg.shared_expert_intermediate_size
+        kw = dict(device=device, dtype=dtype)
+        self.router = Linear.empty(d, e, False, **kw)
+        self.gate = empty_param(e, d, m, **kw)
+        self.up = empty_param(e, d, m, **kw)
+        self.down = empty_param(e, m, d, **kw)
+        self.shared = SharedExpert(d, ms, **kw) if ms else None
+        self.shared_gate = Linear.empty(d, 1, False, **kw) if ms else None
 
 
 class Qwen2Block(nn.Module):
@@ -66,7 +100,11 @@ class Qwen2Block(nn.Module):
         self.k = Linear.empty(d, hkv * hd, bias, **kw)
         self.v = Linear.empty(d, hkv * hd, bias, **kw)
         self.o = Linear.empty(h * hd, d, False, **kw)
-        self.gate = Linear.empty(d, f, False, **kw)
+        if cfg.num_experts:
+            self.moe = MoE(cfg, **kw)
+            return
+        if cfg.mlp_gated:  # MPT's ffn has no gate branch
+            self.gate = Linear.empty(d, f, False, **kw)
         self.up = Linear.empty(d, f, False, **kw)
         self.down = Linear.empty(f, d, False, **kw)
 
@@ -74,7 +112,6 @@ class Qwen2Block(nn.Module):
 class Qwen2Decoder(nn.Module):
     def __init__(self, cfg: Qwen2Config, *, device=None, dtype=None):
         super().__init__()
-        _check_supported(cfg)
         kw = dict(device=device, dtype=dtype)
         self.embed = empty_param(cfg.vocab_size, cfg.hidden_size, **kw)
         self.layers = nn.ModuleList(Qwen2Block(cfg, **kw) for _ in range(cfg.num_layers))
@@ -94,21 +131,32 @@ class Qwen2Decoder(nn.Module):
 
 def fuse_projections(model: Qwen2Decoder) -> Qwen2Decoder:
     """Fuse q/k/v into `qkv` and gate/up into `gateup`, in place (output-axis
-    concat). Inference-time transform: fewer, wider decode matmuls."""
+    concat). Inference-time transform: fewer, wider decode matmuls. An MoE
+    MLP has no dense gate/up pair (its experts stay in their tables) and
+    MPT's non-gated MLP is one `up` matmul already: only their attention
+    projections fuse, as in the JAX package."""
     for blk in model.layers:
         if hasattr(blk, "qkv"):
             continue
         blk.qkv = fuse_linears([blk.q, blk.k, blk.v])
-        blk.gateup = fuse_linears([blk.gate, blk.up])
-        del blk.q, blk.k, blk.v, blk.gate, blk.up
+        del blk.q, blk.k, blk.v
+        if hasattr(blk, "gate"):
+            blk.gateup = fuse_linears([blk.gate, blk.up])
+            del blk.gate, blk.up
     return model
 
 
 def _norm(cfg: Qwen2Config, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """RMSNorm for the rope families (Gemma's (1 + w) with the offset), the
+    weight-only LayerNorm for MPT (HF MptBlock's norm_1 / norm_2, no bias)."""
+    if cfg.norm_kind == "layernorm":
+        return layer_norm(x, w, None, cfg.rms_norm_eps)
     return rms_norm(x, w, cfg.rms_norm_eps, 1.0 if cfg.rms_norm_offset else 0.0)
 
 
 def _act(cfg: Qwen2Config, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's silu (Qwen2, Llama, Mistral), GeGLU's tanh GELU (Gemma),
+    MPT's exact GELU."""
     if cfg.hidden_act == "gelu_tanh":
         return F.gelu(x, approximate="tanh")
     if cfg.hidden_act == "gelu":
@@ -141,9 +189,15 @@ def _qkv(cfg: Qwen2Config, blk: Qwen2Block, y: torch.Tensor, positions: torch.Te
         )
     elif cfg.rope_scaling != 1.0:  # "linear"
         positions = positions.float() / cfg.rope_scaling
-    q = apply_rope(q, positions, cfg.rope_theta, llama3)
-    k = apply_rope(k, positions, cfg.rope_theta, llama3)
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, llama3)
+        k = apply_rope(k, positions, cfg.rope_theta, llama3)
     return q, k, v
+
+
+def _alibi(cfg: Qwen2Config) -> int:
+    """`mha`'s `alibi` argument: bias_max for MPT, 0 (off) for rope."""
+    return cfg.alibi_bias_max if cfg.pos_embedding == "alibi" else 0
 
 
 def decode_kernel_eligible(cfg: Qwen2Config, cache_max_len: int, attn_impl: str,
@@ -185,16 +239,79 @@ def cached_attention_route(cfg: Qwen2Config, cache_max_len: int, attn_impl: str,
     return "plain"
 
 
+def _moe_mlp(cfg: Qwen2Config, moe: MoE, y: torch.Tensor):
+    """The sparse MoE block (HF `Qwen2MoeSparseMoeBlock` /
+    `MixtralSparseMoeBlock`): (out [b, s, d], aux f32 scalar).
+
+    The router's softmax over the experts runs in f32, then top-k, the
+    weights renormalised where `norm_topk_prob` (Mixtral always). Two modes,
+    as the JAX package's (`cfg.moe_capacity_factor`):
+    - 0, exact: every expert computes every token, and the sparse top-k
+      weights combine them (serving and evaluation);
+    - > 0, capacity: the GShard dispatch. Top-k picks are ranked rank-major
+      (every token's first pick, then every second), each takes the next
+      place of its expert, and picks past C = ceil(T k / E x factor) are
+      dropped.
+    Qwen2-MoE adds the shared expert scaled by sigmoid(shared_gate(y)).
+    aux is the Switch / GShard load-balancing term E sum_e f_e P_e: f the
+    share of top-k picks of expert e, P its mean router probability."""
+    b, s, d = y.shape
+    t = b * s
+    x = y.reshape(t, d)
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    probs = torch.softmax(moe.router(y).reshape(t, e).float(), dim=-1)
+    vals, idx = torch.topk(probs, k, dim=-1)  # [T, k]
+    if cfg.norm_topk_prob:
+        vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-20)
+    vals = vals.to(x.dtype)
+    oh = F.one_hot(idx, e).float()  # [T, k, E]
+    if cfg.moe_capacity_factor <= 0:
+        h = torch.matmul(x, moe.gate)  # [E, T, m]
+        u = torch.matmul(x, moe.up)
+        eo = torch.matmul(F.silu(h) * u, moe.down)  # [E, T, d]
+        w_te = torch.einsum("tke,tk->te", oh.to(vals.dtype), vals)
+        out = torch.einsum("etd,te->td", eo, w_te)
+    else:
+        cap = max(1, int(math.ceil(t * k / e * cfg.moe_capacity_factor)))
+        ohm = oh.transpose(0, 1).reshape(k * t, e)
+        before = torch.cumsum(ohm, dim=0) - ohm
+        my_pos = (before * ohm).sum(-1).reshape(k, t).t().to(torch.int64)  # [T, k]
+        keep = (my_pos < cap).to(x.dtype)
+        # A dropped pick's place (>= cap) has no column: its one-hot row is 0.
+        pos_oh = F.one_hot(my_pos.clamp_max(cap), cap + 1)[..., :cap].to(x.dtype)  # [T, k, C]
+        ohx = oh.to(x.dtype)
+        disp = torch.einsum("tke,tkc,tk->tec", ohx, pos_oh, keep)
+        comb = torch.einsum("tke,tkc,tk->tec", ohx, pos_oh, keep * vals)
+        xe = torch.einsum("tec,td->ecd", disp, x)
+        h = torch.matmul(xe, moe.gate)  # [E, C, m]
+        u = torch.matmul(xe, moe.up)
+        eo = torch.matmul(F.silu(h) * u, moe.down)  # [E, C, d]
+        out = torch.einsum("tec,ecd->td", comb, eo)
+    if moe.shared is not None:
+        sh = moe.shared.down(F.silu(moe.shared.gate(y)) * moe.shared.up(y)).reshape(t, d)
+        sgate = torch.sigmoid(moe.shared_gate(y).reshape(t, 1).float()).to(x.dtype)
+        out = out + sgate * sh
+    aux = e * torch.sum(probs.mean(0) * oh.sum(1).mean(0))
+    return out.reshape(b, s, d), aux
+
+
 def _finish_block(cfg: Qwen2Config, blk: Qwen2Block, res: torch.Tensor, attn: torch.Tensor,
                   w8a8: Optional[bool] = None):
+    """The o projection and the MLP of a block: (out, aux), aux the layer's
+    MoE router loss, None for a dense MLP."""
     b, s = attn.shape[:2]
     x = res + _proj(blk.o, attn.reshape(b, s, -1), w8a8)
     y = _norm(cfg, x, blk.ln2)
+    if hasattr(blk, "moe"):
+        out, aux = _moe_mlp(cfg, blk.moe, y)
+        return x + out, aux
+    if not cfg.mlp_gated:  # MPT: up -> act -> down
+        return x + _proj(blk.down, _act(cfg, _proj(blk.up, y, w8a8)), w8a8), None
     if hasattr(blk, "gateup"):
         gate, up = _proj(blk.gateup, y, w8a8).chunk(2, dim=-1)
     else:
         gate, up = _proj(blk.gate, y, w8a8), _proj(blk.up, y, w8a8)
-    return x + _proj(blk.down, _act(cfg, gate) * up, w8a8)
+    return x + _proj(blk.down, _act(cfg, gate) * up, w8a8), None
 
 
 def _block(
@@ -206,8 +323,10 @@ def _block(
     attn_impl: str,
     collect_kv: bool = False,
 ):
-    """One decoder block, no cache. With collect_kv also returns the roped
-    (k, v) as bf16 [B, S, Hkv*D] - the cache is bf16 whatever the weights."""
+    """One decoder block, no cache: (out, kv, aux). kv is the roped (k, v)
+    as bf16 [B, S, Hkv*D] with collect_kv (the cache is bf16 whatever the
+    weights), else None; aux the layer's MoE router loss, None for a dense
+    MLP."""
     y = _norm(cfg, x, blk.ln1)
     q, k, v = _qkv(cfg, blk, y, positions)
     attn = mha(
@@ -217,16 +336,16 @@ def _block(
         causal=True,
         impl=attn_impl,
         window=cfg.sliding_window,
+        alibi=_alibi(cfg),
     )
-    out = _finish_block(cfg, blk, x, attn)
-    if not collect_kv:
-        return out
-    b, s = x.shape[:2]
-    hkv_d = cfg.num_kv_heads * cfg.head_dim
-    return out, (
-        k.reshape(b, s, hkv_d).to(torch.bfloat16),
-        v.reshape(b, s, hkv_d).to(torch.bfloat16),
-    )
+    out, aux = _finish_block(cfg, blk, x, attn)
+    kv = None
+    if collect_kv:
+        b, s = x.shape[:2]
+        hkv_d = cfg.num_kv_heads * cfg.head_dim
+        kv = (k.reshape(b, s, hkv_d).to(torch.bfloat16),
+              v.reshape(b, s, hkv_d).to(torch.bfloat16))
+    return out, kv, aux
 
 
 def _block_cached(
@@ -344,8 +463,9 @@ def _block_cached(
             q_offset=cache_index,
             impl=attn_impl,
             window=cfg.sliding_window,
+            alibi=_alibi(cfg),
         )
-    return _finish_block(cfg, blk, x, attn, w8a8=False)
+    return _finish_block(cfg, blk, x, attn, w8a8=False)[0]
 
 
 def embed_tokens(
@@ -377,6 +497,7 @@ def forward(
     remat: bool = False,
     return_hidden: bool = False,
     collect_kv: bool = False,
+    return_aux: bool = False,
 ):
     """Run the decoder stack. input_embeds [B, S, D].
 
@@ -392,9 +513,14 @@ def forward(
     [B] tensor of per-row offsets, and cache_segment_ids [B, Smax]
     the segment ids of the cache contents. Returns
     (logits_or_hidden [B, S, V|D], cache): the same cache tensors, or with
-    collect_kv the prompt's stacked K/V [L, B, S, Hkv*D] in bf16."""
+    collect_kv the prompt's stacked K/V [L, B, S, Hkv*D] in bf16. With
+    `return_aux` (the training path, no cache) a third element: the mean
+    over the layers of the MoE router loss (0 for a dense decoder)."""
+    if return_aux and kv_cache is not None:
+        raise ValueError("return_aux is a training-path (no-cache) feature")
     x = input_embeds
     new_cache = None
+    auxes = []
     if kv_cache is not None:
         for i, blk in enumerate(model.layers):
             x = _block_cached(
@@ -407,20 +533,22 @@ def forward(
         remat = remat and torch.is_grad_enabled() and not collect_kv
         for blk in model.layers:
             if remat:
-                out = checkpoint(_block, cfg, blk, x, positions, segment_ids, attn_impl,
-                                 use_reentrant=False)
+                x, kv, aux = checkpoint(_block, cfg, blk, x, positions, segment_ids, attn_impl,
+                                        False, use_reentrant=False)
             else:
-                out = _block(cfg, blk, x, positions, segment_ids, attn_impl, collect_kv)
+                x, kv, aux = _block(cfg, blk, x, positions, segment_ids, attn_impl, collect_kv)
             if collect_kv:
-                x, (k, v) = out
-                ks.append(k)
-                vs.append(v)
-            else:
-                x = out
+                ks.append(kv[0])
+                vs.append(kv[1])
+            if return_aux:
+                auxes.append(x.new_zeros((), dtype=torch.float32) if aux is None else aux)
         if collect_kv:
             new_cache = (torch.stack(ks), torch.stack(vs))
     x = _norm(cfg, x, model.norm)
-    return (x if return_hidden else unembed(model, cfg, x)), new_cache
+    out = x if return_hidden else unembed(model, cfg, x)
+    if return_aux:
+        return out, new_cache, torch.stack(auxes).mean()
+    return out, new_cache
 
 
 def unembed(model: Qwen2Decoder, cfg: Qwen2Config, hidden: torch.Tensor) -> torch.Tensor:

@@ -121,10 +121,12 @@ def forward(
     cache_segment_ids=None,
     return_hidden: bool = False,
     collect_kv: bool = False,
+    return_aux: bool = False,
 ):
     """Full multimodal forward. batch keys: tiles [B,T,ts,ts,3],
     merge_indices/weights [B,N,4], tokens/img_src/positions/segment_ids [B,L].
-    Returns (logits [B,L,V] or hidden, cache) as `qwen2.forward`. `remat`
+    Returns (logits [B,L,V] or hidden, cache) as `qwen2.forward`, and with
+    `return_aux` (MoE training) the router loss as a third element. `remat`
     rematerialises every tower and decoder layer in the backward."""
     b, t = batch["tiles"].shape[:2]
     flat_tiles = batch["tiles"].reshape((b * t,) + tuple(batch["tiles"].shape[2:]))
@@ -147,6 +149,7 @@ def forward(
         remat=remat,
         return_hidden=return_hidden,
         collect_kv=collect_kv,
+        return_aux=return_aux,
     )
 
 
@@ -237,10 +240,13 @@ def loss_fn(
     with "labels_next" instead of "labels" is shifted already
     (labels_next[i] supervises logits[i], segment gating folded in).
     Returns (loss, {"loss", "tokens"}); the loss is the mean over the
-    supervised tokens (at least 1)."""
-    if cfg.text.num_experts and cfg.text.router_aux_coef > 0:
-        raise NotImplementedError("the MoE router loss is not ported (ROADMAP M10)")
-    hidden, _ = forward(model, cfg, batch, remat=remat, attn_impl=attn_impl, return_hidden=True)
+    supervised tokens (at least 1). An MoE decoder with `router_aux_coef`
+    > 0 adds that times the router's load-balancing loss (the mean over the
+    layers), reported as "moe_aux" ("loss" is then the sum)."""
+    moe_aux = bool(cfg.text.num_experts) and cfg.text.router_aux_coef > 0
+    out = forward(model, cfg, batch, remat=remat, attn_impl=attn_impl, return_hidden=True,
+                  return_aux=moe_aux)
+    hidden = out[0]
     if "labels_next" in batch:
         shift_labels = batch["labels_next"]
         mask = shift_labels != IGNORE_INDEX
@@ -251,4 +257,9 @@ def loss_fn(
     total = _chunked_ce(model, cfg, hidden, safe_labels, mask, chunk)
     count = mask.sum().clamp_min(1)
     loss = total / count
-    return loss, {"loss": loss.detach(), "tokens": count}
+    if moe_aux:
+        loss = loss + cfg.text.router_aux_coef * out[2]
+    metrics = {"loss": loss.detach(), "tokens": count}
+    if moe_aux:
+        metrics["moe_aux"] = out[2].detach()
+    return loss, metrics

@@ -53,20 +53,25 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
 
 
-def alibi_head_slopes(num_heads: int, alibi_bias_max: int = 8) -> torch.Tensor:
-    """Per-head ALiBi slopes, HF MPT convention."""
+def alibi_head_slopes(num_heads: int, alibi_bias_max: int = 8, device=None) -> torch.Tensor:
+    """Per-head ALiBi slopes, HF MPT convention (`build_mpt_alibi_tensor`):
+    1/2^(i * max/P2) over the next power-of-two head count P2, then, for a
+    head count that is not a power of two, the odd-index slopes first."""
     p2 = 2 ** math.ceil(math.log2(num_heads))
-    base = torch.arange(1, p2 + 1, dtype=torch.float32) * (alibi_bias_max / p2)
+    base = torch.arange(1, p2 + 1, dtype=torch.float32, device=device) * (alibi_bias_max / p2)
     slopes = 1.0 / torch.pow(2.0, base)
     if p2 != num_heads:
         slopes = torch.cat([slopes[1::2], slopes[::2]])[:num_heads]
     return slopes
 
 
-def alibi_bias(num_heads: int, sk: int, alibi_bias_max: int = 8) -> torch.Tensor:
-    """[1, H, 1, Sk] key-position ALiBi bias: slope * (k - (Sk-1))."""
-    slopes = alibi_head_slopes(num_heads, alibi_bias_max)
-    pos = torch.arange(sk, dtype=torch.float32) - (sk - 1)
+def alibi_bias(num_heads: int, sk: int, alibi_bias_max: int = 8, device=None) -> torch.Tensor:
+    """[1, H, 1, Sk] key-position ALiBi bias: slope * (k - (Sk-1)), made on
+    `device` (no host-to-card copy inside a decode step). Key-only, as HF
+    MPT's: under a causal mask the per-query shift cancels in the softmax,
+    so it equals the relative -slope * (q - k) form at any cache length."""
+    slopes = alibi_head_slopes(num_heads, alibi_bias_max, device)
+    pos = torch.arange(sk, dtype=torch.float32, device=device) - (sk - 1)
     return (slopes[:, None] * pos[None, :])[None, :, None, :]
 
 
@@ -172,7 +177,7 @@ def mha(
         ones_q = torch.ones((b, q.shape[1]), dtype=torch.int32, device=q.device)
         ones_k = torch.ones((b, k.shape[1]), dtype=torch.int32, device=q.device)
         mask = make_attention_mask(ones_q, ones_k, causal, q_offset, window)
-    bias = alibi_bias(q.shape[2], k.shape[1], alibi) if alibi else None
+    bias = alibi_bias(q.shape[2], k.shape[1], alibi, q.device) if alibi else None
     return mha_reference(q, k, v, mask=mask, scale=scale, bias=bias)
 
 

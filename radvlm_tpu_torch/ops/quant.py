@@ -168,9 +168,11 @@ def q4mm(
 def quantize_model(model, bits: int = 8):
     """Quantize a `RadVLM`'s projections in place, as the JAX package's
     `quantize_params` does with its default patterns: the decoder's
-    attention and MLP projections, the lm_head and the SigLIP tower's
-    projections become `QLinear`; the token embedding becomes int8 with one
-    scale per row. With `bits=4` (W4A16) the layers' projections whose
+    attention and MLP projections (MPT's up / down too), the lm_head and
+    the SigLIP tower's projections become `QLinear`; the token embedding
+    becomes int8 with one scale per row. An MoE layer's router, expert
+    tables and shared expert stay dense (the patterns name `mlp/gate|up|
+    down` only, which an MoE tree does not have). With `bits=4` (W4A16) the layers' projections whose
     contraction dim divides by 128 become `Q4Linear` instead; the others
     (the SO400M tower's `fc2`, D = 4304), the lm_head and the embedding
     stay int8. The projector, the patch embedding, norms and biases stay

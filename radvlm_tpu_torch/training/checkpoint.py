@@ -98,17 +98,38 @@ def save_state(manager: CheckpointManager, step: int, state, *, force: bool = Fa
     return True
 
 
-def restore_state(manager: CheckpointManager, step: int, state):
-    """Load step `step` into `state` in place (its parameters, optimizer
-    state and step) and return it. `state` is a freshly set-up train state
-    of the same configuration: it gives the shapes, dtypes and devices."""
+def _read_step(manager: CheckpointManager, step: int):
+    """(every saved tensor, bf16 ones as bf16, memory-mapped; meta.json)."""
     path = manager._step_dir(step)
     with open(os.path.join(path, _META)) as f:
         meta = json.load(f)
     flat = safetensors_io.read_file(os.path.join(path, _STATE))
     for k in meta.get("bfloat16", ()):
         flat[k] = flat[k].view(torch.bfloat16)
-    params = {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
+    return flat, meta
+
+
+def _saved_params(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
+
+
+def read_params(manager: CheckpointManager, step: int) -> Dict[str, Any]:
+    """The parameter tree saved at `step` (the JAX package's layout, CPU
+    tensors): what `convert.radvlm_from_jax` builds a model from. A LoRA
+    run's step holds its adapters only, and raises."""
+    tree = _unflatten_tree(_saved_params(_read_step(manager, step)[0]))
+    if "text" not in tree:
+        raise ValueError(f"step {step} under {manager.directory} holds LoRA adapters, not a "
+                         "model: merge them into their base first")
+    return tree
+
+
+def restore_state(manager: CheckpointManager, step: int, state):
+    """Load step `step` into `state` in place (its parameters, optimizer
+    state and step) and return it. `state` is a freshly set-up train state
+    of the same configuration: it gives the shapes, dtypes and devices."""
+    flat, meta = _read_step(manager, step)
+    params = _saved_params(flat)
     if isinstance(state.params, radvlm.RadVLM):
         convert.load_tree(state.params, _unflatten_tree(params))
     else:

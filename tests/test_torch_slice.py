@@ -172,7 +172,9 @@ def test_port_runs_with_jax_blocked():
     `grpo_cli` each take a step, and the serving front answers a chat turn
     from the web UI through the controller and a worker, and the report
     metrics score with the port's own ROUGE (requests, rouge_score and nltk
-    blocked too)."""
+    blocked too), and a tiny MoE and a tiny MPT model run forward, the MoE
+    one is exported in the HF layout and `convert_cli` converts a training
+    checkpoint."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -464,6 +466,38 @@ def test_port_runs_with_jax_blocked():
                                    ["No acute findings.", "Left pleural effusions."],
                                    with_clinical=False)
         assert 0 < metrics["rougel"] < 1 and metrics["rouge1"] > 0, metrics
+        # The decoder families: a tiny Mixtral-style MoE and a tiny MPT
+        # forward; the HF export of the first (and MPT's own layout), and
+        # convert_cli on a checkpoint the trainer's checkpoint module saved.
+        from radvlm_tpu_torch.config import tiny_test_config as tiny_cfg
+        from radvlm_tpu_torch.models import convert_cli, hf_export, hf_import
+        from radvlm_tpu_torch.models import radvlm as trad
+        from radvlm_tpu_torch.training import checkpoint as ckpt
+        families = {"moe": dict(num_experts=4, num_experts_per_tok=2, moe_intermediate_size=40,
+                                norm_topk_prob=True, attention_bias=False),
+                    "mpt": dict(num_kv_heads=4, attention_bias=False, tie_word_embeddings=True,
+                                hidden_act="gelu", pos_embedding="alibi", norm_kind="layernorm",
+                                mlp_gated=False)}
+        for fam, fields in families.items():
+            fcfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, **fields))
+            fmodel = init_params(fcfg, torch.Generator().manual_seed(8), device="cpu",
+                                 dtype=torch.float32)
+            fb = batch_to_device(multimodal.collate([multimodal.build_sample(
+                Tok.encode("hi") + [-200], [img], fcfg)]), "cpu")
+            logits, _ = trad.forward(fmodel, fcfg, fb)
+            assert logits.shape[-1] == 300 and torch.isfinite(logits).all()
+            if fam == "moe":
+                hf_export.save_radvlm_hf(fmodel, fcfg, f"{data}/hf_moe")
+                assert hf_import.config_from_hf_dir(f"{data}/hf_moe").text.num_experts == 4
+            else:
+                assert "transformer.blocks.0.attn.Wqkv.weight" in hf_export.export_mpt(fmodel.text)
+        tiny = tiny_cfg()
+        st, _, _ = ts.setup_training(tiny, tcfg, init_params(
+            tiny, torch.Generator().manual_seed(9), device="cpu", dtype=torch.float32))
+        assert ckpt.save_state(ckpt.CheckpointManager(f"{data}/ckpt"), 1, st, force=True)
+        convert_cli.main(["--checkpoint-dir", f"{data}/ckpt", "--model-size", "tiny",
+                          "--output", f"{data}/hf_tiny", "--verify", "--device", "cpu"])
+        assert os.path.exists(f"{data}/hf_tiny/model.safetensors")
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn",
@@ -478,7 +512,8 @@ def test_port_runs_with_jax_blocked():
     assert len(eval(toks)) > 0
 
 
-PRESETS = ["tiny_test_config", "radvlm_0_5b", "radvlm_7b", "qwen2_0_5b", "qwen2_7b"]
+PRESETS = ["tiny_test_config", "radvlm_0_5b", "radvlm_7b", "qwen2_0_5b", "qwen2_7b", "llama3_8b",
+           "mistral_7b", "mixtral_8x7b", "gemma_2b", "mpt_7b"]
 CONSTANTS = ["IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "DEFAULT_IMAGE_TOKEN"]
 
 

@@ -135,15 +135,6 @@ def test_loss_and_gradients_match_jax(tiny, case):
         np.testing.assert_allclose(got[k], want[k], atol=3e-5, rtol=1e-4, err_msg=k)
 
 
-def test_moe_aux_loss_raises(tiny):
-    import dataclasses
-
-    _, tcfg, _ = tiny
-    moe = dataclasses.replace(tcfg, text=dataclasses.replace(tcfg.text, num_experts=4))
-    with pytest.raises(NotImplementedError, match="M10"):
-        radvlm.loss_fn(None, moe, {})
-
-
 SCHEDULES = [
     ("cosine", 0.03, 200), ("cosine", 0.0, 20), ("cosine", 0.5, 7), ("linear", 0.1, 40),
     ("linear", 0.0, 10), ("constant", 0.2, 25), ("constant", 0.0, 10), ("cosine", 0.03, 10),
