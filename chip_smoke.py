@@ -105,8 +105,8 @@ Phases, each raising on failure (the last line is printed only on success):
    limit), the feeder's host seconds against the engine's host_stats, and
    the provenance are printed;
 7d. text-LM serving, the GREEN judge and the local LLM client: an HF Llama
-   directory at meta-llama/Llama-2-7b-hf's widths and depth (32 layers,
-   MHA: 32 heads and 32 KV heads of 128, vocab 32000) with random bf16
+   directory at meta-llama/Llama-2-7b-hf's widths (MHA: 32 heads and 32
+   KV heads of 128, vocab 32000), cut to 16 of its 32 layers, with random bf16
    weights made on the card from --seed is written under build/ by
    `safetensors_io.write_file` (size, seconds and free disk printed; it
    fails before writing if the disk is short; deleted afterwards).
@@ -232,7 +232,28 @@ Phases, each raising on failure (the last line is printed only on success):
    bucket, 4 requests. Both time and profile a decode chunk of every slot.
    11c: Llama-3-8B (the kernels), Mistral-7B (its 4096-token window: plain
    attention; one prompt of 4080 tokens, so decode crosses the window) and
-   Gemma-2B (head_dim 256: plain attention), full depth, 2 requests each.
+   Gemma-2B (head_dim 256: plain attention), full depth, 2 requests each;
+12. M10's towers and resamplers, each served as a family of phase 11 in
+   front of Qwen2-7B (weights born int8, the int8 reference check, a
+   BatchWorker of 8 slots on the int8 cache, 8-step chunks, 4 CXR requests
+   of 32 greedy tokens, a prompt bucket fitted to the requests): 12a CLIP
+   ViT-L/14-336 with S2 at 336 / 672 / 1008 px (23 layers, 14 crops a tile,
+   features 3072 wide), 12b EVA02-CLIP-L-14-336 (rope, subln, swiglu), 12c
+   EVA-CLIP-8B (32 x 4096, D = 128, 224 px; the decoder cut to 8 of its 28
+   layers, so that the int8 model and its f32 reference copy fit), 12d
+   ImageBind-huge (one pooled token, "pad"), 12e radvlm_7b's SigLIP with a
+   Q-Former (bert-base, 32 queries, "pad"; its attention plain, as the
+   provenance must say) and with spatial_pool (stride 2, anyres). The
+   shapes K1 ran at in the measured run must be the tower's own
+   ([n, tokens + class token, heads, head_dim]); after the run a fill of
+   one request is timed and profiled, K1 at the largest of those shapes is
+   held to its plain version and timed beside SDPA and its bound, and K3
+   at the tower pass's rows on the last tower layer's own int8 projections
+   must equal its plain version. 12f: `training.loop.train` runs 2
+   micro-steps (one update) of radvlm_0_5b's decoder under a tunable
+   CLIP-L/14-336 tower with the masked_drop resampler on packed
+   2048-token rows: the loss finite, the tower's gradient non-zero, and
+   K2-lse, K7 and K8 called at the tower's [n, 577, 16, 64].
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -277,7 +298,9 @@ from radvlm_tpu_torch.eval.metrics import evaluate_reports
 from radvlm_tpu_torch.generation import engine
 from radvlm_tpu_torch.generation.engine import GenerationConfig
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
-from radvlm_tpu_torch.models import convert, multimodal, quant_io, radvlm, safetensors_io
+from radvlm_tpu_torch.config import ResamplerConfig, tokens_per_tile
+from radvlm_tpu_torch.models import (convert, multimodal, quant_io, radvlm, safetensors_io,
+                                     towers)
 from radvlm_tpu_torch.models.layers import QLinear
 from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as da
@@ -314,9 +337,14 @@ FRONT_MODEL, FRONT_STEPS = "radvlm-7b-int8", 8  # the serving front's worker: 8-
 QUESTIONS = ("Write the findings section of the report.", "Is there a pleural effusion?",
              "Describe the cardiac silhouette.", "Is there a pneumothorax?")
 # The text-LM phase: the GREEN judge at meta-llama/Llama-2-7b-hf's config.json
-# (the base of StanfordAIMI/GREEN-radllama2-7b), random bf16 weights.
+# (the base of StanfordAIMI/GREEN-radllama2-7b), random bf16 weights, cut to
+# 16 of its 32 layers: its steps are host-bound and their time grows with the
+# depth, and the phase replays its 16 requests one at a time too, so the full
+# depth took ~210 s of the script's 1200 on a slow host.
+JUDGE_LAYERS = 16
 LLAMA2_7B = {"architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 4096,
-             "intermediate_size": 11008, "num_hidden_layers": 32, "num_attention_heads": 32,
+             "intermediate_size": 11008, "num_hidden_layers": JUDGE_LAYERS,
+             "num_attention_heads": 32,
              "num_key_value_heads": 32, "vocab_size": 32000, "rms_norm_eps": 1e-5,
              "rope_theta": 10000.0, "max_position_embeddings": 4096, "hidden_act": "silu",
              "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
@@ -422,6 +450,16 @@ SPEC_BUCKETS = (3456, 3840)
 MIXTRAL_LAYERS, FAMILY_SLOTS, FAMILY_STEPS = 8, 8, 8  # layers, slots, steps a chunk
 MPT_BUCKETS, MPT_MAX_LEN = (1024,), 1152
 MISTRAL_LONG_PROMPT = 4080
+# Phase 12: the towers. S2 over the 336-px tile at 1x, 2x and 3x (14 crops a
+# tile); EVA-CLIP-8B's int8 tower (7.5 GB) and its f32 reference copy
+# (30 GB) leave room for 8 of the decoder's 28 layers beside the check's
+# f32 decoder; the tunable tower trains 2 micro-steps of one image cell and
+# one text cell a packed 2048-token row.
+S2_SCALES = (336, 672, 1008)
+EVA8B_DECODER_LAYERS = 8
+TOWER_REQUESTS = 4
+TOWER_SFT_STEPS = 2
+TOWER_TRAIN_BUCKET = Bucket(2048, 4)
 FAMILY_BUCKETS = (3840, 4096)  # 11c: the buckets its prompts fill, warmed up alone
 FAMILY_KERNELS = ("tower_attention", "w8a8_matmul", "int8_matmul")  # K1, K3, K5/K6
 # K2 and K4: not under ALiBi, a sliding window or head_dim 256.
@@ -751,113 +789,121 @@ def training_kernels(dev, g, randn):
         ("tower", 5, 729, 16, 16, 72, False, None),
     ]
     results = {}
-    for label, b, s, h, hkv, d, causal, layout in shapes:
-        q, k, v, do = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, s, h, d)
-        seg = None
-        if layout is not None:
-            seg = torch.ones((b, s), dtype=torch.int32, device=dev)
-            if layout == "packed":  # an image sample, a text sample, right padding
-                seg[:, 3300:] = 2
-                seg[:, 3900:] = 0
-            else:
-                seg[:, :517] = 0
-        scale = d ** -0.5
-        kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal)
-        tag = f"[{b},{s},{h}|{hkv},{d}] {label}"
-        # K2 with the lse.
-        o, lse = fa.prefill_attention_lse(q, k, v, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(o, fa.prefill_attention(q, k, v, **kw)):
-            raise AssertionError(f"K2-lse {label}: o differs from the no-lse entry point's")
-        ref_o, ref_lse = fa.attention_plain(q, k, v, seg, seg, causal, scale, with_lse=True)
-        real = None if seg is None else seg.bool()
-        err = check_close("prefill_attention_lse", f"K2-lse o {tag} (bit-equal to K2's)", o, ref_o,
-                          rows=real)
-        fin = torch.isfinite(ref_lse)
-        if not torch.equal(fin, torch.isfinite(lse)) or not torch.all(lse[~fin] == float("-inf")):
-            raise AssertionError(f"K2-lse {label}: lse must be -inf exactly on the rows that "
-                                 "attend nothing")
-        lse_err = float((lse[fin] - ref_lse[fin]).abs().max())
-        lse_bound = 1e-4 * max(1.0, float(ref_lse[fin].abs().max()))
-        print(f"  K2-lse lse {tag}: max_abs_err {lse_err:.3e} on the finite rows (bound "
-              f"{lse_bound:.1e}: f32 sums in another order, exp2 / log for exp / log); "
-              f"{int((~fin).sum())} rows at -inf", flush=True)
-        if not lse_err <= lse_bound:
-            raise AssertionError(f"K2-lse {label}: lse disagrees with the plain version")
-        if seg is None:
-            pairs = b * s * s
-            mask = None
-        else:
-            mask = tatt.make_attention_mask(seg, seg, causal)
-            pairs = int(mask.sum())
-        seg_bytes = 0 if seg is None else 2 * nbytes(seg)
-        r_lse = dict(max_abs_err=err, ms=cuda_ms(lambda: fa.prefill_attention_lse(q, k, v, **kw),
-                                                 batch=ATTN_BATCH),
-                     plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, seg, seg, causal, scale,
-                                                                 with_lse=True), reps=3, warmup=1),
-                     library_ms=cuda_ms(lambda: sdpa(q, k, v, mask), reps=5, batch=ATTN_BATCH),
-                     **bound(nbytes(q, k, v, o, lse) + seg_bytes, 4 * h * d * pairs, "bf16"))
-        # K7 and K8, with a cotangent on the lse too.
-        dlse = torch.randn(b, h, s, generator=g, device=dev)
-        dlse = torch.where(fin, dlse, torch.zeros_like(dlse))
-        delta = fa.attention_delta(o, do, dlse)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-        torch.cuda.synchronize()
-        plain = lambda: fa.attention_backward_plain(  # noqa: E731
-            q, k, v, seg, seg, o, lse, do, dlse, causal, scale)
-        rq, rk, rv = plain()
-        err_dk = check_close("flash_attention_bwd_dkv", f"K7 dk {tag}", dk, rk)
-        err_dv = check_close("flash_attention_bwd_dkv", f"K7 dv {tag}", dv, rv)
-        err_dq = check_close("flash_attention_bwd_dq", f"K8 dq {tag}", dq, rq)
-        if seg is not None and not (torch.all(dq[seg == 0] == 0) and torch.all(dk[seg == 0] == 0)
-                                    and torch.all(dv[seg == 0] == 0)):
-            raise AssertionError(f"K7/K8 {label}: padding rows must get zero gradients")
-        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-            raise AssertionError(f"K7 {label}: two launches gave different bits")
-        del rq, rk, rv, dk2, dv2
-        plain_ms = cuda_ms(plain, reps=3, warmup=1)
-        # The library's backward: one autograd.grad through SDPA gives dq, dk
-        # and dv together (used on no path).
-        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        lib_out = sdpa(ql, kl, vl, mask)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
-                                                         retain_graph=True),
-                             reps=5, batch=ATTN_BATCH)
-        del lib_out, ql, kl, vl
-        common = nbytes(q, k, v, do, lse, delta) + seg_bytes
-        r_dkv = dict(max_abs_err=max(err_dk, err_dv),
-                     ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
-                                batch=ATTN_BATCH),
-                     plain_ms=plain_ms, library_ms=library_ms,
-                     **bound(common + nbytes(dk, dv), 8 * h * d * pairs, "bf16"))
-        r_dq = dict(max_abs_err=err_dq,
-                    ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
-                               batch=ATTN_BATCH),
-                    plain_ms=plain_ms, library_ms=library_ms,
-                    **bound(common + nbytes(dq), 6 * h * d * pairs, "bf16"))
-
-        def backward():  # what `_FlashAttention.backward` runs on the card
-            dl = fa.attention_delta(o, do, dlse)
-            fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl, **kw)
-            fa.flash_attention_bwd_dq(q, k, v, do, lse, dl, **kw)
-
-        pair_ms = cuda_ms(backward, batch=ATTN_BATCH)
-        for name, r in (("K2-lse", r_lse), ("K7", r_dkv), ("K8", r_dq)):
-            what = "SDPA forward" if name == "K2-lse" else "SDPA backward (dq, dk, dv together)"
-            print(f"    {name} {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-                  f"({'forward' if name == 'K2-lse' else 'the whole backward'}), bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {what} {r['library_ms']:.4f} ms"
-                  f"{against(r) if name == 'K2-lse' else ''}", flush=True)
-        print(f"    K7 + K8 + attention_delta {label}: {pair_ms:.4f} ms against SDPA backward "
-              f"{library_ms:.4f} ms: {pair_ms / library_ms:.2f}x", flush=True)
+    for label, *shape in shapes:
+        r_lse, r_dkv, r_dq = training_kernel_case(dev, g, randn, label, *shape)
         if label == "0.5B decoder":
             results.update(prefill_attention_lse=r_lse, flash_attention_bwd_dkv=r_dkv,
                            flash_attention_bwd_dq=r_dq)
-        del q, k, v, do, o, lse, dlse, delta, dk, dv, dq, mask
-        torch.cuda.empty_cache()
     return results
+
+
+def training_kernel_case(dev, g, randn, label, b, s, h, hkv, d, causal, layout):
+    """K2 writing the lse, K7 and K8 at one shape against their plain
+    versions, each timed beside SDPA and its bound. `layout` is None (no
+    mask), "packed" or "left_pad". Returns the three kernels' numbers."""
+    q, k, v, do = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, s, h, d)
+    seg = None
+    if layout is not None:
+        seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+        if layout == "packed":  # an image sample, a text sample, right padding
+            seg[:, 3300:] = 2
+            seg[:, 3900:] = 0
+        else:
+            seg[:, :517] = 0
+    scale = d ** -0.5
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal)
+    tag = f"[{b},{s},{h}|{hkv},{d}] {label}"
+    # K2 with the lse.
+    o, lse = fa.prefill_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(o, fa.prefill_attention(q, k, v, **kw)):
+        raise AssertionError(f"K2-lse {label}: o differs from the no-lse entry point's")
+    ref_o, ref_lse = fa.attention_plain(q, k, v, seg, seg, causal, scale, with_lse=True)
+    real = None if seg is None else seg.bool()
+    err = check_close("prefill_attention_lse", f"K2-lse o {tag} (bit-equal to K2's)", o, ref_o,
+                      rows=real)
+    fin = torch.isfinite(ref_lse)
+    if not torch.equal(fin, torch.isfinite(lse)) or not torch.all(lse[~fin] == float("-inf")):
+        raise AssertionError(f"K2-lse {label}: lse must be -inf exactly on the rows that "
+                             "attend nothing")
+    lse_err = float((lse[fin] - ref_lse[fin]).abs().max())
+    lse_bound = 1e-4 * max(1.0, float(ref_lse[fin].abs().max()))
+    print(f"  K2-lse lse {tag}: max_abs_err {lse_err:.3e} on the finite rows (bound "
+          f"{lse_bound:.1e}: f32 sums in another order, exp2 / log for exp / log); "
+          f"{int((~fin).sum())} rows at -inf", flush=True)
+    if not lse_err <= lse_bound:
+        raise AssertionError(f"K2-lse {label}: lse disagrees with the plain version")
+    if seg is None:
+        pairs = b * s * s
+        mask = None
+    else:
+        mask = tatt.make_attention_mask(seg, seg, causal)
+        pairs = int(mask.sum())
+    seg_bytes = 0 if seg is None else 2 * nbytes(seg)
+    r_lse = dict(max_abs_err=err, ms=cuda_ms(lambda: fa.prefill_attention_lse(q, k, v, **kw),
+                                             batch=ATTN_BATCH),
+                 plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, seg, seg, causal, scale,
+                                                             with_lse=True), reps=3, warmup=1),
+                 library_ms=cuda_ms(lambda: sdpa(q, k, v, mask), reps=5, batch=ATTN_BATCH),
+                 **bound(nbytes(q, k, v, o, lse) + seg_bytes, 4 * h * d * pairs, "bf16"))
+    # K7 and K8, with a cotangent on the lse too.
+    dlse = torch.randn(b, h, s, generator=g, device=dev)
+    dlse = torch.where(fin, dlse, torch.zeros_like(dlse))
+    delta = fa.attention_delta(o, do, dlse)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    plain = lambda: fa.attention_backward_plain(  # noqa: E731
+        q, k, v, seg, seg, o, lse, do, dlse, causal, scale)
+    rq, rk, rv = plain()
+    err_dk = check_close("flash_attention_bwd_dkv", f"K7 dk {tag}", dk, rk)
+    err_dv = check_close("flash_attention_bwd_dkv", f"K7 dv {tag}", dv, rv)
+    err_dq = check_close("flash_attention_bwd_dq", f"K8 dq {tag}", dq, rq)
+    if seg is not None and not (torch.all(dq[seg == 0] == 0) and torch.all(dk[seg == 0] == 0)
+                                and torch.all(dv[seg == 0] == 0)):
+        raise AssertionError(f"K7/K8 {label}: padding rows must get zero gradients")
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"K7 {label}: two launches gave different bits")
+    del rq, rk, rv, dk2, dv2
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    # The library's backward: one autograd.grad through SDPA gives dq, dk
+    # and dv together (used on no path).
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lib_out = sdpa(ql, kl, vl, mask)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                     retain_graph=True),
+                         reps=5, batch=ATTN_BATCH)
+    del lib_out, ql, kl, vl
+    common = nbytes(q, k, v, do, lse, delta) + seg_bytes
+    r_dkv = dict(max_abs_err=max(err_dk, err_dv),
+                 ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                            batch=ATTN_BATCH),
+                 plain_ms=plain_ms, library_ms=library_ms,
+                 **bound(common + nbytes(dk, dv), 8 * h * d * pairs, "bf16"))
+    r_dq = dict(max_abs_err=err_dq,
+                ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                           batch=ATTN_BATCH),
+                plain_ms=plain_ms, library_ms=library_ms,
+                **bound(common + nbytes(dq), 6 * h * d * pairs, "bf16"))
+
+    def backward():  # what `_FlashAttention.backward` runs on the card
+        dl = fa.attention_delta(o, do, dlse)
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl, **kw)
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, dl, **kw)
+
+    pair_ms = cuda_ms(backward, batch=ATTN_BATCH)
+    for name, r in (("K2-lse", r_lse), ("K7", r_dkv), ("K8", r_dq)):
+        what = "SDPA forward" if name == "K2-lse" else "SDPA backward (dq, dk, dv together)"
+        print(f"    {name} {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+              f"({'forward' if name == 'K2-lse' else 'the whole backward'}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {what} {r['library_ms']:.4f} ms"
+              f"{against(r) if name == 'K2-lse' else ''}", flush=True)
+    print(f"    K7 + K8 + attention_delta {label}: {pair_ms:.4f} ms against SDPA backward "
+          f"{library_ms:.4f} ms: {pair_ms / library_ms:.2f}x", flush=True)
+    del q, k, v, do, o, lse, dlse, delta, dk, dv, dq, mask
+    torch.cuda.empty_cache()
+    return r_lse, r_dkv, r_dq
 
 
 def window_kernels(dev, randn, *, quantized: bool, cache=None):
@@ -2370,7 +2416,7 @@ def phase_front(ctx, seed: int):
 
 
 def write_judge(path: str, seed: int, dev) -> int:
-    """An HF Llama directory at LLAMA2_7B's widths and depth under `path`:
+    """An HF Llama directory at LLAMA2_7B's widths and (cut) depth under `path`:
     random bf16 weights made on the card from `seed` (matrices N(0, 0.02),
     norm scales 1), written by `safetensors_io.write_file`, and its
     config.json. Fails before writing if the disk cannot hold it. Returns
@@ -2701,11 +2747,12 @@ def phase_text_lm(ctx, seed: int):
     return counts
 
 
-def write_training_data(root: str, rng, n_pairs: int) -> str:
+def write_training_data(root: str, rng, n_pairs: int, height: int = 560,
+                        widths=(400, 448)) -> str:
     """A llava-json under `root`: `n_pairs` cells with a synthetic CXR-sized
-    PNG each (portrait, 560 x 400-448: ~3.1k tokens with its text) and as
-    many text-only cells (~0.5k tokens), so that one of each packs into a
-    4096-token row. Returns the json's path."""
+    PNG each (portrait, 560 x 400-448 by default: ~3.1k tokens with its text
+    under SigLIP's anyres) and as many text-only cells (~0.5k tokens), so
+    that one of each packs into a 4096-token row. Returns the json's path."""
     from PIL import Image
 
     os.makedirs(root, exist_ok=True)
@@ -2714,7 +2761,7 @@ def write_training_data(root: str, rng, n_pairs: int) -> str:
     cells = []
     for i in range(n_pairs):
         name = f"cxr{i}.png"
-        img = rng.integers(0, 255, size=(560, int(rng.integers(400, 448)), 3), dtype=np.uint8)
+        img = rng.integers(0, 255, size=(height, int(rng.integers(*widths)), 3), dtype=np.uint8)
         Image.fromarray(img).save(os.path.join(root, name))
         cells.append({"id": f"img{i}", "image": name, "conversations": [
             {"from": "human", "value": "<image>\n" + QUESTIONS[i % len(QUESTIONS)]},
@@ -2728,7 +2775,8 @@ def write_training_data(root: str, rng, n_pairs: int) -> str:
     return path
 
 
-def training_run_config(cfg, train_cfg, data_path, root, tok, seed: int, n_rows: int, **kw):
+def training_run_config(cfg, train_cfg, data_path, root, tok, seed: int, n_rows: int,
+                        bucket: Bucket = TRAIN_BUCKET, **kw):
     """A RunConfig over `data_path` (`n_rows` image cells and as many text
     cells) whose epoch is `n_rows` rows of one image cell and one text cell
     each: the loader's seed is the first of seed, seed + 1, ... with that
@@ -2736,11 +2784,11 @@ def training_run_config(cfg, train_cfg, data_path, root, tok, seed: int, n_rows:
     a row of two texts would be mostly padding)."""
     run = train_loop.RunConfig(
         model=cfg, train=train_cfg, data_path=data_path, image_root=root, micro_batch_size=1,
-        log_every=1, buckets=(TRAIN_BUCKET,), pack_factor=2, loader_workers=4, **kw)
+        log_every=1, buckets=(bucket,), pack_factor=2, loader_workers=4, **kw)
     with open(data_path) as f:
         cells = json.load(f)
     dataset = LlavaJsonDataset(cells=cells, image_root=root, cfg=cfg, tokenize_fn=tok.encode,
-                               max_len=TRAIN_BUCKET.max_len)
+                               max_len=bucket.max_len)
     for loader_seed in range(seed, seed + 100000):
         plan = PrefetchLoader(dataset, 1, buckets=run.buckets, seed=loader_seed,
                               pack_factor=2).epoch_plan(0)
@@ -2751,8 +2799,8 @@ def training_run_config(cfg, train_cfg, data_path, root, tok, seed: int, n_rows:
         raise AssertionError("no loader seed packs one image a row")
     lengths = [sum(dataset[i].length for i in idxs) for _, idxs in plan]
     print(f"  data: {len(cells)} cells, loader seed {loader_seed}, packed rows of {lengths} "
-          f"tokens in the {TRAIN_BUCKET.max_len} bucket", flush=True)
-    if max(lengths) > TRAIN_BUCKET.max_len:
+          f"tokens in the {bucket.max_len} bucket", flush=True)
+    if max(lengths) > bucket.max_len:
         raise AssertionError("a packed row exceeds the bucket")
     return dataclasses.replace(run, seed=loader_seed)
 
@@ -3421,9 +3469,36 @@ def require_family_launches(label: str, counts, kernel_attention: bool) -> None:
                              f"path {stray}")
 
 
-def serve_family(dev, seed: int, label: str, cfg, *, buckets, max_len: int, pad_tiles: int,
-                 n_requests: int, kernel_attention: bool, profile: bool, long_prompt: int = 0,
-                 cut: str = "", fill_batch: int = 2):
+@contextlib.contextmanager
+def recorded_shapes(names):
+    """The shapes of q (the first argument) that the wrappers `names` of
+    `ops.flash_attention` are called with inside the block, as
+    {name: set of shapes}."""
+    seen = {n: set() for n in names}
+    saved = {n: getattr(fa, n) for n in names}
+
+    def recorder(name, fn):
+        def call(q, *a, **k):
+            seen[name].add(tuple(q.shape))
+            return fn(q, *a, **k)
+        return call
+
+    for n in names:
+        setattr(fa, n, recorder(n, saved[n]))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(fa, n, fn)
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def serve_family(dev, seed: int, label: str, cfg, *, n_requests: int, kernel_attention: bool,
+                 profile: bool, buckets=None, max_len: int = 0, pad_tiles: int = 0,
+                 long_prompt: int = 0, cut: str = "", fill_batch: int = 2, after=None):
     """One decoder family at full width: weights born int8 on the card from
     `seed` (the experts of an MoE dense bf16), the int8 reference check,
     then a BatchWorker (8 slots, the int8 cache, 8-step chunks) serving `n_requests`
@@ -3434,7 +3509,13 @@ def serve_family(dev, seed: int, label: str, cfg, *, buckets, max_len: int, pad_
     K3 and K5/K6 launch in every family, nothing else does. With `profile`
     a decode chunk of every slot is timed and profiled. Then
     `engine_kernels` holds the path's kernels at the family's shapes on the
-    engine's own cache and weights against their plain versions."""
+    engine's own cache and weights against their plain versions.
+
+    With `buckets` None, the prompt bucket is the requests' longest prompt
+    rounded up to 128 (max_len and pad_tiles are then derived too); the
+    shapes K1 was called with in the measured run must be the tower's own
+    (`towers.sequence_length` tokens, its heads and head dim).
+    `after(b, samples, k1_shapes)` runs on the engine before it is freed."""
     t_phase = time.perf_counter()
     t = cfg.text
     model = convert.random_quantized_params(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -3458,6 +3539,19 @@ def serve_family(dev, seed: int, label: str, cfg, *, buckets, max_len: int, pad_
     print(f"  reference check {time.perf_counter() - t_check:.2f} s", flush=True)
     runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
                        batch_size=1, pad_to_multiple=128)
+    images = [cxr_image(rng) for _ in range(n_requests)]
+    prompts = [prompt(runner, QUESTIONS[i % len(QUESTIONS)]) for i in range(n_requests)]
+    if long_prompt:
+        prompts[-1] = question_of_length(runner, cfg, tok, QUESTIONS[0], images[-1], long_prompt)
+    reqs = [{"prompt": p, "images": [png_b64(im)], "max_new_tokens": NEW_TOKENS,
+             "temperature": 0.0} for p, im in zip(prompts, images)]
+    samples = [multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, p), [im], cfg)
+               for p, im in zip(prompts, images)]
+    lengths = [smp.length for smp in samples]
+    if buckets is None:
+        buckets = (round_up(max(lengths), 128),)
+        max_len = buckets[0] + 128
+        pad_tiles = max(smp.tiles.shape[0] for smp in samples)
     # No session ids are sent: sessions off skips their warmup's two runs.
     saved_cap = os.environ.get("RADVLM_SESSION_CAP")
     os.environ["RADVLM_SESSION_CAP"] = "0"
@@ -3474,15 +3568,6 @@ def serve_family(dev, seed: int, label: str, cfg, *, buckets, max_len: int, pad_
     b = worker.batcher
     print(f"  warmup {worker.warmup_seconds:.2f} s: "
           f"{ {k: round(v, 3) for k, v in b.warmup_timings.items()} }", flush=True)
-    images = [cxr_image(rng) for _ in range(n_requests)]
-    prompts = [prompt(runner, QUESTIONS[i % len(QUESTIONS)]) for i in range(n_requests)]
-    if long_prompt:
-        prompts[-1] = question_of_length(runner, cfg, tok, QUESTIONS[0], images[-1], long_prompt)
-    reqs = [{"prompt": p, "images": [png_b64(im)], "max_new_tokens": NEW_TOKENS,
-             "temperature": 0.0} for p, im in zip(prompts, images)]
-    samples = [multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, p), [im], cfg)
-               for p, im in zip(prompts, images)]
-    lengths = [smp.length for smp in samples]
     print(f"  prompts: {lengths} tokens, buckets {sorted({b._bucket_for(n) for n in lengths})}, "
           f"{NEW_TOKENS} new tokens each; positions up to {max(lengths) + NEW_TOKENS} of "
           f"{t.max_position_embeddings}", flush=True)
@@ -3495,7 +3580,8 @@ def serve_family(dev, seed: int, label: str, cfg, *, buckets, max_len: int, pad_
         kernels.reset_launch_counts()
         b.host_stats = dict.fromkeys(b.host_stats, 0)
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(n_requests) as pool:
+        with recorded_shapes(("tower_attention",)) as shapes, \
+                concurrent.futures.ThreadPoolExecutor(n_requests) as pool:
             outs = list(pool.map(lambda r: post_json(base + "/worker_generate", r), reqs))
         t_load = time.perf_counter() - t0
         torch.cuda.synchronize()
@@ -3519,6 +3605,13 @@ def serve_family(dev, seed: int, label: str, cfg, *, buckets, max_len: int, pad_
     if wrong:
         raise AssertionError(f"{label}: provenance {wrong}, expected {want}")
     require_family_launches(label, counts, kernel_attention)
+    v = cfg.vision
+    own = (towers.sequence_length(v), v.num_heads, v.head_dim)
+    k1_shapes = sorted(shapes["tower_attention"])
+    print(f"  K1 shapes in the measured run: {k1_shapes}", flush=True)
+    if not k1_shapes or any(sh[1:] != own for sh in k1_shapes):
+        raise AssertionError(f"{label}: K1 ran at {k1_shapes}, not the tower's own "
+                             f"[n, {own[0]}, {own[1]}, {own[2]}]")
     # The served prompt's logits through a prefill on the engine's own
     # routes (the kernels where the dispatch takes them): finite, of the
     # vocabulary's width.
@@ -3538,6 +3631,8 @@ def serve_family(dev, seed: int, label: str, cfg, *, buckets, max_len: int, pad_
     engine_kernels(b, lengths, seed + 31, label, attention=kernel_attention)
     print(f"  the path's kernels at its own shapes {time.perf_counter() - t_check:.2f} s",
           flush=True)
+    if after is not None:
+        after(b, samples, k1_shapes)
     torch.cuda.synchronize()
     print(f"  {label}: {time.perf_counter() - t_phase:.1f} s; {nvidia_smi_line()}", flush=True)
     del worker, runner, b, model
@@ -3553,7 +3648,7 @@ def phase_families(dev, seed: int, header) -> dict:
     counts = {}
     cfg = dataclasses.replace(radvlm_7b(), text=dataclasses.replace(
         mixtral_8x7b(), num_layers=MIXTRAL_LAYERS))
-    header(f"[11a/11] LLaVA-Mixtral-8x7B, {MIXTRAL_LAYERS} of 32 layers (the bf16 experts: "
+    header(f"[11a/12] LLaVA-Mixtral-8x7B, {MIXTRAL_LAYERS} of 32 layers (the bf16 experts: "
            "2.82 GB a layer)")
     counts["mixtral"] = serve_family(dev, seed, "mixtral_8x7b", cfg, buckets=INT8_BUCKETS,
                                      max_len=4224, pad_tiles=6, n_requests=4,
@@ -3561,7 +3656,7 @@ def phase_families(dev, seed: int, header) -> dict:
                                      cut=" (of 32: depth cut)")
     # MPT has 2048 positions: one 384-px tile an image ("pad") in the 1024 bucket.
     cfg = dataclasses.replace(radvlm_7b(), text=mpt_7b(), image_aspect_ratio="pad")
-    header("[11b/11] LLaVA-MPT-7B, full depth, one 384-px tile an image, the 1024 bucket")
+    header("[11b/12] LLaVA-MPT-7B, full depth, one 384-px tile an image, the 1024 bucket")
     counts["mpt"] = serve_family(dev, seed, "mpt_7b", cfg, buckets=MPT_BUCKETS,
                                  max_len=MPT_MAX_LEN, pad_tiles=1, n_requests=4,
                                  kernel_attention=False, profile=True)
@@ -3569,12 +3664,205 @@ def phase_families(dev, seed: int, header) -> dict:
             ("llama3_8b", llama3_8b, True, 0),
             ("mistral_7b", mistral_7b, False, MISTRAL_LONG_PROMPT),
             ("gemma_2b", gemma_2b, False, 0)):
-        header(f"[11c/11] LLaVA-{name}, full depth")
+        header(f"[11c/12] LLaVA-{name}, full depth")
         counts[name] = serve_family(
             dev, seed, name, dataclasses.replace(radvlm_7b(), text=preset()),
             buckets=FAMILY_BUCKETS, max_len=4224, pad_tiles=6, n_requests=2,
             kernel_attention=kernel_attention, profile=False, long_prompt=long_prompt,
             fill_batch=1)
+    return counts
+
+
+def tower_kernels(b, label: str, shape, seed: int) -> dict:
+    """The tower's kernels at its own shapes on the served engine: K1 at
+    `shape` (the largest the measured run gave it) against its plain
+    version, timed beside SDPA and its bound; K3 at the tower pass's rows on
+    the last tower layer's own int8 projections, bit for bit. Returns K1's
+    numbers."""
+    dev = b.model.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=dev, dtype=torch.bfloat16)
+
+    n, sq, h, d = shape
+    q, k, v = randn(*shape), randn(*shape), randn(*shape)
+    scale = d ** -0.5
+    out = fa.tower_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = check_close("tower_attention", f"{label} K1 tower_attention [{n},{sq},{h},{d}]", out,
+                      fa.attention_plain(q, k, v, None, None, False, scale))
+    r = dict(shape=list(shape), max_abs_err=err,
+             ms=cuda_ms(lambda: fa.tower_attention(q, k, v), batch=ATTN_BATCH),
+             plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v, None, None, False, scale),
+                              reps=3),
+             library_ms=cuda_ms(lambda: sdpa(q, k, v), batch=ATTN_BATCH),
+             **bound(nbytes(q, k, v, out), 4 * n * h * sq * sq * d, "bf16"))
+    print(f"  {label} K1 [{n},{sq},{h},{d}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA {r['library_ms']:.4f} ms"
+          f"{against(r)}", flush=True)
+    del q, k, v, out
+    layer = b.model.vision_tower.layers[-1]
+    for name in ("q", "k", "v", "o", "fc1", "fc2"):
+        lin = getattr(layer, name, None)
+        if not isinstance(lin, QLinear):
+            continue
+        kk = lin.weight.shape[1]
+        xq, xs = w8.quantize_rows(randn(n * sq, kk))
+        out = w8.w8a8_matmul(xq, xs, lin.weight, lin.scale)
+        torch.cuda.synchronize()
+        check_close("w8a8_matmul", f"{label} K3 w8a8_matmul tower {name} [{n * sq},{kk}]x"
+                    f"[{kk},{lin.weight.shape[0]}]", out,
+                    w8.w8a8_matmul_plain(xq, xs[:, 0], lin.weight, lin.scale, torch.bfloat16))
+        del xq, xs, out
+    return r
+
+
+def tower_line(cfg) -> str:
+    v, kind = cfg.vision, towers.kind(cfg.vision)
+    extra = ""
+    if kind == "clip" and v.s2_scales:
+        extra = f", S2 scales {v.s2_scales} ({towers.passes_per_tile(v)} passes a tile)"
+    elif kind == "eva":
+        extra = f", rope {v.rope}, subln {v.subln}, swiglu {v.swiglu}, {v.norm} norms"
+    return (f"  tower {kind}: {v.num_layers} layers, hidden {v.hidden_size}, {v.num_heads} heads "
+            f"of {v.head_dim}, {towers.sequence_length(v)} tokens a pass at {v.image_size} px"
+            f"{extra}; resampler {cfg.resampler.kind}: {tokens_per_tile(cfg)} image tokens a "
+            f"tile of width {towers.feature_size(v)}; aspect {cfg.image_aspect_ratio}")
+
+
+def phase_towers(dev, seed: int, header) -> dict:
+    """Phase 12: M10's towers and resamplers in front of Qwen2-7B, each
+    served like a decoder family of phase 11 (weights born int8, the int8
+    reference check, a BatchWorker of 8 slots on the int8 cache, 4 CXR
+    requests), then K1 and K3 at the tower's own shapes, a fill timed and
+    profiled; then a tunable CLIP tower trained two micro-steps."""
+    counts, k1 = {}, {}
+    base = radvlm_7b()
+    clip_name = "openai/clip-vit-large-patch14-336"
+    rows = [
+        ("a", "clip_s2", towers.with_tower(base, clip_name, s2=True, s2_scales=S2_SCALES),
+         f"CLIP ViT-L/14-336 with S2 {S2_SCALES}", ""),
+        ("b", "eva02_l_336", towers.with_tower(base, "EVA02-CLIP-L-14-336"),
+         "EVA02-CLIP-L-14-336 (rope, subln, swiglu), anyres", ""),
+        ("c", "eva_clip_8b", towers.with_tower(dataclasses.replace(
+            base, text=dataclasses.replace(base.text, num_layers=EVA8B_DECODER_LAYERS)),
+            "EVA-CLIP-8B"), f"EVA-CLIP-8B (32 x 4096, D = 128), the decoder cut to "
+            f"{EVA8B_DECODER_LAYERS} of 28 layers", " (of 28: depth cut)"),
+        ("d", "imagebind_huge", towers.with_tower(base, "imagebind_huge"),
+         "ImageBind-huge, one pooled token, pad", ""),
+        ("e", "siglip_qformer", dataclasses.replace(
+            base, resampler=ResamplerConfig(kind="qformer"), image_aspect_ratio="pad"),
+         "radvlm_7b's SigLIP + a Q-Former (bert-base, 32 queries, cross every 3 layers), pad", ""),
+        ("e", "siglip_spatial_pool", dataclasses.replace(
+            base, resampler=ResamplerConfig(kind="spatial_pool", stride=2)),
+         "radvlm_7b's SigLIP + spatial_pool (stride 2, average), anyres", ""),
+    ]
+    for letter, label, cfg, what, cut in rows:
+        header(f"[12{letter}/12] {what}")
+        print(tower_line(cfg), flush=True)
+
+        def after(b, samples, k1_shapes, label=label):
+            from torch.profiler import ProfilerActivity, profile
+
+            walls = [timed_fill(b, samples[0]) for _ in range(2)]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                profiled = timed_fill(b, samples[0])
+            print(f"  a fill of one request ({samples[0].length} tokens, "
+                  f"{samples[0].tiles.shape[0]} tiles): {[round(w, 4) for w in walls]} s",
+                  flush=True)
+            device_breakdown(prof, min(walls), f"{label} fill", profiled_wall=profiled, top=8)
+            k1[label] = tower_kernels(b, label, max(k1_shapes), seed + 41)
+
+        counts[label] = serve_family(
+            dev, seed, label, cfg, n_requests=TOWER_REQUESTS, kernel_attention=True,
+            profile=False, cut=cut, after=after)
+    header("[12f/12] a tunable CLIP-L/14-336 tower under radvlm_0_5b's decoder, masked_drop, "
+           "training.loop.train")
+    counts["tower_sft"] = phase_tower_sft(dev, seed)
+    print("  K1 at the towers' shapes (NVIDIA card as above; kernel and SDPA: samples of "
+          f"{ATTN_BATCH} calls in a row): " + json.dumps(k1), flush=True)
+    return counts
+
+
+def phase_tower_sft(dev, seed: int) -> dict:
+    """Two micro-steps (one update) of `training.loop.train`: radvlm_0_5b's
+    decoder under a tunable CLIP-L/14-336 tower, the masked_drop resampler,
+    packed rows of 2048 tokens. The loss must be finite, the tower's
+    gradient non-zero, and K2-lse, K7 and K8 must run at the tower's own
+    [n, 577, 16, 64] (and the decoder's), where they are then held to their
+    plain versions at the largest n the run gave them."""
+    cfg = dataclasses.replace(
+        towers.with_tower(radvlm_0_5b(), "openai/clip-vit-large-patch14-336"),
+        resampler=ResamplerConfig(kind="masked_drop"))
+    tok = CharTokenizer()
+    t0 = time.perf_counter()
+    model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+                                dtype=torch.float32)
+    labels = optim.mark_trainable(model, optim.TrainConfig())
+    torch.cuda.synchronize()
+    n_tower = sum(p.numel() for n, p in model.named_parameters()
+                  if n in labels and n.startswith("vision_tower"))
+    print(f"  init {time.perf_counter() - t0:.2f} s: {n_tower / 1e6:.1f} M trainable tower "
+          f"parameters, {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card", flush=True)
+    tower_sq = torch.zeros((), device=dev)
+
+    def add_tower_grad(p) -> None:  # on the card: no host sync
+        tower_sq.add_(p.grad.float().square().sum())
+
+    hooks = [p.register_post_accumulate_grad_hook(add_tower_grad)
+             for n, p in model.named_parameters()
+             if n.startswith("vision_tower") and p.requires_grad]
+    rng = np.random.default_rng(seed + 5)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_tower_train_{os.getpid()}")
+    try:
+        data_path = write_training_data(root, rng, TOWER_SFT_STEPS, height=336, widths=(300, 336))
+        run = training_run_config(cfg, optim.TrainConfig(grad_accum_steps=2, total_steps=100),
+                                  data_path, root, tok, seed, TOWER_SFT_STEPS,
+                                  bucket=TOWER_TRAIN_BUCKET, max_steps=TOWER_SFT_STEPS)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        names = ("prefill_attention_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+        with recorded_shapes(names) as shapes:
+            state, seen = run_training(run, tok, model, "tower SFT")
+        torch.cuda.synchronize()
+        print(f"  {TOWER_SFT_STEPS} micro-steps ({state.opt_state.count} update): "
+              f"{time.perf_counter() - t0:.2f} s (the loader's start included)", flush=True)
+    finally:
+        for hk in hooks:
+            hk.remove()
+        shutil.rmtree(root, ignore_errors=True)
+    counts = kernels.launch_counts()
+    print(f"  launches: {counts}", flush=True)
+    tower_norm = float(tower_sq) ** 0.5
+    print(f"  tower gradient norm over the micro-steps: {tower_norm:.6e}", flush=True)
+    if not (np.isfinite(tower_norm) and tower_norm > 0):
+        raise AssertionError("tower SFT: the tower's gradient is zero or not finite")
+    require_launched("sft", counts)
+    own = (towers.sequence_length(cfg.vision), cfg.vision.num_heads, cfg.vision.head_dim)
+    for name in names:
+        at = sorted(shapes[name])
+        print(f"  {name} shapes: {at}", flush=True)
+        if not any(sh[1:] == own for sh in at):
+            raise AssertionError(f"tower SFT: {name} never ran at the tower's [n, {own[0]}, "
+                                 f"{own[1]}, {own[2]}]")
+    if counts["tower_attention"]:
+        raise AssertionError("tower SFT: K1 launched under a gradient")
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The tower's non-causal, unmasked D = 64 case at the run's own shape.
+    n, sq, h, d = max(sh for sh in shapes["prefill_attention_lse"] if sh[1:] == own)
+    g = torch.Generator(device=dev).manual_seed(seed + 43)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device=dev, dtype=torch.bfloat16)
+
+    print(f"  K2-lse, K7 and K8 at the tower's [{n},{sq},{h},{d}] against their plain versions:",
+          flush=True)
+    training_kernel_case(dev, g, randn, "CLIP tower", n, sq, h, h, d, False, None)
     return counts
 
 
@@ -3593,32 +3881,32 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     dev = torch.device("cuda:0")
     smi = nvidia_smi_line()
-    print(f"[1/11] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+    print(f"[1/12] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
     t_start = t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.lib()
-    print(f"[2/11] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
+    print(f"[2/12] build: {time.perf_counter() - t0:.2f} s ({kernels.BUILD_DIR})", flush=True)
 
     def header(text):
         print(f"{text} (at {time.perf_counter() - t_start:.0f} s)", flush=True)
 
-    header("[3/11] kernels against their plain versions")
+    header("[3/12] kernels against their plain versions")
     results = phase_kernels(dev, 1234 + args.seed)
 
-    header("[4/11] bf16 slice: radvlm_7b, random bf16 weights")
+    header("[4/12] bf16 slice: radvlm_7b, random bf16 weights")
     counts = {"bf16": phase_slice(dev, args.seed)}
     gc.collect()  # the bf16 model (15 GiB) goes before the int8 one comes
     torch.cuda.empty_cache()
 
-    header("[5/11] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
+    header("[5/12] int8 continuous path: radvlm_7b, weights born int8, BatchWorker")
     counts["int8"], ctx = phase_int8(dev, args.seed)
     gc.collect()  # phase 5's KV cache goes before the spec engines' come
     torch.cuda.empty_cache()
 
-    header(f"[6/11] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
+    header(f"[6/12] speculative decoding (spec_k={SPEC_K}) and sessions on the int8 model")
     counts["spec_int8"] = phase_spec(ctx, True, SPEC_REQUESTS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3626,54 +3914,57 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7/11] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
+    header("[7/12] the pre-quantized artifact: radvlm_7b int4, save_quantized -> worker_cli")
     counts["int4"] = phase_artifact(dev, args.seed, ctx)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7b/11] fused W8A8 (K13) on the int8 model")
+    header("[7b/12] fused W8A8 (K13) on the int8 model")
     counts["fused"] = phase_fused(ctx)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7c/11] evaluation: build_task_dataset + run_task on the int8 model")
+    header("[7c/12] evaluation: build_task_dataset + run_task on the int8 model")
     counts["eval"] = phase_eval(ctx, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7d/11] text-LM serving: the GREEN judge (Llama-2-7B) and the local LLM client")
+    header("[7d/12] text-LM serving: the GREEN judge (Llama-2-7B) and the local LLM client")
     counts.update(phase_text_lm(ctx, args.seed))
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[7e/11] the serving front: web UI -> controller -> BatchWorker on the int8 model")
+    header("[7e/12] the serving front: web UI -> controller -> BatchWorker on the int8 model")
     counts["front"] = phase_front(ctx, args.seed)
     del ctx  # the int8 model goes before the trainers' come
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[8/11] SFT: radvlm_0_5b, f32 master weights, every part tunable, training.loop.train")
+    header("[8/12] SFT: radvlm_0_5b, f32 master weights, every part tunable, training.loop.train")
     counts["sft"] = phase_sft(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[9/11] QLoRA: radvlm_7b, int8 base, rank-128 adapters, training.loop.train")
+    header("[9/12] QLoRA: radvlm_7b, int8 base, rank-128 adapters, training.loop.train")
     counts["qlora"] = phase_qlora(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[10/11] DPO: radvlm_0_5b, f32 master weights, the tower frozen, dpo.train_dpo")
+    header("[10/12] DPO: radvlm_0_5b, f32 master weights, the tower frozen, dpo.train_dpo")
     counts["dpo"] = phase_dpo(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[10b/11] GRPO: radvlm_0_5b, rollouts through ContinuousBatcher, grpo.train_grpo")
+    header("[10b/12] GRPO: radvlm_0_5b, rollouts through ContinuousBatcher, grpo.train_grpo")
     counts["grpo"] = phase_grpo(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[11/11] the decoder families: MoE, MPT and the LLaVA presets, weights born int8")
+    header("[11/12] the decoder families: MoE, MPT and the LLaVA presets, weights born int8")
     counts.update(phase_families(dev, args.seed, header))
+
+    header("[12/12] M10's towers and resamplers, weights born int8; a tunable CLIP tower")
+    counts.update(phase_towers(dev, args.seed, header))
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

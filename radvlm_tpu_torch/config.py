@@ -5,8 +5,10 @@ do that). Port code reads fields and never tests a config's class.
 
 The JAX `RadVLMConfig` has two properties, `tokens_per_tile` and
 `feature_grid_side`, that reach its resampler module; here they are the
-functions `tokens_per_tile(cfg)` and `feature_grid_side(cfg)` (identity
-resampler only, the RadVLM configuration). Every decoder preset is kept
+functions `tokens_per_tile(cfg)` and `feature_grid_side(cfg)`. The CLIP,
+EVA and ImageBind tower configs live beside their towers
+(`models/clip.py`, `models/eva.py`, `models/imagebind.py`), as in the JAX
+package. Every decoder preset is kept
 (Qwen2, Llama-3, Mistral, Mixtral, Gemma, MPT); the RadVLM presets are
 the two SigLIP + Qwen2 ones.
 """
@@ -408,14 +410,13 @@ def tiny_test_config(vocab_size: int = 512) -> RadVLMConfig:
 
 
 def tokens_per_tile(cfg) -> int:
-    """Image tokens per tile that the LLM sees (729 for SigLIP-384/14)."""
-    if cfg.resampler.kind != "identity":
-        raise NotImplementedError(
-            f"resampler {cfg.resampler.kind!r} is not ported (ROADMAP M10)"
-        )
-    return cfg.vision.tokens_per_tile
+    """Image tokens per tile that the LLM sees, after the resampler (729 for
+    SigLIP-384/14 with the identity resampler)."""
+    from radvlm_tpu_torch.models.resampler import output_tokens
+
+    return output_tokens(cfg.resampler, cfg.vision.tokens_per_tile)
 
 
 def feature_grid_side(cfg) -> int:
-    """Side of the per-tile feature grid (27 for SigLIP-384/14)."""
+    """Side of the per-tile feature grid after resampling (spatial kinds)."""
     return math.isqrt(tokens_per_tile(cfg))

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from radvlm_tpu_torch import kernels
-from radvlm_tpu_torch.config import RadVLMConfig, tokens_per_tile
-from radvlm_tpu_torch.models import qwen2, radvlm
+from radvlm_tpu_torch.config import RadVLMConfig
+from radvlm_tpu_torch.models import qwen2, radvlm, towers
 from radvlm_tpu_torch.models.layers import Q4Linear, QLinear
 from radvlm_tpu_torch.ops.attention import flash_eligible
 from radvlm_tpu_torch.ops.flash_attention import tower_eligible
@@ -334,9 +334,13 @@ def kernel_provenance(
     ("window" K10, "window_q8" K11, or "plain") and its matmuls at
     `decode_rows * (spec_k + 1)` rows. With `tower_grad` (training with a
     tunable tower) the tower's attention reads "kernel_lse": K2 with the lse
-    and the K7 / K8 backward instead of K1, which writes no lse."""
+    and the K7 / K8 backward instead of K1, which writes no lse. The tower's
+    attention and matmuls are judged at the tower's own sequence length
+    (`towers.sequence_length`: the patches and a class token, before any
+    resampler) and S2 crop count; `resampler_attention` reads "plain" for
+    the perceiver and the Q-Former and "none" for the other resamplers."""
     v, t = cfg.vision, cfg.text
-    n = tokens_per_tile(cfg)
+    n = towers.sequence_length(v)  # the tower's own tokens, its class token included
     meta = torch.device("meta")
     q_tower = torch.empty((1, n, v.num_heads, v.head_dim), device=meta)
     q_text = torch.empty((1, prompt_len, t.num_heads, t.head_dim), device=meta)
@@ -352,6 +356,10 @@ def kernel_provenance(
     out: Dict[str, object] = {
         "tower_attention": ("kernel" if tower
                             else "kernel_lse" if tower_flash and tower_grad else "plain"),
+        # The perceiver's and the Q-Former's attention are plain einsums, as
+        # in the JAX package; the other resamplers attend over nothing.
+        "resampler_attention": ("plain" if cfg.resampler.kind in ("perceiver", "qformer")
+                                else "none"),
         "prefill_attention": "kernel" if prefill_ok else "plain",
         "decode_attention": qwen2.cached_attention_route(
             t, max_len, attn_impl, 1, decode_rows > 1, int8_cache),
@@ -365,15 +373,16 @@ def kernel_provenance(
             return "dequant" if t.tie_word_embeddings else qmm_route(rows, False)
 
         bits = weight_bits
+        tower_rows = fill_rows * tiles * towers.passes_per_tile(v) * n
         out.update(
-            tower_matmul=qmm_route(fill_rows * tiles * n, bits=bits),
+            tower_matmul=qmm_route(tower_rows, bits=bits),
             prefill_matmul=qmm_route(fill_rows * prompt_len, bits=bits),
             fill_lm_head=lm_head(fill_rows),
             decode_matmul=qmm_route(decode_rows, False, bits=bits),
             decode_lm_head=lm_head(decode_rows),
         )
         if bits == 4 and v.intermediate_size % GROUP:
-            out["tower_matmul_int8"] = qmm_route(fill_rows * tiles * n)
+            out["tower_matmul_int8"] = qmm_route(tower_rows)
         if spec_k:
             out.update(
                 verify_matmul=qmm_route(decode_rows * (spec_k + 1), False, bits=bits),

@@ -14,6 +14,9 @@ repacked once into the K12 kernel's layout, the group scales keep theirs.
 An MoE layer's `mlp/moe` node (router, expert tables [L, E, in, out],
 Qwen2-MoE's shared expert and its gate) fills the block's `MoE` module;
 the expert tables keep their [in, out] layout. MPT's MLP has no `gate`.
+Every vision tower and resampler module names its place in the tree in a
+`TREE` table (module attribute -> path; `layers` stacked, or a list for the
+Q-Former), which `load_tower` and `module_to_tree` walk both ways.
 `radvlm_to_tree` is the inverse, for an unfused model: the same keys,
 shapes, dtypes and bytes the JAX package's tree has (the artifact writer,
 `models/quant_io.py`, stores that tree; the training checkpoint,
@@ -28,6 +31,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from radvlm_tpu_torch.config import RadVLMConfig
 from radvlm_tpu_torch.models import qwen2, radvlm, siglip
@@ -108,25 +112,44 @@ def _linear(parent, name: str, node: Tree, idx=None) -> None:
         raise ValueError("the JAX tree has a bias the module does not")
 
 
-def load_siglip(tower: siglip.SigLIPTower, tree: Tree) -> None:
-    _linear(tower, "patch_embed", tree["patch_embed"])
-    _copy(tower.pos_embed, tree["pos_embed"])
-    _copy(tower.post_ln_scale, tree["post_ln"]["scale"])
-    _copy(tower.post_ln_bias, tree["post_ln"]["bias"])
-    lt = tree["layers"]
-    fused = "qkv" in lt["attn"]
-    if fused:
-        siglip.fuse_projections(tower)
-    for i, layer in enumerate(tower.layers):
-        _copy(layer.ln1_scale, lt["ln1"]["scale"], i)
-        _copy(layer.ln1_bias, lt["ln1"]["bias"], i)
-        _copy(layer.ln2_scale, lt["ln2"]["scale"], i)
-        _copy(layer.ln2_bias, lt["ln2"]["bias"], i)
-        names = ("qkv", "o") if fused else ("q", "k", "v", "o")
-        for name in names:
-            _linear(layer, name, lt["attn"][name], i)
-        _linear(layer, "fc1", lt["mlp"]["fc1"], i)
-        _linear(layer, "fc2", lt["mlp"]["fc2"], i)
+def _at(tree: Tree, path) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _load_table(mod: nn.Module, tree: Tree, idx=None) -> None:
+    """Every attribute of `mod.TREE` that the module holds (not None) from
+    its path in `tree` (layer `idx` of a stacked subtree). A `Linear` in
+    `mod.BARE` is a bare kernel in the tree, with no {kernel} node."""
+    bare = getattr(mod, "BARE", ())
+    for attr, path in mod.TREE.items():
+        target = getattr(mod, attr, None)
+        if target is None:
+            continue
+        node = _at(tree, path)
+        if isinstance(target, nn.Module):
+            _linear(mod, attr, {"kernel": node} if attr in bare else node, idx)
+        else:
+            _copy(target, node, idx)
+
+
+def load_tower(module: nn.Module, tree: Tree) -> None:
+    """A vision tower (SigLIP, CLIP, EVA, ImageBind) or a resampler
+    (perceiver, Q-Former) from its JAX subtree: the module's own leaves and
+    its `layers`, stacked [L, ...] in the tree, or a list of per-layer
+    subtrees (the Q-Former's). A fused SigLIP tree (`qkv`) fuses the module
+    first."""
+    layers = tree["layers"]
+    if isinstance(layers, Mapping) and "qkv" in layers.get("attn", {}):
+        siglip.fuse_projections(module)
+    _load_table(module, tree)
+    for i, layer in enumerate(module.layers):
+        if isinstance(layers, Mapping):
+            _load_table(layer, layers, i)
+        else:
+            _load_table(layer, layers[i])
+
 
 
 def load_qwen2(model: qwen2.Qwen2Decoder, tree: Tree) -> None:
@@ -188,7 +211,9 @@ def load_tree(model: radvlm.RadVLM, params: Tree) -> radvlm.RadVLM:
     """Copy the JAX package's parameter tree into an existing model, in
     place (each parameter keeps its `requires_grad`): how a training
     checkpoint is restored."""
-    load_siglip(model.vision_tower, params["vision_tower"])
+    load_tower(model.vision_tower, params["vision_tower"])
+    if model.resampler is not None:
+        load_tower(model.resampler, params["resampler"])
     for i in range(len(model.projector.fcs)):
         _linear(model.projector.fcs, str(i), params["projector"][f"fc{i}"])
     load_qwen2(model.text, params["text"])
@@ -201,20 +226,25 @@ def init_params(
     cfg: RadVLMConfig, generator: torch.Generator, device=None, dtype=torch.bfloat16
 ) -> radvlm.RadVLM:
     """Random weights made directly on `device` from `generator`, with the
-    JAX package's init distributions: matrices and embeddings N(0, 0.02),
-    biases 0, norm scales 1, image_newline N(0, 1/d). The values differ from
-    the JAX package's (another generator). `device` None means the card."""
+    JAX package's init distributions: matrices, embeddings and learned
+    tokens N(0, 0.02), biases 0, norm scales 1, layerscale gammas
+    `ls_init_value`, perceiver latents N(0, 1), image_newline N(0, 1/d). The
+    values differ from the JAX package's (another generator). `device` None
+    means the card."""
     model = radvlm.RadVLM(cfg, device=resolve(device), dtype=dtype)
-    ones = ("ln1", "ln2", "ln1_scale", "ln2_scale", "post_ln_scale", "norm")
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "image_newline":
             p.normal_(0.0, cfg.text.hidden_size ** -0.5, generator=generator)
-        elif leaf in ones:
+        elif leaf in ("ln1", "ln2", "norm") or leaf.endswith("_scale"):
             p.fill_(1.0)
-        elif leaf in ("bias", "ln1_bias", "ln2_bias", "post_ln_bias"):
+        elif leaf == "bias" or leaf.endswith("_bias"):
             p.zero_()
-        else:  # Linear weights, embeddings, pos_embed
+        elif leaf in ("gamma_1", "gamma_2"):
+            p.fill_(cfg.vision.ls_init_value)
+        elif leaf == "latents":
+            p.normal_(0.0, 1.0, generator=generator)
+        else:  # Linear weights, embeddings, pos_embed, class_embed, query_tokens
             p.normal_(0.0, 0.02, generator=generator)
     return model
 
@@ -331,7 +361,7 @@ def radvlm_to_tree(model: radvlm.RadVLM) -> Dict[str, Any]:
     def stacked(layers, name):
         return torch.stack([getattr(layer, name).data.cpu() for layer in layers])
 
-    tl, vl = list(text.layers), list(tower.layers)
+    tl = list(text.layers)
     if hasattr(tl[0], "moe"):
         moes = [blk.moe for blk in tl]
         moe: Dict[str, Any] = {
@@ -361,21 +391,46 @@ def radvlm_to_tree(model: radvlm.RadVLM) -> Dict[str, Any]:
     }
     if text.lm_head is not None:
         text_tree["lm_head"] = _linear_node(text.lm_head)
-    tower_tree = {
-        "patch_embed": _linear_node(tower.patch_embed),
-        "pos_embed": tower.pos_embed.data.cpu(),
-        "layers": {
-            "ln1": {"scale": stacked(vl, "ln1_scale"), "bias": stacked(vl, "ln1_bias")},
-            "ln2": {"scale": stacked(vl, "ln2_scale"), "bias": stacked(vl, "ln2_bias")},
-            "attn": {n: _linear_node(col(vl, n)) for n in ("q", "k", "v", "o")},
-            "mlp": {n: _linear_node(col(vl, n)) for n in ("fc1", "fc2")},
-        },
-        "post_ln": {"scale": tower.post_ln_scale.data.cpu(),
-                    "bias": tower.post_ln_bias.data.cpu()},
-    }
-    return {
-        "vision_tower": tower_tree,
+    tree = {
+        "vision_tower": module_to_tree(tower),
         "projector": {f"fc{i}": _linear_node(fc) for i, fc in enumerate(model.projector.fcs)},
         "text": text_tree,
         "image_newline": model.image_newline.data.cpu(),
     }
+    if model.resampler is not None:
+        tree["resampler"] = module_to_tree(model.resampler)
+    return tree
+
+
+def _table_tree(mods, stacked: bool) -> Dict[str, Any]:
+    """The subtree of `mods[0].TREE`'s attributes: one module's leaves, or
+    (`stacked`) those of the modules `mods` stacked along a leading axis."""
+    first, out = mods[0], {}
+    for attr, path in first.TREE.items():
+        if getattr(first, attr, None) is None:
+            continue
+        items = [getattr(m, attr) for m in mods]
+        if isinstance(items[0], nn.Module):
+            node = _linear_node(items if stacked else items[0])
+            if attr in getattr(first, "BARE", ()):
+                node = node["kernel"]
+        else:
+            node = (torch.stack([t.data.cpu() for t in items]) if stacked
+                    else items[0].data.cpu())
+        parent = out
+        for key in path[:-1]:
+            parent = parent.setdefault(key, {})
+        parent[path[-1]] = node
+    return out
+
+
+def module_to_tree(module: nn.Module) -> Dict[str, Any]:
+    """A tower or resampler module -> its JAX subtree, the inverse of
+    `load_tower`: `layers` stacked, or a list (a module with STACKED False)."""
+    tree = _table_tree([module], False)
+    layers = list(module.layers)
+    if getattr(module, "STACKED", True):
+        tree["layers"] = _table_tree(layers, True)
+    else:
+        tree["layers"] = [_table_tree([layer], False) for layer in layers]
+    return tree

@@ -1,6 +1,6 @@
 """HF checkpoint import: a safetensors directory -> a `RadVLM` module
 (counterpart of `radvlm_tpu/models/hf_import.py`, every decoder family of
-`models/qwen2.py` with a SigLIP tower).
+`models/qwen2.py` with each tower kind, and the Q-Former resampler).
 
 Accepts either naming scheme:
 
@@ -22,10 +22,13 @@ copy into the module on its device (the JAX package transposes and stacks);
 the conv patch embedding [D, 3, p, p] becomes the patchify-matmul weight
 [D, p*p*3] in (ph, pw, C) order; MPT's fused `Wqkv` [3d, d] splits by
 rows into q, k and v; an expert's [out, in] weight is transposed into its
-[E, in, out] table. The files are memory-mapped
-(`models/safetensors_io.py`): no `safetensors` package is needed. Not ported
-(they raise NotImplementedError naming ROADMAP M10): CLIP / EVA / ImageBind
-towers; a Q-Former resampler is refused by `RadVLM` itself.
+[E, in, out] table. The towers: HF CLIP (`vision.*` after
+`normalize_keys`), open_clip (`visual.*`, fused in_proj split by rows),
+ImageBind (`modality_*.vision.*`, the Conv3d stem's taps summed) and EVA
+(`visual.*` or bare); the Q-Former from `vision_resampler.*`. The module
+built from the config says which importer reads the checkpoint. The files
+are memory-mapped (`models/safetensors_io.py`): no `safetensors` package is
+needed.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ import torch
 
 from radvlm_tpu_torch.config import AnyResConfig, Qwen2Config, RadVLMConfig, SigLIPConfig
 from radvlm_tpu_torch.device import resolve
-from radvlm_tpu_torch.models import qwen2, radvlm, siglip
+from torch import nn
+
+from radvlm_tpu_torch.models import clip, eva, imagebind, qwen2, radvlm, resampler, siglip
 from radvlm_tpu_torch.models.projector import Projector
 from radvlm_tpu_torch.models.safetensors_io import read_dir
 
@@ -170,16 +175,51 @@ def _import_moe_mlp(state: State, moe: qwen2.MoE, p: str) -> None:
         _put(moe.shared_gate.weight, state[p + "mlp.shared_expert_gate.weight"])
 
 
+def _put_named(mod, state: State, names: Mapping[str, str], prefix: str = "") -> None:
+    """Module attribute -> checkpoint name under `prefix`: a linear takes
+    `<name>.weight` (and `<name>.bias` where it has one), a parameter the
+    tensor `<name>` itself; attributes the module holds as None are skipped."""
+    for attr, key in names.items():
+        target = getattr(mod, attr, None)
+        if target is None:
+            continue
+        if isinstance(target, nn.Module):
+            _put_linear(target, state, prefix + key)
+        else:
+            _put(target, state[prefix + key])
+
+
+def _patch_weight(conv_w: torch.Tensor) -> torch.Tensor:
+    """Patch conv kernel [D, C, p, p] -> the patchify-matmul weight
+    [D, p*p*C] in (ph, pw, C) order."""
+    return conv_w.permute(0, 2, 3, 1).reshape(conv_w.shape[0], -1)
+
+
+def _put_fused_qkv(layer, w: torch.Tensor, b=None) -> None:
+    """A fused [3D, D] projection (and [3D] bias), q / k / v by rows."""
+    d = w.shape[0] // 3
+    for i, lin in enumerate((layer.q, layer.k, layer.v)):
+        _put(lin.weight, w[i * d:(i + 1) * d])
+        if b is not None:
+            _put(lin.bias, b[i * d:(i + 1) * d])
+
+
+_HF_VIT_LAYER = {"ln1_scale": "layer_norm1.weight", "ln1_bias": "layer_norm1.bias",
+                 "ln2_scale": "layer_norm2.weight", "ln2_bias": "layer_norm2.bias",
+                 "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                 "o": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
 @torch.no_grad()
 def import_siglip(state: State, tower: siglip.SigLIPTower) -> None:
     """Canonical-key state dict -> the (unfused) tower's parameters.
 
     Imports only the encoder layers the tower has, the first
-    `cfg.num_layers` (the drop-last-layer policy). The patch conv kernel [D, 3, p, p] becomes the matmul
-    weight [D, p*p*3] matching `siglip.patchify`'s (ph, pw, C) order."""
-    conv_w = state["vision.embeddings.patch_embedding.weight"]  # [D, C, p, p]
-    d = conv_w.shape[0]
-    _put(tower.patch_embed.weight, conv_w.permute(0, 2, 3, 1).reshape(d, -1))
+    `cfg.num_layers` (the drop-last-layer policy). The patch conv kernel
+    [D, 3, p, p] becomes the matmul weight [D, p*p*3] matching
+    `siglip.patchify`'s (ph, pw, C) order."""
+    conv_w = state["vision.embeddings.patch_embedding.weight"]
+    _put(tower.patch_embed.weight, _patch_weight(conv_w))
     _put(tower.patch_embed.bias, state["vision.embeddings.patch_embedding.bias"])
     _put(tower.pos_embed, state["vision.embeddings.position_embedding.weight"])
     if "vision.post_layernorm.weight" in state:
@@ -191,15 +231,125 @@ def import_siglip(state: State, tower: siglip.SigLIPTower) -> None:
     else:
         tower.post_ln_bias.zero_()
     for i, layer in enumerate(tower.layers):
-        p = f"vision.encoder.layers.{i}."
-        _put(layer.ln1_scale, state[p + "layer_norm1.weight"])
-        _put(layer.ln1_bias, state[p + "layer_norm1.bias"])
-        _put(layer.ln2_scale, state[p + "layer_norm2.weight"])
-        _put(layer.ln2_bias, state[p + "layer_norm2.bias"])
-        for name, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
-            _put_linear(getattr(layer, name), state, p + f"self_attn.{hf}")
-        _put_linear(layer.fc1, state, p + "mlp.fc1")
-        _put_linear(layer.fc2, state, p + "mlp.fc2")
+        _put_named(layer, state, _HF_VIT_LAYER, f"vision.encoder.layers.{i}.")
+
+
+@torch.no_grad()
+def import_clip(state: State, tower: clip.CLIPTower) -> None:
+    """Canonical-key HF CLIPVisionModel state dict -> the tower: the patch
+    conv without bias, class_embedding, positions over cls + patches,
+    pre_layrnorm, and the first `num_layers` encoder layers (select_layer=-2
+    runs 23 of ViT-L's 24)."""
+    conv_w = state["vision.embeddings.patch_embedding.weight"]
+    _put(tower.patch_embed.weight, _patch_weight(conv_w))
+    _put_named(tower, state, {"class_embed": "embeddings.class_embedding",
+                              "pos_embed": "embeddings.position_embedding.weight",
+                              "pre_ln_scale": "pre_layrnorm.weight",
+                              "pre_ln_bias": "pre_layrnorm.bias"}, "vision.")
+    for i, layer in enumerate(tower.layers):
+        _put_named(layer, state, _HF_VIT_LAYER, f"vision.encoder.layers.{i}.")
+
+
+@torch.no_grad()
+def import_open_clip(state: State, tower: clip.CLIPTower) -> None:
+    """open_clip `visual.*` state dict -> the CLIP tower: `conv1` (no bias),
+    raw `class_embedding` / `positional_embedding`, `ln_pre`, resblocks with
+    torch MultiheadAttention's fused `in_proj_weight` / `in_proj_bias` (q, k,
+    v by rows) and `out_proj`, the MLP as `c_fc` / `c_proj`."""
+    _put(tower.patch_embed.weight, _patch_weight(state["visual.conv1.weight"]))
+    _put_named(tower, state, {"class_embed": "class_embedding",
+                              "pos_embed": "positional_embedding",
+                              "pre_ln_scale": "ln_pre.weight", "pre_ln_bias": "ln_pre.bias"},
+               "visual.")
+    for i, layer in enumerate(tower.layers):
+        p = f"visual.transformer.resblocks.{i}."
+        _put_fused_qkv(layer, state[p + "attn.in_proj_weight"], state[p + "attn.in_proj_bias"])
+        _put_named(layer, state, {"ln1_scale": "ln_1.weight", "ln1_bias": "ln_1.bias",
+                                  "ln2_scale": "ln_2.weight", "ln2_bias": "ln_2.bias",
+                                  "o": "attn.out_proj", "fc1": "mlp.c_fc", "fc2": "mlp.c_proj"}, p)
+
+
+@torch.no_grad()
+def import_imagebind(state: State, tower: imagebind.ImageBindTower) -> None:
+    """The public ImageBind checkpoint's vision branch -> the tower:
+    `modality_preprocessors.vision` (cls_token, the Conv3d stem collapsed to
+    the still-image patch matmul, pos_embed), `modality_trunks.vision`
+    (pre_transformer_layer.0, blocks with fused in_proj), and
+    `modality_heads.vision` (0: LayerNorm, 2: Linear without bias)."""
+    pre, trunk, head = ("modality_preprocessors.vision.", "modality_trunks.vision.",
+                        "modality_heads.vision.")
+    d = tower.class_embed.shape[0]
+    stem = state[pre + "rgbt_stem.proj.1.weight"]  # [D, C, T, p, p]: the taps sum
+    _put(tower.patch_embed.weight, _patch_weight(stem.sum(dim=2)))
+    _put(tower.class_embed, state[pre + "cls_token"].reshape(-1))
+    _put(tower.pos_embed, state[pre + "pos_embedding_helper.pos_embed"].reshape(-1, d))
+    _put_named(tower, state, {"pre_ln_scale": trunk + "pre_transformer_layer.0.weight",
+                              "pre_ln_bias": trunk + "pre_transformer_layer.0.bias",
+                              "head_ln_scale": head + "0.weight", "head_ln_bias": head + "0.bias",
+                              "head_proj": head + "2"})
+    for i, layer in enumerate(tower.layers):
+        p = f"{trunk}blocks.{i}."
+        _put_fused_qkv(layer, state[p + "attn.in_proj_weight"], state[p + "attn.in_proj_bias"])
+        _put_named(layer, state, {"ln1_scale": "norm_1.weight", "ln1_bias": "norm_1.bias",
+                                  "ln2_scale": "norm_2.weight", "ln2_bias": "norm_2.bias",
+                                  "o": "attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}, p)
+
+
+@torch.no_grad()
+def import_eva(state: State, tower: eva.EVATower) -> None:
+    """An `EVAVisionTransformer` state dict (with or without the CLIP
+    `visual.` prefix) -> the tower. subln towers store q / k / v apart
+    (bias-free weights; `q_bias` / `v_bias` alone), the others one fused
+    `qkv.weight` [3D, D]; `inner_attn_ln` / `ffn_ln` (subln), SwiGLU
+    w1 / w2 / w3 or fc1 / fc2, weight-only RMS norms and layerscale gammas
+    are read where the tower has them."""
+    state = {(k[len("visual."):] if k.startswith("visual.") else k): v for k, v in state.items()}
+    d = tower.class_embed.shape[0]
+    _put(tower.patch_embed.weight, _patch_weight(state["patch_embed.proj.weight"]))
+    _put(tower.patch_embed.bias, state["patch_embed.proj.bias"])
+    _put(tower.class_embed, state["cls_token"].reshape(-1))
+    _put(tower.pos_embed, state["pos_embed"].reshape(-1, d))
+    names = {"ln1_scale": "norm1.weight", "ln1_bias": "norm1.bias",
+             "ln2_scale": "norm2.weight", "ln2_bias": "norm2.bias", "o": "attn.proj",
+             "inner_ln_scale": "attn.inner_attn_ln.weight",
+             "inner_ln_bias": "attn.inner_attn_ln.bias",
+             "w1": "mlp.w1", "w2": "mlp.w2", "w3": "mlp.w3", "fc1": "mlp.fc1", "fc2": "mlp.fc2",
+             "ffn_ln_scale": "mlp.ffn_ln.weight", "ffn_ln_bias": "mlp.ffn_ln.bias",
+             "gamma_1": "gamma_1", "gamma_2": "gamma_2"}
+    for i, layer in enumerate(tower.layers):
+        p = f"blocks.{i}."
+        if p + "attn.qkv.weight" in state:
+            _put_fused_qkv(layer, state[p + "attn.qkv.weight"])
+        else:
+            for name in ("q", "k", "v"):
+                _put(getattr(layer, name).weight, state[p + f"attn.{name}_proj.weight"])
+        if layer.q.bias is not None:
+            _put(layer.q.bias, state[p + "attn.q_bias"])
+            _put(layer.v.bias, state[p + "attn.v_bias"])
+        _put_named(layer, state, names, p)
+
+
+@torch.no_grad()
+def import_qformer(state: State, module: resampler.QFormer) -> None:
+    """A BLIP-2 Q-Former wrapper's state dict (`ln_vision.*`, `query_tokens`,
+    `Qformer.bert.*`; the text path is absent) -> the `QFormer` module."""
+    h = module.query_tokens.shape[-1]
+    _put(module.query_tokens, state["query_tokens"].reshape(-1, h))
+    _put_named(module, state, {"ln_vision_scale": "ln_vision.weight",
+                               "ln_vision_bias": "ln_vision.bias",
+                               "emb_ln_scale": "Qformer.bert.embeddings.LayerNorm.weight",
+                               "emb_ln_bias": "Qformer.bert.embeddings.LayerNorm.bias"})
+    names = {}
+    for blk, hf in (("self", "attention"), ("cross", "crossattention")):
+        names.update({f"{blk}_q": f"{hf}.self.query", f"{blk}_k": f"{hf}.self.key",
+                      f"{blk}_v": f"{hf}.self.value", f"{blk}_out": f"{hf}.output.dense",
+                      f"{blk}_ln_scale": f"{hf}.output.LayerNorm.weight",
+                      f"{blk}_ln_bias": f"{hf}.output.LayerNorm.bias"})
+    names.update(ffn_up="intermediate_query.dense", ffn_down="output_query.dense",
+                 ffn_ln_scale="output_query.LayerNorm.weight",
+                 ffn_ln_bias="output_query.LayerNorm.bias")
+    for i, layer in enumerate(module.layers):
+        _put_named(layer, state, names, f"Qformer.bert.encoder.layer.{i}.")
 
 
 @torch.no_grad()
@@ -212,7 +362,25 @@ def import_projector(state: State, projector: Projector) -> None:
 def import_radvlm(raw_state: Mapping[str, Any], model: radvlm.RadVLM) -> None:
     """Full VLM import from either checkpoint layout into `model`."""
     state = normalize_keys(raw_state)
-    import_siglip(state, model.vision_tower)
+    tower = model.vision_tower
+    import_tower = {siglip.SigLIPTower: import_siglip, clip.CLIPTower: import_clip,
+                    eva.EVATower: import_eva,
+                    imagebind.ImageBindTower: import_imagebind}[type(tower)]
+    import_tower(state, tower)
+    if isinstance(model.resampler, resampler.QFormer):
+        # The wrapper's weights sit under model.vision_resampler.* in the
+        # reference's layout; a bare Q-Former checkpoint has them at the top.
+        sub = {k[len("vision_resampler."):]: v for k, v in state.items()
+               if k.startswith("vision_resampler.")}
+        if not sub and "query_tokens" in state:
+            sub = dict(state)
+        if not sub:
+            raise ValueError("config requests the qformer resampler but the checkpoint "
+                             "has no vision_resampler.* weights")
+        import_qformer(sub, model.resampler)
+    elif model.resampler is not None:  # the perceiver
+        raise ValueError("perceiver resampler checkpoints have no HF import layout (the "
+                         "reference never ships one); load a training checkpoint instead")
     import_projector(state, model.projector)
     import_qwen2(state, model.text)
     if "image_newline" in state:
@@ -230,10 +398,6 @@ def load_radvlm_checkpoint(path: str, cfg: RadVLMConfig, device=None,
     return model
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported (ROADMAP M10)")
-
-
 def config_from_hf_dir(path: str) -> RadVLMConfig:
     """Build a RadVLMConfig from an HF config.json (both layouts): the
     Qwen2 / Llama / Mistral / Gemma / Qwen2-MoE / Mixtral / MPT decoders
@@ -243,8 +407,6 @@ def config_from_hf_dir(path: str) -> RadVLMConfig:
     text_cfg = data.get("text_config", data)
     vis_cfg = data.get("vision_config", {})
     model_type = text_cfg.get("model_type", "qwen2")
-    if vis_cfg.get("model_type") == "clip_vision_model":
-        raise _not_ported("the CLIP vision tower")
     rope_kwargs = {}
     rope = text_cfg.get("rope_scaling")
     if isinstance(rope, dict):
@@ -333,16 +495,29 @@ def config_from_hf_dir(path: str) -> RadVLMConfig:
 
 
 def _finish_config(data, text: Qwen2Config, vis_cfg) -> RadVLMConfig:
-    """The shared tail of `config_from_hf_dir`: the tower and the anyres
+    """The shared tail of `config_from_hf_dir`: the tower (CLIP runs one
+    layer fewer than it was trained with: select_layer=-2) and the anyres
     policy."""
-    vision = SigLIPConfig(
+    if vis_cfg.get("model_type") == "clip_vision_model":
+        return _with_anyres(data, text, clip.CLIPVisionConfig(
+            hidden_size=vis_cfg.get("hidden_size", 1024),
+            intermediate_size=vis_cfg.get("intermediate_size", 4096),
+            num_layers=vis_cfg.get("num_hidden_layers", 24) - 1,
+            num_heads=vis_cfg.get("num_attention_heads", 16),
+            image_size=vis_cfg.get("image_size", 336),
+            patch_size=vis_cfg.get("patch_size", 14),
+        ))
+    return _with_anyres(data, text, SigLIPConfig(
         hidden_size=vis_cfg.get("hidden_size", 1152),
         intermediate_size=vis_cfg.get("intermediate_size", 4304),
         num_layers=vis_cfg.get("num_hidden_layers", 26),
         num_heads=vis_cfg.get("num_attention_heads", 16),
         image_size=vis_cfg.get("image_size", 384),
         patch_size=vis_cfg.get("patch_size", 14),
-    )
+    ))
+
+
+def _with_anyres(data, text: Qwen2Config, vision) -> RadVLMConfig:
     # Anyres policy from the HF fields (`image_grid_pinpoints` lists (height,
     # width) pixel candidates = grid cells x tile size; `vision_aspect_ratio`
     # carries the anyres_max_N token cap).

@@ -1,7 +1,9 @@
 """Multimodal projector (vision feature -> LLM embedding space), the
 counterpart of `radvlm_tpu/models/projector.py`: "mlp{N}x_gelu" (RadVLM:
-mlp2x_gelu), "linear" and "identity". The GELU is the exact (erf) one, as
-torch `nn.GELU()` in the reference - not the tower's tanh form.
+mlp2x_gelu), "linear", "identity" and "pooler" (no parameters: its
+`mlp_depth` is 0, so the features pass through, as in the JAX package).
+The GELU is the exact (erf) one, as torch `nn.GELU()` in the reference -
+not the tower's tanh form.
 """
 
 from __future__ import annotations
@@ -18,8 +20,6 @@ class Projector(nn.Module):
     def __init__(self, cfg: ProjectorConfig, vision_dim: int, text_dim: int, *,
                  device=None, dtype=None):
         super().__init__()
-        if cfg.kind not in ("identity", "linear") and cfg.mlp_depth == 0:
-            raise NotImplementedError(f"projector {cfg.kind!r} is not ported (ROADMAP M10)")
         dims = [vision_dim] + [text_dim] * cfg.mlp_depth
         self.fcs = nn.ModuleList(
             Linear.empty(dims[i], dims[i + 1], True, device=device, dtype=dtype)

@@ -38,8 +38,13 @@ from radvlm_tpu_torch.config import (
     SigLIPConfig,
 )
 from radvlm_tpu_torch.models import convert, radvlm, safetensors_io
+from radvlm_tpu_torch.models.clip import CLIPVisionConfig
+from radvlm_tpu_torch.models.eva import EVAVisionConfig
+from radvlm_tpu_torch.models.imagebind import ImageBindVisionConfig
 
 MARKER = "radvlm_quant.json"
+# The vision config classes an artifact names in `__vision_class__`.
+VISION_CLASSES = (SigLIPConfig, CLIPVisionConfig, EVAVisionConfig, ImageBindVisionConfig)
 FORMAT_VERSION = 1
 WEIGHTS = "model.safetensors"
 
@@ -52,10 +57,10 @@ def config_to_dict(cfg: RadVLMConfig) -> Dict[str, Any]:
 
 def config_from_dict(d: Dict[str, Any]) -> RadVLMConfig:
     d = dict(d)
-    vision_class = d.pop("__vision_class__", "SigLIPConfig")
-    if vision_class != "SigLIPConfig":
-        raise NotImplementedError(
-            f"vision tower {vision_class!r} is not ported (ROADMAP M10): SigLIP only")
+    name = d.pop("__vision_class__", "SigLIPConfig")
+    vision_class = {c.__name__: c for c in VISION_CLASSES}.get(name)
+    if vision_class is None:
+        raise ValueError(f"unknown vision config class {name!r}")
 
     def build(cls, sub):
         # tolerate missing / extra keys across versions: keep known fields only
@@ -66,7 +71,7 @@ def config_from_dict(d: Dict[str, Any]) -> RadVLMConfig:
 
     top = {f.name for f in dataclasses.fields(RadVLMConfig)}
     return RadVLMConfig(
-        vision=build(SigLIPConfig, d.pop("vision")),
+        vision=build(vision_class, d.pop("vision")),
         text=build(Qwen2Config, d.pop("text")),
         projector=build(ProjectorConfig, d.pop("projector")),
         anyres=build(AnyResConfig, d.pop("anyres")),

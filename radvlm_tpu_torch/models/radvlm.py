@@ -1,8 +1,8 @@
-"""RadVLM in PyTorch: SigLIP tower + projector + Qwen2 (counterpart of
-`radvlm_tpu/models/radvlm.py`).
+"""RadVLM in PyTorch: vision tower + resampler + projector + decoder
+(counterpart of `radvlm_tpu/models/radvlm.py`).
 
-1. every tile of the batch runs through tower + projector in one call
-   (`encode_tiles`);
+1. every tile of the batch runs through tower, resampler and projector in
+   one call (`encode_tiles`);
 2. the per-image anyres merge is the host-planned weighted gather
    (`merge_image_features`, `models/anyres.py`);
 3. the splice at image positions is a `torch.where` over the host-computed
@@ -24,7 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from radvlm_tpu_torch.config import IGNORE_INDEX, RadVLMConfig, tokens_per_tile
-from radvlm_tpu_torch.models import qwen2, siglip, towers
+from radvlm_tpu_torch.models import qwen2, resampler, siglip, towers
 from radvlm_tpu_torch.models.anyres import apply_merge
 from radvlm_tpu_torch.models.layers import empty_param
 from radvlm_tpu_torch.models.projector import Projector
@@ -34,11 +34,14 @@ from radvlm_tpu_torch.ops.image_ops import normalize_tiles_device
 class RadVLM(nn.Module):
     def __init__(self, cfg: RadVLMConfig, *, device=None, dtype=None):
         super().__init__()
-        tokens_per_tile(cfg)  # raises for a resampler that is not ported
         kw = dict(device=device, dtype=dtype)
         self.vision_tower = towers.build(cfg.vision, **kw)
+        width = towers.feature_size(cfg.vision)
+        # None for the parameter-free kinds (identity, spatial_pool, masked_drop).
+        self.resampler = resampler.build(cfg.resampler, width, **kw)
+        # The projector takes the width after the resampler (the Q-Former's).
         self.projector = Projector(
-            cfg.projector, towers.feature_size(cfg.vision), cfg.text.hidden_size, **kw
+            cfg.projector, resampler.output_dim(cfg.resampler, width), cfg.text.hidden_size, **kw
         )
         self.text = qwen2.Qwen2Decoder(cfg.text, **kw)
         self.image_newline = empty_param(cfg.text.hidden_size, **kw)
@@ -59,9 +62,11 @@ def fuse_for_inference(model: RadVLM, cfg: Optional[RadVLMConfig] = None) -> Rad
 
 def encode_tiles(
     model: RadVLM, cfg: RadVLMConfig, tiles: torch.Tensor, *, attn_impl: str = "auto",
-    remat: bool = False,
+    remat: bool = False, resampler_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """[N, ts, ts, 3] -> [N, 729, D_text]: tower + projector, one batch.
+    """[N, ts, ts, 3] -> [N, tokens_per_tile, D_text]: tower, resampler and
+    projector, one batch. A `resampler_generator` means training (masked_drop
+    draws its keep mask from it).
 
     uint8 tiles normalize on the device in f32, then cast once to the tower's
     dtype when its weights are bf16 (otherwise f32 pixels would promote every
@@ -74,6 +79,9 @@ def encode_tiles(
         tiles = tiles.to(torch.bfloat16)
     feats = towers.forward(model.vision_tower, cfg.vision, tiles, attn_impl=attn_impl,
                            remat=remat)
+    feats = resampler.forward(model.resampler, cfg.resampler, feats,
+                              generator=resampler_generator,
+                              training=resampler_generator is not None)
     return model.projector(feats)
 
 
@@ -122,15 +130,18 @@ def forward(
     return_hidden: bool = False,
     collect_kv: bool = False,
     return_aux: bool = False,
+    resampler_generator: Optional[torch.Generator] = None,
 ):
     """Full multimodal forward. batch keys: tiles [B,T,ts,ts,3],
     merge_indices/weights [B,N,4], tokens/img_src/positions/segment_ids [B,L].
     Returns (logits [B,L,V] or hidden, cache) as `qwen2.forward`, and with
     `return_aux` (MoE training) the router loss as a third element. `remat`
-    rematerialises every tower and decoder layer in the backward."""
+    rematerialises every tower and decoder layer in the backward;
+    `resampler_generator` is masked_drop's stream in training."""
     b, t = batch["tiles"].shape[:2]
     flat_tiles = batch["tiles"].reshape((b * t,) + tuple(batch["tiles"].shape[2:]))
-    tile_feats = encode_tiles(model, cfg, flat_tiles, attn_impl=attn_impl, remat=remat)
+    tile_feats = encode_tiles(model, cfg, flat_tiles, attn_impl=attn_impl, remat=remat,
+                              resampler_generator=resampler_generator)
     tile_feats = tile_feats.reshape(b, t, tokens_per_tile(cfg), -1)
     merged = merge_image_features(
         model, tile_feats, batch["merge_indices"], batch["merge_weights"]
@@ -234,6 +245,7 @@ def loss_fn(
     remat: bool = True,
     attn_impl: str = "auto",
     chunk: int = CE_CHUNK,
+    resampler_generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy with IGNORE_INDEX masking: labels[i]
     supervises logits[i - 1], positions of segment 0 never count. A batch
@@ -242,10 +254,11 @@ def loss_fn(
     Returns (loss, {"loss", "tokens"}); the loss is the mean over the
     supervised tokens (at least 1). An MoE decoder with `router_aux_coef`
     > 0 adds that times the router's load-balancing loss (the mean over the
-    layers), reported as "moe_aux" ("loss" is then the sum)."""
+    layers), reported as "moe_aux" ("loss" is then the sum).
+    `resampler_generator` (the JAX `rng`) turns masked_drop on."""
     moe_aux = bool(cfg.text.num_experts) and cfg.text.router_aux_coef > 0
     out = forward(model, cfg, batch, remat=remat, attn_impl=attn_impl, return_hidden=True,
-                  return_aux=moe_aux)
+                  return_aux=moe_aux, resampler_generator=resampler_generator)
     hidden = out[0]
     if "labels_next" in batch:
         shift_labels = batch["labels_next"]

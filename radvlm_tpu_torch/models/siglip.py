@@ -19,7 +19,20 @@ from radvlm_tpu_torch.models.layers import Linear, empty_param, fuse_linears
 from radvlm_tpu_torch.ops.attention import layer_norm, mha
 
 
+# Module attribute -> path in the JAX package's parameter tree, for a tower
+# layer and a tower (the weight bridge, `models/convert.py`, walks these;
+# an attribute a module does not have, or holds as None, is left out).
+VIT_LAYER_TREE = {
+    "ln1_scale": ("ln1", "scale"), "ln1_bias": ("ln1", "bias"),
+    "ln2_scale": ("ln2", "scale"), "ln2_bias": ("ln2", "bias"),
+    "q": ("attn", "q"), "k": ("attn", "k"), "v": ("attn", "v"), "o": ("attn", "o"),
+    "qkv": ("attn", "qkv"), "fc1": ("mlp", "fc1"), "fc2": ("mlp", "fc2"),
+}
+
+
 class SigLIPLayer(nn.Module):
+    TREE = VIT_LAYER_TREE
+
     def __init__(self, cfg: SigLIPConfig, *, device=None, dtype=None):
         super().__init__()
         d, f = cfg.hidden_size, cfg.intermediate_size
@@ -51,6 +64,9 @@ class SigLIPLayer(nn.Module):
 
 
 class SigLIPTower(nn.Module):
+    TREE = {"patch_embed": ("patch_embed",), "pos_embed": ("pos_embed",),
+            "post_ln_scale": ("post_ln", "scale"), "post_ln_bias": ("post_ln", "bias")}
+
     def __init__(self, cfg: SigLIPConfig, *, device=None, dtype=None):
         super().__init__()
         p, d = cfg.patch_size, cfg.hidden_size

@@ -169,16 +169,18 @@ def quantize_model(model, bits: int = 8):
     """Quantize a `RadVLM`'s projections in place, as the JAX package's
     `quantize_params` does with its default patterns: the decoder's
     attention and MLP projections (MPT's up / down too), the lm_head and
-    the SigLIP tower's projections become `QLinear`; the token embedding
+    the tower's attention projections and fc1 / fc2 (every tower kind: an
+    EVA tower's swiglu w1 / w2 / w3, ImageBind's head, the resamplers and
+    the projector are not matched) become `QLinear`; the token embedding
     becomes int8 with one scale per row. An MoE layer's router, expert
     tables and shared expert stay dense (the patterns name `mlp/gate|up|
-    down` only, which an MoE tree does not have). With `bits=4` (W4A16) the layers' projections whose
-    contraction dim divides by 128 become `Q4Linear` instead; the others
-    (the SO400M tower's `fc2`, D = 4304), the lm_head and the embedding
-    stay int8. The projector, the patch embedding, norms and biases stay
-    as they are. Quantize before `fuse_for_inference`: as in the JAX
-    package, fused `qkv` / `gateup` projections are not matched. Returns the
-    model."""
+    down` only, which an MoE tree does not have). With `bits=4` (W4A16)
+    the layers' projections whose contraction dim divides by 128 become
+    `Q4Linear` instead; the others (the SO400M tower's `fc2`, D = 4304),
+    the lm_head and the embedding stay int8. The patch embedding, norms and
+    biases stay as they are. Quantize before `fuse_for_inference`: as in
+    the JAX package, fused `qkv` / `gateup` projections are not matched.
+    Returns the model."""
     from radvlm_tpu_torch.models.layers import Linear, Q4Linear, QLinear
 
     if bits not in (8, 4):
@@ -202,9 +204,8 @@ def quantize_model(model, bits: int = 8):
     if text.embed.dtype != torch.int8:
         q, s = quantize_array(text.embed.data)
         text.set_int8_embedding(q, s)
-    for layer in getattr(model.vision_tower, "layers", ()):
-        if hasattr(layer, "fc1"):  # the SigLIP tower
-            swap(layer, ("q", "k", "v", "o", "fc1", "fc2"), bits)
+    for layer in model.vision_tower.layers:  # EVA's swiglu w1 / w2 / w3 stay dense
+        swap(layer, ("q", "k", "v", "o", "fc1", "fc2"), bits)
     return model
 
 

@@ -89,8 +89,6 @@ def main(argv=None, tokenizer=None):
     )
     if args.multihost:
         raise NotImplementedError("--multihost: multi-host training is not ported (ROADMAP M12)")
-    if args.vision_tower:
-        raise NotImplementedError("--vision-tower: only the SigLIP tower is ported (ROADMAP M10)")
 
     from radvlm_tpu_torch import config as cfglib
     from radvlm_tpu_torch.eval.harness import HFTokenizer
@@ -102,6 +100,11 @@ def main(argv=None, tokenizer=None):
         "0.5b": cfglib.radvlm_0_5b,
         "tiny": cfglib.tiny_test_config,
     }[args.model_size]()
+    if args.vision_tower:
+        from radvlm_tpu_torch.models import towers
+
+        model_cfg = towers.with_tower(model_cfg, args.vision_tower,
+                                      select_layer=args.mm_vision_select_layer)
     tok = None if tokenizer is not None else HFTokenizer(args.tokenizer or args.hf_checkpoint)
     extra = {}
     if args.buckets:

@@ -53,17 +53,32 @@ def _autocast(device: torch.device):
 StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
 
 
+def resampler_generator(cfg: RadVLMConfig, step: int,
+                        device: torch.device) -> Optional[torch.Generator]:
+    """masked_drop's stream for micro-step `step`: a generator on `device`
+    seeded with the step, so the stream is deterministic and resumes with
+    the step count (the counterpart of `fold_in(key(0), step)`); None for
+    every other resampler."""
+    if cfg.resampler.kind != "masked_drop":
+        return None
+    return torch.Generator(device=device).manual_seed(int(step))
+
+
 def make_train_step(cfg: RadVLMConfig, opt: Optimizer, *, remat: bool = True,
                     attn_impl: str = "auto") -> StepFn:
     """step_fn(state, batch) -> (state, metrics): loss and gradients of
     `radvlm.loss_fn`, then one optimizer micro-step. Batch tensors are on
     the model's device (`eval.harness.batch_to_device`). Metrics: loss,
-    tokens, grad_norm (tensors)."""
+    tokens, grad_norm (tensors). A masked_drop resampler drops from
+    `resampler_generator(cfg, state.step, ...)`, as the JAX step folds the
+    step into its key (the LoRA step, as the JAX one, draws nothing)."""
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.params
         with _autocast(model.device):
-            loss, metrics = radvlm.loss_fn(model, cfg, batch, remat=remat, attn_impl=attn_impl)
+            loss, metrics = radvlm.loss_fn(model, cfg, batch, remat=remat, attn_impl=attn_impl,
+                                           resampler_generator=resampler_generator(
+                                               cfg, state.step, model.device))
         loss.backward()
         metrics = dict(metrics)
         metrics["grad_norm"] = opt.step()

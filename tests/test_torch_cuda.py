@@ -64,7 +64,10 @@ def _assert_close(name, out, ref, rows=None):
 
 
 @pytest.mark.parametrize("shape", [(10, 729, 16, 72), (2, 200, 2, 64), (1, 77, 4, 128),
-                                   (3, 64, 1, 16), (1, 1000, 2, 128), (2, 129, 3, 30)])
+                                   (3, 64, 1, 16), (1, 1000, 2, 128), (2, 129, 3, 30),
+                                   # The M10 towers: CLIP-L/14-336 and EVA02-L-336,
+                                   # ImageBind-huge (D = 80), EVA-CLIP-8B.
+                                   (2, 577, 16, 64), (2, 257, 16, 80), (1, 257, 32, 128)])
 def test_k1_matches_plain(dev, shape):
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (_randn(gen, dev, *shape) for _ in range(3))
@@ -847,6 +850,7 @@ BWD_CASES = [
     (1, 300, 300, 16, 1, 128, True, "left_pad"),
     (2, 200, 200, 4, 2, 72, True, "packed"),
     (1, 130, 130, 71, 1, 64, False, None),
+    (1, 577, 577, 16, 16, 64, False, None),  # a tunable CLIP-L/14-336 tower, no mask
 ]
 
 
@@ -985,3 +989,19 @@ def test_k7_k8_unaligned_views_give_the_aligned_bits(dev, d):
     _assert_close("flash_attention_bwd_dq", dq, rq)
     _assert_close("flash_attention_bwd_dkv", dk, rk)
     _assert_close("flash_attention_bwd_dkv", dv, rv)
+
+
+def test_antialiased_resize_on_the_card_matches_the_cpu(dev):
+    """S2's bilinear antialiased resize (`clip.resize_bilinear`) on a CUDA
+    bf16 tensor gives the CPU's result: down by 2x and 3x (the crop grids)
+    and up (the input scales)."""
+    from radvlm_tpu_torch.models import clip
+
+    gen = torch.Generator().manual_seed(3)
+    for shape, size in (((2, 48, 48, 1024), 24), ((2, 72, 72, 1024), 24),
+                        ((1, 336, 336, 3), 1008)):
+        x = torch.randn(*shape, generator=gen).to(torch.bfloat16)
+        ref = clip.resize_bilinear(x, size)
+        out = clip.resize_bilinear(x.to(dev), size)
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        torch.testing.assert_close(out.cpu().float(), ref.float(), atol=1e-2, rtol=1e-2)

@@ -72,7 +72,7 @@ def test_siglip_matches_jax(rng, tiny, fused):
     pixels = rng.uniform(-1, 1, (3, 56, 56, 3)).astype(np.float32)
     ref = jsig.forward(vt, cfg.vision, jnp.asarray(pixels))
     tower = siglip.SigLIPTower(cfg.vision)
-    convert.load_siglip(tower, _np_tree(vt))
+    convert.load_tower(tower, _np_tree(vt))
     assert hasattr(tower.layers[0], "qkv") == fused
     out = siglip.forward(tower, cfg.vision, torch.from_numpy(pixels))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
@@ -251,6 +251,32 @@ def test_kernel_provenance_reports_the_predicates():
                                 decode_rows=8)
     assert (q8["fill_lm_head"], q8["decode_lm_head"], q8["decode_matmul"]) == (
         "dequant", "dequant", "int8")
+    assert prov["resampler_attention"] == plain["resampler_attention"] == "none"
+    # The tower is judged at its own sequence length, class token included
+    # and before the resampler: CLIP-L/14-336 577 tokens at D = 64 (x 14
+    # crops under S2), ImageBind 257 at D = 80 though it hands on one token,
+    # SigLIP's 729 under a Q-Former that hands on 32 (plain einsums).
+    from radvlm_tpu_torch.config import ResamplerConfig
+    from radvlm_tpu_torch.models import towers
+
+    clip_cfg = towers.with_tower(cfg, "openai/clip-vit-large-patch14-336", s2=True,
+                                 s2_scales=(336, 672, 1008))
+    imagebind = towers.with_tower(cfg, "imagebind_huge")
+    qformer = dataclasses.replace(cfg, resampler=ResamplerConfig(kind="qformer"),
+                                  image_aspect_ratio="pad")
+    assert [towers.sequence_length(c.vision) for c in (clip_cfg, imagebind, qformer)] == [
+        577, 257, 729]
+    assert towers.passes_per_tile(clip_cfg.vision) == 14
+    for c, resampled in ((clip_cfg, "none"), (imagebind, "none"), (qformer, "plain")):
+        p = teng.kernel_provenance(c, prompt_len=3584, max_new_tokens=32, quantized=True)
+        assert (p["tower_attention"], p["resampler_attention"]) == ("kernel", resampled)
+        assert p["tower_matmul"] == "w8a8"
+        p = teng.kernel_provenance(c, prompt_len=3584, max_new_tokens=32, tower_grad=True)
+        assert p["tower_attention"] == "kernel_lse"
+    # One tile of ImageBind is 257 rows in the tower (K3), one of its tokens
+    # reaches the decoder.
+    one = teng.kernel_provenance(imagebind, prompt_len=64, max_new_tokens=8, quantized=True)
+    assert one["tower_matmul"] == "w8a8"
 
 
 def _widened(head_dim: int, num_heads: int = 4, num_kv_heads: int = 2):

@@ -155,8 +155,19 @@ def test_config_round_trip():
     assert back == cfg and type(back).__module__ == "radvlm_tpu_torch.config"
     assert dataclasses.asdict(jqio.config_from_dict(json.loads(json.dumps(d)))) == dataclasses.asdict(cfg)
     assert quant_io.config_from_dict(dict(d, later_field=1)) == cfg  # extra keys are dropped
-    with pytest.raises(NotImplementedError, match="M10"):
-        quant_io.config_from_dict(dict(d, __vision_class__="CLIPVisionConfig"))
+    # A CLIP tower's config (S2 scales, a tuple, through JSON) round-trips as
+    # the JAX package's does; the other tower classes: test_torch_tower_import.py.
+    from radvlm_tpu.models import towers as jtowers
+    from radvlm_tpu_torch.models import towers as ttowers
+
+    name = "openai/clip-vit-large-patch14-336"
+    clip_cfg = ttowers.with_tower(cfg, name, s2=True, s2_scales=(336, 672))
+    d = quant_io.config_to_dict(clip_cfg)
+    assert d == jqio.config_to_dict(jtowers.with_tower(jcfg, name, s2=True, s2_scales=(336, 672)))
+    back = quant_io.config_from_dict(json.loads(json.dumps(d)))
+    assert back == clip_cfg and type(back.vision).__module__ == "radvlm_tpu_torch.models.clip"
+    assert dataclasses.asdict(jqio.config_from_dict(json.loads(json.dumps(d)))) == (
+        dataclasses.asdict(back))
     assert (quant_io.MARKER, quant_io.FORMAT_VERSION) == (jqio.MARKER, jqio.FORMAT_VERSION)
 
 
@@ -284,15 +295,6 @@ def test_normalize_keys_layouts(layout):
     state = {k: np.zeros(1, np.float32) for k in keys}
     assert sorted(hf_import.normalize_keys(state)) == sorted(keys.values())
     assert sorted(jhf.normalize_keys(state)) == sorted(keys.values())
-
-
-@pytest.mark.parametrize("case", ["clip"])
-def test_config_from_hf_dir_names_what_is_not_ported(tmp_path, case):
-    data = {"text_config": {"model_type": "qwen2"}, "vision_config": {}}
-    data["vision_config"]["model_type"] = "clip_vision_model"
-    (tmp_path / "config.json").write_text(json.dumps(data))
-    with pytest.raises(NotImplementedError, match="M10"):
-        hf_import.config_from_hf_dir(str(tmp_path))
 
 
 # ------------------------------------------------------- the entry points

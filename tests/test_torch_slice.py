@@ -174,7 +174,10 @@ def test_port_runs_with_jax_blocked():
     metrics score with the port's own ROUGE (requests, rouge_score and nltk
     blocked too), and a tiny MoE and a tiny MPT model run forward, the MoE
     one is exported in the HF layout and `convert_cli` converts a training
-    checkpoint."""
+    checkpoint, and every tower kind (CLIP with S2, EVA, ImageBind) and
+    every resampler run a tiny model's forward, each tower importer (CLIP,
+    open_clip, ImageBind, EVA) and the Q-Former's fills a module that runs,
+    and the tower dispatch and `with_tower` answer."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -498,13 +501,79 @@ def test_port_runs_with_jax_blocked():
         convert_cli.main(["--checkpoint-dir", f"{data}/ckpt", "--model-size", "tiny",
                           "--output", f"{data}/hf_tiny", "--verify", "--device", "cpu"])
         assert os.path.exists(f"{data}/hf_tiny/model.safetensors")
+        # M10's towers and resamplers: every tower kind (CLIP with S2) and
+        # every resampler in a tiny model's forward, the importers, the
+        # tower dispatch and `with_tower`.
+        from radvlm_tpu_torch.config import ResamplerConfig
+        from radvlm_tpu_torch.models import clip, eva, imagebind, towers
+        from radvlm_tpu_torch.models import resampler as tres
+        tiny_vis = {
+            "clip": clip.CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_layers=2,
+                                          num_heads=2, image_size=56, patch_size=14,
+                                          s2_scales=(56, 112)),
+            "eva": eva.EVAVisionConfig(hidden_size=32, head_dim=16, num_layers=2,
+                                       intermediate_size=48, image_size=56, patch_size=14,
+                                       rope_pt_seq_len=4),
+            "imagebind": imagebind.ImageBindVisionConfig(hidden_size=32, intermediate_size=64,
+                                                         num_layers=2, num_heads=2,
+                                                         image_size=56, patch_size=14,
+                                                         embed_dim=16),
+        }
+        rs = {"pad": [ResamplerConfig(kind="perceiver", depth=1, num_latents=4, num_heads=2,
+                                      head_dim=8),
+                      ResamplerConfig(kind="qformer", depth=2, num_latents=4, qformer_layers=2,
+                                      qformer_hidden=32, qformer_heads=2,
+                                      qformer_intermediate=64)],
+              "anyres_max_9": [ResamplerConfig(kind="spatial_pool"),
+                               ResamplerConfig(kind="masked_drop")]}
+        combos = [(v, ResamplerConfig(), "pad" if k == "imagebind" else "anyres_max_9")
+                  for k, v in tiny_vis.items()]
+        combos += [(cfg.vision, r, a) for a, rr in rs.items() for r in rr]
+        for vis, rcfg, aspect in combos:
+            vcfg = dataclasses.replace(cfg, vision=vis, resampler=rcfg, image_aspect_ratio=aspect)
+            vmodel = init_params(vcfg, torch.Generator().manual_seed(11), device="cpu",
+                                 dtype=torch.float32)
+            vb = batch_to_device(multimodal.collate([multimodal.build_sample(
+                Tok.encode("hi") + [-200], [img], vcfg)]), "cpu")
+            logits, _ = trad.forward(vmodel, vcfg, vb,
+                                     resampler_generator=torch.Generator().manual_seed(0))
+            assert torch.isfinite(logits).all(), (towers.kind(vis), rcfg.kind)
+        assert towers.config_from_tower_name("EVA-CLIP-8B").head_dim == 128
+        c7 = towers.with_tower(cfg, "imagebind_huge")
+        assert c7.image_aspect_ratio == "pad" and c7.anyres.tile_size == 224
+        # Each HF importer fills a module from its checkpoint layout, and
+        # the module runs.
+        from tower_layouts import (eva_state, hf_clip_state, imagebind_state, open_clip_state,
+                                   qformer_state)
+        g, rng = torch.Generator().manual_seed(12), np.random.default_rng(12)
+        hf = hf_clip_state(tiny_vis["clip"], 2, g)
+        eva_sd = {k: torch.from_numpy(v) for k, v in eva_state(tiny_vis["eva"], rng).items()}
+        px = torch.randn(1, 56, 56, 3, generator=g)
+        for name, importer, state in (
+                ("clip", hf_import.import_clip, hf_import.normalize_keys(hf)),
+                ("clip", hf_import.import_open_clip, open_clip_state(hf)),
+                ("imagebind", hf_import.import_imagebind,
+                 imagebind_state(hf, rng, tiny_vis["imagebind"])),
+                ("eva", hf_import.import_eva, eva_sd)):
+            vis = tiny_vis[name]
+            tower = towers.build(vis, device="cpu", dtype=torch.float32)
+            importer(state, tower)
+            out = towers.forward(tower, vis, px)
+            assert out.shape == (1, vis.tokens_per_tile, towers.feature_size(vis)), name
+            assert torch.isfinite(out).all(), name
+        qcfg = rs["pad"][1]
+        qf = tres.build(qcfg, 24, device="cpu", dtype=torch.float32)
+        hf_import.import_qformer({k: torch.from_numpy(v)
+                                  for k, v in qformer_state(qcfg, 24, rng).items()}, qf)
+        out = tres.forward(qf, qcfg, torch.randn(2, 16, 24, generator=g))
+        assert out.shape == (2, 4, 32) and torch.isfinite(out).all()
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn",
                         "requests", "rouge_score", "nltk"):
             assert not [k for k in loaded if k.split(".")[0] == blocked], blocked
     """)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -517,17 +586,58 @@ PRESETS = ["tiny_test_config", "radvlm_0_5b", "radvlm_7b", "qwen2_0_5b", "qwen2_
 CONSTANTS = ["IGNORE_INDEX", "IMAGE_TOKEN_INDEX", "DEFAULT_IMAGE_TOKEN"]
 
 
-@pytest.mark.parametrize("name", PRESETS + CONSTANTS)
+# The tower configs' copies: each class's defaults, the open_clip table and
+# every EVA name the dispatch knows.
+TOWER_CONFIGS = ["CLIPVisionConfig", "EVAVisionConfig", "ImageBindVisionConfig",
+                 "_OPEN_CLIP_MODELS", "EVA02-CLIP-L-14-336", "EVA02-CLIP-L-14", "EVA02-CLIP-B-16",
+                 "EVA-CLIP-8B", "EVA-CLIP-8B-plus"]
+
+
+def _tower_config(name: str):
+    """(the port's, the JAX package's) object behind a TOWER_CONFIGS name."""
+    from radvlm_tpu.models import clip as jclip
+    from radvlm_tpu.models import eva as jeva
+    from radvlm_tpu.models import imagebind as jib
+    from radvlm_tpu.models import towers as jtowers
+    from radvlm_tpu_torch.models import clip, eva, imagebind, towers
+
+    if name == "_OPEN_CLIP_MODELS":
+        return towers._OPEN_CLIP_MODELS, jtowers._OPEN_CLIP_MODELS
+    mods = {"CLIPVisionConfig": (clip, jclip), "EVAVisionConfig": (eva, jeva),
+            "ImageBindVisionConfig": (imagebind, jib)}
+    if name in mods:
+        mine, theirs = (getattr(m, name)() for m in mods[name])
+    else:
+        mine, theirs = towers._eva_config(name), jtowers._eva_config(name)
+    assert type(mine).__module__.startswith("radvlm_tpu_torch.")
+    for prop in ("kind", "tokens_per_tile", "feature_size", "patches_per_side", "head_dim",
+                 "num_heads", "mean", "std"):
+        assert getattr(mine, prop) == getattr(theirs, prop), prop
+    return mine, theirs
+
+
+@pytest.mark.parametrize("name", PRESETS + CONSTANTS + TOWER_CONFIGS)
 def test_port_config_equals_jax_config(name):
-    """The port keeps its own copy of the config module: every preset it
-    exports equals the JAX package's field by field, and so do the three
-    constants; a config object of either package drives the port."""
+    """The port keeps its own copy of the config module and of the tower
+    configs: every preset it exports equals the JAX package's field by
+    field, and so do the three constants, the three tower config classes,
+    the open_clip table and every EVA config; a config object of either
+    package drives the port."""
     import dataclasses
 
     from radvlm_tpu_torch import config as tcfg
 
     if name in CONSTANTS:
         assert getattr(tcfg, name) == getattr(cfglib, name)
+        return
+    if name in TOWER_CONFIGS:
+        mine, theirs = _tower_config(name)
+        if name == "_OPEN_CLIP_MODELS":
+            assert mine == theirs
+            return
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+        assert ([f.name for f in dataclasses.fields(mine)]
+                == [f.name for f in dataclasses.fields(theirs)])
         return
     mine, theirs = getattr(tcfg, name)(), getattr(cfglib, name)()
     assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
