@@ -232,7 +232,8 @@ Phases, each raising on failure (the last line is printed only on success):
    bucket, 4 requests. Both time and profile a decode chunk of every slot.
    11c: Llama-3-8B (the kernels), Mistral-7B (its 4096-token window: plain
    attention; one prompt of 4080 tokens, so decode crosses the window) and
-   Gemma-2B (head_dim 256: plain attention), full depth, 2 requests each;
+   Gemma-2B (head_dim 256: plain attention), each cut to FAMILY_LAYERS of
+   its layers (the script's time), 2 requests each;
 12. M10's towers and resamplers, each served as a family of phase 11 in
    front of Qwen2-7B (weights born int8, the int8 reference check, a
    BatchWorker of 8 slots on the int8 cache, 8-step chunks, 4 CXR requests
@@ -254,6 +255,31 @@ Phases, each raising on failure (the last line is printed only on success):
    CLIP-L/14-336 tower with the masked_drop resampler on packed
    2048-token rows: the loss finite, the tower's gradient non-zero, and
    K2-lse, K7 and K8 called at the tower's [n, 577, 16, 64].
+13. M12's serving layouts on the card (`parallel/`), over radvlm_7b's int8
+   weights made once from --seed and 8 anyres CXR prompts, first served by
+   a one-card engine (4 slots, the int8 cache, 32 greedy tokens) whose
+   tokens, logits and decode step the layouts are held to. 13a: a TP = 2
+   engine, two processes spawned on the card over gloo (which carries
+   all_reduce of CUDA tensors), each making the same weights and sharding
+   them: 4 requests with the launch counts from 0 (K1, K2 at 14 local
+   heads, K3, K4, K5/K6 on every rank), then on each rank K2, K4, K3 and
+   K5/K6 held to their plain versions at the rank's local shapes (its own
+   cache and sharded projections), the prefill and first-step logits
+   within 0.03 of the one-card engine's maximum (the int8 rule's allowance;
+   W8A8 of a row-parallel layer quantizes the rank's half of K), the greedy
+   tokens counted against its, a decode step timed against its; then
+   spec_k = 3 on the same ranks (K11), whose tokens must be TP greedy's or
+   leave them only at a near tie. 13b: `make_sp_generate_fn` over one
+   prompt of the 4096 bucket, the bf16 and then the int8 cache, one rank
+   under NCCL (gloo sends no CUDA tensor point to point): K1, K2-lse once a
+   layer for the ring's one pair, K3, K5/K6, no K2 or K4; the int8 cache's
+   tokens the bf16 cache's (or a near tie); the ring prefill's and one SP
+   decode step's logits against the one-card engine's. 13c: a fleet of two
+   engines on the card sharing the model, the 8 requests (the one engine's
+   tokens, or a near tie), overlapping busy windows, engine 0's kernels
+   held to their plain versions on its 4-slot cache, then a keep_kv turn
+   whose resume goes back to the engine that holds its rows and gives a
+   full re-prefill's tokens (or a near tie).
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -285,6 +311,8 @@ from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import (gemma_2b, llama3_8b, mistral_7b, mixtral_8x7b, mpt_7b,
@@ -310,12 +338,15 @@ from radvlm_tpu_torch.ops import int8_matmul as i8
 from radvlm_tpu_torch.ops import kv_quant
 from radvlm_tpu_torch.ops import quant as tquant
 from radvlm_tpu_torch.ops import w8a8_matmul as w8
+from radvlm_tpu_torch.parallel import mesh as pmesh
+from radvlm_tpu_torch.parallel import tp as tplib
 from radvlm_tpu_torch.serve import cli as chat_cli
 from radvlm_tpu_torch.serve import controller as front
 from radvlm_tpu_torch.serve import openai_api as oai
 from radvlm_tpu_torch.serve import web as web_ui
 from radvlm_tpu_torch.serve import worker_cli
 from radvlm_tpu_torch.serve.batch_worker import BatchWorker
+from radvlm_tpu_torch.serve.fleet import FleetEngine
 from radvlm_tpu_torch.serve.worker import ModelWorker
 from radvlm_tpu_torch.training import dpo as dpo_lib
 from radvlm_tpu_torch.training import grpo as grpo_lib
@@ -339,8 +370,9 @@ QUESTIONS = ("Write the findings section of the report.", "Is there a pleural ef
 # The text-LM phase: the GREEN judge at meta-llama/Llama-2-7b-hf's config.json
 # (the base of StanfordAIMI/GREEN-radllama2-7b), random bf16 weights, cut to
 # 16 of its 32 layers: its steps are host-bound and their time grows with the
-# depth, and the phase replays its 16 requests one at a time too, so the full
-# depth took ~210 s of the script's 1200 on a slow host.
+# depth, and the phase replays its 16 requests one at a time too. At 32
+# layers (149 s for this phase) the whole script took 1039 s of its 1200 on
+# an H100 80GB HBM3 host, and a host 1.25x slower would pass the limit.
 JUDGE_LAYERS = 16
 LLAMA2_7B = {"architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 4096,
              "intermediate_size": 11008, "num_hidden_layers": JUDGE_LAYERS,
@@ -412,6 +444,16 @@ PATH_KERNELS = {
     # The serving front (web UI -> controller -> BatchWorker) on the int8 model.
     "front": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
               "int8_matmul"),
+    # Phase 13: the TP engine's ranks (K2, K3, K4, K5/K6 at the local
+    # shapes), spec_k on them (K11), the SP generation (K1 on the replicated
+    # tower, K2-lse in the ring's pairs, K3, K5/K6), and the fleet.
+    "tp": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
+           "int8_matmul"),
+    "tp_spec": ("tower_attention", "prefill_attention", "w8a8_matmul", "int8_matmul",
+                "decode_attention_window_q8"),
+    "sp": ("tower_attention", "prefill_attention_lse", "w8a8_matmul", "int8_matmul"),
+    "fleet": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
+              "int8_matmul"),
     # The GREEN judge (Llama-2-7B, MHA) on TextLMEngine: bf16, then int8
     # (W8A8 fills, weight-only int8 decode), both over the bf16 cache.
     "text_lm": ("prefill_attention", "decode_attention"),
@@ -461,6 +503,19 @@ TOWER_REQUESTS = 4
 TOWER_SFT_STEPS = 2
 TOWER_TRAIN_BUCKET = Bucket(2048, 4)
 FAMILY_BUCKETS = (3840, 4096)  # 11c: the buckets its prompts fill, warmed up alone
+FAMILY_LAYERS = 8  # 11c: the depth each family is cut to
+# Phase 13: M12's serving layouts on the one card. 13a: a TP = 2 engine (two
+# processes on the card over gloo) serving LAYOUT_REQUESTS[:TP_REQUESTS] at
+# LAYOUT_SLOTS slots, 32 new tokens, then spec_k = TP_SPEC_K; 13b: one prompt
+# in the 4096 bucket through make_sp_generate_fn (SP_BACKEND, SP_WORLD);
+# 13c: a fleet of FLEET_SIZE engines on the card over all LAYOUT_REQUESTS,
+# then a keep_kv turn and its resume.
+LAYOUT_REQUESTS, TP_REQUESTS, LAYOUT_SLOTS, LAYOUT_STEPS = 8, 4, 4, 8
+TP_WORLD, TP_SPEC_K = 2, 3
+SP_NEW, SP_BUCKET = 16, 4096
+SP_BACKEND, SP_WORLD = "nccl", 1  # gloo sends no CUDA tensor point to point (PERF.md)
+FLEET_SIZE = 2
+LAYOUT_LOGITS_TOL = 0.03  # the int8 rule's allowance for W8A8 and the int8 cache
 FAMILY_KERNELS = ("tower_attention", "w8a8_matmul", "int8_matmul")  # K1, K3, K5/K6
 # K2 and K4: not under ALiBi, a sliding window or head_dim 256.
 FAMILY_ATTENTION = ("prefill_attention", "decode_attention_q8")
@@ -3642,9 +3697,9 @@ def serve_family(dev, seed: int, label: str, cfg, *, n_requests: int, kernel_att
 
 
 def phase_families(dev, seed: int, header) -> dict:
-    """Phase 11: LLaVA-Mixtral (depth cut), LLaVA-MPT-7B, then Llama-3-8B,
-    Mistral-7B and Gemma-2B, each radvlm_7b's tower and projector into the
-    family's decoder at full width."""
+    """Phase 11: LLaVA-Mixtral and then Llama-3-8B, Mistral-7B and Gemma-2B
+    (depth cut), LLaVA-MPT-7B (full depth), each radvlm_7b's tower and
+    projector into the family's decoder at full width."""
     counts = {}
     cfg = dataclasses.replace(radvlm_7b(), text=dataclasses.replace(
         mixtral_8x7b(), num_layers=MIXTRAL_LAYERS))
@@ -3664,12 +3719,14 @@ def phase_families(dev, seed: int, header) -> dict:
             ("llama3_8b", llama3_8b, True, 0),
             ("mistral_7b", mistral_7b, False, MISTRAL_LONG_PROMPT),
             ("gemma_2b", gemma_2b, False, 0)):
-        header(f"[11c/12] LLaVA-{name}, full depth")
+        n = preset().num_layers
+        header(f"[11c/12] LLaVA-{name}, {FAMILY_LAYERS} of {n} layers")
         counts[name] = serve_family(
-            dev, seed, name, dataclasses.replace(radvlm_7b(), text=preset()),
+            dev, seed, name, dataclasses.replace(radvlm_7b(), text=dataclasses.replace(
+                preset(), num_layers=FAMILY_LAYERS)),
             buckets=FAMILY_BUCKETS, max_len=4224, pad_tiles=6, n_requests=2,
             kernel_attention=kernel_attention, profile=False, long_prompt=long_prompt,
-            fill_batch=1)
+            fill_batch=1, cut=f" (of {n}: depth cut)")
     return counts
 
 
@@ -3866,6 +3923,490 @@ def phase_tower_sft(dev, seed: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: M12's serving layouts (tensor parallelism, sequence parallelism,
+# the engine fleet) on the one card.
+# ---------------------------------------------------------------------------
+
+
+def layout_samples(tok, cfg, prompts):
+    return [multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, text), [img], cfg)
+            for text, img in prompts]
+
+
+def layout_engine(model, cfg, gen, buckets, **kw) -> ContinuousBatcher:
+    return ContinuousBatcher(model, cfg, gen, num_slots=LAYOUT_SLOTS, max_len=4224,
+                             prompt_buckets=buckets, kv_quant=True,
+                             steps_per_sync=LAYOUT_STEPS, pipeline_depth=2, **kw)
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def served_tokens(b, samples):
+    """Greedy tokens of each sample through a batcher's run(), and the wall."""
+    sync(b.device)
+    t0 = time.perf_counter()
+    reqs = [b.submit(s) for s in samples]
+    done = {r.uid: r for r in b.run()}
+    sync(b.device)
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if done[r.uid].error:
+            raise AssertionError(f"request {r.uid} failed: {done[r.uid].error}")
+    return [done[r.uid].emitted for r in reqs], wall
+
+
+@torch.inference_mode()
+def first_step_logits(model, cfg, sample, tok0=None):
+    """Prefill logits and, after feeding `tok0` (default: the prefill's
+    argmax), the first decode step's, as the engine prefills (int8 cache):
+    f32 on the host. Under `tp.active` on a TP rank: the rank-local model."""
+    batch = batch_to_device(multimodal.collate([sample], pad_tiles=6, pad_to_multiple=128,
+                                               left_pad=True), model.device)
+    l = batch["tokens"].shape[1]
+    cache, seg, lg0 = engine.prefill(model, cfg, batch, 4224, cache_format="int8")
+    tok0 = lg0.argmax(-1) if tok0 is None else torch.tensor([tok0], device=model.device)
+    _, _, lg1 = engine.decode_step(model, cfg, cache, seg, tok0, batch["lengths"], l)
+    return lg0[0].float().cpu(), lg1[0].float().cpu()
+
+
+@torch.inference_mode()
+def sample_path_logits(model, cfg, sample, ids, step: int):
+    """`path_logits` for a built sample (int8 cache): the logits from which
+    the plain path picks token `step` after a full prefill and `ids` fed
+    back one by one."""
+    batch = batch_to_device(multimodal.collate([sample], pad_tiles=6, pad_to_multiple=128,
+                                               left_pad=True), model.device)
+    l = batch["tokens"].shape[1]
+    cache, seg, logits = engine.prefill(model, cfg, batch, 4224, cache_format="int8")
+    for t in range(step):
+        cur = torch.tensor([ids[t]], device=model.device)
+        cache, seg, logits = engine.decode_step(model, cfg, cache, seg, cur,
+                                                batch["lengths"] + t, l + t)
+    return logits[0].float()
+
+
+def first_difference(got, want):
+    return next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
+                None if len(got) == len(want) else min(len(got), len(want)))
+
+
+def near_tie_gap(logits_fn, want, step) -> float:
+    """The plain path's top-2 logit gap where tokens leave it (1e-2: the
+    rule `same_tokens_or_near_tie` holds a kernel path to)."""
+    top = torch.topk(logits_fn(want, step), 2).values
+    return float(top[0] - top[1])
+
+
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+def spawn_ranks(fn, world: int, payload: dict, root: str) -> list:
+    """`world` processes on the card (torch.multiprocessing, spawned), a
+    gloo group over a file store under `root`; rank r returns
+    fn(rank, world, payload), pickled back."""
+    import pickle
+
+    os.makedirs(root, exist_ok=True)
+    mp.spawn(_rank_entry, args=(world, fn, payload, root), nprocs=world, join=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _rank_entry(rank, world, fn, payload, root):
+    import pickle
+
+    # Few intra-op threads: ranks whose idle threads spin beside each
+    # other's collectives slow both down many times over.
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * world)))
+    if payload["device"].startswith("cuda"):
+        torch.cuda.set_device(payload["device"])
+        kernels.lib()
+    pmesh.init_distributed("gloo", "file://" + os.path.join(root, "store"), rank=rank,
+                           world_size=world)
+    try:
+        result = fn(rank, world, payload)
+        with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@torch.inference_mode()
+def chunk_step_ms(b, sample) -> float:
+    """Every slot filled with `sample`, then one greedy chunk timed by the
+    host's clock around synchronizes: ms per decode step."""
+    for _ in range(b.num_slots):
+        b.submit(sample, 4 * b.steps_per_sync)
+    pending = [b.queue.get_nowait() for _ in range(b.num_slots)]
+    for i, r in enumerate(pending):
+        b._fill_group([(i, r)])
+    inflight = collections.deque()
+    b._dispatch_chunk(inflight, force_sampling=False)  # the first chunk after fills
+    b._process_chunk(inflight, [])
+    sync(b.device)
+    t0 = time.perf_counter()
+    b._dispatch_chunk(inflight, force_sampling=False)
+    b._process_chunk(inflight, [])
+    sync(b.device)
+    wall = time.perf_counter() - t0
+    b.slot_req = [None] * b.num_slots
+    return 1e3 * wall / b.steps_per_sync
+
+
+def tp_rank(rank, world, payload):
+    """One rank of the TP engine: radvlm_7b's int8 weights made from the
+    seed (as the parent made them), sharded to this rank; the requests
+    served, launch counts and K2's shapes over that run, the path's kernels
+    at the rank's shapes against their plain versions, the first-step
+    logits, a decode step timed, then spec_k."""
+    dev, cfg = torch.device(payload["device"]), payload["cfg"]
+    model = convert.random_quantized_params(
+        cfg, torch.Generator(device=dev).manual_seed(payload["seed"]), device=dev, fuse=False)
+    mesh = pmesh.make_mesh({"tensor": world})
+    group = mesh.get_group("tensor")
+    tok = CharTokenizer()
+    samples = layout_samples(tok, cfg, payload["prompts"])
+    gen = GenerationConfig(max_new_tokens=payload["new_tokens"], eos_token_ids=tok.eos_token_ids)
+    t0 = time.perf_counter()
+    b = layout_engine(model, cfg, gen, payload["buckets"], mesh=mesh)
+    b.warmup()
+    warm = time.perf_counter() - t0
+    local = b.cfg
+    kernels.reset_launch_counts()
+    with recorded_shapes(["prefill_attention"]) as shapes:
+        toks, wall = served_tokens(b, samples)
+    counts = kernels.launch_counts()
+    # K2, K4, K3 and K5/K6 at the rank's local shapes against their plain
+    # versions, on the rank's own cache and sharded projections.
+    engine_kernels(b, [s.length for s in samples], payload["seed"], f"TP rank {rank}")
+    with tplib.active(group):
+        lg0, lg1 = first_step_logits(b.model, local, samples[0], payload["tok0"])
+    step_ms = chunk_step_ms(b, samples[0])
+    # Not warmed up: the plain engine's fills and kernels already ran.
+    bs = layout_engine(b.model, cfg, gen, payload["buckets"], mesh=mesh, spec_k=TP_SPEC_K)
+    kernels.reset_launch_counts()
+    spec_toks, spec_wall = served_tokens(bs, samples)
+    spec_counts = kernels.launch_counts()
+    gaps = []
+    for i, (got, want) in enumerate(zip(spec_toks, toks)):
+        step = first_difference(got, want)
+        if step is not None:  # every rank takes the same branch: same tokens
+            with tplib.active(group):
+                gaps.append((i, step, near_tie_gap(
+                    lambda ids, t: sample_path_logits(b.model, local, samples[i], ids, t),
+                    want, step)))
+    return dict(tokens=toks, wall=wall, warmup=warm, counts=counts, shapes=shapes,
+                lg0=lg0, lg1=lg1, step_ms=step_ms, spec_tokens=spec_toks, spec_wall=spec_wall,
+                spec_counts=spec_counts, spec_stats=dict(bs.spec_stats), gaps=gaps,
+                provenance={k: v for k, v in b.kernel_provenance().items() if k != "launches"},
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0,
+                weights_gb=sum(p.numel() * p.element_size() for p in b.model.parameters()) / 1e9)
+
+
+def phase_tp(ctx, seed: int) -> dict:
+    """13a: the TP engine (two processes on the card) against the one-card
+    engine of the same weights."""
+    t_phase = time.perf_counter()
+    cfg, tok, samples = ctx["cfg"], ctx["tok"], ctx["samples"][:TP_REQUESTS]
+    one_lg0, one_lg1 = first_step_logits(ctx["model"], cfg, samples[0])
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_tp_{os.getpid()}")
+    try:
+        ranks = spawn_ranks(tp_rank, TP_WORLD, dict(
+            device=str(ctx["model"].device), cfg=cfg, seed=ctx["seed"],
+            prompts=ctx["prompts"][:TP_REQUESTS], buckets=ctx["buckets"],
+            new_tokens=NEW_TOKENS, tok0=int(one_lg0.argmax())), root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    if any(r["tokens"] != r0["tokens"] or r["spec_tokens"] != r0["spec_tokens"] for r in ranks):
+        raise AssertionError("TP: the ranks emitted other tokens")
+    t = cfg.text
+    h, hkv = t.num_heads // TP_WORLD, t.num_kv_heads // TP_WORLD
+    print(f"  TP = {TP_WORLD} over gloo on the one card: rank weights {r0['weights_gb']:.3f} GB, "
+          f"peak {max(r['peak_gib'] for r in ranks):.2f} GiB a rank, warmup "
+          f"{r0['warmup']:.2f} s; local heads {h}|{hkv}, intermediate "
+          f"{t.intermediate_size // TP_WORLD}", flush=True)
+    print(f"  provenance (rank 0): {r0['provenance']}", flush=True)
+    for r, rk in enumerate(ranks):
+        print(f"  rank {r} launches in the measured run: {rk['counts']}", flush=True)
+        require_launched("tp", rk["counts"])
+    k2 = sorted(r0["shapes"]["prefill_attention"])
+    print(f"  K2 shapes in the measured run: {k2}", flush=True)
+    if not k2 or any(sh[2] != h for sh in k2):
+        raise AssertionError(f"TP: K2 ran at other than {h} local heads: {k2}")
+    n_tok = sum(len(x) for x in r0["tokens"])
+    print(f"  {TP_REQUESTS} requests, {n_tok} tokens in {r0['wall']:.3f} s "
+          f"({n_tok / r0['wall']:.1f} tokens/s, fills included)", flush=True)
+    for stage, out, ref in (("prefill", r0["lg0"], one_lg0), ("first decode step", r0["lg1"],
+                                                               one_lg1)):
+        err = rel_err(out, ref)
+        print(f"  TP {stage} logits against the one-card engine's: max rel err {err:.3e} "
+              f"(bound {LAYOUT_LOGITS_TOL}); argmax TP {int(out.argmax())}, one card "
+              f"{int(ref.argmax())}", flush=True)
+        if not err <= LAYOUT_LOGITS_TOL:
+            raise AssertionError(f"TP: {stage} logits off the one-card engine's")
+    one = ctx["one_tokens"][:TP_REQUESTS]
+    agree = sum(a == b for x, y in zip(r0["tokens"], one) for a, b in zip(x, y))
+    lead = [first_difference(x, y) for x, y in zip(r0["tokens"], one)]
+    print(f"  greedy tokens equal to the one-card engine's: {agree} of {sum(map(len, one))} "
+          f"(first difference per request: {lead}; W8A8 of a row-parallel layer quantizes "
+          f"the rank's half of K)", flush=True)
+    print(f"  TP decode step ({LAYOUT_SLOTS} slots): {r0['step_ms']:.2f} ms against "
+          f"{ctx['one_step_ms']:.2f} ms on the one-card engine "
+          f"({r0['step_ms'] / ctx['one_step_ms']:.2f}x)", flush=True)
+    print(f"  spec_k={TP_SPEC_K}: {r0['spec_stats']}, {r0['spec_wall']:.3f} s; launches "
+          f"(rank 0): {r0['spec_counts']}", flush=True)
+    for rk in ranks:
+        require_launched("tp_spec", rk["spec_counts"])
+    for i, step, gap in r0["gaps"]:
+        print(f"  spec request {i}: tokens leave TP plain greedy at step {step}; the plain "
+              f"path's top-2 logit gap there is {gap:.3e} (limit 1.000e-02)", flush=True)
+        if not gap < 1e-2:
+            raise AssertionError("TP spec: tokens differ from TP plain greedy")
+    print(f"  13a: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
+
+
+def phase_sp(ctx, seed: int) -> dict:
+    """13b: make_sp_generate_fn over one prompt in the 4096 bucket, the
+    bf16 and the int8 cache, against the one-card engine."""
+    t_phase = time.perf_counter()
+    model, cfg, tok = ctx["model"], ctx["cfg"], ctx["tok"]
+    dev = model.device
+    rng = np.random.default_rng(seed + 31)
+    text = render_generation_prompt([("user", "<image>\n" + QUESTIONS[0])], template=QWEN_CHATML)
+    sample = question_sample(tok, cfg, text, cxr_image(rng), SP_BUCKET)
+    batch = batch_to_device(multimodal.collate([sample], pad_len=SP_BUCKET, pad_tiles=6,
+                                               pad_to_multiple=128, left_pad=True), dev)
+    pmesh.init_distributed(SP_BACKEND, device=dev)
+    try:
+        mesh = pmesh.make_mesh({"seq": SP_WORLD})
+        gen = GenerationConfig(max_new_tokens=SP_NEW, eos_token_ids=())
+        out, counts = {}, {}
+        for q8 in (False, True):
+            fn = engine.make_sp_generate_fn(cfg, mesh, gen, kv_quant=q8)
+            sync(dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fn(model, batch)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            counts[q8] = c = kernels.launch_counts()
+            out[q8] = res["tokens"][0].tolist()
+            print(f"  SP generate ({SP_BACKEND}, seq = {SP_WORLD}), {'int8' if q8 else 'bf16'}"
+                  f" cache: prompt {sample.length} tokens in the {SP_BUCKET} bucket, {SP_NEW} "
+                  f"tokens in {wall:.3f} s; launches {c}", flush=True)
+            require_launched("sp", c)
+            # The ring: one K2-lse launch a layer for each pair a rank holds
+            # (rank r of n: r + 1 under the causal mask).
+            pairs = cfg.text.num_layers * (dist.get_rank() + 1)
+            if c["prefill_attention_lse"] != pairs:
+                raise AssertionError(f"SP: K2-lse launched {c['prefill_attention_lse']} times, "
+                                     f"the ring's pairs are {pairs}")
+            if c["prefill_attention"] or c["decode_attention_q8"]:
+                raise AssertionError("SP: K2 or K4 ran beside the ring and the SP merge")
+        step = first_difference(out[True], out[False])
+        if step is not None:
+            gap = near_tie_gap(lambda ids, t: sample_path_logits(model, cfg, sample, ids, t),
+                               out[False], step)
+            print(f"  SP int8-cache tokens leave the bf16 cache's at step {step}; the plain "
+                  f"path's top-2 gap there {gap:.3e} (limit 1.000e-02)", flush=True)
+            if not gap < 1e-2:
+                raise AssertionError("SP: the int8 cache's tokens differ from the bf16 cache's")
+        else:
+            print(f"  SP int8-cache tokens equal the bf16 cache's ({SP_NEW} of {SP_NEW})",
+                  flush=True)
+        # The first step's logits against the one-card engine's: the ring
+        # prefill, then one SP decode step over the split int8 cache.
+        l = batch["tokens"].shape[1]
+        max_len = l + 128
+        prefill = engine.make_sp_prefill_fn(cfg, mesh)
+        cache, seg, lg0 = prefill(model, batch, max_len)
+        from radvlm_tpu_torch.parallel.sp_decode import make_sp_decode_step
+
+        n, r = dist.get_world_size(), dist.get_rank()
+        own = slice(r * max_len // n, (r + 1) * max_len // n)
+        kq = [kv_quant.quantize_kv(c, cfg.text.num_kv_heads) for c in cache]
+        local = (kq[0][0][:, :, own].contiguous(), kq[1][0][:, :, own].contiguous(),
+                 kq[0][1][..., own].contiguous(), kq[1][1][..., own].contiguous())
+        tok0 = lg0.argmax(-1)
+        _, _, lg1 = make_sp_decode_step(cfg.text, mesh, kv_quant=True)(
+            model.text, local, seg[:, own].contiguous(), tok0, batch["lengths"], l)
+        del cache, local, kq
+    finally:
+        dist.destroy_process_group()
+    ref0, ref1 = first_step_logits(model, cfg, sample, int(tok0[0]))
+    for stage, got, ref in (("prefill", lg0[0].float().cpu(), ref0),
+                            ("first decode step", lg1[0].float().cpu(), ref1)):
+        err = rel_err(got, ref)
+        print(f"  SP {stage} logits against the one-card engine's: max rel err {err:.3e} "
+              f"(bound {LAYOUT_LOGITS_TOL}); argmax SP {int(got.argmax())}, one card "
+              f"{int(ref.argmax())}", flush=True)
+        if not err <= LAYOUT_LOGITS_TOL:
+            raise AssertionError(f"SP: {stage} logits off the one-card engine's")
+    print(f"  13b: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts[True]
+
+
+def question_sample(tok, cfg, text, image, bucket):
+    """`text` with its question repeated until the prompt fills most of
+    `bucket` (an anyres CXR image beside it)."""
+    sample = multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, text), [image],
+                                     cfg)
+    pad = " Compare with the prior study and describe any change."
+    while True:
+        longer = text.replace("<image>\n", "<image>\n" + pad, 1)
+        s = multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, longer), [image],
+                                    cfg)
+        if s.length > bucket - 128:
+            return sample
+        text, sample = longer, s
+
+
+def phase_fleet(ctx, seed: int) -> dict:
+    """13c: a fleet of FLEET_SIZE engines sharing the card and the model."""
+    t_phase = time.perf_counter()
+    model, cfg, tok = ctx["model"], ctx["cfg"], ctx["tok"]
+    samples = ctx["samples"]
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_ids=tok.eos_token_ids)
+    dev = model.device
+    fleet = FleetEngine(model, cfg, gen, fleet_size=FLEET_SIZE, devices=[dev] * FLEET_SIZE,
+                        num_slots=LAYOUT_SLOTS, max_len=4224, prompt_buckets=ctx["buckets"],
+                        kv_quant=True, steps_per_sync=LAYOUT_STEPS, pipeline_depth=2)
+    t0 = time.perf_counter()
+    fleet.warmup()
+    print(f"  fleet of {FLEET_SIZE} on {dev}: one model ({fleet.batchers[0].model is model}), "
+          f"warmup {time.perf_counter() - t0:.2f} s", flush=True)
+    fleet.start()
+    try:
+        sync(dev)
+        kernels.reset_launch_counts()
+        t0, t_mono = time.perf_counter(), time.monotonic()
+        reqs = [fleet.submit(s) for s in samples]
+        done = {r.uid: r for r in fleet.drain(idle_timeout=600)}
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        toks = [done[r.uid].emitted for r in reqs]
+        if any(done[r.uid].error for r in reqs):
+            raise AssertionError(f"fleet: failed requests {[done[r.uid].error for r in reqs]}")
+        n_tok = sum(map(len, toks))
+        print(f"  {len(samples)} requests, {n_tok} tokens in {wall:.3f} s "
+              f"({n_tok / wall:.1f} tokens/s, fills included) against {ctx['one_wall']:.3f} s "
+              f"on one engine; fills per engine "
+              f"{[b.host_stats['fills'] for b in fleet.batchers]}", flush=True)
+        print(f"  launches in the measured run: {counts}", flush=True)
+        require_launched("fleet", counts)
+        engine_kernels(fleet.batchers[0], [s.length for s in samples], seed, "fleet engine 0")
+        windows = [(i, a, z) for i, a, z in fleet.busy_log]
+        overlap = max((min(z0, z1) - max(a0, a1) for i0, a0, z0 in windows
+                       for i1, a1, z1 in windows if i0 < i1), default=0.0)
+        print(f"  busy windows {[(i, round(a - t_mono, 3), round(z - t_mono, 3)) for i, a, z in windows]}"
+              f" s; engines 0 and 1 busy together {overlap:.3f} s", flush=True)
+        if not overlap > 0:
+            raise AssertionError("fleet: the engines' busy windows do not overlap")
+        for i, (got, want) in enumerate(zip(toks, ctx["one_tokens"])):
+            step = first_difference(got, want)
+            if step is not None:
+                gap = near_tie_gap(lambda ids, t: sample_path_logits(model, cfg, samples[i], ids,
+                                                                     t), want, step)
+                print(f"  fleet request {i}: tokens leave the one engine's at step {step}; "
+                      f"the plain path's top-2 gap there {gap:.3e} (limit 1.000e-02)",
+                      flush=True)
+                if not gap < 1e-2:
+                    raise AssertionError("fleet: tokens differ from one engine's")
+        print(f"  fleet tokens: {sum(g == w for g, w in zip(toks, ctx['one_tokens']))} of "
+              f"{len(toks)} requests equal one engine's", flush=True)
+        # A keep_kv turn, then its resume: back to the engine that holds
+        # the rows; the tokens of a full re-prefill.
+        r1 = fleet.submit(samples[0], keep_kv=True)
+        list(fleet.drain(idle_timeout=600))
+        snap = r1.kv_snapshot
+        e = snap.engine_idx
+        q2 = tok.encode("<|im_end|>\n<|im_start|>user\nIs the heart enlarged?<|im_end|>\n"
+                        "<|im_start|>assistant\n")
+        delta = list(r1.emitted[snap.n_reply:]) + q2
+        before = [b.resume_fills for b in fleet.batchers]
+        r2 = fleet.submit(multimodal.build_sample(delta, [], cfg), resume=snap)
+        list(fleet.drain(idle_timeout=600))
+        gained = [b.resume_fills - n for b, n in zip(fleet.batchers, before)]
+        if r2.error or gained[e] != 1 or sum(gained) != 1:
+            raise AssertionError(f"fleet resume: routed {gained} for engine {e}, {r2.error}")
+    finally:
+        fleet.shutdown()
+    full = multimodal.build_sample(ctx["ids"][0] + list(r1.emitted) + q2, [ctx["prompts"][0][1]],
+                                   cfg)
+    one = layout_engine(model, cfg, gen, ctx["buckets"] + (4096,))
+    want, _ = served_tokens(one, [full])
+    step = first_difference(r2.emitted, want[0])
+    print(f"  turn 2 resumed on engine {e} (snapshot of {snap.widx} positions, delta "
+          f"{len(delta)} tokens): {len(r2.emitted)} tokens, first difference from a full "
+          f"re-prefill at {step}", flush=True)
+    if step is not None:
+        gap = near_tie_gap(lambda ids, t: sample_path_logits(model, cfg, full, ids, t), want[0],
+                           step)
+        print(f"  the full re-prefill's top-2 gap there {gap:.3e} (limit 1.000e-02)", flush=True)
+        if not gap < 1e-2:
+            raise AssertionError("fleet resume: tokens differ from a full re-prefill's")
+    print(f"  13c: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def phase_layouts(dev, seed: int, header) -> dict:
+    """13: radvlm_7b's int8 weights made once from the seed (unfused, for
+    the TP ranks to make alike), fused for the one-card engine, whose
+    tokens, logits and decode step the layouts are held to."""
+    cfg = radvlm_7b()
+    t0 = time.perf_counter()
+    model = convert.random_quantized_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 13), device=dev, fuse=False)
+    radvlm.fuse_for_inference(model, cfg)
+    tok = CharTokenizer()
+    rng = np.random.default_rng(seed + 13)
+    prompts = [(render_generation_prompt([("user", "<image>\n" + QUESTIONS[i % len(QUESTIONS)])],
+                                         template=QWEN_CHATML), cxr_image(rng))
+               for i in range(LAYOUT_REQUESTS)]
+    samples = layout_samples(tok, cfg, prompts)
+    # The fewest phase-5 buckets that hold the prompts: a bucket costs a fill
+    # in every engine's warmup.
+    buckets = tuple(sorted({min(b for b in INT8_BUCKETS + (4096,) if b >= s.length)
+                            for s in samples}))
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_ids=tok.eos_token_ids)
+    b = layout_engine(model, cfg, gen, buckets)
+    b.warmup()
+    one_tokens, one_wall = served_tokens(b, samples)
+    one_step_ms = chunk_step_ms(b, samples[0])
+    del b
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  radvlm_7b int8 (seed {seed + 13}), {LAYOUT_REQUESTS} prompts of "
+          f"{sorted(s.length for s in samples)} tokens, buckets {buckets}; one-card engine "
+          f"({LAYOUT_SLOTS} slots, int8 cache): {one_wall:.3f} s, decode step "
+          f"{one_step_ms:.2f} ms; set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    ctx = dict(model=model, cfg=cfg, tok=tok, prompts=prompts, samples=samples,
+               ids=[multimodal.tokenize_with_images(tok.encode, p) for p, _ in prompts],
+               buckets=buckets, one_tokens=one_tokens, one_wall=one_wall,
+               one_step_ms=one_step_ms, seed=seed + 13)
+    counts = {}
+    header(f"[13a/13] tensor parallelism: TP = {TP_WORLD} (gloo, two processes on the card)")
+    counts["tp"] = phase_tp(ctx, seed)
+    header(f"[13b/13] sequence parallelism: ring prefill and SP decode ({SP_BACKEND}, "
+           f"seq = {SP_WORLD})")
+    counts["sp"] = phase_sp(ctx, seed)
+    header(f"[13c/13] a fleet of {FLEET_SIZE} engines on the card")
+    counts["fleet"] = phase_fleet(ctx, seed)
+    return counts
+
+
 def post_json(url: str, req: dict) -> dict:
     body = json.dumps(req).encode()
     with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=600) as resp:
@@ -3965,6 +4506,13 @@ def main():
 
     header("[12/12] M10's towers and resamplers, weights born int8; a tunable CLIP tower")
     counts.update(phase_towers(dev, args.seed, header))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[13/13] M12's serving layouts on the card: TP engine, SP generation, a fleet")
+    t13 = time.perf_counter()
+    counts.update(phase_layouts(dev, args.seed, header))
+    print(f"  phase 13: {time.perf_counter() - t13:.1f} s; {nvidia_smi_line()}", flush=True)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

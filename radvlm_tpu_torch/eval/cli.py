@@ -7,8 +7,17 @@
 
 `--checkpoint` is a pre-quantized directory (`models/quantize_cli.py`) or an
 HF safetensors directory (loaded in bf16). Runs on the card unless
-`--device cpu` is given. One process on one card: `--multihost`, `--fleet`
-and `--fleet-tp` are not ported (ROADMAP M12).
+`--device cpu` is given.
+
+`--multihost` runs one process per rank under torchrun (the world from its
+environment; each rank on cuda:LOCAL_RANK): the samples split over the
+ranks and the results are gathered:
+
+    torchrun --nproc-per-node 4 -m radvlm_tpu_torch.eval.cli --multihost ...
+
+`--fleet N` drives N continuous engines in this process, one per device of
+`--fleet-devices` (default every card). `--fleet-tp` above 1 (a fleet of TP
+engines) is not ported (ROADMAP M12).
 """
 
 from __future__ import annotations
@@ -42,11 +51,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["continuous", "static"],
                    help="continuous: slot-refilled batching (default); "
                         "static: fixed padded batches")
-    p.add_argument("--multihost", action="store_true", help="not ported")
+    p.add_argument("--multihost", action="store_true",
+                   help="one process per rank (torchrun): split the samples, gather the results")
     p.add_argument("--fleet", type=int, default=None,
-                   help="data-parallel engine fleet (not ported)")
+                   help="data-parallel engine fleet: N continuous engines in this process")
+    p.add_argument("--fleet-devices", default=None,
+                   help="comma-separated devices of the fleet's engines (a device may repeat; "
+                        "default every card)")
     p.add_argument("--fleet-tp", type=int, default=1,
-                   help="chips per fleet engine (not ported)")
+                   help="devices per fleet engine (not ported above 1)")
     p.add_argument("--device", default=None,
                    help="where the model lives (default: the CUDA card)")
     return p.parse_args(argv)
@@ -56,12 +69,22 @@ def main(argv=None, tokenizer=None):
     """`tokenizer` replaces the HF tokenizer of `--tokenizer` /
     `--checkpoint` (tests pass their own). Returns the metrics dict."""
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("--multihost: multi-host evaluation is not ported (ROADMAP M12)")
-    if args.fleet or args.fleet_tp != 1:
+    if args.fleet_tp != 1:
         raise NotImplementedError(
-            "--fleet / --fleet-tp: fleets of engines are not ported (ROADMAP M12)")
+            "--fleet-tp: fleets of tensor-parallel engines are not ported (ROADMAP M12)")
     logging.basicConfig(level=logging.INFO)
+    if args.multihost:
+        import torch
+
+        from radvlm_tpu_torch.parallel.mesh import init_distributed
+
+        if args.device is None:
+            args.device = (f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+                           if torch.cuda.is_available() else "cpu")
+        device = torch.device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        init_distributed(device=device)
 
     from radvlm_tpu_torch.eval.harness import (
         HFTokenizer,
@@ -77,6 +100,8 @@ def main(argv=None, tokenizer=None):
     runner = VLMRunner(
         model=model, cfg=cfg, tokenizer=tok,
         max_new_tokens=args.max_new_tokens, batch_size=args.batch_size,
+        fleet=args.fleet,
+        fleet_devices=args.fleet_devices.split(",") if args.fleet_devices else None,
     )
     dataset = build_task_dataset(args.task, args.data_dir)
     _, metrics = run_task(

@@ -10,15 +10,20 @@ runs the adapter's samples through the continuous engine (or padded static
 batches) and scores them with `eval.metrics`, writing the reference's
 `{model}_{task}_output.json` / `{model}_{task}.json` files.
 
-One process evaluates on one card. Sharding a run across processes (the
-JAX package's `jax.process_index` split and allgather) and engine fleets
-are not ported (ROADMAP M12): a `mesh`, a `fleet`, or a `torch.distributed`
-group of more than one process raises NotImplementedError.
+Under a `torch.distributed` world of more than one process (`eval/cli.py
+--multihost` under torchrun) `run_task` splits the samples over the ranks by
+the DistributedSampler contract (rank r takes i % n == r) and gathers the
+results (`dist.all_gather_object`). A runner with a tensor-parallel `mesh`
+makes each rank one rank of a TP engine (the ranks of one `tensor` group
+take the same samples); with `fleet=N` the continuous engine is a
+`serve/fleet.py` FleetEngine. A fleet of TP engines (`fleet_tp` > 1) is not
+ported (ROADMAP M12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import threading
@@ -27,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from radvlm_tpu_torch.config import RadVLMConfig
 from radvlm_tpu_torch.data.chat import QWEN_CHATML, ChatTemplate, render_generation_prompt
@@ -97,18 +103,33 @@ class VLMRunner:
     pad_to_multiple: int = 512
     attn_impl: str = "auto"
     fuse: bool = True  # fuse qkv/gateup projections (radvlm.fuse_for_inference)
-    # The JAX runner's tensor-parallel mesh and engine fleet (ROADMAP M12):
-    # only the defaults are accepted.
+    # Tensor-parallel inference: a DeviceMesh (`parallel.mesh.make_mesh`)
+    # whose `tensor` axis spans the model over ranks (parallel/tp.py). The
+    # model is sharded in place here (unfused first, fused after slicing);
+    # `cfg` stays the global config.
     mesh: Any = None
     kv_quant: Optional[bool] = None  # int8 KV cache of run_task (None -> RADVLM_KV_INT8)
+    # Data-parallel engine fleet (serve/fleet.py): `fleet` continuous
+    # engines, one per device of `fleet_devices` (None: every card; a device
+    # may repeat), the reference's one-model-per-GPU eval processes folded
+    # into one process. `fleet_tp` > 1 (TP fleet engines) is not ported.
     fleet: Optional[int] = None
     fleet_tp: int = 1
+    fleet_devices: Optional[Sequence[Any]] = None
 
     def __post_init__(self):
-        if self.mesh is not None or self.fleet or self.fleet_tp != 1:
+        if self.fleet_tp != 1:
             raise NotImplementedError(
-                "VLMRunner: a tensor-parallel mesh and engine fleets are not ported "
+                "VLMRunner: fleets of tensor-parallel engines (fleet_tp > 1) are not ported "
                 "(ROADMAP M12)")
+        if self.mesh is not None and self.fleet:
+            raise ValueError("VLMRunner: a tensor-parallel mesh and a fleet are exclusive")
+        self._run_cfg, self._tp_group = self.cfg, None
+        if self.mesh is not None and self.mesh["tensor"].size() > 1:
+            from radvlm_tpu_torch.parallel import tp
+
+            self.model, self._run_cfg = tp.shard_model_tp(self.model, self.cfg, self.mesh)
+            self._tp_group = self.mesh.get_group("tensor")
         if self.fuse:
             radvlm.fuse_for_inference(self.model, self.cfg)
         self._gen_fns: Dict[Tuple[int, ...], Callable] = {}
@@ -120,7 +141,7 @@ class VLMRunner:
 
     def _gen_fn(self, gen: GenerationConfig):
         if gen not in self._gen_fns:
-            self._gen_fns[gen] = make_generate_fn(self.cfg, gen, attn_impl=self.attn_impl)
+            self._gen_fns[gen] = make_generate_fn(self._run_cfg, gen, attn_impl=self.attn_impl)
         return self._gen_fns[gen]
 
     def build_prompt(self, question: str, history: Sequence[Tuple[str, str]] = ()) -> str:
@@ -156,7 +177,11 @@ class VLMRunner:
         while len(samples) < self.batch_size:
             samples.append(samples[-1])
         batch = multimodal.collate(samples, pad_to_multiple=self.pad_to_multiple, left_pad=True)
-        out = self._gen_fn(gen)(self.model, batch_to_device(batch, self.device), self.generator)
+        from radvlm_tpu_torch.parallel import tp
+
+        with tp.active(self._tp_group):
+            out = self._gen_fn(gen)(self.model, batch_to_device(batch, self.device),
+                                    self.generator)
         toks = out["tokens"].cpu().numpy()
         nums = out["num_tokens"].cpu().numpy()
         texts = []
@@ -262,7 +287,8 @@ def _run_continuous(
 ) -> List[Dict]:
     """Continuous-batching inference: every sample streams through one
     slot-refilled `ContinuousBatcher` (no slot waits for the longest
-    sequence of a batch). Results come in completion order."""
+    sequence of a batch), or a FleetEngine of `runner.fleet` of them.
+    Results come in completion order."""
     from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
 
     gen = GenerationConfig(
@@ -290,93 +316,154 @@ def _run_continuous(
         longest = max(longest, mm.length)
     bucket = -(-longest // 128) * 128
     max_len = bucket + (-(-runner.max_new_tokens // 128) * 128)
-    batcher = ContinuousBatcher(
-        runner.model, runner.cfg, gen,
-        num_slots=runner.batch_size,
-        max_len=max_len,
-        prompt_buckets=(bucket,),
-        attn_impl=runner.attn_impl,
-        kv_quant=runner.kv_quant,
-    )
+    engine_kw = dict(num_slots=runner.batch_size, max_len=max_len, prompt_buckets=(bucket,),
+                     attn_impl=runner.attn_impl, kv_quant=runner.kv_quant)
+    n_engines = 1
+    if runner.fleet:
+        from radvlm_tpu_torch.serve.fleet import FleetEngine
+
+        n_engines = runner.fleet
+        fleet = FleetEngine(runner.model, runner.cfg, gen, fleet_size=n_engines,
+                            devices=runner.fleet_devices, **engine_kw).start()
+        submit, drain, first = fleet.submit, fleet.drain, fleet.batchers[0]
+    else:
+        fleet = None
+        batcher = ContinuousBatcher(runner.model, runner.cfg, gen, mesh=runner.mesh, **engine_kw)
+        submit, drain, first = batcher.submit, batcher.run, batcher
     sizing_s = time.perf_counter() - t0
-    # Pass 2: a feeder thread builds and submits samples under a bounded
-    # in-flight cap (submit() sends a request's batch to the device at once)
-    # while this thread drains the engine, so host prep (PIL anyres) overlaps
-    # device time and the slots stay full.
-    cap = max(4 * runner.batch_size, 8)
-    inflight = threading.Semaphore(cap)
-    stop_feed = threading.Event()
+    # Pass 2: samples are built and submitted under a bounded in-flight cap
+    # (submit() sends a request's batch to the device at once).
+    cap = max(4 * runner.batch_size * n_engines, 8)
     meta: Dict[int, Dict] = {}
     meta_lock = threading.Lock()
     results: List[Dict] = []
-    feed_err: List[BaseException] = []
     build_s = [0.0]
 
-    def feed():
-        try:
-            for i in my_indices:
-                inflight.acquire()
-                if stop_feed.is_set():  # the consumer bailed: exit
-                    return
-                t = time.perf_counter()
-                s, mm = build_mm(i)
-                build_s[0] += time.perf_counter() - t
-                req = batcher.submit(mm)
-                with meta_lock:
-                    meta[req.uid] = s
-        except BaseException as e:  # re-raised by the consumer loop
-            feed_err.append(e)
+    def submit_sample(i):
+        t = time.perf_counter()
+        s, mm = build_mm(i)
+        build_s[0] += time.perf_counter() - t
+        req = submit(mm)
+        with meta_lock:
+            meta[req.uid] = s
+
+    def take(req, s):
+        if req.error:
+            # silently failed samples would corrupt the metrics
+            raise RuntimeError(f"engine failed a sample: {req.error}")
+        text = runner.tokenizer.decode(req.emitted)
+        results.append(_result_cell(
+            trim_at_stop_strings(text, runner.template.stop_strings), s, task))
+        if progress:
+            progress(len(results), len(my_indices))
 
     t0 = time.perf_counter()
-    feeder = threading.Thread(target=feed, name="eval-feeder", daemon=True)
-    feeder.start()
-    try:
-        while len(results) < len(my_indices):
-            if feed_err:
-                raise feed_err[0]
-            progressed = False
-            # run() returns when nothing is pending, which can happen while
-            # the feeder prepares the next sample: enter it again.
-            for req in batcher.run():
-                progressed = True
-                if req.error:
-                    # silently failed samples would corrupt the metrics
-                    raise RuntimeError(f"engine failed a sample: {req.error}")
-                # submit() returns before the feeder records meta[uid]:
-                # wait for the entry.
-                while True:
-                    with meta_lock:
-                        s = meta.pop(req.uid, None)
-                    if s is not None:
-                        break
-                    time.sleep(0.001)
-                inflight.release()
-                text = runner.tokenizer.decode(req.emitted)
-                results.append(_result_cell(
-                    trim_at_stop_strings(text, runner.template.stop_strings), s, task))
-                if progress:
-                    progress(len(results), len(my_indices))
-            if not progressed and len(results) < len(my_indices):
-                time.sleep(0.01)
-        feeder.join()
-    finally:
-        # Unblock a feeder waiting on the cap after an error above (a plain
-        # Semaphore takes the extra release); the flag makes it exit.
-        stop_feed.set()
-        inflight.release()
+    if runner._tp_group is not None:
+        # The ranks of a TP engine must make the same host decisions, and a
+        # feeder thread's submits would land at another point of run() on
+        # each rank. So this thread submits `cap` samples, then one more at
+        # each completion run() yields: every rank's queue changes at the
+        # same point of its loop.
+        todo = iter(my_indices)
+        for i in itertools.islice(todo, cap):
+            submit_sample(i)
+        for req in drain():
+            take(req, meta.pop(req.uid))
+            for i in itertools.islice(todo, 1):
+                submit_sample(i)
+    else:
+        # A feeder thread builds and submits while this thread drains the
+        # engine, so host prep (PIL anyres) overlaps device time and the
+        # slots stay full.
+        inflight = threading.Semaphore(cap)
+        stop_feed = threading.Event()
+        feed_err: List[BaseException] = []
+
+        def feed():
+            try:
+                for i in my_indices:
+                    inflight.acquire()
+                    if stop_feed.is_set():  # the consumer bailed: exit
+                        return
+                    submit_sample(i)
+            except BaseException as e:  # re-raised by the consumer loop
+                feed_err.append(e)
+
+        feeder = threading.Thread(target=feed, name="eval-feeder", daemon=True)
+        feeder.start()
+        try:
+            while len(results) < len(my_indices):
+                if feed_err:
+                    raise feed_err[0]
+                progressed = False
+                # run() returns when nothing is pending, which can happen
+                # while the feeder prepares the next sample: enter it again.
+                for req in drain():
+                    progressed = True
+                    # submit() returns before the feeder records
+                    # meta[uid]: wait for the entry.
+                    while True:
+                        with meta_lock:
+                            s = meta.pop(req.uid, None)
+                        if s is not None:
+                            break
+                        time.sleep(0.001)
+                    inflight.release()
+                    take(req, s)
+                if not progressed and len(results) < len(my_indices):
+                    time.sleep(0.01)
+            feeder.join()
+        finally:
+            # Unblock a feeder waiting on the cap after an error above (a
+            # plain Semaphore takes the extra release); the flag makes it
+            # exit.
+            stop_feed.set()
+            inflight.release()
+            if fleet is not None:
+                fleet.shutdown()
     if stats is not None:
+        engines = fleet.batchers if fleet is not None else [batcher]
+        host = {k: sum(b.host_stats[k] for b in engines) for k in first.host_stats}
         stats.update(
             sizing_s=sizing_s, build_s=build_s[0], engine_wall_s=time.perf_counter() - t0,
-            bucket=bucket, max_len=max_len, kv_quant=batcher.kv_quant,
-            host_stats=dict(batcher.host_stats), provenance=batcher.kernel_provenance(),
+            bucket=bucket, max_len=max_len, kv_quant=first.kv_quant, engines=n_engines,
+            host_stats=host, provenance=first.kernel_provenance(),
         )
     return results
 
 
 def _process_count() -> int:
-    import torch.distributed as dist
-
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _tensor_coord(runner: VLMRunner) -> int:
+    """This rank's place on the runner mesh's `tensor` axis (0 without one)."""
+    return 0 if runner.mesh is None else runner.mesh.get_local_rank("tensor")
+
+
+def _data_shard(runner: VLMRunner) -> Tuple[int, int]:
+    """(index, count) of this rank's share of the samples. Without a mesh
+    every rank is a share; with one, the ranks of one `tensor` group are one
+    engine and take the same share (index = the rank's mesh coordinate
+    without the tensor axis)."""
+    if _process_count() == 1:
+        return 0, 1
+    if runner.mesh is None:
+        return dist.get_rank(), dist.get_world_size()
+    idx, count = 0, 1
+    for ax, c, n in zip(runner.mesh.mesh_dim_names, runner.mesh.get_coordinate(),
+                        runner.mesh.shape):
+        if ax != "tensor":
+            idx, count = idx * n + c, count * n
+    return idx, count
+
+
+def _allgather_objects(results: List[Dict], runner: VLMRunner) -> List[Dict]:
+    """Every rank's result cells, in rank order, on every rank; of a TP
+    group only the cells of its first rank (the others hold the same)."""
+    parts: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, (_tensor_coord(runner), results))
+    return [cell for coord, cells in parts if coord == 0 for cell in cells]
 
 
 def run_task(
@@ -395,15 +482,16 @@ def run_task(
     """Run inference over `dataset` and compute task metrics. `stats`, when
     given, receives the continuous engine's host seconds (`sizing_s`: the
     bucket-sizing pass; `build_s`: the feeder's sample builds), its
-    `host_stats` and `kernel_provenance()`."""
-    if _process_count() > 1:
-        raise NotImplementedError(
-            "run_task across processes (sharding and gathering results) is not "
-            "ported (ROADMAP M12)")
+    `host_stats` and `kernel_provenance()`.
+
+    Across processes each rank takes indices i with i % count == index (the
+    DistributedSampler contract, `_data_shard`) and the results are
+    gathered to every rank; rank 0 writes the files."""
     n = len(dataset)
     if max_samples is not None:
         n = min(n, max_samples)
-    my_indices = list(range(n))
+    pidx, pcount = _data_shard(runner)
+    my_indices = list(range(pidx, n, pcount))
 
     results: List[Dict] = []
     if engine == "continuous":
@@ -424,6 +512,9 @@ def run_task(
             if progress:
                 progress(min(start + bs, len(my_indices)), len(my_indices))
 
+    if _process_count() > 1:
+        results = _allgather_objects(results, runner)
+
     metric_task = METRIC_TASK_ALIAS.get(task, task)
     metrics = metrics_lib.evaluate_results(
         metric_task,
@@ -432,7 +523,7 @@ def run_task(
         with_clinical=with_clinical,
     )
 
-    if output_dir:
+    if output_dir and (_process_count() == 1 or dist.get_rank() == 0):
         os.makedirs(output_dir, exist_ok=True)
         # The reference's file names (`evaluate_instructions.py:195-207`):
         # `{model}_{task}_output.json` the per-sample cells,

@@ -33,10 +33,18 @@ one shared KV cache.
   recorded offset (multi-turn chat: the vision tower and the old prompt do
   not run again).
 
+- with a `mesh` whose `tensor` axis is larger than 1 (tensor-parallel
+  serving, `parallel/tp.py`) the engine is one rank's: every rank of the
+  axis builds it with the same arguments and submits the same requests, the
+  model is sharded in place (Megatron layout, fused after slicing), the
+  cache holds the local kv heads, and fills and chunks run under the TP
+  context, whose only collectives are the o / down all_reduces. The logits
+  are identical on every rank, and so are the tokens and host decisions.
+  KV resume raises there.
+
 A chunk is a Python loop of steps (the JAX `lax.scan`); capturing it as a
-CUDA graph is later work. Not ported (they raise NotImplementedError): a
-tensor-parallel mesh (ROADMAP M12); AOT precompile has nothing to compile
-ahead in eager PyTorch.
+CUDA graph is later work. AOT precompile has nothing to compile ahead in
+eager PyTorch.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from radvlm_tpu_torch.device import resolve as resolve_device
 from radvlm_tpu_torch.generation import engine, spec
 from radvlm_tpu_torch.generation.engine import GenerationConfig, sample_token_vec
 from radvlm_tpu_torch.models import multimodal, qwen2, radvlm
+from radvlm_tpu_torch.parallel import tp as tplib
 
 
 class _HostCopy:
@@ -119,7 +128,8 @@ class KVSnapshot:
     prompt + reply KV; what lies above (written by chunks that were in
     flight past the end) is clamped out at resume. `real_len` is the rope
     position of the next token (the cache is left-padded below
-    `widx - real_len`)."""
+    `widx - real_len`). `engine_idx` is the fleet engine whose device holds
+    the rows (`serve/fleet.py` routes a resume there)."""
 
     cache_rows: Tuple[torch.Tensor, ...]  # per component [L, 1, S, *]
     seg_row: torch.Tensor  # [1, S] int32 cache segment row
@@ -134,6 +144,7 @@ class KVSnapshot:
     # Whoever stores conversation state pairs the snapshot with
     # ids[:n_reply] (`serve/batch_worker.py`).
     n_reply: int = 0
+    engine_idx: int = 0  # fleet affinity (serve/fleet.py routes resumes here)
 
     def truncated(self, k: int) -> "KVSnapshot":
         """A snapshot covering `k` fewer trailing reply tokens. The device
@@ -149,7 +160,7 @@ class KVSnapshot:
 
     def to_numpy(self) -> Dict[str, Any]:
         """The snapshot as host arrays and scalars, the exchange format with
-        the JAX package's `KVSnapshot` (its field names, without `engine_idx`). numpy has no
+        the JAX package's `KVSnapshot` (its field names). numpy has no
         bf16: bf16 cache rows travel as their uint16 bit patterns."""
 
         def host(t: torch.Tensor) -> np.ndarray:
@@ -178,7 +189,6 @@ class KVSnapshot:
             return torch.from_numpy(a).to(device)
 
         fields = dict(fields)
-        fields.pop("engine_idx", None)  # the JAX package's fleet affinity: no fleet here
         fields["cache_rows"] = tuple(dev(c) for c in fields["cache_rows"])
         fields["seg_row"] = dev(fields["seg_row"]).to(torch.int32)
         if fields.get("hist_row") is not None:
@@ -240,11 +250,17 @@ class ContinuousBatcher:
         pipeline_depth: int = 2,
         kv_quant: Optional[bool] = None,  # None -> RADVLM_KV_INT8 (default off)
         fill_batch: int = 1,
-        mesh: Optional[Any] = None,
+        mesh: Optional[Any] = None,  # a DeviceMesh: tensor-parallel serving, this rank's engine
         spec_k: Optional[int] = None,  # None -> RADVLM_SPEC_K (default 0)
     ):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving is not ported (ROADMAP M12)")
+        # Tensor-parallel serving (parallel/tp.py): the UNFUSED model is
+        # sharded here, in place, and `cfg` becomes the rank-local one.
+        self.mesh = mesh
+        self.tp_size = 1 if mesh is None else mesh["tensor"].size()
+        self._tp_group = None
+        if self.tp_size > 1:
+            model, cfg = tplib.shard_model_tp(model, cfg, mesh)
+            self._tp_group = mesh.get_group("tensor")
         self.model, self.cfg, self.gen = model, cfg, gen
         self.device = model.device
         self.num_slots = num_slots
@@ -315,6 +331,11 @@ class ContinuousBatcher:
         turn's tokens and images. Raises ValueError for a prompt the cache
         cannot hold or a snapshot that does not fit this engine."""
         if resume is not None:
+            if self.tp_size > 1:
+                raise ValueError(
+                    "KV resume is not supported on TP mesh engines — use a "
+                    "single-device or fleet engine"
+                )
             if resume.max_len != self.max_len or resume.kv_quant != self.kv_quant:
                 raise ValueError(
                     "snapshot geometry mismatch: snapshot is "
@@ -397,7 +418,16 @@ class ContinuousBatcher:
             return sample_token_vec(logits, temp_t, top_t, self.generator, top_k=self.gen.top_k)
         return torch.argmax(logits, dim=-1)  # what sample_token_vec would pick
 
+    def _tp_scope(self):
+        """The TP context (row-parallel all_reduces) for this engine's
+        device work; a no-op context without a mesh."""
+        return tplib.active(self._tp_group)
+
     def _fill_group(self, pairs: List[Tuple[int, Request]]) -> None:
+        with self._tp_scope():
+            self._fill_group_local(pairs)
+
+    def _fill_group_local(self, pairs: List[Tuple[int, Request]]) -> None:
         """Fill len(pairs) slots with one prefill. All requests share one
         padded prompt length (run() groups them by bucket); a resume is a
         group of its own."""
@@ -537,7 +567,7 @@ class ContinuousBatcher:
             real_len=int(self.slot_fill_real[slot]) + n,
             max_len=self.max_len, kv_quant=self.kv_quant,
             hist_row=self.tok_hist[slot:slot + 1].clone() if self.spec_k else None,
-            n_reply=n,
+            n_reply=n, engine_idx=getattr(self, "_fleet_idx", 0),
         )
 
     def _decode_chunk(self, positions: torch.Tensor, write_idx: torch.Tensor,
@@ -694,15 +724,16 @@ class ContinuousBatcher:
         """Queue one K-step decode chunk on the device (no host sync). Host
         counters advance at once: they describe the state after the chunk."""
         sampling = self._sampling_active() if force_sampling is None else force_sampling
-        if self.spec_k:
-            # Positions and write indices live on the device in spec mode.
-            toks = self._decode_chunk_spec(sampling)
-        else:
-            positions = _to_device(np.minimum(self.slot_real_len, 2 ** 30), self.device)
-            # Active slots never pass max_len (capped at fill); the stale index
-            # of an inactive slot is clamped, its garbage discarded.
-            write_idx = _to_device(np.minimum(self.slot_len, self.max_len - 1), self.device)
-            toks = self._decode_chunk(positions, write_idx, sampling)
+        with self._tp_scope():
+            if self.spec_k:
+                # Positions and write indices live on the device in spec mode.
+                toks = self._decode_chunk_spec(sampling)
+            else:
+                positions = _to_device(np.minimum(self.slot_real_len, 2 ** 30), self.device)
+                # Active slots never pass max_len (capped at fill); the stale
+                # index of an inactive slot is clamped, its garbage discarded.
+                write_idx = _to_device(np.minimum(self.slot_len, self.max_len - 1), self.device)
+                toks = self._decode_chunk(positions, write_idx, sampling)
         self.slot_len += self.steps_per_sync
         self.slot_real_len += self.steps_per_sync
         # Readback emits to the SNAPSHOT's requests: a chunk dispatched before
@@ -868,8 +899,9 @@ class ContinuousBatcher:
         """Which path each stage of this engine takes (the dispatch's own
         predicates, `engine.kernel_provenance`) at its largest bucket and
         fill group of `pad_tiles`-tile images, plus the launch counts so
-        far."""
-        return engine.kernel_provenance(
+        far. A tensor-parallel engine judges the rank-local shapes (its
+        `cfg` is the local one) and adds its degree `tp` and those shapes."""
+        prov = engine.kernel_provenance(
             self.cfg, prompt_len=self.prompt_buckets[-1],
             max_new_tokens=self.max_len - self.prompt_buckets[-1],
             attn_impl=self.attn_impl, quantized=engine.is_quantized(self.model),
@@ -878,3 +910,9 @@ class ContinuousBatcher:
             fill_rows=min(self.fill_batch, self.num_slots), tiles=self.pad_tiles,
             decode_rows=self.num_slots, spec_k=self.spec_k,
         )
+        if self.tp_size > 1:
+            t = self.cfg.text
+            prov["tp"] = self.tp_size
+            prov["tp_local"] = {"heads": t.num_heads, "kv_heads": t.num_kv_heads,
+                                "intermediate": t.intermediate_size}
+        return prov

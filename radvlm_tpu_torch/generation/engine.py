@@ -12,6 +12,10 @@ left_pad=True)`), so every row's last prompt token sits at index L-1; decode
 writes at the uniform cache index L+step while rotary positions stay per row
 (lengths[i]+step). The cache length is rounded up to a multiple of 128.
 
+Sequence-parallel generation (`make_sp_prefill_fn`, `make_sp_generate_fn`)
+runs one process per rank of a `seq` group: the ring prefill over the
+prompt's blocks, then decode over a cache split along the sequence.
+
 Sampling: greedy, or temperature/top-k/top-p with a `torch.Generator` (it
 cannot reproduce `jax.random`'s draws; greedy tokens are comparable), for
 the batch (`sample_token`) or per row (`sample_token_vec`).
@@ -24,6 +28,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import RadVLMConfig
@@ -130,27 +135,155 @@ def prefill(
     [B, max_len], last_logits [B, V])."""
     if cache_format not in ("bf16", "int8"):
         raise ValueError(f"cache_format must be 'bf16' or 'int8', got {cache_format!r}")
-    b, l = batch["tokens"].shape
-    seg = batch["segment_ids"]
-    cache_seg = torch.zeros((b, max_len), dtype=seg.dtype, device=seg.device)
-    cache_seg[:, :l] = seg
+    l = batch["tokens"].shape[1]
     hidden, (ks, vs) = radvlm.forward(
         model, cfg, batch, attn_impl=attn_impl, return_hidden=True, collect_kv=True
     )
+    cache, cache_seg = _prompt_cache(cfg, ks, vs, batch["segment_ids"], max_len, cache_format)
+    logits = qwen2.unembed(model.text, cfg.text, hidden[:, l - 1])
+    return cache, cache_seg, logits
+
+
+def _prompt_cache(cfg: RadVLMConfig, ks: torch.Tensor, vs: torch.Tensor, seg: torch.Tensor,
+                  max_len: int, cache_format: str):
+    """The cache of a prompt's stacked K/V [L, B, l, Hkv*D] (bf16, or
+    quantized once to int8) and its segment ids, at `max_len` positions."""
+    b, l = seg.shape
+    cache_seg = torch.zeros((b, max_len), dtype=seg.dtype, device=seg.device)
+    cache_seg[:, :l] = seg
     if cache_format == "int8":
         hkv = cfg.text.num_kv_heads
-        cache = qwen2.init_kv_cache_q8(cfg.text, b, max_len, device=hidden.device)
+        cache = qwen2.init_kv_cache_q8(cfg.text, b, max_len, device=ks.device)
         (kq, ksc), (vq, vsc) = quantize_kv(ks, hkv), quantize_kv(vs, hkv)
         for c, part in zip(cache[:2], (kq, vq)):
             c[:, :, :l] = part
         for c, part in zip(cache[2:], (ksc, vsc)):
             c[..., :l] = part
     else:
-        cache = qwen2.init_kv_cache(cfg.text, b, max_len, device=hidden.device)
+        cache = qwen2.init_kv_cache(cfg.text, b, max_len, device=ks.device)
         cache[0][:, :, :l] = ks
         cache[1][:, :, :l] = vs
-    logits = qwen2.unembed(model.text, cfg.text, hidden[:, l - 1])
-    return cache, cache_seg, logits
+    return cache, cache_seg
+
+
+# Per-token batch arrays that the sequence-parallel prefill splits over the
+# `seq` group; the images and merge plans stay whole on every rank.
+SEQ_KEYS = ("tokens", "img_src", "positions", "segment_ids")
+
+
+def _gather_seq(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def make_sp_prefill_fn(cfg: RadVLMConfig, mesh, *, axis_name: str = "seq",
+                       local_impl: str = "flash"):
+    """Sequence-parallel prefill: ring attention over the mesh's `seq` group.
+
+    prefill_fn(model, batch, max_len) -> (cache, cache_seg, last_logits),
+    the contract of `prefill`, on every rank of the group. Every rank holds
+    the whole (left-padded) batch and runs the decoder over its contiguous
+    block of the padded prompt (rank i: [i*l/n, (i+1)*l/n)), whose length
+    must divide by the group's size; the tower and the merge run whole on
+    every rank. The blocks' K/V are all-gathered into the replicated prompt
+    cache, and the last position's hidden state (the last rank's) into the
+    logits. The ring context is saved and restored around the call, so a
+    trainer's registered context survives an evaluation pass."""
+    from radvlm_tpu_torch.parallel import ring as ring_mod
+
+    group = ring_mod.group_of(mesh, axis_name)
+
+    @torch.inference_mode()
+    def prefill_fn(model, batch: Batch, max_len: int):
+        prev = ring_mod._RING_CONTEXT
+        ring_mod.enable_ring_attention(group, impl=local_impl, schedule="contiguous")
+        try:
+            b, l = batch["tokens"].shape
+            n, r = dist.get_world_size(group), dist.get_rank(group)
+            if l % n:
+                raise ValueError(f"padded prompt length {l} not divisible by seq axis {n}")
+            sl = l // n
+            local = {k: (v[:, r * sl:(r + 1) * sl] if k in SEQ_KEYS else v)
+                     for k, v in batch.items()}
+            hidden, (ks, vs) = radvlm.forward(model, cfg, local, attn_impl="ring",
+                                              return_hidden=True, collect_kv=True)
+            ks, vs = _gather_seq(ks, group, 2), _gather_seq(vs, group, 2)
+            last = _gather_seq(hidden[:, -1:], group, 1)[:, -1]  # the last rank's last row
+            cache, cache_seg = _prompt_cache(cfg, ks, vs, batch["segment_ids"], max_len, "bf16")
+            return cache, cache_seg, qwen2.unembed(model.text, cfg.text, last)
+        finally:
+            ring_mod._RING_CONTEXT = prev
+
+    return prefill_fn
+
+
+def make_sp_generate_fn(cfg: RadVLMConfig, mesh, gen: "GenerationConfig", *,
+                        axis_name: str = "seq", local_impl: str = "flash",
+                        kv_quant: bool = False):
+    """Fully sequence-parallel generation for long multimodal contexts: the
+    ring prefill (`make_sp_prefill_fn`), then decode over a cache split
+    along the sequence (`parallel.sp_decode.make_sp_decode_step`). After the
+    prefill each rank keeps only its block of the cache, int8-quantized with
+    `kv_quant`.
+
+    generate(model, batch, generator=None) -> {"tokens": [B, max_new],
+    "num_tokens": [B]}, `make_generate_fn`'s contract (left-padded prompts),
+    on every rank of the group."""
+    from radvlm_tpu_torch.parallel.ring import group_of
+    from radvlm_tpu_torch.parallel.sp_decode import make_sp_decode_step
+
+    sp_prefill = make_sp_prefill_fn(cfg, mesh, axis_name=axis_name, local_impl=local_impl)
+    sp_step = make_sp_decode_step(cfg.text, mesh, axis_name=axis_name, kv_quant=kv_quant)
+    group = group_of(mesh, axis_name)
+
+    @torch.inference_mode()
+    def generate(model, batch: Batch, generator: Optional[torch.Generator] = None):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        b, l = batch["tokens"].shape
+        max_len = l + gen.max_new_tokens
+        if max_len % n:
+            max_len += n - max_len % n
+        cache, cache_seg, logits = sp_prefill(model, batch, max_len)
+        if kv_quant:
+            # The prompt's K/V quantized once (prefill(cache_format="int8")'s
+            # contract), then split like the bf16 cache.
+            hkv = cfg.text.num_kv_heads
+            (kq, ksc), (vq, vsc) = quantize_kv(cache[0], hkv), quantize_kv(cache[1], hkv)
+            cache = (kq, vq, ksc, vsc)
+        s_local = max_len // n
+        own = slice(r * s_local, (r + 1) * s_local)
+        cache = tuple(c[:, :, own].contiguous() if i < 2 else c[..., own].contiguous()
+                      for i, c in enumerate(cache))
+        cache_seg = cache_seg[:, own].contiguous()
+        lengths = batch["lengths"].to(logits.device)
+        tok = sample_token(logits, gen, generator)
+        out_toks = [tok]
+        num = np.full((b,), gen.max_new_tokens, np.int64)
+        done = np.zeros((b,), bool)
+        eos = np.asarray(list(gen.eos_token_ids), np.int64)
+        for step in range(gen.max_new_tokens - 1):
+            newly = ~done & np.isin(tok.cpu().numpy(), eos)
+            num[newly] = step + 1
+            done |= newly
+            if done.all():
+                break
+            cache, cache_seg, lg = sp_step(model.text, cache, cache_seg, tok, lengths + step,
+                                           l + step)
+            tok = sample_token(lg, gen, generator)
+            out_toks.append(tok)
+        toks = torch.stack(out_toks, dim=1)
+        pad_id = gen.pad_token_id or 0
+        toks = torch.nn.functional.pad(toks, (0, gen.max_new_tokens - toks.shape[1]),
+                                       value=pad_id)
+        # Past a row's count the tokens are what it decoded after its eos:
+        # pad, as make_generate_fn leaves them.
+        num_t = torch.as_tensor(num, device=toks.device)
+        keep = torch.arange(gen.max_new_tokens, device=toks.device)[None] < num_t[:, None]
+        return {"tokens": torch.where(keep, toks, torch.full_like(toks, pad_id)),
+                "num_tokens": num_t}
+
+    return generate
 
 
 @torch.inference_mode()

@@ -22,7 +22,13 @@ written at each row's own offset and read through K10 / K11. ALiBi and a
 sliding window take plain attention (the kernels have neither). Projections
 are `Linear` or, for int8 / int4 weights, `QLinear` / `Q4Linear`
 (`ops.quant.qmm` / `q4mm`); the token embedding may be int8 with one scale
-per row. Sequence-parallel decode is not ported (ROADMAP M12).
+per row.
+
+Under the tensor-parallel context (`parallel/tp.py`) a rank holds its slice
+of the layers and `_finish_block` all-reduces the o and down products; under
+the sequence-parallel decode context (`parallel/sp_decode.py`) the cache is
+the rank's block of the sequence and `_block_cached` merges the ranks'
+partial attention.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ from radvlm_tpu_torch.ops.decode_attention import (
 )
 from radvlm_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv, quantize_kv_row
 from radvlm_tpu_torch.ops.quant import dequantize_array
+from radvlm_tpu_torch.parallel import sp_decode
+from radvlm_tpu_torch.parallel.tp import maybe_all_reduce
 
 # (k, v) bf16, or (k, v) int8 + (k_scale, v_scale) f32.
 Cache = Tuple[torch.Tensor, ...]
@@ -298,20 +306,23 @@ def _moe_mlp(cfg: Qwen2Config, moe: MoE, y: torch.Tensor):
 def _finish_block(cfg: Qwen2Config, blk: Qwen2Block, res: torch.Tensor, attn: torch.Tensor,
                   w8a8: Optional[bool] = None):
     """The o projection and the MLP of a block: (out, aux), aux the layer's
-    MoE router loss, None for a dense MLP."""
+    MoE router loss, None for a dense MLP. Under the tensor-parallel context
+    o and down are row-parallel: their products are partial sums, summed over
+    the ranks here (`tp.maybe_all_reduce`, the identity outside it), the
+    block's only two collectives."""
     b, s = attn.shape[:2]
-    x = res + _proj(blk.o, attn.reshape(b, s, -1), w8a8)
+    x = res + maybe_all_reduce(_proj(blk.o, attn.reshape(b, s, -1), w8a8))
     y = _norm(cfg, x, blk.ln2)
     if hasattr(blk, "moe"):
         out, aux = _moe_mlp(cfg, blk.moe, y)
         return x + out, aux
     if not cfg.mlp_gated:  # MPT: up -> act -> down
-        return x + _proj(blk.down, _act(cfg, _proj(blk.up, y, w8a8)), w8a8), None
+        return x + maybe_all_reduce(_proj(blk.down, _act(cfg, _proj(blk.up, y, w8a8)), w8a8)), None
     if hasattr(blk, "gateup"):
         gate, up = _proj(blk.gateup, y, w8a8).chunk(2, dim=-1)
     else:
         gate, up = _proj(blk.gate, y, w8a8), _proj(blk.up, y, w8a8)
-    return x + _proj(blk.down, _act(cfg, gate) * up, w8a8), None
+    return x + maybe_all_reduce(_proj(blk.down, _act(cfg, gate) * up, w8a8)), None
 
 
 def _block(
@@ -389,6 +400,11 @@ def _block_cached(
     kv_dtype = torch.bfloat16 if quantized else ck_all.dtype
     k_flat = k.reshape(b, s, hkv * hd).to(kv_dtype)
     v_flat = v.reshape(b, s, hkv * hd).to(kv_dtype)
+    sp_group = sp_decode.context()
+    if sp_group is not None:
+        attn = sp_decode.block_attention(cfg, layer_idx, cache, q, k_flat, v_flat, cache_index,
+                                         cache_segment_ids, sp_group)
+        return _finish_block(cfg, blk, x, attn, w8a8=False)[0]
     if per_row and s > 1:
         rows = torch.arange(b, device=x.device)[:, None]  # [B, 1]
         idxw = cache_index.long()[:, None] + torch.arange(s, device=x.device)[None]  # [B, s]

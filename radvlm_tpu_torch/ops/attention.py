@@ -149,16 +149,28 @@ def mha(
 
     impl: "auto"/"flash" take the kernels (`ops.flash_attention`) where
     `flash_eligible` holds, "xla" forces the plain path (the name is the JAX
-    package's). "ring" (sequence-parallel ring attention) has no port yet.
+    package's). "ring" runs sequence-parallel ring attention over the group
+    registered with `parallel.ring.enable_ring_attention` (causal
+    self-attention on this rank's sequence shard, no window, no ALiBi).
     Where q, k or v needs a gradient the kernel route is K2 with the lse
     forward and K7 / K8 backward, the tower's calls included (K1 serves them
     only without a gradient); the plain route differentiates through
     `mha_reference` by autograd, as the JAX package's XLA path does.
     """
     if impl == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP M12, parallel/ring.py)"
-        )
+        from radvlm_tpu_torch.parallel.ring import ring_attention_sharded
+
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError("the ring attention backward is not ported (ROADMAP M12)")
+        if not (causal and k.shape[1] == q.shape[1]):
+            raise ValueError("ring attention is for causal self-attention (the sequence-"
+                             "sharded prefill)")
+        if window:
+            raise ValueError("ring attention has no sliding-window support")
+        if alibi:
+            raise ValueError("ring attention has no ALiBi support")
+        return ring_attention_sharded(q, k, v, q_segment_ids, kv_segment_ids, causal=True,
+                                      scale=scale if scale is not None else q.shape[-1] ** -0.5)
     if flash_eligible(q, k, q_offset=q_offset, impl=impl, window=window, alibi=alibi):
         from radvlm_tpu_torch.ops.flash_attention import flash_attention
 

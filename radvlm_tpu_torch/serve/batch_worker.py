@@ -2,10 +2,12 @@
 (counterpart of `radvlm_tpu/serve/batch_worker.py`).
 
 Requests enqueue into one `ContinuousBatcher` driven by a single engine
-thread. Same controller protocol as `serve/worker.py` (register, heartbeat,
-`/worker_get_status`); `/worker_generate` returns one JSON result,
-`/worker_generate_stream` streams \\0-framed cumulative-text chunks as the
-engine emits tokens (bursts of <= steps_per_sync per chunk readback);
+thread, or, with `fleet=N`, into a `serve/fleet.py` FleetEngine (N engines,
+one per device of `fleet_devices`, default every card). Same controller
+protocol as `serve/worker.py` (register, heartbeat, `/worker_get_status`);
+`/worker_generate` returns one JSON result, `/worker_generate_stream`
+streams \\0-framed cumulative-text chunks as the engine emits tokens (bursts
+of <= steps_per_sync per chunk readback);
 `/v1/models` and `/v1/chat/completions` (plain and SSE) speak the OpenAI
 chat protocol (`serve/openai_api.py`).
 
@@ -13,8 +15,9 @@ A request that names a `session_id` takes part in multi-turn KV reuse
 (`serve/sessions.py`): its finished KV stays on the device, and a later turn
 whose prompt extends the stored conversation prefills only the new tokens.
 The engine decodes speculatively when `spec_k` (or RADVLM_SPEC_K) is set.
-
-Not ported: fleets of engines and tensor-parallel engines (ROADMAP M12).
+Not ported (ROADMAP M12): a runner with a tensor-parallel `mesh` (the ranks
+of a TP engine must submit the same requests in the same order, and each
+rank's HTTP server takes its own) and a fleet of TP engines (`fleet_tp` > 1).
 """
 
 from __future__ import annotations
@@ -51,11 +54,18 @@ class BatchWorker:
         controller_address: Optional[str] = None,
         worker_address: str = "",
         kv_quant: Optional[bool] = None,  # None -> RADVLM_KV_INT8 (the batcher reads it)
-        fleet: Optional[int] = None,
+        fleet: Optional[int] = None,  # N data-parallel engines (serve/fleet.py)
+        fleet_tp: int = 1,  # devices per fleet engine (a TP group): not ported
+        fleet_devices=None,  # the fleet's devices (None: the runner's, else every card)
         **engine_kw,  # ContinuousBatcher options: prompt_buckets, steps_per_sync, ...
     ):
-        if fleet:
-            raise NotImplementedError("fleets of engines are not ported (ROADMAP M12)")
+        if fleet_tp != 1:
+            raise NotImplementedError(
+                "fleet_tp > 1: a fleet of tensor-parallel engines is not ported (ROADMAP M12)")
+        if getattr(runner, "mesh", None) is not None:
+            raise NotImplementedError(
+                "a tensor-parallel BatchWorker is not ported (ROADMAP M12): the ranks of a TP "
+                "engine must submit the same requests in the same order")
         self.runner = runner
         self.model_names = list(model_names)
         self.controller_address = controller_address
@@ -74,24 +84,52 @@ class BatchWorker:
         self._sessions: Optional[SessionStore] = store if store.cap > 0 else None
         self._session_ctx: Dict[int, Any] = {}  # uid -> (sid, ids, image hashes, stops)
         engine_kw.setdefault("prompt_buckets", (prompt_bucket,))
+        t0 = time.perf_counter()
+        self.fleet = None
+        self.batcher = None
+        self._engine_thread = None
+        if fleet:
+            # One engine per device: the reference's one-worker-per-GPU
+            # fleet folded into this process, with the fleet's own dispatch
+            # threads and failure isolation.
+            from radvlm_tpu_torch.serve.fleet import FleetEngine
+
+            self.fleet = FleetEngine(
+                runner.model, runner.cfg, gen, fleet_size=fleet, tp_size=fleet_tp,
+                devices=fleet_devices if fleet_devices is not None else runner.fleet_devices,
+                num_slots=num_slots, max_len=max_len, attn_impl=runner.attn_impl,
+                kv_quant=kv_quant, on_complete=self._signal_done, **engine_kw,
+            )
+            self.fleet.warmup()
+            if self._sessions is not None:
+                # before start(): no dispatch loop runs yet, so driving each
+                # batcher's run() here is safe
+                for b in self.fleet.batchers:
+                    self._warmup_sessions(b)
+            self.warmup_seconds = time.perf_counter() - t0
+            self.fleet.start()
+            return
         self.batcher = ContinuousBatcher(
             runner.model, runner.cfg, gen, num_slots=num_slots, max_len=max_len,
             attn_impl=runner.attn_impl, kv_quant=kv_quant, **engine_kw,
         )
         # Every fill and decode variant runs once before the first request.
-        t0 = time.perf_counter()
         self.batcher.warmup()
         if self._sessions is not None:
-            self._warmup_sessions()
+            self._warmup_sessions(self.batcher)
         self.warmup_seconds = time.perf_counter() - t0
         self._engine_thread = threading.Thread(target=self._engine_loop, daemon=True)
         self._engine_thread.start()
 
-    def _warmup_sessions(self) -> None:
+    @property
+    def engine(self):
+        """Where requests go: the fleet, or the one batcher."""
+        return self.fleet if self.fleet is not None else self.batcher
+
+    def _warmup_sessions(self, b: ContinuousBatcher) -> None:
         """A two-turn dummy conversation through the engine before its loop
         starts, so the first resumed turn of a live chat pays no first-call
         cost (snapshot copies, the delta fill's allocations)."""
-        b = self.batcher
         r1 = b.submit(multimodal.build_sample(list(range(2, 8)), [], self.runner.cfg),
                       max_new_tokens=1, keep_kv=True)
         for _ in b.run():
@@ -167,6 +205,8 @@ class BatchWorker:
                 time.sleep(0.005)
 
     def queue_length(self) -> int:
+        if self.fleet is not None:
+            return self.fleet.queue_length()
         return self.batcher.queue.qsize() + len(self.batcher._active())
 
     def _submit(self, params_req: Dict[str, Any], *, stream: bool = False) -> Request:
@@ -197,14 +237,16 @@ class BatchWorker:
             if delta is not None:
                 d_ids, k = delta
                 try:
-                    req = self.batcher.submit(multimodal.build_sample(d_ids, images[k:], cfg),
-                                              keep_kv=True, resume=ent.snapshot, **kw)
-                except ValueError as e:  # e.g. the delta does not fit the cache
+                    req = self.engine.submit(multimodal.build_sample(d_ids, images[k:], cfg),
+                                             keep_kv=True, resume=ent.snapshot, **kw)
+                except (ValueError, RuntimeError) as e:
+                    # the delta does not fit the cache, or the fleet engine
+                    # holding the KV is quarantined
                     log.warning("session %s: resume refused (%s); full prefill", sid, e)
                     req = None
         if req is None:
-            req = self.batcher.submit(multimodal.build_sample(ids, images, cfg),
-                                      keep_kv=keep, **kw)
+            req = self.engine.submit(multimodal.build_sample(ids, images, cfg),
+                                     keep_kv=keep, **kw)
         if keep:
             with self._lock:
                 self._session_ctx[req.uid] = (sid, ids, img_hashes, self._stops(params_req))
@@ -433,9 +475,12 @@ class BatchWorker:
                 log.warning("heartbeat failed: %s", e)
 
     def shutdown(self):
-        """Stop serving and the engine thread (it finishes its current run)."""
+        """Stop serving and the engine thread(s) (each finishes its current run)."""
         self._stop.set()
+        if self.fleet is not None:
+            self.fleet.shutdown()
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()
-        self._engine_thread.join(timeout=TIMEOUT_S)
+        if self._engine_thread is not None:
+            self._engine_thread.join(timeout=TIMEOUT_S)

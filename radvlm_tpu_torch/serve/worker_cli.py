@@ -12,9 +12,12 @@ worker (`serve/worker.py`). Runs on the card unless `--device cpu` is given.
         --controller-address http://localhost:21001 --port 21002
 
 `build_worker(args, tokenizer=None)` is `main` without the serving loop, for
-a caller that brings its own tokenizer. Engine fleets (`--fleet`,
-`--fleet-tp`) are not ported (ROADMAP M12); the JAX package's compile cache
-has no counterpart (nothing is compiled but the kernels, once).
+a caller that brings its own tokenizer. `--fleet N` serves N continuous
+engines behind the one worker (`serve/fleet.py`), one per device of
+`--fleet-devices` (default every card; a device may repeat); `--fleet-tp`
+above 1 (a fleet of TP engines) is not ported (ROADMAP M12). The JAX
+package's compile cache has no counterpart (nothing is compiled but the
+kernels, once).
 """
 
 from __future__ import annotations
@@ -51,9 +54,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--int8", action="store_true",
                    help="quantize an HF checkpoint's weights to int8 at load")
     p.add_argument("--fleet", type=int, default=None,
-                   help="data-parallel engine fleet (not ported)")
+                   help="data-parallel engine fleet: N continuous engines behind one worker")
+    p.add_argument("--fleet-devices", default=None,
+                   help="comma-separated devices of the fleet's engines (a device may repeat; "
+                        "default every card)")
     p.add_argument("--fleet-tp", type=int, default=1,
-                   help="chips per fleet engine (not ported)")
+                   help="devices per fleet engine (not ported above 1)")
     p.add_argument("--device", default=None,
                    help="where the model lives (default: the CUDA card)")
     return p.parse_args(argv)
@@ -65,9 +71,11 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
     `--checkpoint`. `engine_kw` reaches the continuous engine (`kv_quant`,
     `prompt_buckets`, `fill_batch`, `spec_k`, ...); the int8 KV cache is
     also switched on by RADVLM_KV_INT8=1, as in the JAX package."""
-    if args.fleet or args.fleet_tp != 1:
+    if args.fleet_tp != 1:
         raise NotImplementedError(
-            "--fleet / --fleet-tp: fleets of engines are not ported (ROADMAP M12)")
+            "--fleet-tp: fleets of tensor-parallel engines are not ported (ROADMAP M12)")
+    if args.fleet and args.engine != "continuous":
+        raise ValueError("--fleet serves continuous engines: it takes --engine continuous")
 
     from radvlm_tpu_torch.eval.harness import HFTokenizer, VLMRunner
     from radvlm_tpu_torch.models.quant_io import is_quantized_dir, load_checkpoint
@@ -79,7 +87,9 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
         quantize_model(model)
     tok = tokenizer if tokenizer is not None else HFTokenizer(args.tokenizer or args.checkpoint)
     # The runner fuses the projections of this one copy in place.
-    runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=args.max_new_tokens)
+    runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=args.max_new_tokens,
+                       fleet=args.fleet,
+                       fleet_devices=args.fleet_devices.split(",") if args.fleet_devices else None)
     model_names = [n.strip() for n in args.model_names.split(",") if n.strip()]
 
     if args.engine == "continuous":
@@ -93,6 +103,7 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
             prompt_bucket=args.prompt_bucket,
             controller_address=args.controller_address,
             worker_address=args.worker_address,
+            fleet=args.fleet,
             **engine_kw,
         )
     if engine_kw:

@@ -12,9 +12,8 @@
   their own order), equal the JAX package's, and the metrics JSON agrees to
   1e-12. Images of several sizes, fill groups of 1.
 - Errors: a sample with no `instr`, an engine error and a feeder error fail
-  `run_task`; a mesh, a fleet, `--multihost` and a process group of more
-  than one raise naming ROADMAP M12; `eval.cli` without `--device` needs the
-  card.
+  `run_task`; a fleet of TP engines (`fleet_tp`, `--fleet-tp`) raises naming
+  ROADMAP M12; `eval.cli` without `--device` needs the card.
 - `vqa_cli.run_vqa`: the JAX package's answers JSONL, record for record,
   except `shortuuid`.
 """
@@ -320,20 +319,16 @@ def test_engine_and_feeder_errors_fail_run_task(tiny_q, data_dir, monkeypatch):
 
 
 def test_not_ported_options_raise(tiny_q, monkeypatch, tmp_path):
+    """A fleet of tensor-parallel engines is what stays of M12 for
+    evaluation; the mesh, fleets and --multihost run (tests/test_torch_fleet.py,
+    tests/test_torch_tp.py)."""
     cfg, params = tiny_q
     model = convert.radvlm_from_jax(params, cfg, device="cpu")
-    for kw in (dict(mesh=object()), dict(fleet=2), dict(fleet_tp=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP M12"):
-            th.VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer(), **kw)
-    for flag in (["--multihost"], ["--fleet", "2"], ["--fleet-tp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP M12"):
-            tcli.main(["--task", "abnormality_grounding", "--checkpoint", str(tmp_path),
-                       "--device", "cpu"] + flag)
-    runner = th.VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer())
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP M12"):
-        th.run_task(runner, [], "abnormality_grounding", with_clinical=False)
+        th.VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer(), fleet_tp=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
+        tcli.main(["--task", "abnormality_grounding", "--checkpoint", str(tmp_path),
+                   "--device", "cpu", "--fleet-tp", "2"])
 
 
 @pytest.fixture(scope="module")

@@ -277,6 +277,23 @@ def test_kernel_provenance_reports_the_predicates():
     # reaches the decoder.
     one = teng.kernel_provenance(imagebind, prompt_len=64, max_new_tokens=8, quantized=True)
     assert one["tower_matmul"] == "w8a8"
+    # A tensor-parallel rank routes at its local shapes (parallel/tp.py):
+    # Qwen2-7B at tp 2 (14 q heads, 2 kv heads, intermediate 9472) and at
+    # tp 4 (7, 1 and 4736 = 37 x 128); the kernels take both.
+    from radvlm_tpu_torch.parallel.tp import local_text_cfg
+
+    for deg, heads in ((2, (14, 2, 9472)), (4, (7, 1, 4736))):
+        local = dataclasses.replace(cfg, text=local_text_cfg(cfg.text, deg))
+        t = local.text
+        assert (t.num_heads, t.num_kv_heads, t.intermediate_size) == heads
+        p = teng.kernel_provenance(local, prompt_len=3584, max_new_tokens=128, quantized=True,
+                                   cache_format="int8", fill_rows=2, decode_rows=8, spec_k=3)
+        assert (p["prefill_attention"], p["decode_attention"], p["verify_attention"]) == (
+            "kernel", "kernel_q8", "window_q8")
+        assert (p["prefill_matmul"], p["decode_matmul"], p["verify_matmul"]) == (
+            "w8a8", "int8", "int8")
+        p = teng.kernel_provenance(local, prompt_len=3584, max_new_tokens=128, decode_rows=8)
+        assert (p["tower_attention"], p["decode_attention"]) == ("kernel", "kernel")
 
 
 def _widened(head_dim: int, num_heads: int = 4, num_kv_heads: int = 2):

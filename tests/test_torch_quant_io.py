@@ -363,7 +363,8 @@ def test_quantize_cli_then_worker_cli(tmp_path, hf_dir, bits, capsys):
 
 def test_worker_cli_load_order_and_what_raises(tmp_path, hf_dir):
     """An HF dir loads dense (bf16) or, with --int8, quantized at load; the
-    static engine is the streaming worker; fleets raise."""
+    static engine is the streaming worker; a fleet takes the continuous
+    engine, and a fleet of TP engines raises."""
     from radvlm_tpu_torch.serve.worker import ModelWorker
 
     tok = ByteTokenizer()
@@ -374,9 +375,10 @@ def test_worker_cli_load_order_and_what_raises(tmp_path, hf_dir):
     assert dense.runner.model.image_newline.dtype == torch.bfloat16
     q = worker_cli.build_worker(worker_cli.parse_args(base + ["--int8"]), tokenizer=tok)
     assert isinstance(q.runner.model.text.layers[0].qkv, QLinear)
-    for flag in (["--fleet", "2"], ["--fleet-tp", "2"]):
-        with pytest.raises(NotImplementedError, match="M12"):
-            worker_cli.build_worker(worker_cli.parse_args(base + flag), tokenizer=tok)
+    with pytest.raises(NotImplementedError, match="M12"):
+        worker_cli.build_worker(worker_cli.parse_args(base + ["--fleet-tp", "2"]), tokenizer=tok)
+    with pytest.raises(ValueError, match="--engine continuous"):
+        worker_cli.build_worker(worker_cli.parse_args(base + ["--fleet", "2"]), tokenizer=tok)
     with pytest.raises(ValueError, match="static engine"):
         worker_cli.build_worker(worker_cli.parse_args(base), tokenizer=tok, kv_quant=True)
     with pytest.raises(Exception):  # no tokenizer files in the directory

@@ -177,7 +177,11 @@ def test_port_runs_with_jax_blocked():
     checkpoint, and every tower kind (CLIP with S2, EVA, ImageBind) and
     every resampler run a tiny model's forward, each tower importer (CLIP,
     open_clip, ImageBind, EVA) and the Q-Former's fills a module that runs,
-    and the tower dispatch and `with_tower` answer."""
+    and the tower dispatch and `with_tower` answer, and M12's serving
+    layouts run: a TP engine on two spawned gloo ranks, and in a world of
+    one the mesh, ring attention, SP generation, fleets behind
+    `FleetEngine`, `BatchWorker` and `run_task`, `eval.cli --multihost
+    --fleet`."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -567,6 +571,59 @@ def test_port_runs_with_jax_blocked():
                                   for k, v in qformer_state(qcfg, 24, rng).items()}, qf)
         out = tres.forward(qf, qcfg, torch.randn(2, 16, 24, generator=g))
         assert out.shape == (2, 4, 32) and torch.isfinite(out).all()
+        # M12's serving layouts: a TP engine on two spawned gloo ranks (the
+        # spawn helper imports no jax), then in this process a world of one:
+        # the mesh, ring attention through mha, SP generation, a fleet of two
+        # engines behind FleetEngine, BatchWorker and run_task, and eval.cli
+        # with --multihost and --fleet.
+        import torch_dist
+        from radvlm_tpu_torch.generation import engine as teng
+        from radvlm_tpu_torch.models.convert import radvlm_to_tree
+        from radvlm_tpu_torch.ops.attention import mha
+        from radvlm_tpu_torch.parallel import mesh as pmesh, ring, tp
+        from radvlm_tpu_torch.serve.batch_worker import BatchWorker
+        from radvlm_tpu_torch.serve.fleet import FleetEngine
+        tree = radvlm_to_tree(init_params(cfg, torch.Generator().manual_seed(13), device="cpu",
+                                          dtype=torch.float32))
+        tp_out = torch_dist.run(torch_dist.tp_engines, 2, dict(
+            cfg=cfg, params=tree, lengths=(6, 9),
+            runs={"bf16": ({}, dict(max_new_tokens=3))}), tempfile.mkdtemp())
+        assert tp_out[0]["bf16"] == tp_out[1]["bf16"] and tp_out[0]["bf16_provenance"]["tp"] == 2
+        assert pmesh.init_distributed() == (0, 1)
+        world = pmesh.make_mesh({"seq": -1})
+        assert pmesh.local_mesh_info(world) == (1, 1)
+        ring.enable_ring_attention(world)
+        qr = torch.randn(1, 16, 2, 8)
+        assert torch.allclose(mha(qr, qr, qr, causal=True, impl="ring"),
+                              mha(qr, qr, qr, causal=True, impl="xla"), atol=1e-5)
+        ring.enable_ring_attention(None)
+        sp_batch = batch_to_device(multimodal.collate(
+            [multimodal.build_sample(Tok.encode("hi") + [-200], [img], cfg)], pad_len=128,
+            left_pad=True), "cpu")
+        sp = teng.make_sp_generate_fn(cfg, world, GenerationConfig(max_new_tokens=3),
+                                      kv_quant=True)(model, sp_batch)
+        assert sp["tokens"].shape == (1, 3)
+        fl = FleetEngine(model, cfg, GenerationConfig(max_new_tokens=3), devices=["cpu"] * 2,
+                         num_slots=2, max_len=256, prompt_buckets=(128,), pad_tiles=2).start()
+        fr = [fl.submit(sample) for _ in range(3)]
+        assert sorted(r.uid for r in fl.drain(idle_timeout=120)) == [r.uid for r in fr]
+        fl.shutdown()
+        fw = BatchWorker(VLMRunner(model=model, cfg=cfg, tokenizer=Tok(), max_new_tokens=2),
+                         model_names=["t"], num_slots=2, max_len=256, prompt_bucket=128,
+                         pad_tiles=2, fleet=2, fleet_devices=["cpu", "cpu"])
+        assert fw.generate({"prompt": "hi", "max_new_tokens": 2})["error_code"] == 0
+        fw.shutdown()
+        fleet_runner = VLMRunner(model=model, cfg=cfg, tokenizer=Tok(), max_new_tokens=3,
+                                 batch_size=2, fleet=2, fleet_devices=["cpu", "cpu"])
+        results, _ = run_task(fleet_runner, build_task_dataset("abnormality_grounding", data),
+                              "abnormality_grounding", with_clinical=False)
+        assert len(results) == 2
+        metrics = eval_cli.main(["--task", "abnormality_grounding", "--checkpoint", art,
+                                 "--data-dir", data, "--output-dir", f"{data}/cli_fleet",
+                                 "--max-new-tokens", "3", "--batch-size", "2", "--device",
+                                 "cpu", "--multihost", "--fleet", "2", "--fleet-devices",
+                                 "cpu,cpu"], tokenizer=Tok())
+        assert "mAP_0.5" in metrics and tp.context() is None
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn",
