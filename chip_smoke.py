@@ -106,7 +106,7 @@ Phases, each raising on failure (the last line is printed only on success):
    the provenance are printed;
 7d. text-LM serving, the GREEN judge and the local LLM client: an HF Llama
    directory at meta-llama/Llama-2-7b-hf's widths (MHA: 32 heads and 32
-   KV heads of 128, vocab 32000), cut to 16 of its 32 layers, with random bf16
+   KV heads of 128, vocab 32000), cut to 8 of its 32 layers, with random bf16
    weights made on the card from --seed is written under build/ by
    `safetensors_io.write_file` (size, seconds and free disk printed; it
    fails before writing if the disk is short; deleted afterwards).
@@ -227,7 +227,8 @@ Phases, each raising on failure (the last line is printed only on success):
    projections and lm_head (not the dense experts, not a tied head). 11a: LLaVA-Mixtral-8x7B (8 experts of 14336, top-2, exact mode)
    cut to 8 of its 32 layers (the bf16 experts take 2.82 GB a layer),
    buckets 3072-4096, 4 requests. 11b: LLaVA-MPT-7B (ALiBi, LayerNorm, a
-   non-gated GELU MLP, a tied lm_head; plain attention) at full depth; its
+   non-gated GELU MLP, a tied lm_head; plain attention) cut to
+   FAMILY_LAYERS of its 32 layers (the script's time, PR 20); its
    2048 positions keep the prompts to one 384-px tile ("pad") in the 1024
    bucket, 4 requests. Both time and profile a decode chunk of every slot.
    11c: Llama-3-8B (the kernels), Mistral-7B (its 4096-token window: plain
@@ -235,13 +236,14 @@ Phases, each raising on failure (the last line is printed only on success):
    Gemma-2B (head_dim 256: plain attention), each cut to FAMILY_LAYERS of
    its layers (the script's time), 2 requests each;
 12. M10's towers and resamplers, each served as a family of phase 11 in
-   front of Qwen2-7B (weights born int8, the int8 reference check, a
+   front of Qwen2-7B cut to TOWER_DECODER_LAYERS of its 28 layers (the
+   script's time, PR 20; so too the int8 model and EVA-CLIP-8B's f32
+   reference copy fit) (weights born int8, the int8 reference check, a
    BatchWorker of 8 slots on the int8 cache, 8-step chunks, 4 CXR requests
    of 32 greedy tokens, a prompt bucket fitted to the requests): 12a CLIP
    ViT-L/14-336 with S2 at 336 / 672 / 1008 px (23 layers, 14 crops a tile,
    features 3072 wide), 12b EVA02-CLIP-L-14-336 (rope, subln, swiglu), 12c
-   EVA-CLIP-8B (32 x 4096, D = 128, 224 px; the decoder cut to 8 of its 28
-   layers, so that the int8 model and its f32 reference copy fit), 12d
+   EVA-CLIP-8B (32 x 4096, D = 128, 224 px), 12d
    ImageBind-huge (one pooled token, "pad"), 12e radvlm_7b's SigLIP with a
    Q-Former (bert-base, 32 queries, "pad"; its attention plain, as the
    provenance must say) and with spatial_pool (stride 2, anyres). The
@@ -256,7 +258,9 @@ Phases, each raising on failure (the last line is printed only on success):
    2048-token rows: the loss finite, the tower's gradient non-zero, and
    K2-lse, K7 and K8 called at the tower's [n, 577, 16, 64].
 13. M12's serving layouts on the card (`parallel/`), over radvlm_7b's int8
-   weights made once from --seed and 8 anyres CXR prompts, first served by
+   weights made once from --seed (the decoder cut to LAYOUT_LAYERS of its
+   28 layers, the script's time, PR 20) and 8 anyres CXR prompts, first
+   served by
    a one-card engine (4 slots, the int8 cache, 32 greedy tokens) whose
    tokens, logits and decode step the layouts are held to. 13a: a TP = 2
    engine, two processes spawned on the card over gloo (which carries
@@ -280,6 +284,19 @@ Phases, each raising on failure (the last line is printed only on success):
    held to their plain versions on its 4-slot cache, then a keep_kv turn
    whose resume goes back to the engine that holds its rows and gives a
    full re-prefill's tokens (or a near tie).
+14. M12's training half (`parallel/sharding.py`, `parallel/ring.py`) on
+   radvlm_0_5b at full width and depth, f32 masters from the seed, two of
+   phase 8's packed 4096-token rows: the one-card step (two micro-steps,
+   the second profiled), then 14a ZeRO-3 `{fsdp: 2}` and 14b TP
+   `{tensor: 2}` (7 | 1 local heads), two processes on the card over gloo
+   (which reduce-scatters and all-gathers CUDA tensors), one profiled
+   micro-step each: the loss and grad norm against the one-card step's
+   (2e-3, 2e-2), the peak memory a rank; 14c the zigzag ring at seq = 1 on
+   one NCCL rank, three K2-lse pairs a decoder layer: the launch counts
+   exactly 2 x (3 x 24 + 26) K2-lse and 3 x 24 + 26 K7 / K8, the loss and
+   grad norm within 2e-2, and K2-lse, K7 and K8 at the half-chunk shape
+   [2, 2048, 14 | 2, 64] (causal and full) held to their plain versions,
+   timed beside SDPA and their bounds.
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -369,11 +386,11 @@ QUESTIONS = ("Write the findings section of the report.", "Is there a pleural ef
              "Describe the cardiac silhouette.", "Is there a pneumothorax?")
 # The text-LM phase: the GREEN judge at meta-llama/Llama-2-7b-hf's config.json
 # (the base of StanfordAIMI/GREEN-radllama2-7b), random bf16 weights, cut to
-# 16 of its 32 layers: its steps are host-bound and their time grows with the
+# 8 of its 32 layers: its steps are host-bound and their time grows with the
 # depth, and the phase replays its 16 requests one at a time too. At 32
 # layers (149 s for this phase) the whole script took 1039 s of its 1200 on
-# an H100 80GB HBM3 host, and a host 1.25x slower would pass the limit.
-JUDGE_LAYERS = 16
+# an H100 80GB HBM3 host, at 16 layers 958 s (91 s); phase 14 came after.
+JUDGE_LAYERS = 8
 LLAMA2_7B = {"architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 4096,
              "intermediate_size": 11008, "num_hidden_layers": JUDGE_LAYERS,
              "num_attention_heads": 32,
@@ -467,6 +484,8 @@ PATH_KERNELS = {
     # reference's (no gradient), K2-lse, K7 and K8 in the policy's.
     "dpo": ("tower_attention", "prefill_attention", "prefill_attention_lse",
             "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+    # 14c: the zigzag ring's pairs and the tower's attention under a gradient.
+    "mesh_ring": ("prefill_attention_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
     # GRPO: the rollouts' fills (K1, K2) and decode over the bf16 cache (K9),
     # the updates as DPO's.
     "grpo": ("tower_attention", "prefill_attention", "decode_attention", "prefill_attention_lse",
@@ -498,7 +517,7 @@ MISTRAL_LONG_PROMPT = 4080
 # f32 decoder; the tunable tower trains 2 micro-steps of one image cell and
 # one text cell a packed 2048-token row.
 S2_SCALES = (336, 672, 1008)
-EVA8B_DECODER_LAYERS = 8
+TOWER_DECODER_LAYERS = 8
 TOWER_REQUESTS = 4
 TOWER_SFT_STEPS = 2
 TOWER_TRAIN_BUCKET = Bucket(2048, 4)
@@ -511,10 +530,18 @@ FAMILY_LAYERS = 8  # 11c: the depth each family is cut to
 # 13c: a fleet of FLEET_SIZE engines on the card over all LAYOUT_REQUESTS,
 # then a keep_kv turn and its resume.
 LAYOUT_REQUESTS, TP_REQUESTS, LAYOUT_SLOTS, LAYOUT_STEPS = 8, 4, 4, 8
+LAYOUT_LAYERS = 8  # of radvlm_7b's 28 decoder layers: the script's time (PR 20)
 TP_WORLD, TP_SPEC_K = 2, 3
 SP_NEW, SP_BUCKET = 16, 4096
 SP_BACKEND, SP_WORLD = "nccl", 1  # gloo sends no CUDA tensor point to point (PERF.md)
 FLEET_SIZE = 2
+# Phase 14: M12's training half on radvlm_0_5b, MESH_ROWS packed 4096-token
+# rows; 14a (ZeRO-3, fsdp = 2) and 14b (TP = 2) run as two processes on the
+# card over gloo, which reduce-scatters and all-gathers CUDA tensors
+# (tools/torch_gloo_probe.py). Bounds on the loss and grad norm against the
+# one-card step, relative.
+MESH_ROWS = 2
+FSDP_TOL, TP_TRAIN_TOL, RING_TOL = 2e-3, 2e-2, 2e-2
 LAYOUT_LOGITS_TOL = 0.03  # the int8 rule's allowance for W8A8 and the int8 cache
 FAMILY_KERNELS = ("tower_attention", "w8a8_matmul", "int8_matmul")  # K1, K3, K5/K6
 # K2 and K4: not under ALiBi, a sliding window or head_dim 256.
@@ -3698,7 +3725,7 @@ def serve_family(dev, seed: int, label: str, cfg, *, n_requests: int, kernel_att
 
 def phase_families(dev, seed: int, header) -> dict:
     """Phase 11: LLaVA-Mixtral and then Llama-3-8B, Mistral-7B and Gemma-2B
-    (depth cut), LLaVA-MPT-7B (full depth), each radvlm_7b's tower and
+    and LLaVA-MPT-7B (depth cut), each radvlm_7b's tower and
     projector into the family's decoder at full width."""
     counts = {}
     cfg = dataclasses.replace(radvlm_7b(), text=dataclasses.replace(
@@ -3710,11 +3737,14 @@ def phase_families(dev, seed: int, header) -> dict:
                                      kernel_attention=True, profile=True,
                                      cut=" (of 32: depth cut)")
     # MPT has 2048 positions: one 384-px tile an image ("pad") in the 1024 bucket.
-    cfg = dataclasses.replace(radvlm_7b(), text=mpt_7b(), image_aspect_ratio="pad")
-    header("[11b/12] LLaVA-MPT-7B, full depth, one 384-px tile an image, the 1024 bucket")
+    cfg = dataclasses.replace(radvlm_7b(), text=dataclasses.replace(
+        mpt_7b(), num_layers=FAMILY_LAYERS), image_aspect_ratio="pad")
+    header(f"[11b/12] LLaVA-MPT-7B, {FAMILY_LAYERS} of 32 layers, one 384-px tile an image, "
+           "the 1024 bucket")
     counts["mpt"] = serve_family(dev, seed, "mpt_7b", cfg, buckets=MPT_BUCKETS,
                                  max_len=MPT_MAX_LEN, pad_tiles=1, n_requests=4,
-                                 kernel_attention=False, profile=True)
+                                 kernel_attention=False, profile=True,
+                                 cut=" (of 32: depth cut)")
     for name, preset, kernel_attention, long_prompt in (
             ("llama3_8b", llama3_8b, True, 0),
             ("mistral_7b", mistral_7b, False, MISTRAL_LONG_PROMPT),
@@ -3795,25 +3825,27 @@ def phase_towers(dev, seed: int, header) -> dict:
     requests), then K1 and K3 at the tower's own shapes, a fill timed and
     profiled; then a tunable CLIP tower trained two micro-steps."""
     counts, k1 = {}, {}
-    base = radvlm_7b()
+    base7 = radvlm_7b()
+    base = dataclasses.replace(base7, text=dataclasses.replace(
+        base7.text, num_layers=TOWER_DECODER_LAYERS))
+    cut = f" (of {base7.text.num_layers}: depth cut)"
     clip_name = "openai/clip-vit-large-patch14-336"
     rows = [
         ("a", "clip_s2", towers.with_tower(base, clip_name, s2=True, s2_scales=S2_SCALES),
-         f"CLIP ViT-L/14-336 with S2 {S2_SCALES}", ""),
+         f"CLIP ViT-L/14-336 with S2 {S2_SCALES}", cut),
         ("b", "eva02_l_336", towers.with_tower(base, "EVA02-CLIP-L-14-336"),
-         "EVA02-CLIP-L-14-336 (rope, subln, swiglu), anyres", ""),
-        ("c", "eva_clip_8b", towers.with_tower(dataclasses.replace(
-            base, text=dataclasses.replace(base.text, num_layers=EVA8B_DECODER_LAYERS)),
-            "EVA-CLIP-8B"), f"EVA-CLIP-8B (32 x 4096, D = 128), the decoder cut to "
-            f"{EVA8B_DECODER_LAYERS} of 28 layers", " (of 28: depth cut)"),
+         "EVA02-CLIP-L-14-336 (rope, subln, swiglu), anyres", cut),
+        ("c", "eva_clip_8b", towers.with_tower(base, "EVA-CLIP-8B"),
+         "EVA-CLIP-8B (32 x 4096, D = 128)", cut),
         ("d", "imagebind_huge", towers.with_tower(base, "imagebind_huge"),
-         "ImageBind-huge, one pooled token, pad", ""),
+         "ImageBind-huge, one pooled token, pad", cut),
         ("e", "siglip_qformer", dataclasses.replace(
             base, resampler=ResamplerConfig(kind="qformer"), image_aspect_ratio="pad"),
-         "radvlm_7b's SigLIP + a Q-Former (bert-base, 32 queries, cross every 3 layers), pad", ""),
+         "radvlm_7b's SigLIP + a Q-Former (bert-base, 32 queries, cross every 3 layers), pad",
+         cut),
         ("e", "siglip_spatial_pool", dataclasses.replace(
             base, resampler=ResamplerConfig(kind="spatial_pool", stride=2)),
-         "radvlm_7b's SigLIP + spatial_pool (stride 2, average), anyres", ""),
+         "radvlm_7b's SigLIP + spatial_pool (stride 2, average), anyres", cut),
     ]
     for letter, label, cfg, what, cut in rows:
         header(f"[12{letter}/12] {what}")
@@ -4362,9 +4394,11 @@ def phase_fleet(ctx, seed: int) -> dict:
 
 def phase_layouts(dev, seed: int, header) -> dict:
     """13: radvlm_7b's int8 weights made once from the seed (unfused, for
-    the TP ranks to make alike), fused for the one-card engine, whose
-    tokens, logits and decode step the layouts are held to."""
+    the TP ranks to make alike), its decoder cut to LAYOUT_LAYERS of 28,
+    fused for the one-card engine, whose tokens, logits and decode step the
+    layouts are held to."""
     cfg = radvlm_7b()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=LAYOUT_LAYERS))
     t0 = time.perf_counter()
     model = convert.random_quantized_params(
         cfg, torch.Generator(device=dev).manual_seed(seed + 13), device=dev, fuse=False)
@@ -4404,6 +4438,165 @@ def phase_layouts(dev, seed: int, header) -> dict:
     counts["sp"] = phase_sp(ctx, seed)
     header(f"[13c/13] a fleet of {FLEET_SIZE} engines on the card")
     counts["fleet"] = phase_fleet(ctx, seed)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: M12's training half (parallel/sharding.py, parallel/ring.py)
+# ---------------------------------------------------------------------------
+
+
+def mesh_host_batch(cfg, tok, seed: int, root: str) -> dict:
+    """MESH_ROWS packed 4096-token rows of phase 8's data (one image cell and
+    one text cell a row), collated into one host batch."""
+    rng = np.random.default_rng(seed + 14)
+    data_path = write_training_data(root, rng, MESH_ROWS)
+    run = training_run_config(cfg, optim.TrainConfig(), data_path, root, tok, seed, MESH_ROWS)
+    with open(data_path) as f:
+        cells = json.load(f)
+    loader = PrefetchLoader(
+        LlavaJsonDataset(cells=cells, image_root=root, cfg=cfg, tokenize_fn=tok.encode,
+                         max_len=TRAIN_BUCKET.max_len),
+        1, buckets=run.buckets, seed=run.seed, num_workers=2, pack_factor=2)
+    rows = list(loader.epoch(0))
+    return {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+
+
+def mesh_micro_step(dev, cfg, seed: int, host: dict, mesh=None, attn_impl: str = "auto",
+                    steps: int = 2) -> dict:
+    """radvlm_0_5b's f32 masters from the seed, set up over `mesh` (None: one
+    card) with every part tunable, and `steps` micro-steps of this rank's
+    part of `host` (the same batch each time): the first's loss, grad norm
+    and launch counts (from 0 just before it), the last's wall and device
+    time under torch.profiler, the peak memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 14),
+                                device=dev, dtype=torch.float32)
+    tc = optim.TrainConfig(grad_accum_steps=1, warmup_ratio=0.0, learning_rate=1e-5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, step_fn, _ = tstep.setup_training(cfg, tc, model, attn_impl=attn_impl, mesh=mesh)
+    batch = batch_to_device(train_loop.rank_batch(host, state.mesh, attn_impl), dev)
+    kernels.reset_launch_counts()
+    for i in range(steps):
+        with contextlib.ExitStack() as stack:
+            if i == steps - 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+        if i == 0:
+            first = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+            counts = dict(kernels.launch_counts())
+    wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return dict(first, wall=wall, device=busy if busy > 0 else None, counts=counts,
+                peak=torch.cuda.max_memory_allocated(dev), rows=int(batch["tokens"].shape[0]),
+                length=int(batch["tokens"].shape[1]))
+
+
+def mesh_rank(rank, world, payload):
+    """A spawned rank of 14a and 14b: one micro-step over each mesh shape of
+    `payload["shapes"]` in turn (gloo, the card shared)."""
+    dev = torch.device(payload["device"])
+    out = []
+    for shape in payload["shapes"]:
+        out.append(mesh_micro_step(dev, payload["cfg"], payload["seed"], payload["host"],
+                                   pmesh.make_mesh(shape), steps=1))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_report(label: str, r: dict, one: dict, tol: float) -> None:
+    """Print a run's numbers against the one-card step's; fail past `tol`."""
+    device = "not measured" if r["device"] is None else f"{r['device']:.3f} s"
+    print(f"  {label}: {r['rows']} x {r['length']} tokens a rank, loss {r['loss']:.6f}, "
+          f"grad_norm {r['grad_norm']:.6f}; a micro-step under torch.profiler {r['wall']:.3f} s "
+          f"wall, device {device}; peak memory {r['peak'] / 2**30:.2f} GiB (one card "
+          f"{one['peak'] / 2**30:.2f} GiB); launches {r['counts']}", flush=True)
+    for key in ("loss", "grad_norm"):
+        err = abs(r[key] - one[key]) / abs(one[key])
+        print(f"    {key} against the one-card step's {one[key]:.6f}: rel err {err:.3e} "
+              f"(bound {tol:.0e})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{label}: {key} off the one-card step's")
+
+
+def phase_train_mesh(dev, seed: int, header) -> dict:
+    """14: radvlm_0_5b at full width (SigLIP-SO400M 26 layers, Qwen2-0.5B 24
+    layers), f32 masters from the seed, MESH_ROWS of phase 8's packed
+    4096-token rows: the one-card step, 14a ZeRO-3 and 14b TP = 2 (two
+    gloo processes), 14c the zigzag ring at seq = 1 (one NCCL rank) with its
+    launch counts and its pairs' kernels held to their plain versions at the
+    half-chunk shape."""
+    cfg, tok = radvlm_0_5b(), CharTokenizer()
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_mesh_{os.getpid()}")
+    try:
+        host = mesh_host_batch(cfg, tok, seed, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    one = mesh_micro_step(dev, cfg, seed, host)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_report("one card", one, one, 0.0)
+    header("[14a-b/14] ZeRO-3 {fsdp: 2}, then TP {tensor: 2} (7 | 1 local heads): two "
+           "processes on the card over gloo")
+    spawn_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              f"smoke_mesh_ranks_{os.getpid()}")
+    try:
+        ranks = spawn_ranks(mesh_rank, 2, dict(device=str(dev), cfg=cfg, seed=seed, host=host,
+                                               shapes=[{"fsdp": 2}, {"tensor": 2}]), spawn_root)
+    finally:
+        shutil.rmtree(spawn_root, ignore_errors=True)
+    for r, (fsdp_res, tp_res) in enumerate(ranks):
+        mesh_report(f"14a ZeRO-3 rank {r}", fsdp_res, one, FSDP_TOL)
+        mesh_report(f"14b TP rank {r}", tp_res, one, TP_TRAIN_TOL)
+        for label, res in (("14a", fsdp_res), ("14b", tp_res)):
+            if not all(res["counts"][k] for k in PATH_KERNELS["mesh_ring"]):
+                raise AssertionError(f"{label}: K2-lse, K7 or K8 never launched on rank {r}")
+    counts = {}
+    header("[14c/14] the zigzag ring at seq = 1 (one NCCL rank): three K2-lse pairs a layer")
+    pmesh.init_distributed("nccl", device=dev)
+    try:
+        from radvlm_tpu_torch.parallel import ring as ring_lib
+
+        mesh = pmesh.make_mesh({"seq": 1})
+        ring_lib.enable_ring_attention(mesh, schedule="zigzag")
+        try:
+            res = mesh_micro_step(dev, cfg, seed, host, mesh, attn_impl="ring")
+        finally:
+            ring_lib.enable_ring_attention(None)
+    finally:
+        dist.destroy_process_group()
+    mesh_report("14c zigzag ring", res, one, RING_TOL)
+    counts["mesh_ring"] = c = res["counts"]
+    require_launched("mesh_ring", c)
+    # Three pairs a decoder layer (lo x lo, hi x lo, hi x hi), one call a
+    # tower layer; remat runs each forward twice.
+    pairs = 3 * cfg.text.num_layers + cfg.vision.num_layers
+    want = {"prefill_attention_lse": 2 * pairs, "flash_attention_bwd_dkv": pairs,
+            "flash_attention_bwd_dq": pairs}
+    print(f"  14c launches: {c}; predicted {want}", flush=True)
+    require_counts("14c", c, want)
+    if c["prefill_attention"] or c["tower_attention"]:
+        raise AssertionError("14c: K1 / K2 without the lse launched under a gradient")
+    g = torch.Generator(device=dev).manual_seed(seed + 141)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    half = res["length"] // 2
+    for label, causal in (("zigzag lo x lo, hi x hi", True), ("zigzag hi x lo", False)):
+        training_kernel_case(dev, g, randn, label, res["rows"], half, cfg.text.num_heads,
+                             cfg.text.num_kv_heads, cfg.text.head_dim, causal, "packed")
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts
 
 
@@ -4509,10 +4702,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/13] M12's serving layouts on the card: TP engine, SP generation, a fleet")
+    header("[13/14] M12's serving layouts on the card: TP engine, SP generation, a fleet")
     t13 = time.perf_counter()
     counts.update(phase_layouts(dev, args.seed, header))
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s; {nvidia_smi_line()}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[14/14] M12's training half: ZeRO-3, TP = 2 and the zigzag ring, radvlm_0_5b")
+    counts.update(phase_train_mesh(dev, args.seed, header))
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -25,7 +25,10 @@ are `Linear` or, for int8 / int4 weights, `QLinear` / `Q4Linear`
 per row.
 
 Under the tensor-parallel context (`parallel/tp.py`) a rank holds its slice
-of the layers and `_finish_block` all-reduces the o and down products; under
+of the layers and `_finish_block` all-reduces the o and down products (in
+training differentiably, with `tp.copy_to` at the column-parallel inputs);
+under the training mesh (`parallel/sharding.py`) `_block` gathers the
+block's ZeRO-3 units and `_moe_mlp` computes this rank's experts; under
 the sequence-parallel decode context (`parallel/sp_decode.py`) the cache is
 the rank's block of the sequence and `_block_cached` merges the ranks'
 partial attention.
@@ -54,8 +57,7 @@ from radvlm_tpu_torch.ops.decode_attention import (
 )
 from radvlm_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv, quantize_kv_row
 from radvlm_tpu_torch.ops.quant import dequantize_array
-from radvlm_tpu_torch.parallel import sp_decode
-from radvlm_tpu_torch.parallel.tp import maybe_all_reduce
+from radvlm_tpu_torch.parallel import sharding, sp_decode, tp
 
 # (k, v) bf16, or (k, v) int8 + (k_scale, v_scale) f32.
 Cache = Tuple[torch.Tensor, ...]
@@ -262,7 +264,16 @@ def _moe_mlp(cfg: Qwen2Config, moe: MoE, y: torch.Tensor):
       dropped.
     Qwen2-MoE adds the shared expert scaled by sigmoid(shared_gate(y)).
     aux is the Switch / GShard load-balancing term E sum_e f_e P_e: f the
-    share of top-k picks of expert e, P its mean router probability."""
+    share of top-k picks of expert e, P its mean router probability.
+
+    Under the training mesh (`parallel/sharding.py`) the tokens are this
+    rank's share of the global batch, and the global arithmetic is kept:
+    f and P average over the batch ranks, capacity mode counts C from the
+    global token count and ranks a pick after the earlier ranks' picks
+    (`sharding.row_offsets`). Over `expert` the tables hold this rank's
+    E_local experts: the rank computes them on its tokens, and the shares
+    sum (`tp.reduce_from`); x and the top-k weights enter through
+    `tp.copy_to`, so their gradients sum the experts' parts."""
     b, s, d = y.shape
     t = b * s
     x = y.reshape(t, d)
@@ -273,34 +284,52 @@ def _moe_mlp(cfg: Qwen2Config, moe: MoE, y: torch.Tensor):
         vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-20)
     vals = vals.to(x.dtype)
     oh = F.one_hot(idx, e).float()  # [T, k, E]
+    mg = sharding.mesh_of(moe)
+    group = None if mg is None else mg.group("expert")
+    lo = 0 if group is None else mg.index["expert"] * moe.gate.shape[0]
+    mine = slice(lo, lo + moe.gate.shape[0])
+    xl, vl = tp.copy_to(x, group), tp.copy_to(vals, group)
     if cfg.moe_capacity_factor <= 0:
-        h = torch.matmul(x, moe.gate)  # [E, T, m]
-        u = torch.matmul(x, moe.up)
-        eo = torch.matmul(F.silu(h) * u, moe.down)  # [E, T, d]
-        w_te = torch.einsum("tke,tk->te", oh.to(vals.dtype), vals)
-        out = torch.einsum("etd,te->td", eo, w_te)
+        h = torch.matmul(xl, moe.gate)  # [E_local, T, m]
+        u = torch.matmul(xl, moe.up)
+        eo = torch.matmul(F.silu(h) * u, moe.down)  # [E_local, T, d]
+        w_te = torch.einsum("tke,tk->te", oh.to(vl.dtype), vl)
+        out = torch.einsum("etd,te->td", eo, w_te[:, mine])
     else:
-        cap = max(1, int(math.ceil(t * k / e * cfg.moe_capacity_factor)))
+        t_all = t * sharding.batch_size(mg)
+        cap = max(1, int(math.ceil(t_all * k / e * cfg.moe_capacity_factor)))
         ohm = oh.transpose(0, 1).reshape(k * t, e)
         before = torch.cumsum(ohm, dim=0) - ohm
+        before = before + sharding.row_offsets(oh.sum(0), mg).repeat_interleave(t, dim=0)
         my_pos = (before * ohm).sum(-1).reshape(k, t).t().to(torch.int64)  # [T, k]
         keep = (my_pos < cap).to(x.dtype)
         # A dropped pick's place (>= cap) has no column: its one-hot row is 0.
         pos_oh = F.one_hot(my_pos.clamp_max(cap), cap + 1)[..., :cap].to(x.dtype)  # [T, k, C]
-        ohx = oh.to(x.dtype)
+        ohx = oh[..., mine].to(x.dtype)
         disp = torch.einsum("tke,tkc,tk->tec", ohx, pos_oh, keep)
-        comb = torch.einsum("tke,tkc,tk->tec", ohx, pos_oh, keep * vals)
-        xe = torch.einsum("tec,td->ecd", disp, x)
-        h = torch.matmul(xe, moe.gate)  # [E, C, m]
+        comb = torch.einsum("tke,tkc,tk->tec", ohx, pos_oh, keep * vl)
+        xe = torch.einsum("tec,td->ecd", disp, xl)
+        h = torch.matmul(xe, moe.gate)  # [E_local, C, m]
         u = torch.matmul(xe, moe.up)
-        eo = torch.matmul(F.silu(h) * u, moe.down)  # [E, C, d]
+        eo = torch.matmul(F.silu(h) * u, moe.down)  # [E_local, C, d]
         out = torch.einsum("tec,ecd->td", comb, eo)
+    out = tp.reduce_from(out, group)
     if moe.shared is not None:
         sh = moe.shared.down(F.silu(moe.shared.gate(y)) * moe.shared.up(y)).reshape(t, d)
         sgate = torch.sigmoid(moe.shared_gate(y).reshape(t, 1).float()).to(x.dtype)
         out = out + sgate * sh
-    aux = e * torch.sum(probs.mean(0) * oh.sum(1).mean(0))
+    n = sharding.batch_size(mg)
+    p_mean = sharding.batch_reduce_from(probs.mean(0), mg) / n
+    f_mean = sharding.batch_all_reduce(oh.sum(1).mean(0), mg) / n
+    aux = e * torch.sum(p_mean * f_mean)
     return out.reshape(b, s, d), aux
+
+
+def _tp_group(blk: Qwen2Block):
+    """The block's tensor group: the training mesh's (`sharding.mesh_of`)
+    or the serving context's (`tp.active`); None without one."""
+    mg = sharding.mesh_of(blk)
+    return tp.context() if mg is None else mg.group("tensor")
 
 
 def _finish_block(cfg: Qwen2Config, blk: Qwen2Block, res: torch.Tensor, attn: torch.Tensor,
@@ -308,21 +337,25 @@ def _finish_block(cfg: Qwen2Config, blk: Qwen2Block, res: torch.Tensor, attn: to
     """The o projection and the MLP of a block: (out, aux), aux the layer's
     MoE router loss, None for a dense MLP. Under the tensor-parallel context
     o and down are row-parallel: their products are partial sums, summed over
-    the ranks here (`tp.maybe_all_reduce`, the identity outside it), the
-    block's only two collectives."""
+    the ranks here (`tp.reduce_from`, the identity outside it), the
+    block's only two collectives; the MLP's input enters the column-parallel
+    gate / up through `tp.copy_to` (the identity without a gradient)."""
     b, s = attn.shape[:2]
-    x = res + maybe_all_reduce(_proj(blk.o, attn.reshape(b, s, -1), w8a8))
+    group = _tp_group(blk)
+    x = res + tp.reduce_from(_proj(blk.o, attn.reshape(b, s, -1), w8a8), group)
     y = _norm(cfg, x, blk.ln2)
     if hasattr(blk, "moe"):
         out, aux = _moe_mlp(cfg, blk.moe, y)
         return x + out, aux
+    y = tp.copy_to(y, group)
     if not cfg.mlp_gated:  # MPT: up -> act -> down
-        return x + maybe_all_reduce(_proj(blk.down, _act(cfg, _proj(blk.up, y, w8a8)), w8a8)), None
+        return x + tp.reduce_from(_proj(blk.down, _act(cfg, _proj(blk.up, y, w8a8)), w8a8),
+                                  group), None
     if hasattr(blk, "gateup"):
         gate, up = _proj(blk.gateup, y, w8a8).chunk(2, dim=-1)
     else:
         gate, up = _proj(blk.gate, y, w8a8), _proj(blk.up, y, w8a8)
-    return x + maybe_all_reduce(_proj(blk.down, _act(cfg, gate) * up, w8a8)), None
+    return x + tp.reduce_from(_proj(blk.down, _act(cfg, gate) * up, w8a8), group), None
 
 
 def _block(
@@ -337,19 +370,20 @@ def _block(
     """One decoder block, no cache: (out, kv, aux). kv is the roped (k, v)
     as bf16 [B, S, Hkv*D] with collect_kv (the cache is bf16 whatever the
     weights), else None; aux the layer's MoE router loss, None for a dense
-    MLP."""
-    y = _norm(cfg, x, blk.ln1)
-    q, k, v = _qkv(cfg, blk, y, positions)
-    attn = mha(
-        q, k, v,
-        q_segment_ids=segment_ids,
-        kv_segment_ids=segment_ids,
-        causal=True,
-        impl=attn_impl,
-        window=cfg.sliding_window,
-        alibi=_alibi(cfg),
-    )
-    out, aux = _finish_block(cfg, blk, x, attn)
+    MLP. A block sharded over fsdp gathers its parameters for the call."""
+    with sharding.unit_scope(blk):
+        y = tp.copy_to(_norm(cfg, x, blk.ln1), _tp_group(blk))
+        q, k, v = _qkv(cfg, blk, y, positions)
+        attn = mha(
+            q, k, v,
+            q_segment_ids=segment_ids,
+            kv_segment_ids=segment_ids,
+            causal=True,
+            impl=attn_impl,
+            window=cfg.sliding_window,
+            alibi=_alibi(cfg),
+        )
+        out, aux = _finish_block(cfg, blk, x, attn)
     kv = None
     if collect_kv:
         b, s = x.shape[:2]

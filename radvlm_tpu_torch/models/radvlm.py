@@ -29,6 +29,7 @@ from radvlm_tpu_torch.models.anyres import apply_merge
 from radvlm_tpu_torch.models.layers import empty_param
 from radvlm_tpu_torch.models.projector import Projector
 from radvlm_tpu_torch.ops.image_ops import normalize_tiles_device
+from radvlm_tpu_torch.parallel import sharding
 
 
 class RadVLM(nn.Module):
@@ -252,7 +253,8 @@ def loss_fn(
     with "labels_next" instead of "labels" is shifted already
     (labels_next[i] supervises logits[i], segment gating folded in).
     Returns (loss, {"loss", "tokens"}); the loss is the mean over the
-    supervised tokens (at least 1). An MoE decoder with `router_aux_coef`
+    supervised tokens (at least 1), over the global batch under the
+    training mesh (`parallel/sharding.py`). An MoE decoder with `router_aux_coef`
     > 0 adds that times the router's load-balancing loss (the mean over the
     layers), reported as "moe_aux" ("loss" is then the sum).
     `resampler_generator` (the JAX `rng`) turns masked_drop on."""
@@ -268,11 +270,17 @@ def loss_fn(
         hidden = hidden[:, :-1]
         safe_labels, mask = _shifted(batch)
     total = _chunked_ce(model, cfg, hidden, safe_labels, mask, chunk)
-    count = mask.sum().clamp_min(1)
+    # Under the training mesh a rank holds part of the batch: its summed loss
+    # over the GLOBAL token count, so the ranks' gradients sum to the
+    # one-device step's (the identity outside a mesh).
+    mg = sharding.mesh_of(model)
+    count = sharding.batch_all_reduce(mask.sum(), mg).clamp_min(1)
     loss = total / count
+    reported = sharding.batch_all_reduce(total.detach(), mg) / count
     if moe_aux:
         loss = loss + cfg.text.router_aux_coef * out[2]
-    metrics = {"loss": loss.detach(), "tokens": count}
+        reported = reported + cfg.text.router_aux_coef * out[2].detach()
+    metrics = {"loss": reported, "tokens": count}
     if moe_aux:
         metrics["moe_aux"] = out[2].detach()
     return loss, metrics

@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from radvlm_tpu_torch.config import SigLIPConfig
 from radvlm_tpu_torch.models.layers import Linear, empty_param, fuse_linears
 from radvlm_tpu_torch.ops.attention import layer_norm, mha
+from radvlm_tpu_torch.parallel import sharding
 
 
 # Module attribute -> path in the JAX package's parameter tree, for a tower
@@ -48,6 +49,12 @@ class SigLIPLayer(nn.Module):
         self.fc2 = Linear.empty(f, d, True, **kw)
 
     def forward(self, x: torch.Tensor, cfg: SigLIPConfig, attn_impl: str = "auto"):
+        # A layer sharded over fsdp (parallel/sharding.py) gathers its
+        # parameters for the call.
+        with sharding.unit_scope(self):
+            return self._forward(x, cfg, attn_impl)
+
+    def _forward(self, x: torch.Tensor, cfg: SigLIPConfig, attn_impl: str):
         eps = cfg.layer_norm_eps
         b, s, d = x.shape
         h, hd = cfg.num_heads, cfg.head_dim

@@ -151,7 +151,8 @@ def mha(
     `flash_eligible` holds, "xla" forces the plain path (the name is the JAX
     package's). "ring" runs sequence-parallel ring attention over the group
     registered with `parallel.ring.enable_ring_attention` (causal
-    self-attention on this rank's sequence shard, no window, no ALiBi).
+    self-attention on this rank's sequence shard, no window, no ALiBi;
+    differentiable: the training step's sequence parallelism).
     Where q, k or v needs a gradient the kernel route is K2 with the lse
     forward and K7 / K8 backward, the tower's calls included (K1 serves them
     only without a gradient); the plain route differentiates through
@@ -160,8 +161,6 @@ def mha(
     if impl == "ring":
         from radvlm_tpu_torch.parallel.ring import ring_attention_sharded
 
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError("the ring attention backward is not ported (ROADMAP M12)")
         if not (causal and k.shape[1] == q.shape[1]):
             raise ValueError("ring attention is for causal self-attention (the sequence-"
                              "sharded prefill)")

@@ -9,9 +9,13 @@ loop (same arguments, same requests, same host decisions) over its shard:
 - attn q/k/v and mlp gate/up: column-parallel (output rows sliced: heads and
   ffn channels), with their biases and per-output-channel int8 scales;
 - attn o and mlp down: row-parallel (input columns sliced). Their products
-  are partial sums, reduced by ONE all_reduce per site (`maybe_all_reduce`,
+  are partial sums, reduced by ONE all_reduce per site (`reduce_from`,
   called from `qwen2._finish_block`), so activations are replicated at block
-  boundaries and sharded by heads inside. W8A8 on a row-parallel layer
+  boundaries and sharded by heads inside. Under a gradient (training,
+  `parallel/sharding.py`) the pair is differentiable, Megatron's f / g:
+  `copy_to` at the column-parallel input (identity forward, all_reduce
+  backward) and `reduce_from` at the row-parallel output (all_reduce
+  forward, identity backward). W8A8 on a row-parallel layer
   quantizes the rank's LOCAL K slice, as the JAX body does;
 - embeddings, lm_head, norms, vision tower, projector: replicated. The
   hidden state is bit-identical on every rank after each all_reduce, so
@@ -67,14 +71,66 @@ def active(group: Optional[dist.ProcessGroup]):
         _TP_GROUP.reset(token)
 
 
-def maybe_all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """Sum a row-parallel product's partials over the tp group under
-    `active` (in place); the identity outside it."""
-    group = _TP_GROUP.get()
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, all_reduce backward: where a replicated activation
+    enters rank-local work (a column-parallel projection, this rank's
+    experts), the ranks' partial input gradients sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """all_reduce forward, identity backward: a row-parallel product's
+    partial sums (or this rank's experts' share) become the replicated
+    result; every rank's gradient of it is already the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """`_CopyTo` over `group` where x takes a gradient; x itself otherwise."""
+    if group is None or not _differentiable(x):
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """Sum x over `group`: `_ReduceFrom` where x takes a gradient, an in-place
+    all_reduce otherwise (serving)."""
     if group is None:
         return x
+    if _differentiable(x):
+        return _ReduceFrom.apply(x, group)
     dist.all_reduce(x, group=group)
     return x
+
+
+def maybe_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Sum a row-parallel product's partials over the tp group under
+    `active` (`reduce_from`: in place without a gradient); the identity
+    outside it."""
+    return reduce_from(x, _TP_GROUP.get())
 
 
 def local_text_cfg(cfg: Qwen2Config, tp: int) -> Qwen2Config:

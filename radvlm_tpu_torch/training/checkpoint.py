@@ -14,6 +14,14 @@ does not read them. It writes its own: `<dir>/step_<N>/state.safetensors`
 - in `meta.json`: the step, the optimizer's update count and its position
   inside an accumulation window, and which tensors are bf16.
 
+Under a mesh (`state.mesh`) every rank writes its own
+`state.rank<R>.safetensors`: its ZeRO-3 slices under their unit keys
+(`params/<unit>`), the parameters it holds whole, and its optimizer state;
+rank 0 writes `meta.json` once every rank has written (the mesh's sizes
+among it). Such a step restores under the same mesh only, and
+`read_params` refuses it: gather the model (`sharding.full_parameters`) to
+export it.
+
 A step directory is complete once `meta.json` exists (written last, by
 rename). `data_state.json` beside the step directories is the mid-epoch
 data position with the JAX package's fields (step, epoch, batch_in_epoch):
@@ -29,8 +37,10 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from radvlm_tpu_torch.models import convert, radvlm, safetensors_io
+from radvlm_tpu_torch.parallel import sharding
 from radvlm_tpu_torch.models.quant_io import _flatten_tree, _unflatten_tree
 from radvlm_tpu_torch.training.lora import adapter_parameters
 
@@ -67,8 +77,21 @@ class CheckpointManager:
 
 def _param_tensors(params: Any) -> Dict[str, torch.Tensor]:
     if isinstance(params, radvlm.RadVLM):
+        sm = sharding.sharded(params)
+        if sm is not None:
+            out = {u.key: u.shard.detach() for u in sm.units}
+            out.update({n: p.detach() for n, p in sm.whole.items()})
+            return out
         return _flatten_tree(convert.radvlm_to_tree(params))
     return {k: v.detach() for k, v in adapter_parameters(params).items()}
+
+
+def _state_file(state) -> str:
+    return _STATE if state.mesh is None else f"state.rank{dist.get_rank()}.safetensors"
+
+
+def _mesh_meta(state) -> Optional[Dict[str, int]]:
+    return None if state.mesh is None else dict(state.mesh.size)
 
 
 def save_state(manager: CheckpointManager, step: int, state, *, force: bool = False) -> bool:
@@ -87,23 +110,32 @@ def save_state(manager: CheckpointManager, step: int, state, *, force: bool = Fa
             flat[k] = v.view(torch.uint16)
     path = manager._step_dir(step)
     os.makedirs(path, exist_ok=True)
-    safetensors_io.write_file(flat, os.path.join(path, _STATE))
-    meta = {"step": int(step), "bfloat16": bf16, **state.opt_state.state_scalars()}
-    tmp = os.path.join(path, _META + ".tmp")
-    with open(tmp, "w") as f:
-        json.dump(meta, f)
-    os.replace(tmp, os.path.join(path, _META))
-    for old in manager.all_steps()[:-manager.max_to_keep]:
-        shutil.rmtree(manager._step_dir(old), ignore_errors=True)
+    safetensors_io.write_file(flat, os.path.join(path, _state_file(state)))
+    if state.mesh is not None:
+        dist.barrier()  # every rank's file is written before meta.json
+    if state.mesh is None or dist.get_rank() == 0:
+        meta = {"step": int(step), "bfloat16": bf16, "mesh": _mesh_meta(state),
+                **state.opt_state.state_scalars()}
+        tmp = os.path.join(path, _META + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, os.path.join(path, _META))
+        for old in manager.all_steps()[:-manager.max_to_keep]:
+            shutil.rmtree(manager._step_dir(old), ignore_errors=True)
+    if state.mesh is not None:
+        dist.barrier()
     return True
 
 
-def _read_step(manager: CheckpointManager, step: int):
+def _read_step(manager: CheckpointManager, step: int, state_file: str = _STATE):
     """(every saved tensor, bf16 ones as bf16, memory-mapped; meta.json)."""
     path = manager._step_dir(step)
     with open(os.path.join(path, _META)) as f:
         meta = json.load(f)
-    flat = safetensors_io.read_file(os.path.join(path, _STATE))
+    if state_file == _STATE and meta.get("mesh"):
+        raise ValueError(f"step {step} under {manager.directory} was saved over the mesh "
+                         f"{meta['mesh']}: restore it under that mesh")
+    flat = safetensors_io.read_file(os.path.join(path, state_file))
     for k in meta.get("bfloat16", ()):
         flat[k] = flat[k].view(torch.bfloat16)
     return flat, meta
@@ -128,9 +160,19 @@ def restore_state(manager: CheckpointManager, step: int, state):
     """Load step `step` into `state` in place (its parameters, optimizer
     state and step) and return it. `state` is a freshly set-up train state
     of the same configuration: it gives the shapes, dtypes and devices."""
-    flat, meta = _read_step(manager, step)
+    flat, meta = _read_step(manager, step, _state_file(state))
+    if meta.get("mesh") != _mesh_meta(state):
+        raise ValueError(f"step {step} was saved over the mesh {meta.get('mesh')}, this run's "
+                         f"is {_mesh_meta(state)}")
     params = _saved_params(flat)
-    if isinstance(state.params, radvlm.RadVLM):
+    if isinstance(state.params, radvlm.RadVLM) and state.mesh is not None:
+        mine = _param_tensors(state.params)
+        if set(mine) != set(params):
+            raise ValueError(f"sharded tensors differ: {sorted(set(mine) ^ set(params))[:5]}")
+        with torch.no_grad():
+            for k, t in mine.items():
+                t.copy_(params[k].to(t.device))
+    elif isinstance(state.params, radvlm.RadVLM):
         convert.load_tree(state.params, _unflatten_tree(params))
     else:
         mine = adapter_parameters(state.params)

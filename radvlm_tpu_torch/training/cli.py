@@ -3,8 +3,15 @@
     python -m radvlm_tpu_torch.training.cli --data-path all_train.json \\
         --image-folder <dir> --hf-checkpoint <hf dir> --model-size 0.5b ...
 
-Runs on the card; `--device cpu` runs on the CPU. One device: `--mesh-*`
-other than 1 / -1, `--mesh-stage` and `--multihost` raise (ROADMAP M12).
+Runs on the card; `--device cpu` runs on the CPU. Over a mesh, one process
+per card started by torchrun:
+
+    torchrun --nproc-per-node 8 -m radvlm_tpu_torch.training.cli --multihost \
+        --mesh-fsdp 4 --mesh-tensor 2 ...
+
+(`--mesh-*` sizes as in the JAX package; a size above one in a single
+process without torchrun raises `mesh.make_mesh`'s ValueError.)
+`--mesh-stage` above 1 raises: pipeline parallelism is ROADMAP M12.
 """
 
 from __future__ import annotations
@@ -12,6 +19,8 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+
+from radvlm_tpu_torch.training.loop import add_mesh_args, mesh_shape, start_multihost
 
 
 def parse_args(argv=None):
@@ -45,11 +54,7 @@ def parse_args(argv=None):
     p.add_argument("--save-steps", type=int, default=200)
     p.add_argument("--log-every", type=int, default=10)
     # mesh
-    p.add_argument("--mesh-data", type=int, default=1)
-    p.add_argument("--mesh-fsdp", type=int, default=-1)
-    p.add_argument("--mesh-seq", type=int, default=1,
-                   help=">1 enables ring-attention sequence parallelism")
-    p.add_argument("--mesh-tensor", type=int, default=1)
+    add_mesh_args(p)
     p.add_argument("--mesh-stage", type=int, default=1,
                    help="pipeline stages (GPipe over the `stage` axis)")
     p.add_argument("--pp-microbatches", type=int, default=4)
@@ -60,7 +65,6 @@ def parse_args(argv=None):
     p.add_argument("--buckets", default=None,
                    help="length buckets as 'max_len:max_tiles,...' (e.g. "
                         "'2048:5,4096:6'); default = loader.DEFAULT_BUCKETS")
-    p.add_argument("--multihost", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     # LoRA (reference config-5 style adapter finetune)
     p.add_argument("--lora-rank", type=int, default=0)
@@ -81,14 +85,14 @@ def parse_args(argv=None):
 
 def main(argv=None, tokenizer=None):
     """`tokenizer` (an object with `encode`) replaces the HF tokenizer that
-    `--tokenizer` / `--hf-checkpoint` name: tests pass their own."""
+    `--tokenizer` / `--hf-checkpoint` name: tests pass their own. Returns
+    the final TrainState."""
     args = parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    if args.multihost:
-        raise NotImplementedError("--multihost: multi-host training is not ported (ROADMAP M12)")
+    device = start_multihost(args)
 
     from radvlm_tpu_torch import config as cfglib
     from radvlm_tpu_torch.eval.harness import HFTokenizer
@@ -129,13 +133,7 @@ def main(argv=None, tokenizer=None):
         ),
         data_path=args.data_path,
         image_root=args.image_folder,
-        mesh_shape={
-            "data": args.mesh_data,
-            "fsdp": args.mesh_fsdp,
-            "seq": args.mesh_seq,
-            "tensor": args.mesh_tensor,
-            "stage": args.mesh_stage,
-        },
+        mesh_shape=mesh_shape(args),
         micro_batch_size=args.micro_batch_size,
         num_epochs=args.num_epochs,
         max_steps=args.max_steps,
@@ -150,12 +148,13 @@ def main(argv=None, tokenizer=None):
             args.pos_skipping_range if args.use_pos_skipping else 0
         ),
         pack_factor=args.pack_factor,
-        device=args.device,
+        device=device,
         **extra,
     )
     state = train(run, tokenizer.encode if tokenizer is not None else tok.encode,
                   hf_checkpoint=args.hf_checkpoint)
     print(f"training finished at step {int(state.step)}")
+    return state
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """DPO training: direct preference optimization over chosen / rejected pairs
-(counterpart of `radvlm_tpu/training/dpo.py`, on one card).
+(counterpart of `radvlm_tpu/training/dpo.py`), on one card or over a mesh.
 
     loss = -log sigmoid(beta * [(logp_c - ref_logp_c) - (logp_r - ref_logp_r)])
 
@@ -13,13 +13,16 @@ starting policy (`copy.deepcopy`, no gradient): shared storage would move it
 with every update. Its two passes run under `torch.no_grad()` (the JAX
 package's `stop_gradient`: no activations kept) and, like the policy's,
 under the train step's bf16 autocast on the card, so a policy equal to its
-reference gives a loss of exactly ln 2. The mesh has no counterpart on one
-card: a mesh axis other than 1 / -1 raises (ROADMAP M12).
+reference gives a loss of exactly ln 2.
+
+Over a mesh (data, fsdp, tensor, expert; `training.train_step.shard_model`)
+each rank holds its pairs of the batch and the loss is the mean over the
+GLOBAL pairs (`sharding.global_mean`); the reference is sharded alike. A
+seq > 1 mesh raises, as in the JAX package: DPO wires no ring attention.
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import logging
@@ -35,10 +38,11 @@ from radvlm_tpu_torch.data.loader import Bucket, LlavaJsonDataset, bucketed_batc
 from radvlm_tpu_torch.device import resolve
 from radvlm_tpu_torch.eval.harness import batch_to_device
 from radvlm_tpu_torch.models import multimodal, radvlm
+from radvlm_tpu_torch.parallel import sharding
 from radvlm_tpu_torch.training import checkpoint as ckpt_lib
 from radvlm_tpu_torch.training import loop
 from radvlm_tpu_torch.training.optimizer import Optimizer, make_optimizer
-from radvlm_tpu_torch.training.train_step import TrainState, _autocast
+from radvlm_tpu_torch.training.train_step import TrainState, _autocast, shard_model
 
 log = logging.getLogger(__name__)
 
@@ -66,6 +70,7 @@ def dpo_loss(model: radvlm.RadVLM, ref_model: radvlm.RadVLM, cfg: RadVLMConfig, 
     """The DPO loss (mean over the pairs) and its metrics: loss,
     reward_accuracy, chosen_reward, rejected_reward, reward_margin."""
     kw = dict(remat=remat, attn_impl=attn_impl)
+    mg = sharding.mesh_of(model)
     pol_c = sequence_logprob(model, cfg, chosen, **kw)
     pol_r = sequence_logprob(model, cfg, rejected, **kw)
     with torch.no_grad():
@@ -73,14 +78,15 @@ def dpo_loss(model: radvlm.RadVLM, ref_model: radvlm.RadVLM, cfg: RadVLMConfig, 
         ref_r = sequence_logprob(ref_model, cfg, rejected, **kw)
     logits = dpo.beta * ((pol_c - ref_c) - (pol_r - ref_r))
     ls = dpo.label_smoothing
-    loss = -((1 - ls) * F.logsigmoid(logits) + ls * F.logsigmoid(-logits)).mean()
+    loss = sharding.global_mean(
+        -((1 - ls) * F.logsigmoid(logits) + ls * F.logsigmoid(-logits)), mg)
     dc, dr = (pol_c - ref_c).detach(), (pol_r - ref_r).detach()
     metrics = {
-        "loss": loss.detach(),
-        "reward_accuracy": (dc > dr).float().mean(),
-        "chosen_reward": (dpo.beta * dc).mean(),
-        "rejected_reward": (dpo.beta * dr).mean(),
-        "reward_margin": (dpo.beta * (dc - dr)).mean(),
+        "loss": sharding.batch_all_reduce(loss.detach(), mg),
+        "reward_accuracy": sharding.batch_mean((dc > dr).float(), mg),
+        "chosen_reward": sharding.batch_mean(dpo.beta * dc, mg),
+        "rejected_reward": sharding.batch_mean(dpo.beta * dr, mg),
+        "reward_margin": sharding.batch_mean(dpo.beta * (dc - dr), mg),
     }
     return loss, metrics
 
@@ -93,10 +99,11 @@ def make_dpo_step(cfg: RadVLMConfig, dpo: DPOConfig, opt: Optimizer, *, remat: b
 
     def step_fn(state: TrainState, ref_model: radvlm.RadVLM, chosen: Batch, rejected: Batch):
         model = state.params
-        with _autocast(model.device):
-            loss, metrics = dpo_loss(model, ref_model, cfg, dpo, chosen, rejected, remat=remat,
-                                     attn_impl=attn_impl)
-        loss.backward()
+        with sharding.model_scope(model), sharding.model_scope(ref_model):
+            with _autocast(model.device):
+                loss, metrics = dpo_loss(model, ref_model, cfg, dpo, chosen, rejected,
+                                         remat=remat, attn_impl=attn_impl)
+            loss.backward()
         metrics["grad_norm"] = opt.step()
         state.step += 1
         return state, metrics
@@ -106,12 +113,30 @@ def make_dpo_step(cfg: RadVLMConfig, dpo: DPOConfig, opt: Optimizer, *, remat: b
 
 def frozen_copy(model: radvlm.RadVLM) -> radvlm.RadVLM:
     """A copy of `model` with storage of its own and no gradient: the frozen
-    reference of DPO and GRPO."""
-    ref = copy.deepcopy(model)
-    for p in ref.parameters():
-        p.requires_grad_(False)
-        p.grad = None
-    return ref
+    reference of DPO and GRPO (a sharded model's copy is sharded alike)."""
+    return sharding.frozen_copy(model)
+
+
+def setup_policy(run: loop.RunConfig, init_params: Optional[radvlm.RadVLM],
+                 hf_checkpoint: Optional[str]):
+    """(config, state, frozen reference, device) of a DPO / GRPO run: the
+    policy loaded as `loop.load_model` does, sharded over the run's mesh
+    (`loop.open_mesh`) where there is one, its optimizer, and the reference
+    copied from the starting point. A seq > 1 mesh raises, as in the JAX
+    package. The config is the rank's (tensor parallelism divides the
+    decoder's heads)."""
+    if (run.mesh_shape or {}).get("seq", 1) not in (1, -1):
+        raise ValueError("DPO and GRPO do not wire ring attention for a seq > 1 mesh (the SFT "
+                         "driver does); use a (data, fsdp, tensor, expert) mesh")
+    mesh = loop.open_mesh(run)
+    device = resolve(run.device)
+    model = loop.load_model(run, device, init_params, hf_checkpoint)
+    cfg, mg = run.model, None
+    if mesh is not None:
+        cfg, mg = shard_model(run.model, run.train, model, mesh)
+    opt = make_optimizer(model, run.train)
+    state = TrainState(step=0, params=model, opt_state=opt, mesh=mg)
+    return cfg, state, frozen_copy(model), device
 
 
 def dpo_cell_to_batches(cell: Dict[str, Any]) -> Tuple[Dict, Dict]:
@@ -203,14 +228,10 @@ def train_dpo(
     from `hf_checkpoint` or a random init seeded with `run.seed`. The
     reference is copied before a resume restores the policy, so it stays
     the starting point. Returns the final TrainState."""
-    loop.check_mesh(run.mesh_shape)
-    device = resolve(run.device)
     dpo_cfg = dpo_cfg or DPOConfig()
-    model = loop.load_model(run, device, init_params, hf_checkpoint)
-    opt = make_optimizer(model, run.train)
-    state = TrainState(step=0, params=model, opt_state=opt)
-    ref_model = frozen_copy(model)
-    step_fn = make_dpo_step(run.model, dpo_cfg, opt, remat=run.remat, attn_impl=run.attn_impl)
+    cfg, state, ref_model, device = setup_policy(run, init_params, hf_checkpoint)
+    step_fn = make_dpo_step(cfg, dpo_cfg, state.opt_state, remat=run.remat,
+                            attn_impl=run.attn_impl)
     manager, state, start_epoch, skip_batches = loop.open_checkpoints(run, state)
 
     with open(run.data_path) as f:
@@ -229,7 +250,8 @@ def train_dpo(
         for b, idxs in plan[batch_in_epoch:]:
             if run.max_steps is not None and step >= run.max_steps:
                 break
-            cb, rb = _build_pair_batch(dataset, idxs, run.buckets[b])
+            cb, rb = (loop.rank_batch(x, state.mesh, run.attn_impl)
+                      for x in _build_pair_batch(dataset, idxs, run.buckets[b]))
             state, metrics = step_fn(state, ref_model, batch_to_device(cb, device),
                                      batch_to_device(rb, device))
             step += 1
@@ -238,14 +260,15 @@ def train_dpo(
                 m = {k: float(v) for k, v in metrics.items()}  # waits for the card
                 m["sec_per_step"] = (time.perf_counter() - t_last) / run.log_every
                 t_last = time.perf_counter()
-                log.info("dpo step %d: %s", step, m)
+                if loop.is_main():
+                    log.info("dpo step %d: %s", step, m)
                 if metrics_callback:
                     metrics_callback(step, m)
-            if manager and ckpt_lib.save_state(manager, step, state):
+            if manager and ckpt_lib.save_state(manager, step, state) and loop.is_main():
                 ckpt_lib.save_data_state(run.checkpoint_dir, step, epoch, batch_in_epoch)
         if run.max_steps is not None and step >= run.max_steps:
             break
 
-    if manager and ckpt_lib.save_state(manager, step, state, force=True):
+    if manager and ckpt_lib.save_state(manager, step, state, force=True) and loop.is_main():
         ckpt_lib.save_data_state(run.checkpoint_dir, step, epoch, batch_in_epoch)
     return state

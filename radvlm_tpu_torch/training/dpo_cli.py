@@ -6,7 +6,8 @@ same flags plus `--device`).
 
 `--data-path` is a preference json: [{"prompt", "chosen", "rejected",
 "image"?}, ...]. Runs on the card; `--device cpu` runs on the CPU. One
-device: `--mesh-*` other than 1 / -1 and `--multihost` raise (ROADMAP M12).
+device, or a mesh with `--multihost` under torchrun (`training/cli.py`);
+`--mesh-seq` above 1 raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+
+from radvlm_tpu_torch.training.loop import add_mesh_args, mesh_shape, start_multihost
 
 
 def parse_args(argv=None):
@@ -38,10 +41,7 @@ def parse_args(argv=None):
     p.add_argument("--total-steps", type=int, default=1000)
     p.add_argument("--save-steps", type=int, default=200)
     p.add_argument("--log-every", type=int, default=10)
-    p.add_argument("--mesh-data", type=int, default=1)
-    p.add_argument("--mesh-fsdp", type=int, default=-1)
-    p.add_argument("--mesh-tensor", type=int, default=1)
-    p.add_argument("--multihost", action="store_true")
+    add_mesh_args(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda:0 by default; cpu runs on the CPU")
@@ -57,8 +57,7 @@ def main(argv=None, tokenizer=None):
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    if args.multihost:
-        raise NotImplementedError("--multihost: multi-host training is not ported (ROADMAP M12)")
+    device = start_multihost(args)
 
     from radvlm_tpu_torch import config as cfglib
     from radvlm_tpu_torch.eval.harness import HFTokenizer
@@ -84,11 +83,7 @@ def main(argv=None, tokenizer=None):
         ),
         data_path=args.data_path,
         image_root=args.image_folder,
-        mesh_shape={
-            "data": args.mesh_data,
-            "fsdp": args.mesh_fsdp,
-            "tensor": args.mesh_tensor,
-        },
+        mesh_shape=mesh_shape(args),
         micro_batch_size=args.micro_batch_size,
         num_epochs=args.num_epochs,
         max_steps=args.max_steps,
@@ -96,7 +91,7 @@ def main(argv=None, tokenizer=None):
         checkpoint_dir=args.output_dir,
         save_steps=args.save_steps,
         seed=args.seed,
-        device=args.device,
+        device=device,
     )
     state = train_dpo(
         run, tok.encode,

@@ -1,5 +1,5 @@
 """GRPO: group-relative policy optimization over serving-engine rollouts
-(counterpart of `radvlm_tpu/training/grpo.py`, on one card).
+(counterpart of `radvlm_tpu/training/grpo.py`), on one card or over a mesh.
 
 - **Rollouts** run through the continuous serving engine
   (`generation/continuous.ContinuousBatcher`): all `group_size` samples of a
@@ -20,8 +20,13 @@
   reference (a real copy of the starting policy, scored under
   `torch.no_grad()`).
 
-The mesh has no counterpart on one card: a mesh axis other than 1 / -1
-raises (ROADMAP M12).
+Over a mesh (data, fsdp, tensor, expert; `dpo.setup_policy`) the policy and
+the reference are sharded, and every rank runs its own rollout engine over a
+whole, gathered copy of the policy (`sharding.full_parameters`), as the JAX
+package keeps one unsharded copy for its engine: the engines sample the
+same tokens, and each rank updates on its rows of the wave (their
+advantages cut alike), the loss a mean over the GLOBAL rows. A seq > 1 mesh
+raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,7 +45,6 @@ import torch
 from radvlm_tpu_torch.config import IGNORE_INDEX, RadVLMConfig
 from radvlm_tpu_torch.data.datasets import CHEXPERT_PATHOLOGIES
 from radvlm_tpu_torch.data.loader import load_image
-from radvlm_tpu_torch.device import resolve
 from radvlm_tpu_torch.eval.harness import batch_to_device
 from radvlm_tpu_torch.eval.metrics.boxes import box_iou, extract_boxes
 from radvlm_tpu_torch.eval.metrics.classification import predicted_labels_from_text
@@ -48,10 +52,11 @@ from radvlm_tpu_torch.eval.metrics.nlg import bleu4, cider_d_rl, corpus_doc_freq
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
 from radvlm_tpu_torch.generation.engine import GenerationConfig
 from radvlm_tpu_torch.models import multimodal, radvlm
+from radvlm_tpu_torch.parallel import sharding
 from radvlm_tpu_torch.training import checkpoint as ckpt_lib
 from radvlm_tpu_torch.training import loop
-from radvlm_tpu_torch.training.dpo import frozen_copy
-from radvlm_tpu_torch.training.optimizer import Optimizer, make_optimizer
+from radvlm_tpu_torch.training.dpo import frozen_copy, setup_policy  # noqa: F401 (re-exported)
+from radvlm_tpu_torch.training.optimizer import Optimizer
 from radvlm_tpu_torch.training.train_step import TrainState, _autocast
 
 log = logging.getLogger(__name__)
@@ -204,14 +209,17 @@ def grpo_loss(model: radvlm.RadVLM, ref_model: radvlm.RadVLM, cfg: RadVLMConfig,
     per_tok = pg + gc.kl_beta * kl
     # GRPO normalizes per sequence length, then means over the group batch.
     seq_loss = (per_tok * mask).sum(dim=-1) / mask.sum(dim=-1).clamp_min(1.0)
-    loss = seq_loss.mean()
-    n = mask.sum().clamp_min(1.0)
+    mg = sharding.mesh_of(model)
+    loss = sharding.global_mean(seq_loss, mg)
     with torch.no_grad():
+        total = sharding.batch_all_reduce(mask.sum(), mg)
+        n = total.clamp_min(1.0)
         metrics = {
-            "loss": loss.detach(),
-            "kl": (kl * mask).sum() / n,
-            "clip_frac": (((ratio - 1.0).abs() > gc.clip_eps).float() * mask).sum() / n,
-            "completion_tokens": mask.sum() / mask.shape[0],
+            "loss": sharding.batch_all_reduce(loss.detach(), mg),
+            "kl": sharding.batch_all_reduce((kl * mask).sum(), mg) / n,
+            "clip_frac": sharding.batch_all_reduce(
+                (((ratio - 1.0).abs() > gc.clip_eps).float() * mask).sum(), mg) / n,
+            "completion_tokens": total / (mask.shape[0] * sharding.batch_size(mg)),
         }
     return loss, metrics
 
@@ -226,10 +234,11 @@ def make_grpo_step(cfg: RadVLMConfig, gc: GRPOConfig, opt: Optimizer, *, remat: 
     def step_fn(state: TrainState, ref_model: radvlm.RadVLM, batch: Batch,
                 advantages: torch.Tensor, old_logp: Optional[torch.Tensor]):
         model = state.params
-        with _autocast(model.device):
-            loss, metrics = grpo_loss(model, ref_model, cfg, gc, batch, advantages, old_logp,
-                                      remat=remat, attn_impl=attn_impl)
-        loss.backward()
+        with sharding.model_scope(model), sharding.model_scope(ref_model):
+            with _autocast(model.device):
+                loss, metrics = grpo_loss(model, ref_model, cfg, gc, batch, advantages,
+                                          old_logp, remat=remat, attn_impl=attn_impl)
+            loss.backward()
         metrics["grad_norm"] = opt.step()
         state.step += 1
         return state, metrics
@@ -244,7 +253,7 @@ def make_score_fn(cfg: RadVLMConfig, *, remat: bool = True, attn_impl: str = "au
 
     @torch.no_grad()
     def score(model: radvlm.RadVLM, batch: Batch) -> torch.Tensor:
-        with _autocast(model.device):
+        with sharding.model_scope(model), _autocast(model.device):
             tok, _ = radvlm.token_logprobs(model, cfg, batch, remat=remat, attn_impl=attn_impl)
         return tok
 
@@ -261,10 +270,12 @@ _FUSED = {"qkv": ("q", "k", "v"), "gateup": ("gate", "up")}
 
 def rollout_model(policy: radvlm.RadVLM, cfg: RadVLMConfig) -> radvlm.RadVLM:
     """The rollout engine's own copy of `policy`, fused for inference: bf16
-    on the card (the attention kernels take bf16 q / k / v), f32 elsewhere."""
+    on the card (the attention kernels take bf16 q / k / v), f32 elsewhere.
+    A sharded policy is gathered whole (`sharding.full_parameters`); `cfg`
+    is the global config."""
     dtype = torch.bfloat16 if policy.device.type == "cuda" else torch.float32
     model = radvlm.RadVLM(cfg, device=policy.device, dtype=dtype)
-    model.load_state_dict(policy.state_dict())
+    model.load_state_dict(sharding.full_parameters(policy))
     model.requires_grad_(False)
     return radvlm.fuse_for_inference(model, cfg)
 
@@ -272,8 +283,9 @@ def rollout_model(policy: radvlm.RadVLM, cfg: RadVLMConfig) -> radvlm.RadVLM:
 @torch.no_grad()
 def sync_rollout_model(engine_model: radvlm.RadVLM, policy: radvlm.RadVLM) -> None:
     """Write the policy's parameters into the engine's copy, on the device,
-    cast to its dtype; a fused weight gets each part at its rows."""
-    src = dict(policy.named_parameters())
+    cast to its dtype; a fused weight gets each part at its rows (a sharded
+    policy gathered whole first)."""
+    src = sharding.full_parameters(policy)
     for name, dst in engine_model.named_parameters():
         if name in src:
             dst.copy_(src[name])
@@ -416,15 +428,11 @@ def train_grpo(
     (`first_kl`, `first_clip_frac`), the rewards' mean and std, and the
     wave's seconds: rollout_s, reward_s, update_s, sync_s, sec_per_wave,
     and rollout_tokens_per_sec (emitted tokens over rollout_s)."""
-    loop.check_mesh(run.mesh_shape)
-    device = resolve(run.device)
     gc = grpo_cfg or GRPOConfig()
-    model = loop.load_model(run, device, init_params, hf_checkpoint)
-    opt = make_optimizer(model, run.train)
-    state = TrainState(step=0, params=model, opt_state=opt)
-    ref_model = frozen_copy(model)
-    step_fn = make_grpo_step(run.model, gc, opt, remat=run.remat, attn_impl=run.attn_impl)
-    score_fn = make_score_fn(run.model, remat=run.remat, attn_impl=run.attn_impl) \
+    cfg, state, ref_model, device = setup_policy(run, init_params, hf_checkpoint)
+    model = state.params
+    step_fn = make_grpo_step(cfg, gc, state.opt_state, remat=run.remat, attn_impl=run.attn_impl)
+    score_fn = make_score_fn(cfg, remat=run.remat, attn_impl=run.attn_impl) \
         if gc.mu > 1 else None
     manager, state, _, _ = loop.open_checkpoints(run, state)
 
@@ -449,9 +457,10 @@ def train_grpo(
         seconds, tokens0 = {}, engine.host_stats["tokens"]
         rollouts, rewards = rollout_wave(engine, wave, run.model, gc, tokenizer_decode, seconds)
         t2 = time.perf_counter()
-        adv = torch.as_tensor(group_advantages(rewards, gc.group_size, gc.adv_eps), device=device)
-        batch = batch_to_device(rollouts_to_batch(rollouts, run.model, pad_len=train_pad_len,
-                                                  pad_tiles=pad_tiles), device)
+        host = rollouts_to_batch(rollouts, run.model, pad_len=train_pad_len, pad_tiles=pad_tiles)
+        host["advantages"] = group_advantages(rewards, gc.group_size, gc.adv_eps)
+        batch = batch_to_device(loop.rank_batch(host, state.mesh, run.attn_impl), device)
+        adv = batch.pop("advantages")
         old_logp = score_fn(model, batch) if score_fn else None
         first = None
         for _ in range(max(1, gc.mu)):
@@ -472,7 +481,8 @@ def train_grpo(
                  rollout_tokens_per_sec=(engine.host_stats["tokens"] - tokens0)
                  / seconds["rollout_s"])
         t_last = t4
-        log.info("grpo step %d: %s", step, m)
+        if loop.is_main():
+            log.info("grpo step %d: %s", step, m)
         if metrics_callback:
             metrics_callback(step, m)
         if manager:

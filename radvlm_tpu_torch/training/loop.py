@@ -1,23 +1,32 @@
 """SFT training loop: data -> train step -> checkpoints -> logs
-(counterpart of `radvlm_tpu/training/loop.py`, on one card).
+(counterpart of `radvlm_tpu/training/loop.py`), on one card or over a mesh.
 
 Loads or initialises f32 parameters (an HF directory, a given model or a
 seeded random init), freezes per `mm_tunable_parts` (or attaches LoRA
 adapters over a dense or int8-quantized frozen base), streams bucketed
 batches from the `PrefetchLoader`, runs the train step and checkpoints with
-auto-resume from the latest step. Meshes, ring attention and pipeline
-stages are not ported (ROADMAP M12): a mesh shape other than one device
-raises.
+auto-resume from the latest step.
+
+A mesh shape with an axis above one (or a process group made already, a
+world of one included) runs over the mesh (`parallel/mesh.py`,
+`parallel/sharding.py`): every rank loads the same global batch and keeps
+its part (`sharding.batch_shardings`); with `seq` > 1 (or attn_impl "ring")
+the decoder's attention is ring attention over `seq`, the batch
+zigzag-permuted with its labels shifted first (`ring.zigzag_shift_batch`).
+Only rank 0 logs and writes the data state. Pipeline stages are not ported
+(ROADMAP M12): `stage` > 1 raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from radvlm_tpu_torch.config import RadVLMConfig
 from radvlm_tpu_torch.data.export import load_mixture
@@ -25,6 +34,8 @@ from radvlm_tpu_torch.data.loader import DEFAULT_BUCKETS, LlavaJsonDataset, Pref
 from radvlm_tpu_torch.device import resolve
 from radvlm_tpu_torch.eval.harness import batch_to_device
 from radvlm_tpu_torch.models import convert, radvlm
+from radvlm_tpu_torch.parallel import ring, sharding
+from radvlm_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from radvlm_tpu_torch.training import checkpoint as ckpt_lib
 from radvlm_tpu_torch.training import train_step as ts
 from radvlm_tpu_torch.training.optimizer import TrainConfig
@@ -38,7 +49,8 @@ class RunConfig:
     train: TrainConfig
     data_path: str  # llava json / brace glob / yaml mixture
     image_root: str
-    mesh_shape: Optional[Dict[str, int]] = None  # only one device (1 / -1 on every axis)
+    # Axis sizes (parallel.mesh.AXES; -1 takes the rest); None: one device.
+    mesh_shape: Optional[Dict[str, int]] = None
     micro_batch_size: int = 8  # rows per micro-step
     max_steps: Optional[int] = None  # micro-steps
     num_epochs: int = 1
@@ -63,17 +75,87 @@ class RunConfig:
     # Positional-skipping augmentation: 0 = off; > 0 = per-sample random
     # left / right position offsets in [0, range].
     pos_skip_range: int = 0
+    # Ring-attention schedule when the mesh has seq > 1: "zigzag" (load-
+    # balanced, default) or "contiguous".
+    ring_schedule: str = "zigzag"
     # None: the card; "cpu" where the caller asks for it.
     device: Optional[str] = None
 
 
-def check_mesh(mesh_shape: Optional[Dict[str, int]]) -> None:
-    for axis, n in (mesh_shape or {}).items():
-        if n not in (1, -1):
-            raise NotImplementedError(
-                f"mesh axis {axis}={n}: meshes, ring attention and pipeline stages are not "
-                "ported (ROADMAP M12); the port trains on one card"
-            )
+def open_mesh(run: RunConfig):
+    """The run's `DeviceMesh`, or None for one device (`sharding.wants_mesh`).
+    A shape of more than one rank needs the process group made first
+    (torchrun and `mesh.init_distributed`); `make_mesh` raises otherwise."""
+    sharding.check_axes(run.mesh_shape)
+    if not sharding.wants_mesh(run.mesh_shape):
+        return None
+    return make_mesh(run.mesh_shape)
+
+
+def ring_route(run: RunConfig, mesh) -> str:
+    """The decoder's attention: "ring" over the mesh's seq group when seq > 1
+    or `run.attn_impl` asks for it (registered here), else run.attn_impl."""
+    if mesh is None or not (mesh["seq"].size() > 1 or run.attn_impl == "ring"):
+        return run.attn_impl
+    ring.enable_ring_attention(mesh, axis_name="seq", impl="flash", schedule=run.ring_schedule)
+    return "ring"
+
+
+def rank_batch(host_batch, mg: Optional[sharding.MeshGroups], attn_impl: str):
+    """This rank's part of a host batch (the whole batch on one device); a
+    ring run's batch is zigzag-permuted with its labels shifted first."""
+    if mg is None:
+        return host_batch
+    if attn_impl == "ring":
+        n = mg.size["seq"]
+        schedule = ring.get_ring_context()[2]
+        host_batch = (ring.zigzag_shift_batch(host_batch, n) if schedule == "zigzag"
+                      else ring.shift_labels(host_batch))
+    return sharding.batch_shardings(mg, host_batch)
+
+
+def is_main() -> bool:
+    """Rank 0 of the world (or no process group): the rank that logs."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def add_mesh_args(p) -> None:
+    """The drivers' mesh flags (the JAX package's, plus `--mesh-expert`)."""
+    p.add_argument("--mesh-data", type=int, default=1)
+    p.add_argument("--mesh-fsdp", type=int, default=-1)
+    p.add_argument("--mesh-seq", type=int, default=1,
+                   help=">1 enables ring-attention sequence parallelism (SFT only)")
+    p.add_argument("--mesh-tensor", type=int, default=1)
+    p.add_argument("--mesh-expert", type=int, default=1,
+                   help="expert parallelism over the MoE tables")
+    p.add_argument("--multihost", action="store_true",
+                   help="one process per card, started by torchrun")
+
+
+def mesh_shape(args) -> Dict[str, int]:
+    shape = {ax: getattr(args, f"mesh_{ax}") for ax in ("data", "fsdp", "seq", "tensor", "expert")}
+    if hasattr(args, "mesh_stage"):
+        shape["stage"] = args.mesh_stage
+    return shape
+
+
+def start_multihost(args) -> Optional[str]:
+    """`--multihost`: the default process group from torchrun's environment
+    (`mesh.init_distributed`), each rank on its card `cuda:<LOCAL_RANK>`
+    unless `--device` says otherwise; returns the device. Without torchrun's
+    environment it raises."""
+    if not args.multihost:
+        return args.device
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+               if k not in os.environ]
+    if missing:
+        raise ValueError(f"--multihost initialises from torchrun's environment; {missing} "
+                         "unset: launch with torchrun --nproc-per-node <cards> -m ...")
+    device = resolve(args.device or f"cuda:{os.environ.get('LOCAL_RANK', '0')}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    init_distributed(device=device)
+    return str(device)
 
 
 def load_model(run: RunConfig, device: torch.device, init_params: Optional[radvlm.RadVLM] = None,
@@ -127,9 +209,21 @@ def train(
 
     `init_params` is an unfused `RadVLM` on the run's device (f32 for full
     finetuning; it is trained in place), else the model comes from
-    `hf_checkpoint` or a random init seeded with `run.seed`."""
-    check_mesh(run.mesh_shape)
+    `hf_checkpoint` or a random init seeded with `run.seed`. Under a mesh
+    every rank builds the whole model and keeps its part."""
+    mesh = open_mesh(run)
     device = resolve(run.device)
+    attn_impl = ring_route(run, mesh)
+    try:
+        return _train(run, tokenize_fn, mesh, device, attn_impl, init_params, hf_checkpoint,
+                      metrics_callback)
+    finally:
+        if attn_impl == "ring":
+            ring.enable_ring_attention(None)
+
+
+def _train(run, tokenize_fn, mesh, device, attn_impl, init_params, hf_checkpoint,
+           metrics_callback):
     model = load_model(run, device, init_params, hf_checkpoint)
 
     lora_base = None
@@ -145,11 +239,11 @@ def train(
         lcfg = LoraConfig(rank=run.lora_rank, alpha=run.lora_alpha)
         state, lora_base, step_fn = ts.setup_lora_training(
             run.model, run.train, lcfg, model, seed=run.seed, remat=run.remat,
-            attn_impl=run.attn_impl,
+            attn_impl=attn_impl, mesh=mesh,
         )
     else:
         state, step_fn, _ = ts.setup_training(
-            run.model, run.train, model, remat=run.remat, attn_impl=run.attn_impl,
+            run.model, run.train, model, remat=run.remat, attn_impl=attn_impl, mesh=mesh,
         )
 
     manager, state, start_epoch, skip_batches = open_checkpoints(run, state)
@@ -183,7 +277,7 @@ def train(
         for host_batch in loader.epoch(epoch, skip=batch_in_epoch):
             if run.max_steps is not None and step >= run.max_steps:
                 break
-            batch = batch_to_device(host_batch, device)
+            batch = batch_to_device(rank_batch(host_batch, state.mesh, attn_impl), device)
             if lora_base is not None:
                 state, metrics = step_fn(state, lora_base, batch)
             else:
@@ -197,14 +291,15 @@ def train(
                 m["tokens_per_sec"] = tokens_seen / max(now - t_last, 1e-9)
                 tokens_seen = 0
                 t_last = now
-                log.info("step %d: %s", step, m)
+                if is_main():
+                    log.info("step %d: %s", step, m)
                 if metrics_callback:
                     metrics_callback(step, m)
-            if manager and ckpt_lib.save_state(manager, step, state):
+            if manager and ckpt_lib.save_state(manager, step, state) and is_main():
                 ckpt_lib.save_data_state(run.checkpoint_dir, step, epoch, batch_in_epoch)
         if run.max_steps is not None and step >= run.max_steps:
             break
 
-    if manager and ckpt_lib.save_state(manager, step, state, force=True):
+    if manager and ckpt_lib.save_state(manager, step, state, force=True) and is_main():
         ckpt_lib.save_data_state(run.checkpoint_dir, step, epoch, batch_in_epoch)
     return state

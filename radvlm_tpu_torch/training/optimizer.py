@@ -20,6 +20,11 @@ step repeats optax's arithmetic:
   call; the schedules count updates, not micro-steps.
 
 `Optimizer.step` updates the parameters in place and frees their `.grad`.
+Under a mesh (`parallel/sharding.py`) its parameters are this rank's
+slices and whole tensors, and a `comm` sums the gradients over the batch
+ranks before anything else and gives the global norm over the whole
+parameters, every element counted once; AdamW is elementwise and runs on
+the local slices as it is.
 """
 
 from __future__ import annotations
@@ -129,8 +134,9 @@ class Optimizer:
     and, with accumulation, the running mean of the gradients."""
 
     def __init__(self, params: Dict[str, torch.Tensor], labels: Dict[str, str],
-                 peak_lrs: Dict[str, float], cfg: TrainConfig):
+                 peak_lrs: Dict[str, float], cfg: TrainConfig, comm=None):
         self.cfg = cfg
+        self.comm = comm  # sharding.GradComm under a mesh
         self.params = dict(params)
         self.labels = dict(labels)
         self.schedules = {g: make_schedule(cfg, lr) for g, lr in peak_lrs.items()}
@@ -152,7 +158,9 @@ class Optimizer:
             p = self.params[n]
             grads.append(p.grad if p.grad is not None else torch.zeros_like(p))
             p.grad = None
-        norm = global_norm(grads)
+        if self.comm is not None:
+            self.comm.sync(names, grads)
+        norm = self._norm(names, grads)
         k = self.cfg.grad_accum_steps
         if k > 1:
             acc = [self.acc[n] for n in names]
@@ -166,10 +174,15 @@ class Optimizer:
             self.mini_step = 0
             grads = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
-            self._update(names, grads, global_norm(grads))
+            self._update(names, grads, self._norm(names, grads))
         else:
             self._update(names, grads, norm)
         return norm
+
+    def _norm(self, names, grads) -> torch.Tensor:
+        if self.comm is not None:
+            return self.comm.norm(names, grads)
+        return global_norm(grads)
 
     def _update(self, names, grads, norm: torch.Tensor) -> None:
         cfg = self.cfg
@@ -221,14 +234,25 @@ class Optimizer:
             t.copy_(tensors[name].to(t.device))
 
 
-def make_optimizer(model: nn.Module, cfg: TrainConfig) -> Optimizer:
-    """Freeze by `mm_tunable_parts`, then one `Optimizer` over the trainable
-    parameters with the three groups' peak rates."""
-    labels = mark_trainable(model, cfg)
-    params = {n: p for n, p in model.named_parameters() if n in labels}
-    peak = {
+def peak_rates(cfg: TrainConfig) -> Dict[str, float]:
+    return {
         "language_model": cfg.learning_rate,
         "vision_tower": cfg.vision_tower_lr or cfg.learning_rate,
         "projector": cfg.projector_lr or cfg.learning_rate,
     }
-    return Optimizer(params, labels, peak, cfg)
+
+
+def make_optimizer(model: nn.Module, cfg: TrainConfig) -> Optimizer:
+    """Freeze by `mm_tunable_parts`, then one `Optimizer` over the trainable
+    parameters with the three groups' peak rates. A model sharded by
+    `parallel.sharding.shard_model` (frozen before it) gets an optimizer
+    over its slices and whole tensors, with their `GradComm`."""
+    from radvlm_tpu_torch.parallel import sharding
+
+    sm = sharding.sharded(model)
+    if sm is not None:
+        params, labels = sm.trainable()
+        return Optimizer(params, labels, peak_rates(cfg), cfg, comm=sharding.grad_comm(sm))
+    labels = mark_trainable(model, cfg)
+    params = {n: p for n, p in model.named_parameters() if n in labels}
+    return Optimizer(params, labels, peak_rates(cfg), cfg)

@@ -1,7 +1,14 @@
 """The SFT and LoRA train steps (counterpart of
-`radvlm_tpu/training/train_step.py`, one card: the mesh, sharding and
-donation of the JAX package have no counterpart here; a sharded optimizer is
-ROADMAP M12).
+`radvlm_tpu/training/train_step.py`), on one card or over a mesh.
+
+With `mesh=` (a `DeviceMesh` of `parallel.mesh.make_mesh`) the setup slices
+the model for this rank's place on `tensor` and `expert`, freezes by the
+tunable parts and shards it ZeRO-3 over `fsdp` (`parallel/sharding.py`);
+the optimizer runs AdamW on this rank's slices, its clip on the global norm.
+The LoRA base is sharded by the same rules and the adapters stay whole on
+every rank, as in the JAX package. Every rank runs the same step on its
+part of the batch (`sharding.batch_shardings`). Donation has no
+counterpart: a step updates in place.
 
 Compute type. Parameters are f32 master weights, as in the JAX trainer. On
 the card the forward runs under `torch.autocast(bfloat16)`: matmuls take
@@ -27,6 +34,7 @@ import torch
 from radvlm_tpu_torch.config import RadVLMConfig
 from radvlm_tpu_torch.models import radvlm
 from radvlm_tpu_torch.ops import quant
+from radvlm_tpu_torch.parallel import sharding
 from radvlm_tpu_torch.training.lora import (
     Adapters,
     LoraConfig,
@@ -34,7 +42,12 @@ from radvlm_tpu_torch.training.lora import (
     init_lora,
     merge_lora,
 )
-from radvlm_tpu_torch.training.optimizer import Optimizer, TrainConfig, make_optimizer
+from radvlm_tpu_torch.training.optimizer import (
+    Optimizer,
+    TrainConfig,
+    make_optimizer,
+    mark_trainable,
+)
 
 
 @dataclasses.dataclass
@@ -42,6 +55,7 @@ class TrainState:
     step: int  # micro-steps taken
     params: Any  # the RadVLM module (SFT) or the adapter dictionary (LoRA)
     opt_state: Optimizer
+    mesh: Optional[sharding.MeshGroups] = None  # this rank's mesh, None on one card
 
 
 def _autocast(device: torch.device):
@@ -75,11 +89,12 @@ def make_train_step(cfg: RadVLMConfig, opt: Optimizer, *, remat: bool = True,
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.params
-        with _autocast(model.device):
-            loss, metrics = radvlm.loss_fn(model, cfg, batch, remat=remat, attn_impl=attn_impl,
-                                           resampler_generator=resampler_generator(
-                                               cfg, state.step, model.device))
-        loss.backward()
+        with sharding.model_scope(model):
+            with _autocast(model.device):
+                loss, metrics = radvlm.loss_fn(
+                    model, cfg, batch, remat=remat, attn_impl=attn_impl,
+                    resampler_generator=resampler_generator(cfg, state.step, model.device))
+            loss.backward()
         metrics = dict(metrics)
         metrics["grad_norm"] = opt.step()
         state.step += 1
@@ -98,7 +113,7 @@ def make_lora_train_step(cfg: RadVLMConfig, lora_cfg: LoraConfig, opt: Optimizer
 
     def step_fn(state: TrainState, base_model: radvlm.RadVLM, batch: Dict[str, torch.Tensor]):
         merge_lora(base_model, state.params, lora_cfg)
-        with quant.training_mode():
+        with quant.training_mode(), sharding.model_scope(base_model):
             with _autocast(base_model.device):
                 loss, metrics = radvlm.loss_fn(base_model, cfg, batch, remat=remat,
                                                attn_impl=attn_impl)
@@ -111,31 +126,64 @@ def make_lora_train_step(cfg: RadVLMConfig, lora_cfg: LoraConfig, opt: Optimizer
     return step_fn
 
 
+def shard_model(model_cfg: RadVLMConfig, train_cfg: Optional[TrainConfig], model: radvlm.RadVLM,
+                mesh) -> Tuple[RadVLMConfig, sharding.MeshGroups]:
+    """This rank's part of `model` over `mesh`, in place: the tensor /
+    expert slices, the freeze by `train_cfg`'s tunable parts (None: freeze
+    everything, a LoRA base) and the ZeRO-3 units. Returns the rank's
+    config and its `MeshGroups`."""
+    from radvlm_tpu_torch.models import towers
+
+    mg = sharding.mesh_groups(mesh)
+    cfg = sharding.shard_for_training(model, model_cfg, mg)
+    if train_cfg is None:
+        model.requires_grad_(False)
+    else:
+        mark_trainable(model, train_cfg)
+    sharding.shard_model(model, mg, layer_tower=towers.kind(model_cfg.vision) == "siglip")
+    return cfg, mg
+
+
 def setup_training(model_cfg: RadVLMConfig, train_cfg: TrainConfig, model: radvlm.RadVLM, *,
-                   remat: bool = True, attn_impl: str = "auto"):
+                   remat: bool = True, attn_impl: str = "auto", mesh=None):
     """One-call setup of full finetuning: freezes by `mm_tunable_parts`,
     builds the optimizer and the step. `model` holds f32 master weights,
-    unfused. Returns (state, step_fn, optimizer)."""
+    unfused. With `mesh` the model is sharded first (`shard_model`). Returns
+    (state, step_fn, optimizer)."""
+    mg = None
+    if mesh is not None:
+        model_cfg, mg = shard_model(model_cfg, train_cfg, model, mesh)
     opt = make_optimizer(model, train_cfg)
-    state = TrainState(step=0, params=model, opt_state=opt)
+    state = TrainState(step=0, params=model, opt_state=opt, mesh=mg)
     return state, make_train_step(model_cfg, opt, remat=remat, attn_impl=attn_impl), opt
 
 
 def setup_lora_training(model_cfg: RadVLMConfig, train_cfg: TrainConfig, lora_cfg: LoraConfig,
                         base_model: radvlm.RadVLM, *, seed: int = 0, remat: bool = True,
-                        attn_impl: str = "auto", adapters: Optional[Adapters] = None):
+                        attn_impl: str = "auto", adapters: Optional[Adapters] = None,
+                        mesh=None):
     """LoRA setup: the base is frozen whole, adapters come from `init_lora`
     (a generator seeded with `seed`) unless given, AdamW with the base
-    learning rate over the adapters only. Returns (state, base, step_fn)."""
+    learning rate over the adapters only. With `mesh` the base is sharded
+    by the rules (`shard_model`) and the adapters stay whole on every rank;
+    their gradients sum over the batch ranks. Returns (state, base,
+    step_fn)."""
     for p in base_model.parameters():
         p.requires_grad_(False)
+    if mesh is not None and mesh["tensor"].size() > 1:
+        raise NotImplementedError("LoRA under tensor > 1 is not wired: the adapters of a "
+                                  "sliced projection would need slicing too (ROADMAP Queue 3)")
     if adapters is None:
         gen = torch.Generator(device=base_model.device).manual_seed(seed)
         adapters = init_lora(base_model, lora_cfg, gen)
     params = adapter_parameters(adapters)
+    comm, mg = None, None
+    if mesh is not None:
+        model_cfg, mg = shard_model(model_cfg, None, base_model, mesh)
+        comm = sharding.grad_comm(sharding.sharded(base_model), extra=params)
     opt = Optimizer(params, dict.fromkeys(params, "adapters"),
-                    {"adapters": train_cfg.learning_rate}, train_cfg)
-    state = TrainState(step=0, params=adapters, opt_state=opt)
+                    {"adapters": train_cfg.learning_rate}, train_cfg, comm=comm)
+    state = TrainState(step=0, params=adapters, opt_state=opt, mesh=mg)
     merge_lora(base_model, adapters, lora_cfg)
     step_fn = make_lora_train_step(model_cfg, lora_cfg, opt, remat=remat, attn_impl=attn_impl)
     return state, base_model, step_fn

@@ -1005,3 +1005,136 @@ def test_antialiased_resize_on_the_card_matches_the_cpu(dev):
         out = clip.resize_bilinear(x.to(dev), size)
         assert out.dtype == torch.bfloat16 and out.shape == ref.shape
         torch.testing.assert_close(out.cpu().float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# M12's training half at one NCCL rank (parallel/ring.py, tp.py, sharding.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_world(dev):
+    """A world of one NCCL rank on the card (the mesh's collectives run, with
+    nothing to sum)."""
+    import torch.distributed as dist
+
+    from radvlm_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.init_distributed("nccl", device=dev)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+class _PlainPair(torch.autograd.Function):
+    """A ring pair whose backward is K7 / K8's plain version
+    (`attention_backward_plain`: p and ds rounded to bf16 as the kernels
+    round them), its forward K2-lse (`kernel_forward`, so that the backward
+    gets the kernels' o and lse) or K2-lse's plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale, kernel_forward):
+        if kernel_forward:
+            o, lse = tfa.prefill_attention_lse(q, k, v, q_segment_ids=q_seg,
+                                               kv_segment_ids=kv_seg, causal=causal, scale=scale)
+        else:
+            o, lse = tfa.attention_plain(q, k, v, q_seg, kv_seg, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, q_seg, kv_seg, o, lse = ctx.saved_tensors
+        grads = tfa.attention_backward_plain(q, k, v, q_seg, kv_seg, o, lse, do.to(q.dtype),
+                                             dlse, ctx.causal, ctx.scale)
+        return (*grads, None, None, None, None, None)
+
+
+@pytest.mark.parametrize("schedule", ["zigzag", "contiguous"])
+def test_ring_pairs_forward_and_backward_at_the_half_shape(dev, nccl_world, schedule,
+                                                           monkeypatch):
+    """The ring at seq = 1 on the zigzag half shape [2, 2048, 14 | 2, 64]
+    (zigzag: lo x lo, hi x lo, hi x hi through K2-lse, K7, K8; contiguous:
+    one pair of 4096): its output against the same ring over K2-lse's plain
+    version, its q / k / v gradients against the same ring over K2-lse and
+    K7 / K8's plain version (`_PlainPair`: the kernels and the plain version
+    get the same o and lse), per row as K2 / K7 / K8 are held; padding rows
+    take zero gradients."""
+    from radvlm_tpu_torch.parallel import ring
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, s, h, hkv, d = 2, 4096, 14, 2, 64
+    q, k, v = _randn(gen, dev, b, s, h, d), _randn(gen, dev, b, s, hkv, d), _randn(
+        gen, dev, b, s, hkv, d)
+    do = _randn(gen, dev, b, s, h, d)
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    seg[:, 3300:] = 2
+    seg[0, 3900:] = 0
+    outs = {}
+    for name in ("kernels", "plain_backward", "plain"):
+        if name != "kernels":
+            monkeypatch.setattr(ring, "_local_attn_with_lse",
+                                lambda q, k, v, qs, ks, *, causal, scale, impl, kf=name:
+                                _PlainPair.apply(q, k, v, qs, ks, causal, scale,
+                                                 kf == "plain_backward"))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        kernels.reset_launch_counts()
+        o = ring.ring_attention(*leaves, group=nccl_world, q_segment_ids=seg,
+                                kv_segment_ids=seg, schedule=schedule)
+        o.backward(do)
+        torch.cuda.synchronize()
+        outs[name] = (o.detach(), *(t.grad for t in leaves))
+        if name == "kernels":
+            pairs = 3 if schedule == "zigzag" else 1
+            c = kernels.launch_counts()
+            assert c["prefill_attention_lse"] == c["flash_attention_bwd_dq"] == pairs
+            assert c["flash_attention_bwd_dkv"] == pairs
+    (o, dq, dk, dv), (_, rq, rk, rv) = outs["kernels"], outs["plain_backward"]
+    real = seg != 0
+    _assert_close("prefill_attention_lse", o, outs["plain"][0], rows=real)
+    _assert_close("flash_attention_bwd_dq", dq, rq)
+    _assert_close("flash_attention_bwd_dkv", dk, rk)
+    _assert_close("flash_attention_bwd_dkv", dv, rv)
+    assert torch.all(dq[~real] == 0) and torch.all(dk[~real] == 0)
+
+
+def test_differentiable_all_reduces_at_one_nccl_rank(dev, nccl_world):
+    """`tp.copy_to` / `tp.reduce_from` over an NCCL group, and a decoder
+    block and an MoE block whose mesh names that group for `tensor` and
+    `expert`: the forward and the gradients equal the blocks' without a
+    mesh (one rank sums nothing), and the collectives ran."""
+    from radvlm_tpu_torch.parallel import sharding, tp
+
+    x = torch.randn(4, 8, device=dev, requires_grad=True)
+    y = tp.reduce_from(tp.copy_to(x, nccl_world) * 3.0, nccl_world)
+    y.sum().backward()
+    assert torch.equal(x.grad, torch.full_like(x, 3.0))
+    base = tcfg.tiny_test_config().text
+    moe_cfg = dataclasses.replace(base, num_experts=4, num_experts_per_tok=2,
+                                  moe_intermediate_size=48, shared_expert_intermediate_size=56,
+                                  norm_topk_prob=True)
+    axes = ("data", "stage", "fsdp", "seq", "tensor", "expert")
+    mg = sharding.MeshGroups(None, {a: (nccl_world if a in ("tensor", "expert") else None)
+                                    for a in axes}, dict.fromkeys(axes, 0), dict.fromkeys(axes, 1))
+    for cfg in (base, moe_cfg):
+        gen = torch.Generator(device=dev).manual_seed(4)
+        blk = tqwen.Qwen2Block(cfg, device=dev, dtype=torch.float32)
+        for p in blk.parameters():
+            p.data.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.1)
+            p.requires_grad_(True)
+        x = torch.randn(2, 16, cfg.hidden_size, generator=gen, device=dev)
+        pos = torch.arange(16, device=dev)[None].expand(2, -1)
+        got = {}
+        for name, mesh in (("plain", None), ("mesh", mg)):
+            for m in (blk, getattr(blk, "moe", None)):
+                if m is not None:
+                    m.__dict__.pop("_mesh", None)
+                    if mesh is not None:
+                        m.__dict__["_mesh"] = mesh
+            xi = x.clone().requires_grad_(True)
+            out, _, _ = tqwen._block(cfg, blk, xi, pos, None, "xla")
+            grads = torch.autograd.grad(out.square().sum(), [xi] + list(blk.parameters()))
+            got[name] = (out.detach(), grads)
+        assert torch.equal(got["plain"][0], got["mesh"][0])
+        for a, b_ in zip(got["plain"][1], got["mesh"][1]):
+            assert torch.equal(a, b_)

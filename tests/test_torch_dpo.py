@@ -329,8 +329,11 @@ def test_dpo_cli_runs_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--mesh-tensor", "2"], ["--mesh-data", "2"], ["--multihost"]])
 def test_dpo_cli_mesh_and_multihost_raise(tmp_path, argv):
+    """In one process a two-rank mesh, or `--multihost` outside torchrun,
+    raises naming torchrun (the DPO run over two ranks is
+    tests/test_torch_mesh_train.py's)."""
     data, _ = _write_prefs(str(tmp_path), 2)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(ValueError, match="torchrun"):
         dpo_cli.main(["--model-size", "tiny", "--data-path", data, "--image-folder",
                       str(tmp_path), "--device", "cpu", "--output-dir", str(tmp_path / "o")]
                      + argv, tokenizer=ByteTok())

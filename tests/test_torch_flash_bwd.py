@@ -180,8 +180,10 @@ def test_routing_under_a_gradient():
     assert "_FlashAttention" in type(out.grad_fn).__name__
     with torch.no_grad():
         assert tatt.mha(qg, q, q, causal=False).grad_fn is None
-    with pytest.raises(NotImplementedError, match="M12"):
-        tatt.mha(qg, q, q, impl="ring")
+    # The ring route takes a gradient too (its backward is
+    # tests/test_torch_ring_train.py's): here it only lacks a registered group.
+    with pytest.raises(RuntimeError, match="enable_ring_attention"):
+        tatt.mha(qg, q, q, causal=True, impl="ring")
     # `kernel_provenance` reads the same predicate.
     from radvlm_tpu_torch.config import tiny_test_config
     from radvlm_tpu_torch.generation.engine import kernel_provenance

@@ -371,8 +371,11 @@ def test_grpo_cli_runs_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--mesh-tensor", "2"], ["--mesh-fsdp", "4"], ["--multihost"]])
 def test_grpo_cli_mesh_and_multihost_raise(tmp_path, argv):
+    """In one process a mesh of more than one rank, or `--multihost`
+    outside torchrun, raises naming torchrun (the GRPO run over two ranks
+    is tests/test_torch_mesh_train.py's)."""
     data = _write_rec(str(tmp_path), n=1)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(ValueError, match="torchrun"):
         grpo_cli.main(["--model-size", "tiny", "--data-path", data, "--image-folder",
                        str(tmp_path), "--device", "cpu", "--output-dir", str(tmp_path / "o")]
                       + argv, tokenizer=ByteTok())

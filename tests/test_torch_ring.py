@@ -92,14 +92,15 @@ def test_merge_identity():
 
 
 def test_ring_route_and_refusals():
-    """mha(impl="ring") needs a registered group, refuses a gradient (the
-    backward is training work) and the zigzag schedule."""
+    """mha(impl="ring") needs a registered group and causal self-attention,
+    and a schedule other than contiguous / zigzag raises (the ring's
+    gradients and the zigzag schedule are tests/test_torch_ring_train.py's)."""
     from radvlm_tpu_torch.ops import attention as tatt
 
     q = torch.zeros(1, 8, 2, 4)
     with pytest.raises(RuntimeError, match="enable_ring_attention"):
         tatt.mha(q, q, q, causal=True, impl="ring")
-    with pytest.raises(NotImplementedError, match="M12"):
-        tatt.mha(q.clone().requires_grad_(True), q, q, causal=True, impl="ring")
-    with pytest.raises(NotImplementedError, match="zigzag"):
-        ring.enable_ring_attention(object(), schedule="zigzag")
+    with pytest.raises(ValueError, match="causal self-attention"):
+        tatt.mha(q.clone().requires_grad_(True), q, q, causal=False, impl="ring")
+    with pytest.raises(ValueError, match="zigzag"):
+        ring.enable_ring_attention(object(), schedule="spiral")

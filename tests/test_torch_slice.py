@@ -181,7 +181,9 @@ def test_port_runs_with_jax_blocked():
     layouts run: a TP engine on two spawned gloo ranks, and in a world of
     one the mesh, ring attention, SP generation, fleets behind
     `FleetEngine`, `BatchWorker` and `run_task`, `eval.cli --multihost
-    --fleet`."""
+    --fleet`, and M12's training half: a ZeRO-3 step through the zigzag
+    ring (`parallel.sharding`, the zigzag helpers) and qgZ's
+    `parallel.compression`."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -272,6 +274,7 @@ def test_port_runs_with_jax_blocked():
         w0 = fresh.text.layers[0].q.weight.detach().clone()
         state, step_fn, _ = ts.setup_training(cfg, tcfg, fresh)
         state, metrics = step_fn(state, batch)
+        metrics_first = float(metrics["loss"])
         assert state.step == 1 and float(metrics["loss"]) > 0 and float(metrics["grad_norm"]) > 0
         assert not torch.equal(fresh.text.layers[0].q.weight, w0)
         qbase = random_quantized_params(cfg, torch.Generator().manual_seed(0), device="cpu",
@@ -624,6 +627,23 @@ def test_port_runs_with_jax_blocked():
                                  "cpu", "--multihost", "--fleet", "2", "--fleet-devices",
                                  "cpu,cpu"], tokenizer=Tok())
         assert "mAP_0.5" in metrics and tp.context() is None
+        # M12's training half in the world of one: a ZeRO-3 step through the
+        # zigzag ring (its helpers on the host batch), qgZ's sum, the rules.
+        from radvlm_tpu_torch.parallel import compression, sharding
+        from radvlm_tpu_torch.training import loop as tloop
+        host = multimodal.collate([multimodal.pack_samples([train_sample, train_sample])])
+        assert ring.zigzag_indices(8, 2).tolist() == [0, 1, 6, 7, 2, 3, 4, 5]
+        fmesh = pmesh.make_mesh({"fsdp": -1})
+        ring.enable_ring_attention(fmesh, schedule="zigzag")
+        sm_model = init_params(cfg, torch.Generator().manual_seed(2), device="cpu",
+                               dtype=torch.float32)
+        sst, sstep, _ = ts.setup_training(cfg, tcfg, sm_model, attn_impl="ring", mesh=fmesh)
+        sst, smet = sstep(sst, batch_to_device(tloop.rank_batch(host, sst.mesh, "ring"), "cpu"))
+        ring.enable_ring_attention(None)
+        assert abs(float(smet["loss"]) - float(metrics_first)) < 1e-4
+        assert sharding.sharded(sm_model).units and sharding.placement(
+            "text.layers.0.q.weight").tensor_dim == 0
+        assert torch.equal(compression.quantized_psum(torch.ones(5)), torch.ones(5))
         print(runner.generate_batch(["<image>\\nhi"], [[img]]))
         loaded = [k for k, v in sys.modules.items() if v is not None]
         for blocked in ("jax", "radvlm_tpu", "optax", "orbax", "flax", "pandas", "sklearn",

@@ -339,14 +339,20 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--mesh-seq", "--mesh-stage", "--mesh-tensor", "--mesh-data"])
 def test_cli_mesh_flags_raise(tmp_path, flag):
+    """In one process without a process group, a mesh of two ranks raises
+    `make_mesh`'s ValueError naming torchrun (the runs over two ranks are
+    tests/test_torch_mesh_train.py's); `--mesh-stage` raises naming M12:
+    pipeline parallelism is not ported."""
     data = _write_llava_json(str(tmp_path), n=2)
-    with pytest.raises(NotImplementedError, match="M12"):
+    err, match = (NotImplementedError, "M12") if flag == "--mesh-stage" else (ValueError, "torchrun")
+    with pytest.raises(err, match=match):
         tcli.main(["--model-size", "tiny", "--data-path", data, "--image-folder", str(tmp_path),
                    "--device", "cpu", flag, "2"], tokenizer=ByteTok())
 
 
 def test_cli_multihost_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="M12"):
+    """`--multihost` outside torchrun's environment raises, naming it."""
+    with pytest.raises(ValueError, match="torchrun"):
         tcli.main(["--data-path", "x.json", "--multihost"], tokenizer=ByteTok())
 
 

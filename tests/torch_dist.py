@@ -252,3 +252,231 @@ def run_task_ranks(rank, world, payload):
         out[mode] = dict(results=results, metrics=metrics, wrote=os.path.exists(out_dir),
                          share=seen[-1] if seen else 0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training over a mesh (parallel/sharding.py, parallel/ring.py)
+# ---------------------------------------------------------------------------
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def whole_tree(model, cfg):
+    """The JAX-layout tree (numpy) of a model sharded over the mesh: every
+    parameter gathered whole (`sharding.full_parameters`). Collective: every
+    rank calls it."""
+    from radvlm_tpu_torch.models import convert, radvlm
+    from radvlm_tpu_torch.parallel import sharding
+
+    full = radvlm.RadVLM(cfg, device="cpu", dtype=torch.float32)
+    full.load_state_dict(sharding.full_parameters(model))
+    return _numpy_tree(convert.radvlm_to_tree(full))
+
+
+def _sft_case(case, cfg, params, batches):
+    """One case's SFT (or LoRA) micro-steps over its mesh on this rank's part
+    of every batch: (losses, grad norms, the trained tree or adapters)."""
+    from radvlm_tpu_torch.eval.harness import batch_to_device
+    from radvlm_tpu_torch.models import convert
+    from radvlm_tpu_torch.parallel import ring, sharding
+    from radvlm_tpu_torch.parallel.mesh import make_mesh
+    from radvlm_tpu_torch.training import loop
+    from radvlm_tpu_torch.training import optimizer as topt
+    from radvlm_tpu_torch.training import train_step as tts
+    from radvlm_tpu_torch.training.lora import LoraConfig, adapter_parameters
+
+    mesh = make_mesh(case["shape"])
+    model = convert.radvlm_from_jax(params, cfg, device="cpu", dtype=torch.float32)
+    attn = case.get("attn", "auto")
+    if case.get("ring"):
+        ring.enable_ring_attention(mesh, impl="flash", schedule=case["ring"])
+        attn = "ring"
+    train = topt.TrainConfig(**case["train"])
+    lora = case.get("lora")
+    try:
+        if lora:
+            adapters = {p: {k: torch.from_numpy(v.copy()).requires_grad_(True)
+                            for k, v in ad.items()} for p, ad in case["adapters"].items()}
+            state, base, step_fn = tts.setup_lora_training(
+                cfg, train, LoraConfig(**lora), model, attn_impl=attn, adapters=adapters,
+                mesh=mesh)
+        else:
+            state, step_fn, _ = tts.setup_training(cfg, train, model, attn_impl=attn, mesh=mesh)
+        losses, norms = [], []
+        for b in batches:
+            b = batch_to_device(loop.rank_batch(b, state.mesh, attn), "cpu")
+            state, m = (step_fn(state, base, b) if lora else step_fn(state, b))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    finally:
+        ring.enable_ring_attention(None)
+    if lora:
+        out = {k: v.detach().numpy() for k, v in adapter_parameters(state.params).items()}
+    else:
+        out = whole_tree(model, cfg)
+    return losses, norms, out
+
+
+def sharded_sft(rank, world, payload):
+    """Every case of `payload["cases"]` (its mesh `shape`, `train` options,
+    optional `attn` impl or `ring` schedule, `lora` options with the
+    starting `adapters`, its own `cfg` and `batches`) over the same
+    starting parameters."""
+    import warnings
+
+    warnings.filterwarnings("ignore", category=FutureWarning)
+    return [_sft_case(case, case.get("cfg") or payload["cfg"], payload["params"],
+                      case.get("batches") or payload["batches"])
+            for case in payload["cases"]]
+
+
+def sharded_resume(rank, world, payload):
+    """Under the mesh `payload["shape"]`: N micro-steps straight, against
+    N - 1 steps, a checkpoint, a fresh setup restored from it and one more
+    step. Returns (the largest difference of the two runs' parameters, the
+    files in the step directory)."""
+    from radvlm_tpu_torch.eval.harness import batch_to_device
+    from radvlm_tpu_torch.models import convert
+    from radvlm_tpu_torch.parallel import sharding
+    from radvlm_tpu_torch.parallel.mesh import make_mesh
+    from radvlm_tpu_torch.training import checkpoint as ckpt
+    from radvlm_tpu_torch.training import loop
+    from radvlm_tpu_torch.training import optimizer as topt
+    from radvlm_tpu_torch.training import train_step as tts
+
+    cfg, params, batches = payload["cfg"], payload["params"], payload["batches"]
+    mesh = make_mesh(payload["shape"])
+
+    def run(bs, state=None):
+        if state is None:
+            model = convert.radvlm_from_jax(params, cfg, device="cpu", dtype=torch.float32)
+            state, _, _ = tts.setup_training(cfg, topt.TrainConfig(**payload["train"]), model,
+                                             mesh=mesh)
+        step_fn = tts.make_train_step(cfg, state.opt_state)
+        for b in bs:
+            state, _ = step_fn(state, batch_to_device(loop.rank_batch(b, state.mesh, "auto"),
+                                                      "cpu"))
+        return state
+
+    straight = run(batches)
+    first = run(batches[:-1])
+    manager = ckpt.CheckpointManager(payload["dir"], save_interval_steps=1)
+    assert ckpt.save_state(manager, len(batches) - 1, first)
+    fresh = run([])
+    resumed = run(batches[-1:], ckpt.restore_state(manager, len(batches) - 1, fresh))
+    a, b = sharding.full_parameters(straight.params), sharding.full_parameters(resumed.params)
+    diff = max(float((a[k] - b[k]).abs().max()) for k in a)
+    files = sorted(os.listdir(os.path.join(payload["dir"], f"step_{len(batches) - 1}")))
+    return diff, files, resumed.step, resumed.opt_state.count, resumed.opt_state.mini_step
+
+
+def mesh_preference(rank, world, payload):
+    """DPO steps over `payload["dpo"]` pairs and GRPO updates over the
+    `payload["grpo"]` wave, under the mesh `payload["shape"]`: each step's
+    metrics and the trained tree."""
+    import warnings
+
+    from radvlm_tpu_torch.eval.harness import batch_to_device
+    from radvlm_tpu_torch.models import convert
+    from radvlm_tpu_torch.parallel.mesh import make_mesh
+    from radvlm_tpu_torch.training import dpo, grpo, loop
+    from radvlm_tpu_torch.training import optimizer as topt
+    from radvlm_tpu_torch.training import train_step as tts
+
+    warnings.filterwarnings("ignore", category=FutureWarning)
+    cfg, params = payload["cfg"], payload["params"]
+    out = {}
+    for name in ("dpo", "grpo"):
+        spec = payload[name]
+        if spec is None:
+            continue
+        mesh = make_mesh(payload["shape"])
+        model = convert.radvlm_from_jax(params, cfg, device="cpu", dtype=torch.float32)
+        local_cfg, mg = tts.shard_model(cfg, topt.TrainConfig(**spec["train"]), model, mesh)
+        opt = topt.make_optimizer(model, topt.TrainConfig(**spec["train"]))
+        state = tts.TrainState(step=0, params=model, opt_state=opt, mesh=mg)
+        ref = dpo.frozen_copy(model)
+        metrics = []
+        if name == "dpo":
+            step_fn = dpo.make_dpo_step(local_cfg, dpo.DPOConfig(beta=0.1), opt)
+            for c, r in spec["pairs"]:
+                c, r = (batch_to_device(loop.rank_batch(x, mg, "auto"), "cpu") for x in (c, r))
+                state, m = step_fn(state, ref, c, r)
+                metrics.append({k: float(v) for k, v in m.items()})
+        else:
+            host = dict(spec["batch"], advantages=spec["adv"])
+            b = batch_to_device(loop.rank_batch(host, mg, "auto"), "cpu")
+            adv = b.pop("advantages")
+            old = grpo.make_score_fn(local_cfg)(model, b)
+            step_fn = grpo.make_grpo_step(local_cfg, grpo.GRPOConfig(**spec["gc"]), opt)
+            for _ in range(2):
+                state, m = step_fn(state, ref, b, adv, old)
+                metrics.append({k: float(v) for k, v in m.items()})
+        out[name] = (metrics, whole_tree(model, cfg))
+    return out
+
+
+class CliTok:
+    eos_token_ids, pad_token_id = (1,), 0
+
+    @staticmethod
+    def encode(text):
+        return [2 + b for b in text.encode()][:24]
+
+    @staticmethod
+    def decode(ids):
+        return bytes(min(255, max(0, i - 2)) for i in ids if i >= 2).decode(errors="ignore")
+
+
+def mesh_clis(rank, world, payload):
+    """Each (module, argv) of `payload["runs"]` through its `main`, on this
+    rank of the world: the final step, and the step directories' files."""
+    import importlib
+    import warnings
+
+    warnings.filterwarnings("ignore", category=FutureWarning)
+    out = []
+    for module, argv, out_dir in payload["runs"]:
+        state = importlib.import_module(module).main(argv, tokenizer=CliTok())
+        dist.barrier()
+        steps = sorted(d for d in os.listdir(out_dir) if d.startswith("step_"))
+        out.append((int(state.step), steps,
+                    sorted(os.listdir(os.path.join(out_dir, steps[-1]))) if steps else []))
+    return out
+
+
+def qgz(rank, world, payload):
+    """`quantized_psum` over the world of each rank's row of every case."""
+    from radvlm_tpu_torch.parallel.compression import quantized_pmean, quantized_psum
+
+    out = []
+    for x in payload:
+        mine = torch.from_numpy(x[rank])
+        out.append((quantized_psum(mine, block=64).numpy(),
+                    quantized_pmean(mine, block=64).numpy()))
+    return out
+
+
+def ring_grads(rank, world, payload):
+    """The zigzag (or contiguous) ring over the world on this rank's block of
+    each case's global q / k / v / segment ids (in the schedule's layout):
+    the output and, for the cotangent `do`, the gradients of q, k, v."""
+    from radvlm_tpu_torch.parallel import ring
+    from radvlm_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"seq": world})
+    out = []
+    for case in payload:
+        s = case["q"].shape[1] // world
+        own = slice(rank * s, (rank + 1) * s)
+        q, k, v = (torch.from_numpy(case[n][:, own]).requires_grad_(True) for n in "qkv")
+        seg = torch.from_numpy(case["seg"][:, own])
+        fn = ring.make_ring_attention(mesh, impl=case["impl"], schedule=case["schedule"])
+        o = fn(q, k, v, seg, seg)
+        (o * torch.from_numpy(case["do"][:, own])).sum().backward()
+        out.append((o.detach().numpy(), q.grad.numpy(), k.grad.numpy(), v.grad.numpy()))
+    return out

@@ -1,4 +1,5 @@
-"""Which collectives gloo carries on CUDA tensors, two ranks on one card.
+"""Which collectives gloo carries on CUDA tensors, two ranks on one card
+(the ZeRO-3 reduce-scatter and qgZ's all_to_all among them).
 
     python tools/torch_gloo_probe.py
 
@@ -22,7 +23,7 @@ import torch.multiprocessing as mp
 
 COLLECTIVES = ("all_reduce", "all_reduce_bf16", "all_reduce_max", "all_gather",
                "all_gather_bf16", "all_gather_into_tensor", "broadcast", "batch_isend_irecv",
-               "send_recv")
+               "send_recv", "reduce_scatter_tensor", "all_to_all_single")
 
 
 def _rank(rank: int, world: int, init: str, name: str) -> None:
@@ -51,6 +52,18 @@ def _rank(rank: int, world: int, init: str, name: str) -> None:
     elif name == "broadcast":
         dist.broadcast(x, src=1)
         ok = float(x[0]) == 2.0
+    elif name == "reduce_scatter_tensor":  # ZeRO-3's gradient sum (parallel/sharding.py)
+        out = torch.empty((4096 // world,), device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        ok = float(out[0]) == 3.0
+    elif name == "all_to_all_single":  # qgZ's exchange (parallel/compression.py)
+        c = 4096 // world
+        x = (torch.arange(4096, device=dev) // 64 + 100 * rank).to(torch.int8)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)  # chunk `rank` of every rank's x, in rank order
+        want = torch.cat([torch.arange(rank * c, (rank + 1) * c, device=dev) // 64 + 100 * s
+                          for s in range(world)]).to(torch.int8)
+        ok = bool(torch.equal(out, want))
     elif name == "batch_isend_irecv":
         y = torch.empty_like(x)
         ops = [dist.P2POp(dist.isend, x, (rank + 1) % world),
