@@ -181,9 +181,10 @@ Phases, each raising on failure (the last line is printed only on success):
    (the rule of phase 8, against a reference model whose final norm is
    perturbed), then `dpo.train_dpo` over a preference json of synthetic
    CXR-sized PNGs written under build/: 2 pairs a micro-step in the 4096
-   bucket, 4 steps with a checkpoint, then a fresh model of the same seed
-   resumes from it for 2 more (its reference the starting point, its policy
-   the checkpoint's). The first step's loss must be ln 2 to within 1e-3
+   bucket, 4 steps (no checkpoint: writing and restoring one repeated
+   phase 8's checkpoint at the same model size, and
+   tests/test_torch_dpo.py holds the DPO resume). The first step's loss
+   must be ln 2 to within 1e-3
    (policy = reference); K1 (4 tower passes a step), K2 (the reference's two
    decoder passes), K2-lse, K7 and K8 (the policy's two) must launch exactly
    that often and nothing else must; 4 constant-rate steps on one pair batch
@@ -284,19 +285,28 @@ Phases, each raising on failure (the last line is printed only on success):
    held to their plain versions on its 4-slot cache, then a keep_kv turn
    whose resume goes back to the engine that holds its rows and gives a
    full re-prefill's tokens (or a near tie).
-14. M12's training half (`parallel/sharding.py`, `parallel/ring.py`) on
-   radvlm_0_5b at full width and depth, f32 masters from the seed, two of
-   phase 8's packed 4096-token rows: the one-card step (two micro-steps,
-   the second profiled), then 14a ZeRO-3 `{fsdp: 2}` and 14b TP
-   `{tensor: 2}` (7 | 1 local heads), two processes on the card over gloo
-   (which reduce-scatters and all-gathers CUDA tensors), one profiled
-   micro-step each: the loss and grad norm against the one-card step's
-   (2e-3, 2e-2), the peak memory a rank; 14c the zigzag ring at seq = 1 on
-   one NCCL rank, three K2-lse pairs a decoder layer: the launch counts
-   exactly 2 x (3 x 24 + 26) K2-lse and 3 x 24 + 26 K7 / K8, the loss and
-   grad norm within 2e-2, and K2-lse, K7 and K8 at the half-chunk shape
-   [2, 2048, 14 | 2, 64] (causal and full) held to their plain versions,
-   timed beside SDPA and their bounds.
+14. M12's training half (`parallel/sharding.py`, `parallel/ring.py`,
+   `parallel/pp.py`) on radvlm_0_5b at full width and depth, f32 masters
+   from the seed, two of phase 8's packed 4096-token rows: the one-card
+   LoRA step (rank 16 over the frozen f32 base) and the one-card step (one
+   profiled micro-step each; the second saved while the ranks run); the
+   two processes on the card over gloo (which reduce-scatters and
+   all-gathers CUDA tensors) start up meanwhile and then take one profiled
+   micro-step a case: 14a ZeRO-3
+   `{fsdp: 2}` (saved), 14b TP `{tensor: 2}` (7 | 1 local heads), 14d GPipe
+   and 14e the interleaved schedule (V = 2) over `{stage: 2}`, 2
+   microbatches of one row, the hop through host memory, and 14f the LoRA
+   step under TP: the loss and grad norm against the one-card step's (2e-3
+   for 14a, 14d, 14e; 2e-2 for 14b and, against the one-card LoRA step,
+   14f), the peak memory a rank, the hop's transport, and for 14d-14f the
+   K2-lse / K7 / K8 (and K1) launches a rank exactly (stage 0 the tower and
+   12 layers x 2 microbatches, stage 1 12 x 2); 14g `read_params` of 14a's
+   step against the one-card step's, leaf for leaf within 2.5 x lr; 14c the
+   zigzag ring at seq = 1 on one NCCL rank, three K2-lse pairs a decoder
+   layer: the launch counts exactly 2 x (3 x 24 + 26) K2-lse and 3 x 24 + 26
+   K7 / K8, the loss and grad norm within 2e-2, and K2-lse, K7 and K8 at the
+   half-chunk shape [2, 2048, 14 | 2, 64] (causal and full) held to their
+   plain versions, timed beside SDPA and their bounds.
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -493,9 +503,9 @@ PATH_KERNELS = {
 }
 TRAIN_BUCKET = Bucket(4096, 6)
 SFT_STEPS, SFT_RESUMED_STEPS, OVERFIT_STEPS, QLORA_STEPS = 6, 2, 4, 2
-# Phase 10: DPO pairs a micro-step and steps (then a resume for more), GRPO
-# waves at mu = 1 and then at mu = 2, and the GRPO rollout engine.
-DPO_PAIRS, DPO_STEPS, DPO_RESUMED_STEPS = 2, 4, 2
+# Phase 10: DPO pairs a micro-step and steps, GRPO waves at mu = 1 and then
+# at mu = 2, and the GRPO rollout engine.
+DPO_PAIRS, DPO_STEPS = 2, 4
 GRPO_CELLS, GRPO_WAVES = 4, 2
 GRPO = dict(prompts_per_wave=2, group_size=4, temperature=1.0, max_new_tokens=32, reward="rec")
 GRPO_SLOTS, GRPO_MAX_LEN, GRPO_PAD_TILES = 8, 4608, 6
@@ -542,6 +552,14 @@ FLEET_SIZE = 2
 # one-card step, relative.
 MESH_ROWS = 2
 FSDP_TOL, TP_TRAIN_TOL, RING_TOL = 2e-3, 2e-2, 2e-2
+# 14d / 14e: the pipeline over {stage: MESH_STAGES} (GPipe, then the
+# interleaved schedule), PP_MICROBATCHES microbatches of one row; 14f:
+# rank-MESH_LORA_RANK adapters under TP = 2, against the one-card LoRA step.
+# Every step runs at a constant MESH_LR, warmup 0; 14g holds the ZeRO-3
+# step's read_params to the one-card step's within 2.5 x MESH_LR.
+MESH_STAGES, PP_MICROBATCHES, PP_INTERLEAVE, MESH_LORA_RANK = 2, 2, 2, 16
+PP_TOL, LORA_TP_TOL = 2e-3, 2e-2
+MESH_LR = 1e-5
 LAYOUT_LOGITS_TOL = 0.03  # the int8 rule's allowance for W8A8 and the int8 cache
 FAMILY_KERNELS = ("tower_attention", "w8a8_matmul", "int8_matmul")  # K1, K3, K5/K6
 # K2 and K4: not under ALiBi, a sliding window or head_dim 256.
@@ -3266,13 +3284,11 @@ def phase_dpo(dev, seed: int):
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         f"smoke_dpo_{os.getpid()}")
     try:
-        n_pairs = DPO_PAIRS * (DPO_STEPS + DPO_RESUMED_STEPS)
-        data_path = write_preference_data(root, rng, n_pairs)
+        data_path = write_preference_data(root, rng, DPO_PAIRS * DPO_STEPS)
         run = train_loop.RunConfig(
             model=cfg, train=train_cfg, data_path=data_path, image_root=root,
             micro_batch_size=DPO_PAIRS, max_steps=DPO_STEPS, log_every=1,
-            buckets=(TRAIN_BUCKET,), checkpoint_dir=os.path.join(root, "ckpt"),
-            save_steps=DPO_STEPS, seed=seed)
+            buckets=(TRAIN_BUCKET,), seed=seed)
         seen, t_prev = [], [time.perf_counter()]
 
         def on_metrics(step, m):
@@ -3304,34 +3320,11 @@ def phase_dpo(dev, seed: int):
         steady = [dt for _, _, dt in seen[1:]]
         print(f"  DPO: {DPO_STEPS} steps of {DPO_PAIRS} pairs, median "
               f"{statistics.median(steady):.3f} s a step past the first, peak memory {peak / 2**30:.2f} GiB; the whole call "
-              f"{t_run:.2f} s (set-up and the checkpoint's write included)", flush=True)
+              f"{t_run:.2f} s (set-up included)", flush=True)
         print(f"  launches in the measured run: {counts}", flush=True)
         require_launched("dpo", counts)
         require_counts("DPO", counts,
                        {k: DPO_STEPS * n for k, n in dpo_counts_per_step(cfg).items()})
-        size = sum(os.path.getsize(os.path.join(dp, f))
-                   for dp, _, fs in os.walk(os.path.join(root, "ckpt")) for f in fs)
-        print(f"  checkpoint at step {DPO_STEPS}: {size / 1e9:.3f} GB", flush=True)
-        # Resume from a fresh model of the same seed: the reference is the
-        # starting point again, the policy comes back from the checkpoint.
-        del state, model
-        gc.collect()
-        torch.cuda.empty_cache()
-        model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                                    device=dev, dtype=torch.float32)
-        seen.clear()
-        state = dpo_lib.train_dpo(
-            dataclasses.replace(run, max_steps=DPO_STEPS + DPO_RESUMED_STEPS), tok.encode,
-            init_params=model, metrics_callback=on_metrics)
-        resumed = [s for s, _, _ in seen]
-        print(f"  resumed from step {DPO_STEPS}: steps {resumed}, {state.opt_state.count} updates "
-              f"in all; step {resumed[0]}: loss {seen[0][1]['loss']:.6f}, chosen_reward "
-              f"{seen[0][1]['chosen_reward']:.3e}", flush=True)
-        if resumed != list(range(DPO_STEPS + 1, DPO_STEPS + DPO_RESUMED_STEPS + 1)) or \
-                state.opt_state.count != DPO_STEPS + DPO_RESUMED_STEPS:
-            raise AssertionError("the resumed DPO run lost its step or update count")
-        if seen[0][1]["chosen_reward"] == 0.0:
-            raise AssertionError("the resumed policy equals its reference: the restore failed")
         # A constant rate on one pair batch, the reference the policy now:
         # the margin must rise.
         del state
@@ -4041,10 +4034,29 @@ def spawn_ranks(fn, world: int, payload: dict, root: str) -> list:
     """`world` processes on the card (torch.multiprocessing, spawned), a
     gloo group over a file store under `root`; rank r returns
     fn(rank, world, payload), pickled back."""
+    return join_ranks(start_ranks(fn, world, payload, root), world, root)
+
+
+def start_ranks(fn, world: int, payload: dict, root: str):
+    """`spawn_ranks`' processes, started without waiting for them."""
+    os.makedirs(root, exist_ok=True)
+    return mp.start_processes(_rank_entry, args=(world, fn, payload, root), nprocs=world,
+                              join=False, start_method="spawn")
+
+
+def join_ranks(context, world: int, root: str) -> list:
+    """Wait for `start_ranks`' processes (raising where one failed) and
+    return each rank's result; on any failure stop the ones left."""
     import pickle
 
-    os.makedirs(root, exist_ok=True)
-    mp.spawn(_rank_entry, args=(world, fn, payload, root), nprocs=world, join=True)
+    try:
+        while not context.join():
+            pass
+    finally:
+        for proc in context.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
     out = []
     for r in range(world):
         with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
@@ -4462,24 +4474,55 @@ def mesh_host_batch(cfg, tok, seed: int, root: str) -> dict:
     return {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
 
 
+def smoke_adapters(model, seed: int) -> dict:
+    """Rank-MESH_LORA_RANK adapters over the decoder's projections from the
+    seed (`init_lora`), b drawn non-zero too, so both factors take a
+    gradient on the first step; every process makes the same ones."""
+    g = torch.Generator(device=model.device).manual_seed(seed + 15)
+    adapters = lora_lib.init_lora(model, lora_lib.LoraConfig(rank=MESH_LORA_RANK), g)
+    with torch.no_grad():
+        for ad in adapters.values():
+            ad["b"].normal_(0.0, 0.01, generator=g)
+    return adapters
+
+
 def mesh_micro_step(dev, cfg, seed: int, host: dict, mesh=None, attn_impl: str = "auto",
-                    steps: int = 2) -> dict:
+                    steps: int = 2, pp_cfg=None, lora: bool = False, save=None,
+                    keep: bool = False) -> dict:
     """radvlm_0_5b's f32 masters from the seed, set up over `mesh` (None: one
-    card) with every part tunable, and `steps` micro-steps of this rank's
-    part of `host` (the same batch each time): the first's loss, grad norm
-    and launch counts (from 0 just before it), the last's wall and device
-    time under torch.profiler, the peak memory."""
+    card) with every part tunable (or, with `lora`, frozen under rank-16
+    adapters; with `pp_cfg`, as pipeline stages), and `steps` micro-steps
+    of this rank's part of `host` (the same batch each time): the first's
+    loss, grad norm and launch counts (from 0 just before it), the last's
+    wall and device time under torch.profiler, the peak memory; with
+    `save`, the state after the first step saved there (seconds); with
+    `keep`, the train state itself under "state"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from radvlm_tpu_torch.parallel import pp
+    from radvlm_tpu_torch.training import checkpoint as ckpt
+
     model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 14),
                                 device=dev, dtype=torch.float32)
-    tc = optim.TrainConfig(grad_accum_steps=1, warmup_ratio=0.0, learning_rate=1e-5)
+    tc = optim.TrainConfig(grad_accum_steps=1, warmup_ratio=0.0, learning_rate=MESH_LR)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    state, step_fn, _ = tstep.setup_training(cfg, tc, model, attn_impl=attn_impl, mesh=mesh)
+    if lora:
+        lcfg = lora_lib.LoraConfig(rank=MESH_LORA_RANK)
+        state, base, lora_step = tstep.setup_lora_training(
+            cfg, tc, lcfg, model, attn_impl=attn_impl, mesh=mesh,
+            adapters=smoke_adapters(model, seed))
+
+        def step_fn(state, batch):
+            return lora_step(state, base, batch)
+    elif pp_cfg is not None:
+        state, step_fn, _ = pp.setup_pp_training(mesh, cfg, tc, model, pp_cfg=pp_cfg)
+    else:
+        state, step_fn, _ = tstep.setup_training(cfg, tc, model, attn_impl=attn_impl, mesh=mesh)
     batch = batch_to_device(train_loop.rank_batch(host, state.mesh, attn_impl), dev)
     kernels.reset_launch_counts()
+    out = {}
     for i in range(steps):
         with contextlib.ExitStack() as stack:
             if i == steps - 1:
@@ -4488,37 +4531,68 @@ def mesh_micro_step(dev, cfg, seed: int, host: dict, mesh=None, attn_impl: str =
                 prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
             state, m = step_fn(state, batch)
             torch.cuda.synchronize()
+        if i == steps - 1:
+            out["wall"] = time.perf_counter() - t0
         if i == 0:
-            first = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
-            counts = dict(kernels.launch_counts())
-    wall = time.perf_counter() - t0
+            out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       counts=dict(kernels.launch_counts()))
+            if save:
+                t1 = time.perf_counter()
+                assert ckpt.save_state(ckpt.CheckpointManager(save), 1, state, force=True)
+                out["save_s"] = time.perf_counter() - t1
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e6
-    return dict(first, wall=wall, device=busy if busy > 0 else None, counts=counts,
-                peak=torch.cuda.max_memory_allocated(dev), rows=int(batch["tokens"].shape[0]),
-                length=int(batch["tokens"].shape[1]))
+    if pp_cfg is not None:
+        out["transport"] = pp.hop_transport(state.mesh.group("stage"), dev)
+    if keep:
+        out["state"] = state
+    return dict(out, device=busy if busy > 0 else None, peak=torch.cuda.max_memory_allocated(dev),
+                rows=int(batch["tokens"].shape[0]), length=int(batch["tokens"].shape[1]),
+                stage=None if state.mesh is None else state.mesh.index["stage"])
 
 
 def mesh_rank(rank, world, payload):
-    """A spawned rank of 14a and 14b: one micro-step over each mesh shape of
-    `payload["shapes"]` in turn (gloo, the card shared)."""
+    """A spawned rank of 14a, 14b, 14d, 14e and 14f: one micro-step of each
+    case of `payload["cases"]` (label, mesh shape, options) in turn (gloo,
+    the card shared)."""
+    import pickle
+
+    from radvlm_tpu_torch.parallel import pp
+
     dev = torch.device(payload["device"])
-    out = []
-    for shape in payload["shapes"]:
-        out.append(mesh_micro_step(dev, payload["cfg"], payload["seed"], payload["host"],
-                                   pmesh.make_mesh(shape), steps=1))
+    # The parent measures its one-card steps while the ranks start up; the
+    # cases begin once it writes `go` beside the host batch.
+    while not os.path.exists(payload["go"]):
+        time.sleep(0.05)
+    with open(payload["host_file"], "rb") as f:
+        host = pickle.load(f)
+    out, meshes = [], {}
+    for label, shape, opts in payload["cases"]:
+        t0 = time.perf_counter()
+        opts = dict(opts)
+        if "pp" in opts:
+            opts["pp_cfg"] = pp.PPStepConfig(**opts.pop("pp"))
+        key = tuple(sorted(shape.items()))
+        if key not in meshes:  # a shape's groups serve each of its cases
+            meshes[key] = pmesh.make_mesh(shape)
+        out.append(mesh_micro_step(dev, payload["cfg"], payload["seed"], host, meshes[key],
+                                   steps=1, **opts))
         gc.collect()
         torch.cuda.empty_cache()
+        out[-1]["case_s"] = time.perf_counter() - t0
     return out
 
 
 def mesh_report(label: str, r: dict, one: dict, tol: float) -> None:
     """Print a run's numbers against the one-card step's; fail past `tol`."""
     device = "not measured" if r["device"] is None else f"{r['device']:.3f} s"
+    extra = f"; hop {r['transport']}" if "transport" in r else ""
+    extra += f"; saved in {r['save_s']:.1f} s" if "save_s" in r else ""
+    extra += f"; the case {r['case_s']:.1f} s" if "case_s" in r else ""
     print(f"  {label}: {r['rows']} x {r['length']} tokens a rank, loss {r['loss']:.6f}, "
           f"grad_norm {r['grad_norm']:.6f}; a micro-step under torch.profiler {r['wall']:.3f} s "
           f"wall, device {device}; peak memory {r['peak'] / 2**30:.2f} GiB (one card "
-          f"{one['peak'] / 2**30:.2f} GiB); launches {r['counts']}", flush=True)
+          f"{one['peak'] / 2**30:.2f} GiB){extra}; launches {r['counts']}", flush=True)
     for key in ("loss", "grad_norm"):
         err = abs(r[key] - one[key]) / abs(one[key])
         print(f"    {key} against the one-card step's {one[key]:.6f}: rel err {err:.3e} "
@@ -4527,40 +4601,146 @@ def mesh_report(label: str, r: dict, one: dict, tol: float) -> None:
             raise AssertionError(f"{label}: {key} off the one-card step's")
 
 
+def mesh_counts(cfg, *, decoder_calls: int, tower: bool, lora: bool = False) -> dict:
+    """K2-lse / K7 / K8 (and K1 under a frozen tower) a micro-step:
+    `decoder_calls` attention calls of the decoder (a layer a microbatch),
+    the forward twice under remat, and on the rank that runs the tower its
+    layers once (the forward twice) under a gradient, or through K1 once
+    when it is frozen (LoRA)."""
+    tower_calls = cfg.vision.num_layers if tower else 0
+    bwd = decoder_calls + (0 if lora else tower_calls)
+    want = {"prefill_attention_lse": 2 * bwd, "flash_attention_bwd_dkv": bwd,
+            "flash_attention_bwd_dq": bwd}
+    if lora and tower:
+        want["tower_attention"] = tower_calls
+    return want
+
+
+def same_trees(label: str, got: dict, want: dict, atol: float) -> float:
+    """Leaf for leaf: the same paths and shapes, every element within atol;
+    returns the largest difference."""
+    a, b = quant_io._flatten_tree(got), quant_io._flatten_tree(want)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{label}: leaves differ: {sorted(set(a) ^ set(b))[:5]}")
+    worst = 0.0
+    for k in b:
+        if a[k].shape != b[k].shape:
+            raise AssertionError(f"{label}: {k} is {tuple(a[k].shape)}, not {tuple(b[k].shape)}")
+        worst = max(worst, float((a[k].float() - b[k].float()).abs().max()))
+    print(f"  {label}: {len(b)} leaves, largest difference {worst:.3e} (bound {atol:.1e})",
+          flush=True)
+    if not worst <= atol:
+        raise AssertionError(f"{label}: {worst} past {atol}")
+    return worst
+
+
 def phase_train_mesh(dev, seed: int, header) -> dict:
     """14: radvlm_0_5b at full width (SigLIP-SO400M 26 layers, Qwen2-0.5B 24
     layers), f32 masters from the seed, MESH_ROWS of phase 8's packed
-    4096-token rows: the one-card step, 14a ZeRO-3 and 14b TP = 2 (two
-    gloo processes), 14c the zigzag ring at seq = 1 (one NCCL rank) with its
-    launch counts and its pairs' kernels held to their plain versions at the
-    half-chunk shape."""
+    4096-token rows: the one-card step and the one-card LoRA step; one
+    spawn of two gloo processes for 14a ZeRO-3 (its step saved), 14b TP,
+    14d GPipe and 14e the interleaved pipeline over {stage: 2}, 14f LoRA
+    under TP; 14c the zigzag ring at seq = 1 (one NCCL rank) with its
+    launch counts and its pairs' kernels held to their plain versions at
+    the half-chunk shape; 14g `read_params` of 14a's saved step against the
+    one-card step's, leaf for leaf."""
+    import pickle
+
+    from radvlm_tpu_torch.training import checkpoint as ckpt
+
     cfg, tok = radvlm_0_5b(), CharTokenizer()
     t_phase = time.perf_counter()
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        f"smoke_mesh_{os.getpid()}")
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    saves = os.path.join(build, f"smoke_mesh_ckpt_{os.getpid()}")
+    spawn_root = os.path.join(build, f"smoke_mesh_ranks_{os.getpid()}")
+    go, host_file = os.path.join(spawn_root, "go"), os.path.join(spawn_root, "host.pkl")
+    pipe = dict(n_microbatches=PP_MICROBATCHES)
+    cases = [("14a", {"fsdp": 2}, dict(save=os.path.join(saves, "fsdp"))),
+             ("14b", {"tensor": 2}, {}),
+             ("14d", {"stage": MESH_STAGES}, dict(pp=pipe)),
+             ("14e", {"stage": MESH_STAGES}, dict(pp=dict(pipe, interleave=PP_INTERLEAVE))),
+             ("14f", {"tensor": 2}, dict(lora=True))]
+    # The two ranks start up (imports, CUDA, gloo) while this process makes
+    # the data and measures the one-card steps; they begin at `go`.
+    ranks_ctx = start_ranks(mesh_rank, 2, dict(device=str(dev), cfg=cfg, seed=seed, cases=cases,
+                                               go=go, host_file=host_file), spawn_root)
+    saver = None
     try:
-        host = mesh_host_batch(cfg, tok, seed, root)
+        root = os.path.join(build, f"smoke_mesh_{os.getpid()}")
+        try:
+            host = mesh_host_batch(cfg, tok, seed, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        with open(host_file + ".tmp", "wb") as f:
+            pickle.dump(host, f)
+        os.replace(host_file + ".tmp", host_file)
+        lora_one = mesh_micro_step(dev, cfg, seed, host, steps=1, lora=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_report("one card, LoRA", lora_one, lora_one, 0.0)
+        lora_want = mesh_counts(cfg, decoder_calls=cfg.text.num_layers, tower=True, lora=True)
+        require_counts("one card, LoRA", lora_one["counts"], lora_want)
+        one = mesh_micro_step(dev, cfg, seed, host, steps=1, keep=True)
+        mesh_report("one card", one, one, 0.0)
+        # The one-card step is written while the ranks run (14g reads it).
+        one_state = one.pop("state")
+        saved = {}
+
+        def save_one():
+            t0 = time.perf_counter()
+            saved["ok"] = ckpt.save_state(ckpt.CheckpointManager(os.path.join(saves, "one")), 1,
+                                          one_state, force=True)
+            saved["s"] = time.perf_counter() - t0
+
+        saver = threading.Thread(target=save_one)
+        saver.start()
+        header("[14a-f/14] ZeRO-3 {fsdp: 2}, TP {tensor: 2} (7 | 1 local heads), GPipe and "
+               "the interleaved pipeline {stage: 2}, LoRA under TP: two processes on the card "
+               "over gloo")
+        open(go, "w").close()
+        ranks = join_ranks(ranks_ctx, 2, spawn_root)
+        ranks_ctx = None
+        saver.join()
+        print(f"  the one-card step saved in {saved['s']:.1f} s, beside the ranks", flush=True)
+        if not saved.get("ok"):
+            raise AssertionError("the one-card step was not saved")
+        del one_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        tols = {"14a": FSDP_TOL, "14b": TP_TRAIN_TOL, "14d": PP_TOL, "14e": PP_TOL,
+                "14f": LORA_TP_TOL}
+        for r, results in enumerate(ranks):
+            for (label, shape, opts), res in zip(cases, results):
+                yard = lora_one if opts.get("lora") else one
+                mesh_report(f"{label} {shape} rank {r}", res, yard, tols[label])
+                if "pp" in opts:
+                    want = mesh_counts(cfg, tower=res["stage"] == 0, decoder_calls=(
+                        cfg.text.num_layers // MESH_STAGES * PP_MICROBATCHES))
+                    print(f"    {label} rank {r} launches predicted {want}", flush=True)
+                    require_counts(f"{label} rank {r}", res["counts"], want)
+                elif opts.get("lora"):
+                    require_counts(f"{label} rank {r}", res["counts"], lora_want)
+                elif not all(res["counts"][k] for k in PATH_KERNELS["mesh_ring"]):
+                    raise AssertionError(f"{label}: K2-lse, K7 or K8 never launched on rank {r}")
+        header("[14g/14] read_params of 14a's ZeRO-3 step against the one-card step's")
+        t_read = time.perf_counter()
+        zero3 = ckpt.read_params(ckpt.CheckpointManager(os.path.join(saves, "fsdp")), 1)
+        card = ckpt.read_params(ckpt.CheckpointManager(os.path.join(saves, "one")), 1)
+        print(f"  read_params of both steps: {time.perf_counter() - t_read:.1f} s", flush=True)
+        # One Adam step moves an element by at most lr / (1 - b1) x (1 - b1):
+        # lr; where the two gradients differ in sign, the steps differ by 2 lr.
+        same_trees("14g ZeRO-3 step vs one card", zero3, card, 2.5 * MESH_LR)
+        del zero3, card
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    one = mesh_micro_step(dev, cfg, seed, host)
-    gc.collect()
-    torch.cuda.empty_cache()
-    mesh_report("one card", one, one, 0.0)
-    header("[14a-b/14] ZeRO-3 {fsdp: 2}, then TP {tensor: 2} (7 | 1 local heads): two "
-           "processes on the card over gloo")
-    spawn_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                              f"smoke_mesh_ranks_{os.getpid()}")
-    try:
-        ranks = spawn_ranks(mesh_rank, 2, dict(device=str(dev), cfg=cfg, seed=seed, host=host,
-                                               shapes=[{"fsdp": 2}, {"tensor": 2}]), spawn_root)
-    finally:
+        if ranks_ctx is not None:  # a failure before the ranks were joined: stop them
+            for proc in ranks_ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join()
+        if saver is not None:
+            saver.join()
         shutil.rmtree(spawn_root, ignore_errors=True)
-    for r, (fsdp_res, tp_res) in enumerate(ranks):
-        mesh_report(f"14a ZeRO-3 rank {r}", fsdp_res, one, FSDP_TOL)
-        mesh_report(f"14b TP rank {r}", tp_res, one, TP_TRAIN_TOL)
-        for label, res in (("14a", fsdp_res), ("14b", tp_res)):
-            if not all(res["counts"][k] for k in PATH_KERNELS["mesh_ring"]):
-                raise AssertionError(f"{label}: K2-lse, K7 or K8 never launched on rank {r}")
+        shutil.rmtree(saves, ignore_errors=True)
     counts = {}
     header("[14c/14] the zigzag ring at seq = 1 (one NCCL rank): three K2-lse pairs a layer")
     pmesh.init_distributed("nccl", device=dev)
@@ -4709,7 +4889,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[14/14] M12's training half: ZeRO-3, TP = 2 and the zigzag ring, radvlm_0_5b")
+    header("[14/14] M12's training half: ZeRO-3, TP = 2, pipelines, LoRA under TP and the "
+           "zigzag ring, radvlm_0_5b")
     counts.update(phase_train_mesh(dev, args.seed, header))
 
     report = {"kernels": [

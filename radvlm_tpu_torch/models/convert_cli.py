@@ -10,12 +10,13 @@ Reads the parameters of step `--step` (default: the latest) that
 `--device` (default: the CUDA card) and writes `model.safetensors` and
 `config.json` through `hf_export.save_radvlm_hf`. `--verify` loads the
 written directory back with `hf_import.load_radvlm_checkpoint` and requires
-every parameter to equal the checkpoint's. The JAX CLI first turns
-pipeline-parallel layer stacks back into [L, ...] stacks
-(`parallel.pp.canonicalize_layer_stacks`); the port has no pipeline
-parallelism yet (ROADMAP M12), so its checkpoints are never stacked that
-way and there is nothing to undo. A LoRA run's checkpoint (adapters only)
-is refused.
+every parameter to equal the checkpoint's. The model's config is the one
+a mesh step saved beside it, else `--model-size`'s. A step saved over a mesh (one
+file a rank: ZeRO-3 slices, tensor slices, a pipeline stage's layers) is
+reassembled into whole [L, ...] layer stacks by `checkpoint.read_params`;
+a tree folded [V, S, C, ...] by an interleaved pipeline is unfolded
+(`parallel.pp.canonicalize_layer_stacks`) before the HF remap, as in the
+JAX CLI. A LoRA run's checkpoint (adapters only) is refused.
 """
 
 from __future__ import annotations
@@ -43,19 +44,21 @@ def main(argv=None):
     from radvlm_tpu_torch import config as cfglib
     from radvlm_tpu_torch.models import convert
     from radvlm_tpu_torch.models.hf_export import save_radvlm_hf
+    from radvlm_tpu_torch.parallel import pp
     from radvlm_tpu_torch.training import checkpoint as ckpt_lib
 
-    cfg = {
-        "7b": cfglib.radvlm_7b,
-        "0.5b": cfglib.radvlm_0_5b,
-        "tiny": cfglib.tiny_test_config,
-    }[args.model_size]()
     manager = ckpt_lib.CheckpointManager(args.checkpoint_dir)
     step = args.step if args.step is not None else manager.latest_step()
     if step is None:
         raise SystemExit(f"no checkpoints under {args.checkpoint_dir}")
+    cfg = ckpt_lib.saved_config(manager, step) or {
+        "7b": cfglib.radvlm_7b,
+        "0.5b": cfglib.radvlm_0_5b,
+        "tiny": cfglib.tiny_test_config,
+    }[args.model_size]()
     log.info("restoring step %d", step)
-    tree = ckpt_lib.read_params(manager, step)
+    tree = pp.canonicalize_layer_stacks(ckpt_lib.read_params(manager, step),
+                                        cfg.text.num_layers)
     model = convert.radvlm_from_jax(tree, cfg, device=args.device,
                                     dtype=tree["image_newline"].dtype)
     save_radvlm_hf(model, cfg, args.output)

@@ -12,6 +12,10 @@ LoRA: `training.lora.merge_lora` attaches stacked adapters to a `Linear` or
 `Linear` then multiplies by W + scaling * (a b)^T, as the JAX package merges
 the delta into the kernel; a `QLinear` adds (x a) (scaling * b) beside the
 quantized matmul, so the int8 base never dequantizes into residency.
+Under tensor parallelism a projection holds a slice (`tp_part`, set by
+`parallel.tp`), and its adapter's matching slice is applied: b's output
+columns for a column-parallel projection, a's input rows for a row-parallel
+one (`lora_factors`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,30 @@ from radvlm_tpu_torch.ops.quant import q4mm, qmm
 
 def empty_param(*shape: int, device=None, dtype=None) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+class Elsewhere(nn.Module):
+    """A decoder layer that another pipeline stage holds
+    (`parallel/pp.py`): it keeps the layer's place in `layers`, so every
+    held layer keeps its global index and name, and has no parameters."""
+
+
+def lora_factors(lin: nn.Module):
+    """(a [in, r], b [r, out], scaling) of the adapter attached to `lin`,
+    the part of them that matches its tensor-parallel slice (`tp_part` =
+    ("out" | "in", ranks, rank)); differentiable in the adapters."""
+    a, b, layer, scaling = lin.lora
+    a, b = a[layer], b[layer]
+    part = getattr(lin, "tp_part", None)
+    if part is not None:
+        side, n, rank = part
+        if side == "out":
+            w = b.shape[1] // n
+            b = b.narrow(1, rank * w, w)
+        else:
+            w = a.shape[0] // n
+            a = a.narrow(0, rank * w, w)
+    return a, b, scaling
 
 
 class Linear(nn.Module):
@@ -49,8 +77,8 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight = self.weight
         if self.lora is not None:
-            a, b, layer, scaling = self.lora
-            weight = (weight + scaling * torch.matmul(a[layer], b[layer]).t()).to(weight.dtype)
+            a, b, scaling = lora_factors(self)
+            weight = (weight + scaling * torch.matmul(a, b).t()).to(weight.dtype)
         return F.linear(x, weight, self.bias)
 
 
@@ -86,9 +114,9 @@ class QLinear(nn.Module):
     def forward(self, x: torch.Tensor, w8a8: Optional[bool] = None) -> torch.Tensor:
         y = qmm(x, self.weight, self.scale, None, w8a8=w8a8)
         if self.lora is not None:
-            a, b, layer, scaling = self.lora
-            low = torch.matmul(torch.matmul(x, a[layer].to(x.dtype)),
-                               (scaling * b[layer]).to(b.dtype).to(x.dtype))
+            a, b, scaling = lora_factors(self)
+            low = torch.matmul(torch.matmul(x, a.to(x.dtype)),
+                               (scaling * b).to(b.dtype).to(x.dtype))
             y = y + low.to(y.dtype)
         return y if self.bias is None else y + self.bias
 

@@ -269,11 +269,15 @@ def _moe_mlp(cfg: Qwen2Config, moe: MoE, y: torch.Tensor):
     Under the training mesh (`parallel/sharding.py`) the tokens are this
     rank's share of the global batch, and the global arithmetic is kept:
     f and P average over the batch ranks, capacity mode counts C from the
-    global token count and ranks a pick after the earlier ranks' picks
-    (`sharding.row_offsets`). Over `expert` the tables hold this rank's
-    E_local experts: the rank computes them on its tokens, and the shares
-    sum (`tp.reduce_from`); x and the top-k weights enter through
-    `tp.copy_to`, so their gradients sum the experts' parts."""
+    global token count and ranks a pick after the picks before it in the
+    global order (`sharding.row_offsets`: rows of the earlier ranks, and
+    under seq > 1 the earlier sequence blocks of the same row). Over
+    `expert` the tables hold this rank's E_local experts: the rank computes
+    them on its tokens, and the shares sum (`tp.reduce_from`); x and the
+    top-k weights enter through `tp.copy_to`, so their gradients sum the
+    experts' parts. Over `tensor` every expert (and the shared expert)
+    holds its slice of the m channels, gate / up column-parallel, down
+    row-parallel: the products are partial sums, summed the same way."""
     b, s, d = y.shape
     t = b * s
     x = y.reshape(t, d)
@@ -286,9 +290,11 @@ def _moe_mlp(cfg: Qwen2Config, moe: MoE, y: torch.Tensor):
     oh = F.one_hot(idx, e).float()  # [T, k, E]
     mg = sharding.mesh_of(moe)
     group = None if mg is None else mg.group("expert")
+    tgroup = None if mg is None else mg.group("tensor")
     lo = 0 if group is None else mg.index["expert"] * moe.gate.shape[0]
     mine = slice(lo, lo + moe.gate.shape[0])
-    xl, vl = tp.copy_to(x, group), tp.copy_to(vals, group)
+    xl = tp.copy_to(tp.copy_to(x, group), tgroup)
+    vl = tp.copy_to(tp.copy_to(vals, group), tgroup)
     if cfg.moe_capacity_factor <= 0:
         h = torch.matmul(xl, moe.gate)  # [E_local, T, m]
         u = torch.matmul(xl, moe.up)
@@ -300,7 +306,9 @@ def _moe_mlp(cfg: Qwen2Config, moe: MoE, y: torch.Tensor):
         cap = max(1, int(math.ceil(t_all * k / e * cfg.moe_capacity_factor)))
         ohm = oh.transpose(0, 1).reshape(k * t, e)
         before = torch.cumsum(ohm, dim=0) - ohm
-        before = before + sharding.row_offsets(oh.sum(0), mg).repeat_interleave(t, dim=0)
+        rows = oh.reshape(b, s, k, e).sum(1).transpose(0, 1)  # [k, b, E] picks a row
+        offsets = sharding.row_offsets(rows, mg).repeat_interleave(s, dim=1)
+        before = before + offsets.reshape(k * t, e)
         my_pos = (before * ohm).sum(-1).reshape(k, t).t().to(torch.int64)  # [T, k]
         keep = (my_pos < cap).to(x.dtype)
         # A dropped pick's place (>= cap) has no column: its one-hot row is 0.
@@ -313,9 +321,13 @@ def _moe_mlp(cfg: Qwen2Config, moe: MoE, y: torch.Tensor):
         u = torch.matmul(xe, moe.up)
         eo = torch.matmul(F.silu(h) * u, moe.down)  # [E_local, C, d]
         out = torch.einsum("tec,ecd->td", comb, eo)
-    out = tp.reduce_from(out, group)
+    out = tp.reduce_from(tp.reduce_from(out, group), tgroup)
     if moe.shared is not None:
-        sh = moe.shared.down(F.silu(moe.shared.gate(y)) * moe.shared.up(y)).reshape(t, d)
+        # One node before the shared expert with or without a tensor group,
+        # so y's gradient sums its parts in the same order either way.
+        ys = y.view_as(y) if tgroup is None else tp.copy_to(y, tgroup)
+        sh = moe.shared.down(F.silu(moe.shared.gate(ys)) * moe.shared.up(ys))
+        sh = tp.reduce_from(sh, tgroup).reshape(t, d)
         sgate = torch.sigmoid(moe.shared_gate(y).reshape(t, 1).float()).to(x.dtype)
         out = out + sgate * sh
     n = sharding.batch_size(mg)

@@ -118,6 +118,29 @@ def splice_embeds(
     return torch.where((img_src >= 0)[..., None], img_emb.to(text_emb.dtype), text_emb)
 
 
+def input_embeds(
+    model: RadVLM,
+    cfg: RadVLMConfig,
+    batch: Dict[str, torch.Tensor],
+    *,
+    attn_impl: str = "auto",
+    remat: bool = False,
+    resampler_generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The decoder's input [B, L, D]: every tile through the tower,
+    resampler and projector, the anyres merge, and the splice into the text
+    embedding."""
+    b, t = batch["tiles"].shape[:2]
+    flat_tiles = batch["tiles"].reshape((b * t,) + tuple(batch["tiles"].shape[2:]))
+    tile_feats = encode_tiles(model, cfg, flat_tiles, attn_impl=attn_impl, remat=remat,
+                              resampler_generator=resampler_generator)
+    tile_feats = tile_feats.reshape(b, t, tokens_per_tile(cfg), -1)
+    merged = merge_image_features(
+        model, tile_feats, batch["merge_indices"], batch["merge_weights"]
+    )
+    return splice_embeds(model, batch["tokens"], batch["img_src"], merged, cfg)
+
+
 def forward(
     model: RadVLM,
     cfg: RadVLMConfig,
@@ -139,15 +162,8 @@ def forward(
     `return_aux` (MoE training) the router loss as a third element. `remat`
     rematerialises every tower and decoder layer in the backward;
     `resampler_generator` is masked_drop's stream in training."""
-    b, t = batch["tiles"].shape[:2]
-    flat_tiles = batch["tiles"].reshape((b * t,) + tuple(batch["tiles"].shape[2:]))
-    tile_feats = encode_tiles(model, cfg, flat_tiles, attn_impl=attn_impl, remat=remat,
-                              resampler_generator=resampler_generator)
-    tile_feats = tile_feats.reshape(b, t, tokens_per_tile(cfg), -1)
-    merged = merge_image_features(
-        model, tile_feats, batch["merge_indices"], batch["merge_weights"]
-    )
-    embeds = splice_embeds(model, batch["tokens"], batch["img_src"], merged, cfg)
+    embeds = input_embeds(model, cfg, batch, attn_impl=attn_impl, remat=remat,
+                          resampler_generator=resampler_generator)
     return qwen2.forward(
         model.text,
         cfg.text,

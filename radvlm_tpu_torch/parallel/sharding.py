@@ -26,11 +26,16 @@ parameter over the port's `DeviceMesh`, one process per rank:
   token embedding and the lm_head stay whole over `tensor` (the JAX rules
   shard the tower's layers, the embedding's vocab and the lm_head's columns
   over it too: ROADMAP Queue 3), and FSDP shards them.
+  Over an MoE decoder `tensor` slices the experts' m channels as the JAX
+  rules do (gate / up column-wise, down row-wise; the shared expert as a
+  dense MLP); the router and the shared expert's gate stay whole.
 - `expert` holds each rank's share of the MoE expert tables (dim 0); the
   router and the shared expert stay whole. `qwen2._moe_mlp` computes this
   rank's experts on the tokens it holds and sums the ranks' shares.
 - `seq` holds the sequence shards of ring attention (`parallel/ring.py`):
   `batch_shardings` cuts the host batch.
+- `stage` holds pipeline stages (`parallel/pp.py`), which compose with
+  `data` only (`check_axes`).
 
 `shard_for_training` attaches the mesh to the model and its blocks
 (`mesh_of`). A rank's loss is its tokens' summed loss over the GLOBAL token
@@ -134,7 +139,7 @@ def placement(name: str) -> Placement:
     path = path_str(name)
     spec = spec_for(path, _RULES)
     tdim = spec.index("tensor") if "tensor" in spec else None
-    if _WHOLE_OVER_TENSOR.match(path) or "expert" in spec:
+    if _WHOLE_OVER_TENSOR.match(path):
         tdim = None
     edim = spec.index("expert") if "expert" in spec else None
     return Placement(tdim, edim, "fsdp" in spec)
@@ -181,16 +186,24 @@ def mesh_groups(mesh) -> MeshGroups:
         size[ax] = n
         index[ax] = mesh.get_local_rank(ax) if n > 1 else 0
         groups[ax] = mesh.get_group(ax) if n > 1 else None
-    check_axes({"stage": size["stage"]})
+    check_axes(size)
     return MeshGroups(mesh, groups, index, size)
 
 
 def check_axes(mesh_shape: Optional[Dict[str, int]]) -> None:
-    """Refuse what the port does not run before any process group exists."""
-    if (mesh_shape or {}).get("stage", 1) not in (1, -1):
-        raise NotImplementedError(
-            "mesh axis stage > 1: pipeline parallelism (parallel/pp.py) is not ported "
-            "(ROADMAP M12)")
+    """Refuse a mesh the port does not run, before any process group
+    exists: pipeline stages compose with `data` only (the JAX package's
+    `pp._check_mesh` rule and message; -1, an axis that takes the ranks
+    left, passes here and is checked again once it has its size)."""
+    shape = mesh_shape or {}
+    if shape.get("stage", 1) in (1, -1):
+        return
+    for ax in ("fsdp", "seq", "tensor", "expert"):
+        if shape.get(ax, 1) not in (1, -1):
+            raise ValueError(
+                f"PP v1 composes with `data` only; mesh axis {ax}="
+                f"{shape[ax]} unsupported"
+            )
 
 
 def wants_mesh(mesh_shape: Optional[Dict[str, int]]) -> bool:
@@ -263,29 +276,41 @@ def batch_mean(x: torch.Tensor, mg: Optional[MeshGroups]) -> torch.Tensor:
     return batch_all_reduce(global_mean(x.detach(), mg), mg)
 
 
+def _exclusive_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cumsum(x, dim=dim) - x
+
+
 def row_offsets(counts: torch.Tensor, mg: Optional[MeshGroups]) -> torch.Tensor:
-    """counts [k, E] of this rank's top-k picks -> [k, E], the other
-    ranks' picks that come before this rank's in the GShard ranking (slot
-    by slot, then rows; the ranks data-major over (data, fsdp)). Outside a
-    mesh: zeros."""
-    if mg is None or mg.batch_ways == 1:
+    """counts [k, R, E] of this rank's top-k picks in each of its R rows ->
+    [k, R, E], the picks elsewhere that come before a row's in the GShard
+    ranking, which a rank's own running count does not see. The ranking
+    goes slot by slot, then over the global batch's tokens in order: rows
+    data-major over (data, fsdp), and within a row the seq blocks in order,
+    so under seq > 1 a row's tokens follow the earlier seq ranks' part of
+    the SAME row. Outside a mesh: zeros."""
+    if mg is None or (mg.batch_ways == 1 and mg.size["seq"] == 1):
         return torch.zeros_like(counts)
-    if mg.size["seq"] > 1:
-        raise NotImplementedError("MoE capacity mode under seq > 1: the GShard ranking "
-                                  "interleaves the seq shards' positions (ROADMAP Queue 3)")
     parts = counts[None]
-    for ax in ("fsdp", "data"):
+    for ax in ("seq", "fsdp", "data"):
         g = mg.group(ax)
         if g is None:
             continue
         out = parts.new_empty((mg.size[ax] * parts.shape[0],) + tuple(counts.shape))
         dist.all_gather_into_tensor(out, parts.contiguous(), group=g)
         parts = out
-    total = parts.sum(0)
-    # Slots before k on the other ranks (this rank's are counted locally),
-    # then slot k on the ranks before this one.
-    earlier_slots = (torch.cumsum(total, dim=0) - total) - (torch.cumsum(counts, dim=0) - counts)
-    return earlier_slots + parts[:mg.batch_index].sum(0)
+    k, rows, e = counts.shape
+    n_seq = mg.size["seq"]
+    # Global segments (batch rank, row, seq block) in ranking order.
+    segs = parts.view(mg.batch_ways, n_seq, k, rows, e).permute(2, 0, 3, 1, 4)
+    seg_before = _exclusive_cumsum(segs.reshape(k, -1, e), 1).view(k, mg.batch_ways, rows,
+                                                                   n_seq, e)
+    mine = seg_before[:, mg.batch_index, :, mg.index["seq"]]  # [k, R, E]
+    slots_before = _exclusive_cumsum(segs.sum((1, 2, 3)), 0)  # [k, E]
+    # This rank's own picks are counted locally: its earlier slots, and in
+    # slot k its rows before r.
+    local_slots = _exclusive_cumsum(counts.sum(1), 0)
+    local_rows = _exclusive_cumsum(counts, 1)
+    return (slots_before - local_slots)[:, None] + mine - local_rows
 
 
 # ---------------------------------------------------------------------------
@@ -339,15 +364,47 @@ def shard_experts(decoder: nn.Module, n: int, rank: int) -> None:
             setattr(moe, name, nn.Parameter(_narrow(t.data, 0, n, rank), requires_grad=False))
 
 
+def _moe_tensor_cfg(cfg, n: int):
+    """An MoE decoder's per-rank config over `tensor`: heads and the
+    experts' widths divided by n."""
+    for name in ("num_heads", "num_kv_heads", "moe_intermediate_size",
+                 "shared_expert_intermediate_size"):
+        if getattr(cfg, name) % n:
+            raise ValueError(f"tensor={n} must divide {name}={getattr(cfg, name)}")
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // n, num_kv_heads=cfg.num_kv_heads // n,
+        moe_intermediate_size=cfg.moe_intermediate_size // n,
+        shared_expert_intermediate_size=cfg.shared_expert_intermediate_size // n)
+
+
+def shard_moe_tensor(decoder: nn.Module, n: int, rank: int) -> None:
+    """Rank `rank`'s slice over `tensor` of an MoE decoder, in place: the
+    attention as `tp.shard_text_tp` slices it, each expert's m channels
+    ([E, d, m] gate / up on dim 2, [E, m, d] down on dim 1) and the shared
+    expert as a dense MLP; the router and the shared expert's gate stay
+    whole."""
+    for i, blk in enumerate(decoder.layers):
+        for name in ("q", "k", "v", "o"):
+            setattr(blk, name, tp._slice_linear(getattr(blk, name), name, n, rank, f"layer {i} "))
+        moe = blk.moe
+        for name, dim in (("gate", 2), ("up", 2), ("down", 1)):
+            setattr(moe, name, nn.Parameter(_narrow(getattr(moe, name).data, dim, n, rank),
+                                            requires_grad=False))
+        if moe.shared is not None:
+            for name in ("gate", "up", "down"):
+                setattr(moe.shared, name, tp._slice_linear(getattr(moe.shared, name), name, n,
+                                                           rank, f"layer {i} shared "))
+
+
 def shard_for_training(model: nn.Module, cfg, mg: MeshGroups):
     """Slice an unfused f32 RadVLM for this rank's place on `tensor` and
     `expert`, in place (before `mark_trainable`); returns the rank's config
     (the decoder's heads and ffn width divided by the tp degree)."""
     tp_n, ep_n = mg.size["tensor"], mg.size["expert"]
-    if tp_n > 1:
-        if cfg.text.num_experts:
-            raise NotImplementedError("tensor > 1 over an MoE decoder is not wired: shard "
-                                      "the experts over `expert` (ROADMAP Queue 3)")
+    if tp_n > 1 and cfg.text.num_experts:
+        cfg = dataclasses.replace(cfg, text=_moe_tensor_cfg(cfg.text, tp_n))
+        shard_moe_tensor(model.text, tp_n, mg.index["tensor"])
+    elif tp_n > 1:
         local = tp.local_text_cfg(cfg.text, tp_n)
         tp.shard_text_tp(model.text, tp_n, mg.index["tensor"])
         cfg = dataclasses.replace(cfg, text=local)
@@ -507,12 +564,24 @@ class ShardedModel:
         return params, labels
 
 
+# A kind names the axes over which a tensor's elements are split beyond
+# fsdp; "summed" is a whole tensor whose gradient is partial on each tensor
+# rank (a LoRA adapter of a sliced projection).
+_KIND_AXES = {"whole": (), "summed": (), "tensor": ("tensor",), "expert": ("expert",),
+              "tensor+expert": ("tensor", "expert")}
+
+
+def sliced_dims(pl: Placement, mg: MeshGroups) -> Tuple[Optional[int], Optional[int]]:
+    """(dim sliced over tensor, dim sliced over expert) of a parameter on
+    this mesh; None where that axis has one rank or leaves it whole."""
+    return tuple(dim if dim is not None and mg.size[ax] > 1 else None
+                 for ax, dim in (("tensor", pl.tensor_dim), ("expert", pl.expert_dim)))
+
+
 def _kind(pl: Placement, mg: MeshGroups) -> str:
-    if pl.tensor_dim is not None and mg.size["tensor"] > 1:
-        return "tensor"
-    if pl.expert_dim is not None and mg.size["expert"] > 1:
-        return "expert"
-    return "whole"
+    tdim, edim = sliced_dims(pl, mg)
+    axes = [ax for ax, dim in (("tensor", tdim), ("expert", edim)) if dim is not None]
+    return "+".join(axes) or "whole"
 
 
 def _scope_of(name: str, layer_tower: bool) -> str:
@@ -634,9 +703,10 @@ class GradComm:
     """The optimizer's collectives under a mesh. `sync` sums the gradients
     over the batch ranks: a unit's slice was reduce-scattered over fsdp by
     its gather already and sums over data and seq; a whole parameter sums
-    over data, fsdp and seq. `norm` is the global norm with every element
-    once: slices sum over fsdp, tensor- and expert-sliced elements over
-    their axis, what ranks hold alike counts once."""
+    over data, fsdp and seq, a "summed" one over tensor too. `norm` is the
+    global norm with every element once: slices sum over fsdp, tensor- and
+    expert-sliced elements over their axes, what ranks hold alike counts
+    once."""
 
     def __init__(self, mg: MeshGroups, kinds: Dict[str, Tuple[bool, str]]):
         self.mg = mg
@@ -646,21 +716,24 @@ class GradComm:
         g = self.mg.group
         sliced = [x for n, x in zip(names, grads) if self.kinds[n][0]]
         whole = [x for n, x in zip(names, grads) if not self.kinds[n][0]]
+        summed = [x for n, x in zip(names, grads) if self.kinds[n][1] == "summed"]
         _all_reduce_flat(sliced, [g("data"), g("seq")])
         _all_reduce_flat(whole, [g("data"), g("fsdp"), g("seq")])
+        _all_reduce_flat(summed, [g("tensor")])
 
     def norm(self, names: Sequence[str], grads: List[torch.Tensor]) -> torch.Tensor:
         dev = grads[0].device if grads else torch.device("cpu")
         # parts[kind] = (sum of squares held whole over fsdp, of fsdp slices)
-        parts = torch.zeros(3, 2, dtype=torch.float32, device=dev)
-        row = {"whole": 0, "tensor": 1, "expert": 2}
+        kinds = list(_KIND_AXES)
+        parts = torch.zeros(len(kinds), 2, dtype=torch.float32, device=dev)
         for n, x in zip(names, grads):
             is_slice, kind = self.kinds[n]
-            parts[row[kind], int(is_slice)] += x.float().pow(2).sum()
+            parts[kinds.index(kind), int(is_slice)] += x.float().pow(2).sum()
         g = self.mg.group
-        for r, ax in ((1, "tensor"), (2, "expert")):
-            if g(ax) is not None:
-                dist.all_reduce(parts[r], group=g(ax))
+        for r, kind in enumerate(kinds):
+            for ax in _KIND_AXES[kind]:
+                if g(ax) is not None:
+                    dist.all_reduce(parts[r], group=g(ax))
         sliced = parts[:, 1].sum()
         if g("fsdp") is not None:
             dist.all_reduce(sliced, group=g("fsdp"))
@@ -669,12 +742,13 @@ class GradComm:
 
 def grad_comm(sm: ShardedModel, extra: Optional[Dict[str, torch.Tensor]] = None) -> GradComm:
     """The `GradComm` of a sharded model's trainable tensors, plus `extra`
-    whole ones (LoRA adapters, replicated)."""
+    whole ones (LoRA adapters, replicated: under tensor > 1 each rank's
+    gradient is its slice's part, and they sum over tensor)."""
     kinds = {}
     for u in sm.units:
         kinds[u.key] = (True, u.kind)
     for n in sm.whole:
         kinds[n] = (False, _kind(sm.placements[n], sm.mg))
     for n in extra or {}:
-        kinds[n] = (False, "whole")
+        kinds[n] = (False, "summed")
     return GradComm(sm.mg, kinds)

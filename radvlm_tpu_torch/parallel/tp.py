@@ -185,8 +185,13 @@ def _slice_linear(lin: nn.Module, name: str, tp: int, rank: int, where: str = ""
         bias = _part(bias, 0, tp, rank)
     if isinstance(lin, QLinear):
         scale = _part(lin.scale.data, 0, tp, rank) if col else lin.scale.data
-        return QLinear(w, scale, bias)
-    return Linear(w, bias)
+        out = QLinear(w, scale, bias)
+    else:
+        out = Linear(w, bias)
+    # Which part of the whole projection this is: a LoRA adapter attached
+    # later applies the matching part of itself (`layers.lora_factors`).
+    out.tp_part = ("out" if col else "in", tp, rank)
+    return out
 
 
 def shard_text_tp(decoder: nn.Module, tp: int, rank: int) -> nn.Module:

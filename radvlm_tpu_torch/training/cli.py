@@ -11,7 +11,12 @@ per card started by torchrun:
 
 (`--mesh-*` sizes as in the JAX package; a size above one in a single
 process without torchrun raises `mesh.make_mesh`'s ValueError.)
-`--mesh-stage` above 1 raises: pipeline parallelism is ROADMAP M12.
+`--mesh-stage` above 1 trains a pipeline (`parallel/pp.py`), composed with
+`--mesh-data` only: `--pp-microbatches` M a step, `--pp-interleave` V chunks
+a rank (layers % (stage x V) == 0 and, for V > 1, M % stage == 0):
+
+    torchrun --nproc-per-node 4 -m radvlm_tpu_torch.training.cli --multihost \
+        --mesh-stage 2 --mesh-data 2 --mesh-fsdp 1 --pp-microbatches 4 ...
 """
 
 from __future__ import annotations
@@ -148,6 +153,8 @@ def main(argv=None, tokenizer=None):
             args.pos_skipping_range if args.use_pos_skipping else 0
         ),
         pack_factor=args.pack_factor,
+        pp_microbatches=args.pp_microbatches,
+        pp_interleave=args.pp_interleave,
         device=device,
         **extra,
     )

@@ -135,7 +135,7 @@ def setup_policy(run: loop.RunConfig, init_params: Optional[radvlm.RadVLM],
     if mesh is not None:
         cfg, mg = shard_model(run.model, run.train, model, mesh)
     opt = make_optimizer(model, run.train)
-    state = TrainState(step=0, params=model, opt_state=opt, mesh=mg)
+    state = TrainState(step=0, params=model, opt_state=opt, mesh=mg, cfg=run.model)
     return cfg, state, frozen_copy(model), device
 
 

@@ -12,9 +12,11 @@ world of one included) runs over the mesh (`parallel/mesh.py`,
 `parallel/sharding.py`): every rank loads the same global batch and keeps
 its part (`sharding.batch_shardings`); with `seq` > 1 (or attn_impl "ring")
 the decoder's attention is ring attention over `seq`, the batch
-zigzag-permuted with its labels shifted first (`ring.zigzag_shift_batch`).
-Only rank 0 logs and writes the data state. Pipeline stages are not ported
-(ROADMAP M12): `stage` > 1 raises.
+zigzag-permuted with its labels shifted first (`ring.zigzag_shift_batch`);
+with `stage` > 1 the step is the pipeline's (`parallel/pp.py`:
+`setup_pp_training`, or `setup_pp_lora_training` with LoRA), over
+`pp_microbatches` microbatches and `pp_interleave` chunks a rank. Only
+rank 0 logs and writes the data state.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from radvlm_tpu_torch.data.loader import DEFAULT_BUCKETS, LlavaJsonDataset, Pref
 from radvlm_tpu_torch.device import resolve
 from radvlm_tpu_torch.eval.harness import batch_to_device
 from radvlm_tpu_torch.models import convert, radvlm
-from radvlm_tpu_torch.parallel import ring, sharding
+from radvlm_tpu_torch.parallel import pp, ring, sharding
 from radvlm_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from radvlm_tpu_torch.training import checkpoint as ckpt_lib
 from radvlm_tpu_torch.training import train_step as ts
@@ -78,6 +80,10 @@ class RunConfig:
     # Ring-attention schedule when the mesh has seq > 1: "zigzag" (load-
     # balanced, default) or "contiguous".
     ring_schedule: str = "zigzag"
+    # Pipeline parallelism (mesh stage > 1): microbatches a step, and layer
+    # chunks a rank (the interleaved schedule when > 1).
+    pp_microbatches: int = 4
+    pp_interleave: int = 1
     # None: the card; "cpu" where the caller asks for it.
     device: Optional[str] = None
 
@@ -90,6 +96,16 @@ def open_mesh(run: RunConfig):
     if not sharding.wants_mesh(run.mesh_shape):
         return None
     return make_mesh(run.mesh_shape)
+
+
+def stages(mesh) -> int:
+    """Pipeline stages of the run's mesh (1 on one device)."""
+    return 1 if mesh is None else mesh["stage"].size()
+
+
+def pp_step_config(run: RunConfig, attn_impl: str) -> pp.PPStepConfig:
+    return pp.PPStepConfig(n_microbatches=run.pp_microbatches, remat=run.remat,
+                           attn_impl=attn_impl, interleave=run.pp_interleave)
 
 
 def ring_route(run: RunConfig, mesh) -> str:
@@ -237,10 +253,18 @@ def _train(run, tokenize_fn, mesh, device, attn_impl, init_params, hf_checkpoint
         if run.quantize_base and not is_quantized(model):
             quant.quantize_model(model)
         lcfg = LoraConfig(rank=run.lora_rank, alpha=run.lora_alpha)
-        state, lora_base, step_fn = ts.setup_lora_training(
-            run.model, run.train, lcfg, model, seed=run.seed, remat=run.remat,
-            attn_impl=attn_impl, mesh=mesh,
-        )
+        if stages(mesh) > 1:
+            state, lora_base, step_fn = pp.setup_pp_lora_training(
+                mesh, run.model, run.train, lcfg, model, seed=run.seed,
+                pp_cfg=pp_step_config(run, attn_impl))
+        else:
+            state, lora_base, step_fn = ts.setup_lora_training(
+                run.model, run.train, lcfg, model, seed=run.seed, remat=run.remat,
+                attn_impl=attn_impl, mesh=mesh,
+            )
+    elif stages(mesh) > 1:
+        state, step_fn, _ = pp.setup_pp_training(mesh, run.model, run.train, model,
+                                                 pp_cfg=pp_step_config(run, attn_impl))
     else:
         state, step_fn, _ = ts.setup_training(
             run.model, run.train, model, remat=run.remat, attn_impl=attn_impl, mesh=mesh,

@@ -16,13 +16,13 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from radvlm_tpu_torch.models import radvlm
-from radvlm_tpu_torch.models.layers import Linear, Q4Linear, QLinear
+from radvlm_tpu_torch.models.layers import Elsewhere, Linear, Q4Linear, QLinear
 from radvlm_tpu_torch.ops.quant import dequantize_array, quantize_array
 
 Adapters = Dict[str, Dict[str, torch.Tensor]]
@@ -44,10 +44,11 @@ class LoraConfig:
         return self.alpha / self.rank
 
 
-def stacked_kernels(model: radvlm.RadVLM) -> Dict[str, List[nn.Module]]:
+def stacked_kernels(model: radvlm.RadVLM) -> Dict[str, List[Optional[nn.Module]]]:
     """Tree path of every stacked projection kernel -> its per-layer
-    modules (an unfused model: the trainer never fuses)."""
-    out: Dict[str, List[nn.Module]] = {}
+    modules (an unfused model: the trainer never fuses); None for a layer
+    another pipeline stage holds (`layers.Elsewhere`)."""
+    out: Dict[str, List[Optional[nn.Module]]] = {}
     stacks = (
         ("text/layers/attn", model.text.layers, ("q", "k", "v", "o")),
         ("text/layers/mlp", model.text.layers, ("gate", "up", "down")),
@@ -55,9 +56,12 @@ def stacked_kernels(model: radvlm.RadVLM) -> Dict[str, List[nn.Module]]:
         ("vision_tower/layers/mlp", model.vision_tower.layers, ("fc1", "fc2")),
     )
     for prefix, layers, names in stacks:
+        held = [layer for layer in layers if not isinstance(layer, Elsewhere)]
         for name in names:
-            if all(hasattr(layer, name) for layer in layers):
-                out[f"{prefix}/{name}/kernel"] = [getattr(layer, name) for layer in layers]
+            if held and all(hasattr(layer, name) for layer in held):
+                out[f"{prefix}/{name}/kernel"] = [
+                    None if isinstance(layer, Elsewhere) else getattr(layer, name)
+                    for layer in layers]
     return out
 
 
@@ -77,7 +81,7 @@ def init_lora(model: radvlm.RadVLM, cfg: LoraConfig, generator: torch.Generator)
     `requires_grad` on."""
     adapters: Adapters = {}
     for path, mods in _targets(model, cfg).items():
-        first = mods[0]
+        first = next(m for m in mods if m is not None)
         if isinstance(first, Q4Linear):
             raise NotImplementedError(
                 "LoRA over an int4-packed base is not wired; quantize the "
@@ -119,6 +123,8 @@ def merge_and_bake(model: radvlm.RadVLM, adapters: Adapters, cfg: LoraConfig) ->
     kernels = stacked_kernels(model)
     for path, ad in adapters.items():
         for i, mod in enumerate(kernels[path]):
+            if mod is None:
+                continue
             a, b = ad["a"][i], ad["b"][i]
             if isinstance(mod, QLinear):
                 # B is scaled and rounded to its dtype first, as `merge_lora`

@@ -6,9 +6,12 @@ the model for this rank's place on `tensor` and `expert`, freezes by the
 tunable parts and shards it ZeRO-3 over `fsdp` (`parallel/sharding.py`);
 the optimizer runs AdamW on this rank's slices, its clip on the global norm.
 The LoRA base is sharded by the same rules and the adapters stay whole on
-every rank, as in the JAX package. Every rank runs the same step on its
-part of the batch (`sharding.batch_shardings`). Donation has no
-counterpart: a step updates in place.
+every rank, as in the JAX package: under tensor > 1 a sliced projection
+applies the matching slice of its adapter (`layers.lora_factors`), and the
+ranks' adapter gradients sum over `tensor` too. Every rank runs the same
+step on its part of the batch (`sharding.batch_shardings`). Pipeline
+stages are `parallel/pp.py`'s. Donation has no counterpart: a step updates
+in place.
 
 Compute type. Parameters are f32 master weights, as in the JAX trainer. On
 the card the forward runs under `torch.autocast(bfloat16)`: matmuls take
@@ -56,6 +59,9 @@ class TrainState:
     params: Any  # the RadVLM module (SFT) or the adapter dictionary (LoRA)
     opt_state: Optimizer
     mesh: Optional[sharding.MeshGroups] = None  # this rank's mesh, None on one card
+    # The whole model's config under a mesh: what a checkpoint's reader
+    # rebuilds the model from (`checkpoint.read_params`).
+    cfg: Optional[RadVLMConfig] = None
 
 
 def _autocast(device: torch.device):
@@ -135,6 +141,9 @@ def shard_model(model_cfg: RadVLMConfig, train_cfg: Optional[TrainConfig], model
     from radvlm_tpu_torch.models import towers
 
     mg = sharding.mesh_groups(mesh)
+    if mg.size["stage"] > 1:
+        raise ValueError("a mesh with stage > 1 trains through parallel/pp.py "
+                         "(setup_pp_training, setup_pp_lora_training)")
     cfg = sharding.shard_for_training(model, model_cfg, mg)
     if train_cfg is None:
         model.requires_grad_(False)
@@ -150,11 +159,11 @@ def setup_training(model_cfg: RadVLMConfig, train_cfg: TrainConfig, model: radvl
     builds the optimizer and the step. `model` holds f32 master weights,
     unfused. With `mesh` the model is sharded first (`shard_model`). Returns
     (state, step_fn, optimizer)."""
-    mg = None
+    mg, whole_cfg = None, model_cfg
     if mesh is not None:
         model_cfg, mg = shard_model(model_cfg, train_cfg, model, mesh)
     opt = make_optimizer(model, train_cfg)
-    state = TrainState(step=0, params=model, opt_state=opt, mesh=mg)
+    state = TrainState(step=0, params=model, opt_state=opt, mesh=mg, cfg=whole_cfg)
     return state, make_train_step(model_cfg, opt, remat=remat, attn_impl=attn_impl), opt
 
 
@@ -166,24 +175,21 @@ def setup_lora_training(model_cfg: RadVLMConfig, train_cfg: TrainConfig, lora_cf
     (a generator seeded with `seed`) unless given, AdamW with the base
     learning rate over the adapters only. With `mesh` the base is sharded
     by the rules (`shard_model`) and the adapters stay whole on every rank;
-    their gradients sum over the batch ranks. Returns (state, base,
-    step_fn)."""
+    their gradients sum over the batch ranks and `tensor`. Returns (state,
+    base, step_fn)."""
     for p in base_model.parameters():
         p.requires_grad_(False)
-    if mesh is not None and mesh["tensor"].size() > 1:
-        raise NotImplementedError("LoRA under tensor > 1 is not wired: the adapters of a "
-                                  "sliced projection would need slicing too (ROADMAP Queue 3)")
     if adapters is None:
         gen = torch.Generator(device=base_model.device).manual_seed(seed)
         adapters = init_lora(base_model, lora_cfg, gen)
     params = adapter_parameters(adapters)
-    comm, mg = None, None
+    comm, mg, whole_cfg = None, None, model_cfg
     if mesh is not None:
         model_cfg, mg = shard_model(model_cfg, None, base_model, mesh)
         comm = sharding.grad_comm(sharding.sharded(base_model), extra=params)
     opt = Optimizer(params, dict.fromkeys(params, "adapters"),
                     {"adapters": train_cfg.learning_rate}, train_cfg, comm=comm)
-    state = TrainState(step=0, params=adapters, opt_state=opt, mesh=mg)
+    state = TrainState(step=0, params=adapters, opt_state=opt, mesh=mg, cfg=whole_cfg)
     merge_lora(base_model, adapters, lora_cfg)
     step_fn = make_lora_train_step(model_cfg, lora_cfg, opt, remat=remat, attn_impl=attn_impl)
     return state, base_model, step_fn

@@ -1138,3 +1138,87 @@ def test_differentiable_all_reduces_at_one_nccl_rank(dev, nccl_world):
         assert torch.equal(got["plain"][0], got["mesh"][0])
         for a, b_ in zip(got["plain"][1], got["mesh"][1]):
             assert torch.equal(a, b_)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (parallel/pp.py)
+# ---------------------------------------------------------------------------
+
+
+def test_pp_hop_over_gloo_moves_cuda_tensors_through_host(dev, tmp_path):
+    """Two gloo processes on the card: `pp._hop` around the ring hands each
+    rank the other's CUDA tensor (through host memory: a gloo send of a
+    CUDA tensor kills the process), and its backward sends the cotangent
+    back the other way."""
+    import torch_dist
+
+    out = torch_dist.run(torch_dist.pp_hop_cuda, 2, None, tmp_path)
+    for rank, (y, grad, transport) in enumerate(out):
+        other = 1 - rank
+        assert (y == other + 1).all()
+        assert (grad == other + 2).all()
+        assert transport == "gloo send/recv through host memory"
+
+
+def test_pp_hop_at_one_nccl_rank(dev, nccl_world):
+    """At one NCCL rank the ring's hop sends a CUDA tensor to the rank
+    itself point to point and back in the backward."""
+    from radvlm_tpu_torch.parallel import pp
+
+    x = torch.randn(3, 5, device=dev, requires_grad=True)
+    y = pp._hop(nccl_world, x, True)
+    (y * 2.0).sum().backward()
+    assert torch.equal(y.detach(), x.detach())
+    assert torch.equal(x.grad, torch.full_like(x, 2.0))
+    assert pp.hop_transport(nccl_world, dev) == "nccl batch_isend_irecv"
+
+
+def test_pp_stage_launches_the_training_kernels(dev):
+    """A pipeline stage's chunk (`pp._run_chunk`: 2 decoder layers under
+    remat and bf16 autocast, two microbatches of one packed row) launches
+    K2-lse twice a layer a microbatch and K7 / K8 once, no K1 or K2; its
+    output and the gradients of its input and parameters agree with the
+    same chunk over plain attention (2e-2 and 5e-2 of the largest
+    value: bf16 attention's rounding, carried through two layers)."""
+    from radvlm_tpu_torch.parallel import pp
+
+    cfg = dataclasses.replace(tcfg.radvlm_0_5b().text, num_layers=2, vocab_size=1024)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    blocks = [tqwen.Qwen2Block(cfg, device=dev, dtype=torch.float32) for _ in range(2)]
+    for blk in blocks:
+        for name, p in blk.named_parameters():
+            p.data.copy_(torch.ones_like(p) if name.startswith("ln") else
+                         torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+            p.requires_grad_(True)
+    s = 1024
+    x0 = torch.randn(2, s, cfg.hidden_size, generator=gen, device=dev)
+    pos = torch.arange(s, device=dev)[None].expand(2, -1)
+    seg = torch.ones((2, s), dtype=torch.int32, device=dev)
+    seg[:, 700:] = 2
+    seg[1, 960:] = 0
+    got = {}
+    for impl in ("auto", "xla"):
+        x = x0.clone().requires_grad_(True)
+        kernels.reset_launch_counts()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            outs = [pp._run_chunk(cfg, blocks, x[m:m + 1], pos[m:m + 1], seg[m:m + 1], impl,
+                                  True) for m in range(2)]
+        out = torch.cat(outs)
+        live = (seg != 0)[..., None]
+        (out * live).square().mean().backward()
+        torch.cuda.synchronize()
+        got[impl] = (out.detach(), [x.grad] + [p.grad.clone() for b in blocks
+                                                for p in b.parameters()])
+        for blk in blocks:
+            for p in blk.parameters():
+                p.grad = None
+        if impl == "auto":
+            c = kernels.launch_counts()
+            assert (c["prefill_attention_lse"], c["flash_attention_bwd_dkv"],
+                    c["flash_attention_bwd_dq"]) == (8, 4, 4), c
+            assert c["tower_attention"] == c["prefill_attention"] == 0, c
+    live = seg != 0
+    (o, grads), (ro, rgrads) = got["auto"], got["xla"]
+    assert float((o - ro)[live].abs().max()) <= 2e-2 * float(ro[live].abs().max())
+    for g, rg in zip(grads, rgrads):
+        assert float((g - rg).abs().max()) <= 5e-2 * float(rg.abs().max())

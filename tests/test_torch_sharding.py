@@ -80,7 +80,8 @@ def jax_sft(jcfg, params, batches, train):
                            opt_state=tx.init(jparams))
     step = jts.make_train_step(jcfg, tx, remat=False, attn_impl="xla", donate=False)
     jb0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
-    g = jax.grad(lambda p: jrad.loss_fn(p, jcfg, jb0, remat=False, attn_impl="xla")[0])(jparams)
+    g = jax.jit(jax.grad(lambda p: jrad.loss_fn(p, jcfg, jb0, remat=False,
+                                                attn_impl="xla")[0]))(jparams)
     g = jax.tree.map(lambda x, l: x if l != "frozen" else jnp.zeros_like(x), g, labels)
     losses = []
     for b in batches:

@@ -182,8 +182,9 @@ def test_port_runs_with_jax_blocked():
     one the mesh, ring attention, SP generation, fleets behind
     `FleetEngine`, `BatchWorker` and `run_task`, `eval.cli --multihost
     --fleet`, and M12's training half: a ZeRO-3 step through the zigzag
-    ring (`parallel.sharding`, the zigzag helpers) and qgZ's
-    `parallel.compression`."""
+    ring (`parallel.sharding`, the zigzag helpers), qgZ's
+    `parallel.compression`, and a pipeline's gradients on two spawned
+    ranks (`parallel.pp`)."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -592,6 +593,16 @@ def test_port_runs_with_jax_blocked():
             cfg=cfg, params=tree, lengths=(6, 9),
             runs={"bf16": ({}, dict(max_new_tokens=3))}), tempfile.mkdtemp())
         assert tp_out[0]["bf16"] == tp_out[1]["bf16"] and tp_out[0]["bf16_provenance"]["tp"] == 2
+        # Pipeline parallelism (parallel.pp): the gradients of two stages on
+        # two spawned gloo ranks, and the JAX layout's fold round trip.
+        from radvlm_tpu_torch.parallel import pp
+        pp_out = torch_dist.run(torch_dist.pp_cases, 2, dict(
+            cfg=cfg, params=tree, batches=[multimodal.collate([train_sample, train_sample])],
+            cases=[dict(kind="grads", shape={"stage": 2})]), tempfile.mkdtemp())
+        assert pp_out[0][0][0] == pp_out[1][0][0] and np.isfinite(pp_out[0][0][0])
+        folded = pp.fold_layers_interleaved(tree, 2, 1)
+        assert pp.canonicalize_layer_stacks(folded, cfg.text.num_layers)["text"]["norm"] is \
+            tree["text"]["norm"]
         assert pmesh.init_distributed() == (0, 1)
         world = pmesh.make_mesh({"seq": -1})
         assert pmesh.local_mesh_info(world) == (1, 1)

@@ -341,11 +341,10 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
 def test_cli_mesh_flags_raise(tmp_path, flag):
     """In one process without a process group, a mesh of two ranks raises
     `make_mesh`'s ValueError naming torchrun (the runs over two ranks are
-    tests/test_torch_mesh_train.py's); `--mesh-stage` raises naming M12:
-    pipeline parallelism is not ported."""
+    tests/test_torch_mesh_train.py's and, for `--mesh-stage`,
+    tests/test_torch_pp.py's)."""
     data = _write_llava_json(str(tmp_path), n=2)
-    err, match = (NotImplementedError, "M12") if flag == "--mesh-stage" else (ValueError, "torchrun")
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match="torchrun"):
         tcli.main(["--model-size", "tiny", "--data-path", data, "--image-folder", str(tmp_path),
                    "--device", "cpu", flag, "2"], tokenizer=ByteTok())
 

@@ -290,7 +290,8 @@ def _sft_case(case, cfg, params, batches):
     from radvlm_tpu_torch.training.lora import LoraConfig, adapter_parameters
 
     mesh = make_mesh(case["shape"])
-    model = convert.radvlm_from_jax(params, cfg, device="cpu", dtype=torch.float32)
+    model = convert.radvlm_from_jax(case.get("params") or params, cfg, device="cpu",
+                                    dtype=torch.float32)
     attn = case.get("attn", "auto")
     if case.get("ring"):
         ring.enable_ring_attention(mesh, impl="flash", schedule=case["ring"])
@@ -324,8 +325,8 @@ def _sft_case(case, cfg, params, batches):
 def sharded_sft(rank, world, payload):
     """Every case of `payload["cases"]` (its mesh `shape`, `train` options,
     optional `attn` impl or `ring` schedule, `lora` options with the
-    starting `adapters`, its own `cfg` and `batches`) over the same
-    starting parameters."""
+    starting `adapters`, its own `cfg`, `batches` and starting `params`)
+    over the payload's starting parameters where the case has none."""
     import warnings
 
     warnings.filterwarnings("ignore", category=FutureWarning)
@@ -480,3 +481,195 @@ def ring_grads(rank, world, payload):
         (o * torch.from_numpy(case["do"][:, own])).sum().backward()
         out.append((o.detach().numpy(), q.grad.numpy(), k.grad.numpy(), v.grad.numpy()))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (parallel/pp.py) and the mesh configurations
+# ---------------------------------------------------------------------------
+
+
+def _torch_adapters(ads):
+    return {p: {k: torch.from_numpy(np.array(v)).requires_grad_(True) for k, v in ad.items()}
+            for p, ad in ads.items()}
+
+
+def _pp_case(case, payload):
+    """One case of `pp_cases` on this rank: its kind's results."""
+    from radvlm_tpu_torch.eval.harness import batch_to_device
+    from radvlm_tpu_torch.models import convert, resampler
+    from radvlm_tpu_torch.parallel import pp
+    from radvlm_tpu_torch.parallel.mesh import make_mesh
+    from radvlm_tpu_torch.training import loop
+    from radvlm_tpu_torch.training import optimizer as topt
+    from radvlm_tpu_torch.training.lora import LoraConfig, adapter_parameters
+
+    kind = case["kind"]
+    if kind == "cli":
+        import dataclasses
+        import importlib
+
+        from radvlm_tpu_torch import config
+
+        # `--model-size tiny` with `layers` decoder layers (4: stage 2 x V 2).
+        tiny = config.tiny_test_config
+        config.tiny_test_config = lambda: dataclasses.replace(tiny(), text=dataclasses.replace(
+            tiny().text, num_layers=case["layers"]))
+        try:
+            state = importlib.import_module("radvlm_tpu_torch.training.cli").main(
+                case["argv"], tokenizer=CliTok())
+        finally:
+            config.tiny_test_config = tiny
+        dist.barrier()
+        return int(state.step), sorted(d for d in os.listdir(case["out"]) if d.startswith("step_"))
+    cfg = case.get("cfg") or payload["cfg"]
+    mesh = make_mesh(case["shape"])
+    model = convert.radvlm_from_jax(case.get("params") or payload["params"], cfg, device="cpu",
+                                    dtype=torch.float32)
+    v, m = case.get("interleave", 1), case.get("micro", 2)
+    batches = case.get("batches") or payload["batches"]
+    if kind in ("grads", "masked_drop", "invariant"):
+        for p in model.parameters():
+            p.requires_grad_(True)
+        mg = pp.hold_stage(model, cfg, mesh, interleave=v, n_microbatches=m)
+        b = batch_to_device(loop.rank_batch(batches[0], mg, "xla"), "cpu")
+
+        def run(micro, gen=None):
+            fn = pp.make_pp_grad_fn(mesh, cfg, n_microbatches=micro, remat=case.get("remat", True),
+                                    attn_impl="xla", interleave=v)
+            return fn(model, b, gen)
+
+        if kind == "grads":
+            grads, met = run(m)
+            return float(met["loss"]), float(met["tokens"]), {
+                k: g.numpy() for k, g in grads.items()}
+        if kind == "invariant":
+            return [float(run(micro)[1]["loss"]) for micro in case["counts"]]
+        draw = resampler.draw_uniform
+        resampler.draw_uniform = lambda gen, shape, device: torch.from_numpy(case["u"])
+        try:
+            injected = float(run(m, torch.Generator().manual_seed(0))[1]["loss"])
+        finally:
+            resampler.draw_uniform = draw
+        return injected, [float(run(m, torch.Generator().manual_seed(s))[1]["loss"])
+                          for s in (1, 1, 2)]
+    train = topt.TrainConfig(**case["train"])
+    pp_cfg = pp.PPStepConfig(n_microbatches=m, remat=case.get("remat", True), attn_impl="xla",
+                             interleave=v)
+    if kind == "step":
+        state, step_fn, _ = pp.setup_pp_training(mesh, cfg, train, model, pp_cfg=pp_cfg)
+    else:  # "lora"
+        lcfg = LoraConfig(**case["lora"])
+        state, base, step_fn = pp.setup_pp_lora_training(
+            mesh, cfg, train, lcfg, model, pp_cfg=pp_cfg,
+            adapters=_torch_adapters(case["adapters"]))
+        grad_fn = pp.make_pp_lora_grad_fn(mesh, cfg, lcfg, n_microbatches=m,
+                                          remat=pp_cfg.remat, attn_impl="xla", interleave=v)
+        grads, _ = grad_fn(state.params, base,
+                           batch_to_device(loop.rank_batch(batches[0], state.mesh, "xla"), "cpu"))
+        grad_norm = float(torch.sqrt(sum(g.double().pow(2).sum() for g in grads.values())))
+    losses, norms = [], []
+    for hb in batches:
+        b = batch_to_device(loop.rank_batch(hb, state.mesh, "xla"), "cpu")
+        state, met = step_fn(state, base, b) if kind == "lora" else step_fn(state, b)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    if kind == "lora":
+        held = {k: t.detach().numpy() for k, t in adapter_parameters(state.params).items()}
+        return losses, norms, held, grad_norm
+    else:
+        held = {k: p.detach().numpy() for k, p in model.named_parameters()}
+    return losses, norms, held
+
+
+def pp_cases(rank, world, payload):
+    """Every case of `payload["cases"]` on one spawned world, by `kind`:
+    "grads" (the PP loss and this rank's summed gradients), "masked_drop"
+    (the loss under an injected uniform draw, then under generators seeded
+    1, 1, 2), "invariant" (the loss at each microbatch count), "step" and
+    "lora" (PP train steps: losses, grad norms, the parameters or adapters
+    this rank holds; for "lora" also the global norm of
+    `make_pp_lora_grad_fn`'s gradients before the first step), "cli" (the
+    training CLI: the final step and the step directories)."""
+    import warnings
+
+    warnings.filterwarnings("ignore", category=FutureWarning)
+    return [_pp_case(case, payload) for case in payload["cases"]]
+
+
+def _train_under(shape, cfg, params, train, batches, interleave=1):
+    """A fresh model trained over `batches` under the mesh `shape` (None:
+    one process; a stage axis: the pipeline); returns the state."""
+    from radvlm_tpu_torch.eval.harness import batch_to_device
+    from radvlm_tpu_torch.models import convert
+    from radvlm_tpu_torch.parallel import pp
+    from radvlm_tpu_torch.parallel.mesh import make_mesh
+    from radvlm_tpu_torch.training import loop
+    from radvlm_tpu_torch.training import optimizer as topt
+    from radvlm_tpu_torch.training import train_step as tts
+
+    model = convert.radvlm_from_jax(params, cfg, device="cpu", dtype=torch.float32)
+    mesh = None if shape is None else make_mesh(shape)
+    train = topt.TrainConfig(**train)
+    if shape is not None and shape.get("stage", 1) > 1:
+        state, step_fn, _ = pp.setup_pp_training(
+            mesh, cfg, train, model,
+            pp_cfg=pp.PPStepConfig(n_microbatches=2, attn_impl="xla", interleave=interleave))
+    else:
+        state, step_fn, _ = tts.setup_training(cfg, train, model, attn_impl="xla", mesh=mesh)
+    for hb in batches:
+        b = hb if state.mesh is None else loop.rank_batch(hb, state.mesh, "xla")
+        state, _ = step_fn(state, batch_to_device(b, "cpu"))
+    return state
+
+
+def sft_and_checkpoints(rank, world, payload):
+    """`sharded_sft` over `payload["sft"]`, then `mesh_checkpoints` over
+    `payload["checkpoints"]`, in one spawned world."""
+    return (sharded_sft(rank, world, payload["sft"]),
+            mesh_checkpoints(rank, world, payload["checkpoints"]))
+
+
+def mesh_checkpoints(rank, world, payload):
+    """For each saving mesh of `payload["saves"]` (name -> shape): train the
+    payload's batches under it and save the step into `<dir>/<name>`; then
+    restore every saved step under each of `payload["restores"]` (label ->
+    shape and interleave; saved again into `<dir>/<name>_<label>`) and on
+    one process. Returns, per name, the one-process state: {"params", "mu",
+    "nu"} by parameter name, and the optimizer's count and step."""
+    from radvlm_tpu_torch.training import checkpoint as ckpt
+
+    cfg, params, train, batches = (payload[k] for k in ("cfg", "params", "train", "batches"))
+    out = {}
+    for name, shape in payload["saves"].items():
+        state = _train_under(shape, cfg, params, train, batches)
+        assert ckpt.save_state(ckpt.CheckpointManager(os.path.join(payload["dir"], name)),
+                               len(batches), state, force=True)
+    for name in payload["saves"]:
+        manager = ckpt.CheckpointManager(os.path.join(payload["dir"], name))
+        for label, (shape, interleave) in payload["restores"].items():
+            state = _train_under(shape, cfg, params, train, [], interleave)
+            state = ckpt.restore_state(manager, len(batches), state)
+            again = ckpt.CheckpointManager(os.path.join(payload["dir"], f"{name}_{label}"))
+            assert ckpt.save_state(again, len(batches), state, force=True)
+        one = ckpt.restore_state(manager, len(batches), _train_under(None, cfg, params, train, []))
+        opt = one.opt_state
+        out[name] = dict(params={n: p.detach().numpy() for n, p in one.params.named_parameters()},
+                         mu={n: t.numpy() for n, t in opt.mu.items()},
+                         nu={n: t.numpy() for n, t in opt.nu.items()},
+                         count=opt.count, step=one.step)
+    return out
+
+
+def pp_hop_cuda(rank, world, payload):
+    """`pp._hop` around the ring of the world on CUDA tensors (gloo: through
+    host memory): (what arrived, the gradient that came back, the
+    transport)."""
+    from radvlm_tpu_torch.parallel import pp
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    group = dist.group.WORLD
+    x = torch.full((4, 8), float(rank + 1), device=dev, requires_grad=True)
+    y = pp._hop(group, x, True)
+    (y * float(rank + 2)).sum().backward()
+    return y.detach().cpu().numpy(), x.grad.cpu().numpy(), pp.hop_transport(group, dev)
