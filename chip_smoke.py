@@ -266,15 +266,20 @@ Phases, each raising on failure (the last line is printed only on success):
    tokens, logits and decode step the layouts are held to. 13a: a TP = 2
    engine, two processes spawned on the card over gloo (which carries
    all_reduce of CUDA tensors), each making the same weights and sharding
-   them: 4 requests with the launch counts from 0 (K1, K2 at 14 local
+   them: the 8 requests with the launch counts from 0 (K1, K2 at 14 local
    heads, K3, K4, K5/K6 on every rank), then on each rank K2, K4, K3 and
    K5/K6 held to their plain versions at the rank's local shapes (its own
    cache and sharded projections), the prefill and first-step logits
    within 0.03 of the one-card engine's maximum (the int8 rule's allowance;
    W8A8 of a row-parallel layer quantizes the rank's half of K), the greedy
    tokens counted against its, a decode step timed against its; then
-   spec_k = 3 on the same ranks (K11), whose tokens must be TP greedy's or
-   leave them only at a near tie. 13b: `make_sp_generate_fn` over one
+   spec_k = 3 on the first 4 requests on the same ranks (K11), whose
+   tokens must be TP greedy's or leave them only at a near tie; then the
+   TP BatchWorker on the same ranks (a fleet of one TP engine, lockstep
+   ticks over a gloo control group): rank 0 serves 4 concurrent requests
+   and a streamed fifth over localhost HTTP, rank 1 follows, and every
+   answer must be the TP engine's tokens for its prompt (launches counted
+   from 0 a rank); rank 0's stop ends rank 1. 13b: `make_sp_generate_fn` over one
    prompt of the 4096 bucket, the bf16 and then the int8 cache, one rank
    under NCCL (gloo sends no CUDA tensor point to point): K1, K2-lse once a
    layer for the ring's one pair, K3, K5/K6, no K2 or K4; the int8 cache's
@@ -284,7 +289,17 @@ Phases, each raising on failure (the last line is printed only on success):
    tokens, or a near tie), overlapping busy windows, engine 0's kernels
    held to their plain versions on its 4-slot cache, then a keep_kv turn
    whose resume goes back to the engine that holds its rows and gives a
-   full re-prefill's tokens (or a near tie).
+   full re-prefill's tokens (or a near tie). 13d: a fleet of two TP = 2
+   engines, four gloo processes on the card (started before 13b, set to
+   work once 13c ends), each making the weights from the seed, behind one
+   BatchWorker on rank 0: the 8 requests at once over HTTP, one streamed,
+   each answer the TP engine's tokens for its prompt (13a's), both engines
+   given requests; the wall, the control tick's cost against the decode
+   step, K1, K2, K3, K4 and K5/K6 launched on every rank, the peak memory
+   a rank, and rank 0's K2, K4, K3 and K5/K6 held to their plain versions at
+   the served shapes. Four processes share one card and gloo stages every
+   all_reduce through host memory: 13d shows the protocol and its cost,
+   not speed.
 14. M12's training half (`parallel/sharding.py`, `parallel/ring.py`,
    `parallel/pp.py`) on radvlm_0_5b at full width and depth, f32 masters
    from the seed, two of phase 8's packed 4096-token rows: the one-card
@@ -307,6 +322,14 @@ Phases, each raising on failure (the last line is printed only on success):
    K7 / K8, the loss and grad norm within 2e-2, and K2-lse, K7 and K8 at the
    half-chunk shape [2, 2048, 14 | 2, 64] (causal and full) held to their
    plain versions, timed beside SDPA and their bounds.
+15. host prep on the card's host (no device): the C++ anyres tiler and
+   JPEG decoder (`radvlm_tpu_torch/native`) built and timed (a failed build
+   fails the phase with the compiler's message); host seconds per image of
+   the PIL tiling and the native tiling (median of 3 runs) at MIMIC-CXR-JPG's
+   size (2500 x 3000, grey expanded to RGB) and at the serving phases' CXR
+   size (480-560 x 400-520), the native tiles within 2/255 of PIL's; and
+   for JPEGs of both sizes the seconds per image of PIL's decode and of
+   `decode_jpeg`, whose pixels must equal PIL's.
 
 Ends with a JSON line of per-kernel results and then
 {"ok": true, "device": {...}}.
@@ -346,6 +369,7 @@ from radvlm_tpu_torch.config import (gemma_2b, llama3_8b, mistral_7b, mixtral_8x
                                      radvlm_0_5b, radvlm_7b)
 from radvlm_tpu_torch.data.loader import Bucket, LlavaJsonDataset, PrefetchLoader
 from radvlm_tpu_torch.data.chat import QWEN_CHATML, TEMPLATES, render_generation_prompt
+from radvlm_tpu_torch.data import export as data_export
 from radvlm_tpu_torch.data.datasets import CHEXPERT_PATHOLOGIES
 from radvlm_tpu_torch.eval.harness import (GT_FIELDS, VLMRunner, batch_to_device,
                                            build_task_dataset, run_task)
@@ -481,6 +505,12 @@ PATH_KERNELS = {
     "sp": ("tower_attention", "prefill_attention_lse", "w8a8_matmul", "int8_matmul"),
     "fleet": ("tower_attention", "prefill_attention", "w8a8_matmul", "decode_attention_q8",
               "int8_matmul"),
+    # 13a's TP BatchWorker and 13d's fleet of TP engines: on every rank the
+    # TP engine's path.
+    "tp_worker": ("tower_attention", "prefill_attention", "w8a8_matmul",
+                  "decode_attention_q8", "int8_matmul"),
+    "fleet_tp": ("tower_attention", "prefill_attention", "w8a8_matmul",
+                 "decode_attention_q8", "int8_matmul"),
     # The GREEN judge (Llama-2-7B, MHA) on TextLMEngine: bf16, then int8
     # (W8A8 fills, weight-only int8 decode), both over the bf16 cache.
     "text_lm": ("prefill_attention", "decode_attention"),
@@ -534,11 +564,14 @@ TOWER_TRAIN_BUCKET = Bucket(2048, 4)
 FAMILY_BUCKETS = (3840, 4096)  # 11c: the buckets its prompts fill, warmed up alone
 FAMILY_LAYERS = 8  # 11c: the depth each family is cut to
 # Phase 13: M12's serving layouts on the one card. 13a: a TP = 2 engine (two
-# processes on the card over gloo) serving LAYOUT_REQUESTS[:TP_REQUESTS] at
-# LAYOUT_SLOTS slots, 32 new tokens, then spec_k = TP_SPEC_K; 13b: one prompt
+# processes on the card over gloo) serving LAYOUT_REQUESTS at LAYOUT_SLOTS
+# slots, 32 new tokens, then spec_k = TP_SPEC_K over TP_REQUESTS of them,
+# then the TP BatchWorker (TP_REQUESTS blocking requests and one streamed);
+# 13b: one prompt
 # in the 4096 bucket through make_sp_generate_fn (SP_BACKEND, SP_WORLD);
 # 13c: a fleet of FLEET_SIZE engines on the card over all LAYOUT_REQUESTS,
-# then a keep_kv turn and its resume.
+# then a keep_kv turn and its resume; 13d: a fleet of FLEET_SIZE TP = TP_WORLD
+# engines (four processes) behind one BatchWorker, every request.
 LAYOUT_REQUESTS, TP_REQUESTS, LAYOUT_SLOTS, LAYOUT_STEPS = 8, 4, 4, 8
 LAYOUT_LAYERS = 8  # of radvlm_7b's 28 decoder layers: the script's time (PR 20)
 TP_WORLD, TP_SPEC_K = 2, 3
@@ -3185,21 +3218,24 @@ def write_rec_data(root: str, rng, n: int) -> str:
     from PIL import Image
 
     os.makedirs(root, exist_ok=True)
-    lines = []
+    cells = []
     for i in range(n):
         name = f"rec{i}.png"
         Image.fromarray(cxr_image(rng)).save(os.path.join(root, name))
         x0, y0 = float(rng.uniform(0.05, 0.5)), float(rng.uniform(0.05, 0.5))
         box = [round(x0, 2), round(y0, 2), round(x0 + 0.3, 2), round(y0 + 0.35, 2)]
         finding = CHEXPERT_PATHOLOGIES[i % len(CHEXPERT_PATHOLOGIES)]
-        lines.append(json.dumps({
-            "id": f"rec{i}", "image": name,
-            "problem": f"<image>\nLocate the {finding.lower()} on this chest X-ray. Output the "
-                       "bounding box as [x_min, y_min, x_max, y_max].",
-            "solution": json.dumps({"bbox": [box], "label": finding})}))
+        cell = data_export.grpo_rec_cell(
+            {"img_path": os.path.join(root, name), "boxes": [box],
+             "instr": {"question": f"<image>\nLocate the {finding.lower()} on this chest "
+                                   "X-ray. Output the bounding box as [x_min, y_min, x_max, "
+                                   "y_max]."}},
+            f"rec{i}", data_root=root)
+        # The finding's name beside the box (the REC reward reads the box).
+        cell["solution"] = json.dumps({**json.loads(cell["solution"]), "label": finding})
+        cells.append(cell)
     path = os.path.join(root, "rec.jsonl")
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
+    data_export.write_jsonl(cells, path)
     return path
 
 
@@ -4030,17 +4066,21 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return float((out - ref).abs().max() / ref.abs().max())
 
 
-def spawn_ranks(fn, world: int, payload: dict, root: str) -> list:
-    """`world` processes on the card (torch.multiprocessing, spawned), a
-    gloo group over a file store under `root`; rank r returns
-    fn(rank, world, payload), pickled back."""
-    return join_ranks(start_ranks(fn, world, payload, root), world, root)
-
-
 def start_ranks(fn, world: int, payload: dict, root: str):
-    """`spawn_ranks`' processes, started without waiting for them."""
+    """`world` processes on the card (torch.multiprocessing, spawned), a
+    gloo group over a file store under `root`, started without waiting for
+    them; rank r returns fn(rank, world, payload), pickled back
+    (`join_ranks`). The payload goes through a file under `root`: passed as
+    an argument, a payload larger than a pipe's buffer (phase 13's images)
+    holds the parent at each start until that child has imported this
+    script."""
+    import pickle
+
     os.makedirs(root, exist_ok=True)
-    return mp.start_processes(_rank_entry, args=(world, fn, payload, root), nprocs=world,
+    path = os.path.join(root, "payload.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return mp.start_processes(_rank_entry, args=(world, fn, path, root), nprocs=world,
                               join=False, start_method="spawn")
 
 
@@ -4064,9 +4104,26 @@ def join_ranks(context, world: int, root: str) -> list:
     return out
 
 
-def _rank_entry(rank, world, fn, payload, root):
+def release(go: str, **extra) -> None:
+    """Let ranks waiting in `wait_go` begin, handing them `extra` (JSON)."""
+    with open(go + ".tmp", "w") as f:
+        json.dump(extra, f)
+    os.replace(go + ".tmp", go)
+
+
+def wait_go(go: str) -> dict:
+    """A rank started ahead of its turn waits here for `release`."""
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    with open(go) as f:
+        return json.load(f)
+
+
+def _rank_entry(rank, world, fn, payload_path, root):
     import pickle
 
+    with open(payload_path, "rb") as f:
+        payload = pickle.load(f)
     # Few intra-op threads: ranks whose idle threads spin beside each
     # other's collectives slow both down many times over.
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * world)))
@@ -4105,15 +4162,72 @@ def chunk_step_ms(b, sample) -> float:
     return 1e3 * wall / b.steps_per_sync
 
 
+def layout_worker(runner, buckets, **kw) -> BatchWorker:
+    """A BatchWorker of phase 13's engine geometry over `runner` (a TP
+    runner, or a fleet of TP engines with `fleet` / `fleet_tp`)."""
+    return BatchWorker(runner, model_names=["radvlm-7b-int8"], num_slots=LAYOUT_SLOTS,
+                       max_len=4224, prompt_bucket=max(buckets), prompt_buckets=buckets,
+                       kv_quant=True, steps_per_sync=LAYOUT_STEPS, pipeline_depth=2, **kw)
+
+
+def serve_layout_requests(rank: int, worker, prompts, streamed: int) -> dict:
+    """The HTTP leg of a TP BatchWorker (13a, 13d): rank 0 sends every
+    prompt at once over localhost (`streamed` through
+    /worker_generate_stream, the others blocking), then shuts the worker
+    down; the other ranks follow the fleet's ticks until that stop. Launch
+    counts from 0 on every rank; the control ticks' seconds a rank."""
+    dev = worker.runner.device
+    sync(dev)
+    kernels.reset_launch_counts()
+    out = {}
+    if rank == 0:
+        url = f"http://127.0.0.1:{worker.serve_forever('127.0.0.1', 0, background=True)}"
+        bodies = [dict(prompt=text, images=[png_b64(img)], max_new_tokens=NEW_TOKENS)
+                  for text, img in prompts]
+        texts = [None] * len(bodies)
+
+        def ask(i):
+            if i == streamed:
+                chunks, out["first_chunk_s"], _ = post_stream(url + "/worker_generate_stream",
+                                                              bodies[i])
+                out["chunks"] = len(chunks)
+                texts[i] = final_text("TP worker", chunks)
+            else:
+                r = post_json(url + "/worker_generate", bodies[i])
+                if r.get("error_code"):
+                    raise AssertionError(f"TP worker request {i} failed: {r}")
+                texts[i] = r["text"]
+
+        t0 = time.perf_counter()
+        try:
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+                list(pool.map(ask, range(len(bodies))))
+            out["wall"] = time.perf_counter() - t0
+        finally:
+            worker.shutdown()  # the stop flag ends the other ranks' serve_forever
+        out.update(texts=texts, routed=list(worker.fleet.routed))
+    else:
+        worker.serve_forever()
+    sync(dev)
+    out.update(counts=kernels.launch_counts(), ticks=dict(worker.fleet.tick_stats),
+               warmup=worker.warmup_seconds)
+    return out
+
+
 def tp_rank(rank, world, payload):
     """One rank of the TP engine: radvlm_7b's int8 weights made from the
-    seed (as the parent made them), sharded to this rank; the requests
+    seed (as the parent makes them; before `go`), sharded to this rank; the requests
     served, launch counts and K2's shapes over that run, the path's kernels
     at the rank's shapes against their plain versions, the first-step
     logits, a decode step timed, then spec_k."""
     dev, cfg = torch.device(payload["device"]), payload["cfg"]
+    # Started with 13d's ranks during phase 12: the weights once phase 13
+    # begins, the work once the parent hands over the one-card engine's
+    # first token.
+    wait_go(payload["make"])
     model = convert.random_quantized_params(
         cfg, torch.Generator(device=dev).manual_seed(payload["seed"]), device=dev, fuse=False)
+    tok0 = wait_go(payload["go"])["tok0"]
     mesh = pmesh.make_mesh({"tensor": world})
     group = mesh.get_group("tensor")
     tok = CharTokenizer()
@@ -4132,12 +4246,12 @@ def tp_rank(rank, world, payload):
     # versions, on the rank's own cache and sharded projections.
     engine_kernels(b, [s.length for s in samples], payload["seed"], f"TP rank {rank}")
     with tplib.active(group):
-        lg0, lg1 = first_step_logits(b.model, local, samples[0], payload["tok0"])
+        lg0, lg1 = first_step_logits(b.model, local, samples[0], tok0)
     step_ms = chunk_step_ms(b, samples[0])
     # Not warmed up: the plain engine's fills and kernels already ran.
     bs = layout_engine(b.model, cfg, gen, payload["buckets"], mesh=mesh, spec_k=TP_SPEC_K)
     kernels.reset_launch_counts()
-    spec_toks, spec_wall = served_tokens(bs, samples)
+    spec_toks, spec_wall = served_tokens(bs, samples[:TP_REQUESTS])
     spec_counts = kernels.launch_counts()
     gaps = []
     for i, (got, want) in enumerate(zip(spec_toks, toks)):
@@ -4147,27 +4261,35 @@ def tp_rank(rank, world, payload):
                 gaps.append((i, step, near_tie_gap(
                     lambda ids, t: sample_path_logits(b.model, local, samples[i], ids, t),
                     want, step)))
+    spec_stats = dict(bs.spec_stats)
+    del bs
+    # The TP BatchWorker on these ranks (a fleet of one TP engine with its
+    # own batcher over the same sharded model): TP_REQUESTS blocking
+    # requests and one streamed, the TP engine's tokens each.
+    runner = VLMRunner(model=b.model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
+                       mesh=mesh, fuse=False)
+    worker = serve_layout_requests(rank, layout_worker(runner, payload["buckets"]),
+                                   payload["prompts"][:TP_REQUESTS + 1], streamed=TP_REQUESTS)
     return dict(tokens=toks, wall=wall, warmup=warm, counts=counts, shapes=shapes,
+                worker=worker,
                 lg0=lg0, lg1=lg1, step_ms=step_ms, spec_tokens=spec_toks, spec_wall=spec_wall,
-                spec_counts=spec_counts, spec_stats=dict(bs.spec_stats), gaps=gaps,
+                spec_counts=spec_counts, spec_stats=spec_stats, gaps=gaps,
                 provenance={k: v for k, v in b.kernel_provenance().items() if k != "launches"},
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0,
                 weights_gb=sum(p.numel() * p.element_size() for p in b.model.parameters()) / 1e9)
 
 
-def phase_tp(ctx, seed: int) -> dict:
-    """13a: the TP engine (two processes on the card) against the one-card
-    engine of the same weights."""
+def phase_tp(ctx, seed: int, started) -> dict:
+    """13a: the TP engine (two processes on the card, started before the
+    one-card engine ran: `started`) against the one-card engine of the same
+    weights."""
     t_phase = time.perf_counter()
-    cfg, tok, samples = ctx["cfg"], ctx["tok"], ctx["samples"][:TP_REQUESTS]
+    cfg, tok, samples = ctx["cfg"], ctx["tok"], ctx["samples"]
     one_lg0, one_lg1 = first_step_logits(ctx["model"], cfg, samples[0])
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        f"smoke_tp_{os.getpid()}")
+    context, root, go = started
+    release(go, tok0=int(one_lg0.argmax()))
     try:
-        ranks = spawn_ranks(tp_rank, TP_WORLD, dict(
-            device=str(ctx["model"].device), cfg=cfg, seed=ctx["seed"],
-            prompts=ctx["prompts"][:TP_REQUESTS], buckets=ctx["buckets"],
-            new_tokens=NEW_TOKENS, tok0=int(one_lg0.argmax())), root)
+        ranks = join_ranks(context, TP_WORLD, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     r0 = ranks[0]
@@ -4188,7 +4310,7 @@ def phase_tp(ctx, seed: int) -> dict:
     if not k2 or any(sh[2] != h for sh in k2):
         raise AssertionError(f"TP: K2 ran at other than {h} local heads: {k2}")
     n_tok = sum(len(x) for x in r0["tokens"])
-    print(f"  {TP_REQUESTS} requests, {n_tok} tokens in {r0['wall']:.3f} s "
+    print(f"  {len(samples)} requests, {n_tok} tokens in {r0['wall']:.3f} s "
           f"({n_tok / r0['wall']:.1f} tokens/s, fills included)", flush=True)
     for stage, out, ref in (("prefill", r0["lg0"], one_lg0), ("first decode step", r0["lg1"],
                                                                one_lg1)):
@@ -4198,7 +4320,7 @@ def phase_tp(ctx, seed: int) -> dict:
               f"{int(ref.argmax())}", flush=True)
         if not err <= LAYOUT_LOGITS_TOL:
             raise AssertionError(f"TP: {stage} logits off the one-card engine's")
-    one = ctx["one_tokens"][:TP_REQUESTS]
+    one = ctx["one_tokens"]
     agree = sum(a == b for x, y in zip(r0["tokens"], one) for a, b in zip(x, y))
     lead = [first_difference(x, y) for x, y in zip(r0["tokens"], one)]
     print(f"  greedy tokens equal to the one-card engine's: {agree} of {sum(map(len, one))} "
@@ -4216,8 +4338,40 @@ def phase_tp(ctx, seed: int) -> dict:
               f"path's top-2 logit gap there is {gap:.3e} (limit 1.000e-02)", flush=True)
         if not gap < 1e-2:
             raise AssertionError("TP spec: tokens differ from TP plain greedy")
+    # The TP BatchWorker: every answer over HTTP is the TP engine's text.
+    ctx.update(tp_tokens=r0["tokens"], tp_wall=r0["wall"], tp_step_ms=r0["step_ms"])
+    w0 = r0["worker"]
+    want = tp_texts(ctx, len(w0["texts"]))
+    same = [got == ref for got, ref in zip(w0["texts"], want)]
+    print(f"  TP BatchWorker (rank 0 serves HTTP, rank 1 follows; warmup {w0['warmup']:.2f} s): "
+          f"{len(same) - 1} requests + 1 streamed ({w0['chunks']} chunks, first after "
+          f"{w0['first_chunk_s']:.3f} s) in {w0['wall']:.3f} s; answers equal to the TP "
+          f"engine's tokens: {sum(same)} of {len(same)}", flush=True)
+    for r, rk in enumerate(ranks):
+        print(f"  TP worker rank {r} launches: {rk['worker']['counts']}; "
+              f"{tick_line(rk['worker']['ticks'])}", flush=True)
+        require_launched("tp_worker", rk["worker"]["counts"])
+    if not all(same):
+        raise AssertionError(f"TP BatchWorker: answers {same} differ from the TP engine's")
     print(f"  13a: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
+    return ({k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]},
+            {k: sum(r["worker"]["counts"][k] for r in ranks) for k in r0["counts"]})
+
+
+def tp_texts(ctx, n: int) -> list:
+    """What a BatchWorker answers for the first `n` prompts if it emits the
+    TP engine's tokens (13a's): their text, trimmed at the stop strings."""
+    return [engine.trim_at_stop_strings(ctx["tok"].decode(t), QWEN_CHATML.stop_strings)
+            for t in ctx["tp_tokens"][:n]]
+
+
+def tick_line(st: dict) -> str:
+    """A rank's control ticks: how many, and the seconds in their two
+    collectives against the seconds in its engine's steps."""
+    busy = max(st["busy_ticks"], 1)
+    return (f"{st['ticks']} ticks ({st['busy_ticks']} with work), control "
+            f"{1e3 * st['busy_control_s'] / busy:.2f} ms a busy tick, step "
+            f"{1e3 * st['step_s'] / max(st['ticks'], 1):.2f} ms a tick")
 
 
 def phase_sp(ctx, seed: int) -> dict:
@@ -4404,17 +4558,89 @@ def phase_fleet(ctx, seed: int) -> dict:
     return counts
 
 
-def phase_layouts(dev, seed: int, header) -> dict:
-    """13: radvlm_7b's int8 weights made once from the seed (unfused, for
-    the TP ranks to make alike), its decoder cut to LAYOUT_LAYERS of 28,
-    fused for the one-card engine, whose tokens, logits and decode step the
-    layouts are held to."""
+def fleet_tp_rank(rank, world, payload):
+    """A rank of 13d, started during phase 12: radvlm_7b's int8 weights
+    made from the seed once phase 13 begins (as 13a's ranks make them)
+    while the one-card engine and 13a-13c run; once the parent writes `go`,
+    `VLMRunner(fleet=FLEET_SIZE, fleet_tp=TP_WORLD)` shards them over this
+    rank's engine and one BatchWorker serves every prompt from rank 0 (the
+    HTTP leg); rank 0 then holds its engine's kernels to their plain
+    versions at the served shapes."""
+    dev, cfg = torch.device(payload["device"]), payload["cfg"]
+    wait_go(payload["make"])
+    model = convert.random_quantized_params(
+        cfg, torch.Generator(device=dev).manual_seed(payload["seed"]), device=dev, fuse=False)
+    wait_go(payload["go"])
+    t0 = time.perf_counter()
+    tok = CharTokenizer()
+    runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=NEW_TOKENS,
+                       fleet=FLEET_SIZE, fleet_tp=TP_WORLD, fuse=False)
+    worker = layout_worker(runner, payload["buckets"], fleet=FLEET_SIZE, fleet_tp=TP_WORLD)
+    setup = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = serve_layout_requests(rank, worker, payload["prompts"], streamed=0)
+    out.update(setup=setup, engine=worker.fleet.engine_idx,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0)
+    if rank == 0:
+        engine_kernels(worker.fleet.batchers[0],
+                       [s.length for s in layout_samples(tok, cfg, payload["prompts"])],
+                       payload["seed"], "13d rank 0")
+    return out
+
+
+def phase_fleet_tp(ctx, started) -> dict:
+    """13d: a fleet of FLEET_SIZE TP = TP_WORLD engines, four processes on
+    the card started with phase 13 (`started`: their context, root and go
+    file), behind one BatchWorker on rank 0, against 13a's TP engine."""
+    t_phase = time.perf_counter()
+    context, root, go = started
+    world = FLEET_SIZE * TP_WORLD
+    release(go)
+    try:
+        ranks = join_ranks(context, world, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    want = tp_texts(ctx, len(r0["texts"]))
+    same = [got == ref for got, ref in zip(r0["texts"], want)]
+    n = len(same)
+    print(f"  {FLEET_SIZE} engines x TP = {TP_WORLD} over gloo, {world} processes on the card "
+          f"(set up in {max(r['setup'] for r in ranks):.2f} s after go, warmup "
+          f"{r0['warmup']:.2f} s): {n} requests at once over HTTP, 1 streamed ({r0['chunks']} "
+          f"chunks, first after {r0['first_chunk_s']:.3f} s), in {r0['wall']:.3f} s; requests "
+          f"a engine {r0['routed']}; answers equal to the TP engine's tokens: {sum(same)} of "
+          f"{n}", flush=True)
+    print(f"  against {ctx['tp_wall']:.3f} s for the TP engine (13a, {n} requests) and "
+          f"{ctx['one_wall']:.3f} s for the one-card engine; four processes share one card and "
+          f"gloo stages every all_reduce through host memory: the protocol and its cost, not "
+          f"speed", flush=True)
+    least = min(ranks, key=lambda r: r["ticks"]["busy_control_s"])["ticks"]
+    control = 1e3 * least["busy_control_s"] / max(least["busy_ticks"], 1)
+    print(f"  control tick: {control:.2f} ms a busy tick on the rank that waits least (its "
+          f"two collectives; a tick carries one decode chunk of {LAYOUT_STEPS} steps, "
+          f"{LAYOUT_STEPS * ctx['tp_step_ms']:.1f} ms at 13a's TP decode step of "
+          f"{ctx['tp_step_ms']:.2f} ms); {least['busy_control_s']:.3f} s over the run, "
+          f"{100 * least['busy_control_s'] / r0['wall']:.1f}% of its wall", flush=True)
+    for r, rk in enumerate(ranks):
+        print(f"  rank {r} (engine {rk['engine']}) launches: {rk['counts']}; peak "
+              f"{rk['peak_gib']:.2f} GiB; {tick_line(rk['ticks'])}", flush=True)
+        require_launched("fleet_tp", rk["counts"])
+    if min(r0["routed"]) == 0:
+        raise AssertionError(f"13d: an engine got no request: {r0['routed']}")
+    if not all(same):
+        raise AssertionError(f"13d: answers {same} differ from the TP engine's tokens")
+    print(f"  13d: {time.perf_counter() - t_phase:.1f} s after 13c", flush=True)
+    return {k: sum(r["counts"][k] for r in ranks) for k in r0["counts"]}
+
+
+def start_layouts(dev, seed: int) -> dict:
+    """Phase 13's prompts, and its spawns started ahead of it (during phase
+    12, so the ranks' start-up overlaps the towers): 13a's two ranks and
+    13d's four import, reach the card and wait; each makes its weights at
+    `make` (phase 13's start) and begins at its `go`."""
     cfg = radvlm_7b()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=LAYOUT_LAYERS))
-    t0 = time.perf_counter()
-    model = convert.random_quantized_params(
-        cfg, torch.Generator(device=dev).manual_seed(seed + 13), device=dev, fuse=False)
-    radvlm.fuse_for_inference(model, cfg)
     tok = CharTokenizer()
     rng = np.random.default_rng(seed + 13)
     prompts = [(render_generation_prompt([("user", "<image>\n" + QUESTIONS[i % len(QUESTIONS)])],
@@ -4425,6 +4651,55 @@ def phase_layouts(dev, seed: int, header) -> dict:
     # in every engine's warmup.
     buckets = tuple(sorted({min(b for b in INT8_BUCKETS + (4096,) if b >= s.length)
                             for s in samples}))
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    make = os.path.join(build, f"smoke_layouts_make_{os.getpid()}")
+    spawns = {}
+    for name, fn, world in (("tp", tp_rank, TP_WORLD),
+                            ("fleet_tp", fleet_tp_rank, FLEET_SIZE * TP_WORLD)):
+        root = os.path.join(build, f"smoke_{name}_{os.getpid()}")
+        go = os.path.join(root, "go")
+        spawns[name] = (start_ranks(fn, world, dict(
+            device=str(dev), cfg=cfg, seed=seed + 13, prompts=prompts, buckets=buckets,
+            new_tokens=NEW_TOKENS, make=make, go=go), root), root, go)
+    return dict(cfg=cfg, tok=tok, prompts=prompts, samples=samples, buckets=buckets,
+                spawns=spawns, make=make)
+
+
+def stop_layouts(layouts: dict) -> None:
+    """Stop phase 13's ranks that still run or wait (after a failure)."""
+    for context, root, _ in layouts["spawns"].values():
+        for proc in context.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(layouts["make"]):
+        os.remove(layouts["make"])
+
+
+def phase_layouts(dev, seed: int, header, layouts: dict) -> dict:
+    """13: radvlm_7b's int8 weights made once from the seed (unfused, for
+    the TP ranks to make alike), its decoder cut to LAYOUT_LAYERS of 28,
+    fused for the one-card engine, whose tokens, logits and decode step the
+    layouts are held to; the ranks (`start_layouts`) make theirs meanwhile."""
+    t0 = time.perf_counter()
+    release(layouts["make"])
+    try:
+        counts = layout_cases(dev, seed, header, layouts["cfg"], layouts["tok"],
+                              layouts["prompts"], layouts["samples"], layouts["buckets"],
+                              layouts["spawns"], t0)
+    except BaseException:
+        stop_layouts(layouts)
+        raise
+    os.remove(layouts["make"])
+    return counts
+
+
+def layout_cases(dev, seed, header, cfg, tok, prompts, samples, buckets, spawns, t0) -> dict:
+    """Phase 13 after its spawns started: the one-card engine, then 13a-13d."""
+    model = convert.random_quantized_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 13), device=dev, fuse=False)
+    radvlm.fuse_for_inference(model, cfg)
     gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_ids=tok.eos_token_ids)
     b = layout_engine(model, cfg, gen, buckets)
     b.warmup()
@@ -4444,12 +4719,15 @@ def phase_layouts(dev, seed: int, header) -> dict:
                one_step_ms=one_step_ms, seed=seed + 13)
     counts = {}
     header(f"[13a/13] tensor parallelism: TP = {TP_WORLD} (gloo, two processes on the card)")
-    counts["tp"] = phase_tp(ctx, seed)
+    counts["tp"], counts["tp_worker"] = phase_tp(ctx, seed, spawns["tp"])
     header(f"[13b/13] sequence parallelism: ring prefill and SP decode ({SP_BACKEND}, "
            f"seq = {SP_WORLD})")
     counts["sp"] = phase_sp(ctx, seed)
     header(f"[13c/13] a fleet of {FLEET_SIZE} engines on the card")
     counts["fleet"] = phase_fleet(ctx, seed)
+    header(f"[13d/13] a fleet of {FLEET_SIZE} TP = {TP_WORLD} engines behind one BatchWorker "
+           f"({FLEET_SIZE * TP_WORLD} processes on the card)")
+    counts["fleet_tp"] = phase_fleet_tp(ctx, spawns["fleet_tp"])
     return counts
 
 
@@ -4780,6 +5058,88 @@ def phase_train_mesh(dev, seed: int, header) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: host prep on the card's host (radvlm_tpu_torch/native)
+# ---------------------------------------------------------------------------
+
+HOST_PREP_RUNS = 3  # timed runs an image; the median is kept
+
+
+def host_seconds(fn, runs: int = HOST_PREP_RUNS) -> float:
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_host_prep(seed: int) -> dict:
+    """15: the C++ tiler and decoder built (a failed build fails the phase
+    with the compiler's message), then host seconds per image of PIL's and
+    the native tiling and decoding, at MIMIC-CXR-JPG's size and at the
+    serving phases' CXR size. No device."""
+    from PIL import Image
+
+    from radvlm_tpu_torch import native
+    from radvlm_tpu_torch.config import AnyResConfig
+    from radvlm_tpu_torch.ops import image_ops
+
+    t0 = time.perf_counter()
+    paths = native.build(force=True)
+    build_s = time.perf_counter() - t0
+    print(f"  build of both libraries: {build_s:.2f} s ({', '.join(sorted(paths.values()))}); "
+          f"the decoder links {native.libjpeg_path()}; {os.cpu_count()} host cores",
+          flush=True)
+    rng = np.random.default_rng(seed + 15)
+    cfg = AnyResConfig()
+    # MIMIC-CXR-JPG's studies are ~2500 x 3000 grey images, loaded as RGB;
+    # the serving phases' CXR images are 480-560 x 400-520 RGB.
+    grey = rng.integers(0, 255, size=(3000, 2500), dtype=np.uint8)
+    sizes = {"mimic 2500x3000": [np.stack([grey] * 3, -1)],
+             "cxr 480-560x400-520": [cxr_image(rng) for _ in range(3)]}
+    out = {"build_s": build_s}
+    for label, images in sizes.items():
+        pil_s, nat_s, dec_pil_s, dec_nat_s, worst, equal = [], [], [], [], 0, True
+        for img in images:
+            h, w = img.shape[:2]
+            plan = image_ops.resize_plan((w, h), cfg)
+            geom = (cfg.tile_size, (plan["best_w"], plan["best_h"]),
+                    (plan["new_w"], plan["new_h"]))
+            pil, _ = image_ops.preprocess_anyres_host(img, cfg)
+            nat = native.anyres_tiles(img, *geom)
+            worst = max(worst, int(np.abs(nat.astype(int) - pil.astype(int)).max()))
+            pil_s.append(host_seconds(lambda: image_ops.preprocess_anyres_host(img, cfg)))
+            nat_s.append(host_seconds(lambda: native.anyres_tiles(img, *geom)))
+            buf = io.BytesIO()
+            Image.fromarray(img[..., 0] if label.startswith("mimic") else img).save(
+                buf, "JPEG", quality=95)
+            data = buf.getvalue()
+
+            def pil_decode():
+                with Image.open(io.BytesIO(data)) as im:
+                    return np.asarray(im.convert("RGB"), np.uint8)
+
+            equal &= bool(np.array_equal(native.decode_jpeg(data), pil_decode()))
+            dec_pil_s.append(host_seconds(pil_decode))
+            dec_nat_s.append(host_seconds(lambda: native.decode_jpeg(data)))
+        n_tiles = len(pil)
+        print(f"  {label} ({len(images)} image(s), {n_tiles} tiles of the last): tiling PIL "
+              f"{statistics.mean(pil_s):.4f} s, native {statistics.mean(nat_s):.4f} s an image "
+              f"({statistics.mean(pil_s) / statistics.mean(nat_s):.2f}x); native tiles at most "
+              f"{worst}/255 from PIL's (bound 2); JPEG decode PIL "
+              f"{statistics.mean(dec_pil_s):.4f} s, native {statistics.mean(dec_nat_s):.4f} s an "
+              f"image, pixels equal: {equal}", flush=True)
+        if worst > 2:
+            raise AssertionError(f"host prep {label}: native tiles {worst}/255 from PIL's")
+        if not equal:
+            raise AssertionError(f"host prep {label}: decode_jpeg's pixels differ from PIL's")
+        out[label] = dict(tile_pil_s=statistics.mean(pil_s), tile_native_s=statistics.mean(nat_s),
+                          decode_pil_s=statistics.mean(dec_pil_s),
+                          decode_native_s=statistics.mean(dec_nat_s), max_diff=worst)
+    return out
+
+
 def post_json(url: str, req: dict) -> dict:
     body = json.dumps(req).encode()
     with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=600) as resp:
@@ -4877,21 +5237,35 @@ def main():
     header("[11/12] the decoder families: MoE, MPT and the LLaVA presets, weights born int8")
     counts.update(phase_families(dev, args.seed, header))
 
-    header("[12/12] M10's towers and resamplers, weights born int8; a tunable CLIP tower")
-    counts.update(phase_towers(dev, args.seed, header))
+    # Phase 13's six ranks start up (imports, the card) while phase 12 runs.
+    layouts = start_layouts(dev, args.seed)
+    try:
+        header("[12/12] M10's towers and resamplers, weights born int8; a tunable CLIP tower")
+        counts.update(phase_towers(dev, args.seed, header))
+    except BaseException:
+        stop_layouts(layouts)
+        raise
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/14] M12's serving layouts on the card: TP engine, SP generation, a fleet")
+    header("[13/15] M12's serving layouts on the card: TP engine, SP generation, a fleet")
     t13 = time.perf_counter()
-    counts.update(phase_layouts(dev, args.seed, header))
+    counts.update(phase_layouts(dev, args.seed, header, layouts))
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s; {nvidia_smi_line()}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[14/14] M12's training half: ZeRO-3, TP = 2, pipelines, LoRA under TP and the "
+    header("[14/15] M12's training half: ZeRO-3, TP = 2, pipelines, LoRA under TP and the "
            "zigzag ring, radvlm_0_5b")
     counts.update(phase_train_mesh(dev, args.seed, header))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[15/15] host prep on the card's host: the C++ anyres tiler and JPEG decoder "
+           "against PIL")
+    t15 = time.perf_counter()
+    phase_host_prep(args.seed)
+    print(f"  phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -18,9 +18,9 @@ JAX package's pandas calls give a sample:
   a column both sides have (not a key) becomes `<name>_x` / `<name>_y`;
 - `groupby` runs over sorted keys and drops rows whose key is NaN.
 
-Images load as uint8 HWC RGB through PIL (`data/loader.load_image`); the
-JAX package's `RADVLM_NATIVE_JPEG` libjpeg route waits for the port's C++
-host prep (ROADMAP M1's native item) and is not taken here.
+Images load as uint8 HWC RGB through `data/loader.load_image`: PIL, or with
+RADVLM_NATIVE_JPEG=1 the C++ libjpeg decoder (`radvlm_tpu_torch/native`), as
+the JAX package's `load_image` does.
 
 File-layout contracts (path names, CSV columns) follow the public datasets:
 MIMIC-CXR (physionet), CheXpert(-Plus), Chest ImaGenome silver, VinDr-CXR,

@@ -38,7 +38,21 @@ log = logging.getLogger(__name__)
 
 
 def load_image(path: str) -> np.ndarray:
-    """JPEG/PNG -> uint8 [H, W, 3] RGB numpy (PIL)."""
+    """JPEG/PNG -> uint8 [H, W, 3] RGB numpy.
+
+    RADVLM_NATIVE_JPEG=1 routes .jpg/.jpeg through the C++ libjpeg decoder
+    (`radvlm_tpu_torch/native`, outside the GIL in the prefetch pool); PIL
+    is the default and serves other formats, decode errors and a host where
+    the decoder does not build."""
+    if os.environ.get("RADVLM_NATIVE_JPEG") == "1" and path.lower().endswith((".jpg", ".jpeg")):
+        from radvlm_tpu_torch import native
+
+        if native.jpeg_available():
+            try:
+                with open(path, "rb") as f:
+                    return native.decode_jpeg(f.read())
+            except (ValueError, OSError):
+                pass  # PIL below
     from PIL import Image
 
     with Image.open(path) as im:

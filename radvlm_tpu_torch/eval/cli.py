@@ -16,8 +16,11 @@ ranks and the results are gathered:
     torchrun --nproc-per-node 4 -m radvlm_tpu_torch.eval.cli --multihost ...
 
 `--fleet N` drives N continuous engines in this process, one per device of
-`--fleet-devices` (default every card). `--fleet-tp` above 1 (a fleet of TP
-engines) is not ported (ROADMAP M12).
+`--fleet-devices` (default every card). `--multihost --fleet N --fleet-tp T`
+runs N TP engines of T ranks each under torchrun (a world of N x T): rank 0
+submits every sample through the fleet's routing and writes the files, the
+other ranks follow its ticks. Outside torchrun's environment `--fleet-tp`
+above 1 raises the ValueError that names torchrun.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="comma-separated devices of the fleet's engines (a device may repeat; "
                         "default every card)")
     p.add_argument("--fleet-tp", type=int, default=1,
-                   help="devices per fleet engine (not ported above 1)")
+                   help="ranks per fleet engine: a TP group, one process a rank "
+                        "(--multihost under torchrun)")
     p.add_argument("--device", default=None,
                    help="where the model lives (default: the CUDA card)")
     return p.parse_args(argv)
@@ -69,9 +73,6 @@ def main(argv=None, tokenizer=None):
     """`tokenizer` replaces the HF tokenizer of `--tokenizer` /
     `--checkpoint` (tests pass their own). Returns the metrics dict."""
     args = parse_args(argv)
-    if args.fleet_tp != 1:
-        raise NotImplementedError(
-            "--fleet-tp: fleets of tensor-parallel engines are not ported (ROADMAP M12)")
     logging.basicConfig(level=logging.INFO)
     if args.multihost:
         import torch
@@ -85,6 +86,11 @@ def main(argv=None, tokenizer=None):
         if device.type == "cuda":
             torch.cuda.set_device(device)
         init_distributed(device=device)
+
+    if args.fleet_tp > 1:
+        from radvlm_tpu_torch.serve.fleet import check_tp_fleet_world
+
+        check_tp_fleet_world(args.fleet, args.fleet_tp)
 
     from radvlm_tpu_torch.eval.harness import (
         HFTokenizer,
@@ -100,7 +106,7 @@ def main(argv=None, tokenizer=None):
     runner = VLMRunner(
         model=model, cfg=cfg, tokenizer=tok,
         max_new_tokens=args.max_new_tokens, batch_size=args.batch_size,
-        fleet=args.fleet,
+        fleet=args.fleet, fleet_tp=args.fleet_tp,
         fleet_devices=args.fleet_devices.split(",") if args.fleet_devices else None,
     )
     dataset = build_task_dataset(args.task, args.data_dir)

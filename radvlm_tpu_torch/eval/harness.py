@@ -15,9 +15,12 @@ Under a `torch.distributed` world of more than one process (`eval/cli.py
 the DistributedSampler contract (rank r takes i % n == r) and gathers the
 results (`dist.all_gather_object`). A runner with a tensor-parallel `mesh`
 makes each rank one rank of a TP engine (the ranks of one `tensor` group
-take the same samples); with `fleet=N` the continuous engine is a
-`serve/fleet.py` FleetEngine. A fleet of TP engines (`fleet_tp` > 1) is not
-ported (ROADMAP M12).
+take the same samples, submitted in lockstep); with `fleet=N` the continuous
+engine is a `serve/fleet.py` FleetEngine. With `fleet=N, fleet_tp=T` > 1 the
+world is N x T ranks, the runner shards the model over its engine's
+`tensor` group, and `run_task` submits every sample on rank 0 through the
+fleet's routing (`TPFleetEngine`) while the other ranks follow its ticks;
+rank 0's cells are broadcast to every rank.
 """
 
 from __future__ import annotations
@@ -112,24 +115,32 @@ class VLMRunner:
     # Data-parallel engine fleet (serve/fleet.py): `fleet` continuous
     # engines, one per device of `fleet_devices` (None: every card; a device
     # may repeat), the reference's one-model-per-GPU eval processes folded
-    # into one process. `fleet_tp` > 1 (TP fleet engines) is not ported.
+    # into one process. With `fleet_tp` > 1 each engine is a TP group of
+    # `fleet_tp` ranks, one process a rank (a world of fleet x fleet_tp
+    # processes; `fleet_mesh` is its mesh).
     fleet: Optional[int] = None
     fleet_tp: int = 1
     fleet_devices: Optional[Sequence[Any]] = None
 
     def __post_init__(self):
-        if self.fleet_tp != 1:
-            raise NotImplementedError(
-                "VLMRunner: fleets of tensor-parallel engines (fleet_tp > 1) are not ported "
-                "(ROADMAP M12)")
         if self.mesh is not None and self.fleet:
             raise ValueError("VLMRunner: a tensor-parallel mesh and a fleet are exclusive")
+        if self.fleet_tp < 1:
+            raise ValueError(f"VLMRunner: fleet_tp must be >= 1, got {self.fleet_tp}")
+        if self.fleet_tp > 1 and not self.fleet:
+            raise ValueError("VLMRunner: fleet_tp needs a fleet (fleet=N)")
         self._run_cfg, self._tp_group = self.cfg, None
-        if self.mesh is not None and self.mesh["tensor"].size() > 1:
+        self.fleet_mesh = None
+        mesh = self.mesh
+        if self.fleet and self.fleet_tp > 1:
+            from radvlm_tpu_torch.serve.fleet import tp_fleet_mesh
+
+            mesh = self.fleet_mesh = tp_fleet_mesh(self.fleet, self.fleet_tp)
+        if mesh is not None and mesh["tensor"].size() > 1:
             from radvlm_tpu_torch.parallel import tp
 
-            self.model, self._run_cfg = tp.shard_model_tp(self.model, self.cfg, self.mesh)
-            self._tp_group = self.mesh.get_group("tensor")
+            self.model, self._run_cfg = tp.shard_model_tp(self.model, self.cfg, mesh)
+            self._tp_group = mesh.get_group("tensor")
         if self.fuse:
             radvlm.fuse_for_inference(self.model, self.cfg)
         self._gen_fns: Dict[Tuple[int, ...], Callable] = {}
@@ -309,11 +320,18 @@ def _run_continuous(
 
     # Pass 1 sizes the one prompt bucket: each sample is built and only its
     # length kept (holding a split's tiles would take O(dataset) host RAM).
+    # A fleet of TP engines sizes on rank 0, its front, and sends the size.
+    tp_fleet = runner.fleet_mesh is not None
     t0 = time.perf_counter()
     longest = 128
-    for i in my_indices:
-        _, mm = build_mm(i)
-        longest = max(longest, mm.length)
+    if not tp_fleet or dist.get_rank() == 0:
+        for i in my_indices:
+            _, mm = build_mm(i)
+            longest = max(longest, mm.length)
+    if tp_fleet:
+        box = [longest]
+        dist.broadcast_object_list(box, src=0)
+        longest = box[0]
     bucket = -(-longest // 128) * 128
     max_len = bucket + (-(-runner.max_new_tokens // 128) * 128)
     engine_kw = dict(num_slots=runner.batch_size, max_len=max_len, prompt_buckets=(bucket,),
@@ -323,8 +341,17 @@ def _run_continuous(
         from radvlm_tpu_torch.serve.fleet import FleetEngine
 
         n_engines = runner.fleet
-        fleet = FleetEngine(runner.model, runner.cfg, gen, fleet_size=n_engines,
-                            devices=runner.fleet_devices, **engine_kw).start()
+        if tp_fleet:
+            engine_kw.update(tp_size=runner.fleet_tp, mesh=runner.fleet_mesh)
+        else:
+            engine_kw.update(devices=runner.fleet_devices)
+        fleet = FleetEngine(runner.model, runner.cfg, gen, fleet_size=n_engines, **engine_kw)
+        if tp_fleet and not fleet.is_front:
+            # The samples go in on rank 0; this rank takes the ticks until
+            # rank 0 shuts the fleet down, and receives the cells after.
+            fleet.follow()
+            return []
+        fleet.start()
         submit, drain, first = fleet.submit, fleet.drain, fleet.batchers[0]
     else:
         fleet = None
@@ -358,7 +385,7 @@ def _run_continuous(
             progress(len(results), len(my_indices))
 
     t0 = time.perf_counter()
-    if runner._tp_group is not None:
+    if fleet is None and runner._tp_group is not None:
         # The ranks of a TP engine must make the same host decisions, and a
         # feeder thread's submits would land at another point of run() on
         # each rank. So this thread submits `cap` samples, then one more at
@@ -445,8 +472,9 @@ def _data_shard(runner: VLMRunner) -> Tuple[int, int]:
     """(index, count) of this rank's share of the samples. Without a mesh
     every rank is a share; with one, the ranks of one `tensor` group are one
     engine and take the same share (index = the rank's mesh coordinate
-    without the tensor axis)."""
-    if _process_count() == 1:
+    without the tensor axis). A fleet of TP engines takes every sample on
+    its front."""
+    if _process_count() == 1 or runner.fleet_mesh is not None:
         return 0, 1
     if runner.mesh is None:
         return dist.get_rank(), dist.get_world_size()
@@ -512,7 +540,11 @@ def run_task(
             if progress:
                 progress(min(start + bs, len(my_indices)), len(my_indices))
 
-    if _process_count() > 1:
+    if runner.fleet_mesh is not None:
+        box = [results]
+        dist.broadcast_object_list(box, src=0)  # rank 0's cells, every sample's
+        results = box[0]
+    elif _process_count() > 1:
         results = _allgather_objects(results, runner)
 
     metric_task = METRIC_TASK_ALIAS.get(task, task)

@@ -309,6 +309,7 @@ class ContinuousBatcher:
         self.slot_fill_real = np.zeros((num_slots,), np.int64)
         self.resume_fills = 0  # delta prefills served
         self._chunks_in_flight = 0
+        self._step_inflight: "collections.deque" = collections.deque()  # step()'s chunks
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._uid = itertools.count(1)
         # Host wall-clock per run()-loop phase (cumulative seconds): readback
@@ -330,6 +331,32 @@ class ContinuousBatcher:
         (on the caller's thread). With `resume`, `sample` holds ONLY the new
         turn's tokens and images. Raises ValueError for a prompt the cache
         cannot hold or a snapshot that does not fit this engine."""
+        self.check_request(sample, resume)
+        if max_new_tokens is None:
+            max_new_tokens = self.gen.max_new_tokens
+        req = Request(
+            uid=next(self._uid), sample=sample, max_new_tokens=max(1, int(max_new_tokens)),
+            temperature=temperature, top_p=top_p,
+            stream_q=queue.Queue() if stream else None,
+            keep_kv=keep_kv, resume=resume,
+        )
+        if resume is not None:
+            host_batch = self._collate_delta(sample)
+        else:
+            host_batch = multimodal.collate(
+                [sample], pad_len=self._bucket_for(sample.length), pad_tiles=self.pad_tiles,
+                pad_to_multiple=128, left_pad=True,
+            )
+        req.real_len = int(host_batch["lengths"][0])
+        req.dev_batch = {k: _to_device(v, self.device) for k, v in host_batch.items()}
+        self.queue.put(req)
+        return req
+
+    def check_request(self, sample: multimodal.MMSample,
+                      resume: Optional[KVSnapshot] = None) -> None:
+        """What `submit` refuses, without queueing: a prompt the cache
+        cannot hold, or a snapshot that does not fit this engine (a fleet
+        of TP engines checks a request on its front before routing it)."""
         if resume is not None:
             if self.tp_size > 1:
                 raise ValueError(
@@ -364,25 +391,6 @@ class ContinuousBatcher:
                     f"prompt pads to {padded} tokens but the cache holds "
                     f"{self.max_len} — truncate the prompt or raise max_len"
                 )
-        if max_new_tokens is None:
-            max_new_tokens = self.gen.max_new_tokens
-        req = Request(
-            uid=next(self._uid), sample=sample, max_new_tokens=max(1, int(max_new_tokens)),
-            temperature=temperature, top_p=top_p,
-            stream_q=queue.Queue() if stream else None,
-            keep_kv=keep_kv, resume=resume,
-        )
-        if resume is not None:
-            host_batch = self._collate_delta(sample)
-        else:
-            host_batch = multimodal.collate(
-                [sample], pad_len=self._bucket_for(sample.length), pad_tiles=self.pad_tiles,
-                pad_to_multiple=128, left_pad=True,
-            )
-        req.real_len = int(host_batch["lengths"][0])
-        req.dev_batch = {k: _to_device(v, self.device) for k, v in host_batch.items()}
-        self.queue.put(req)
-        return req
 
     def _bucket_for(self, n: int) -> int:
         for b in self.prompt_buckets:
@@ -799,6 +807,50 @@ class ContinuousBatcher:
         self.host_stats["emit"] += time.perf_counter() - t1
         self.host_stats["chunks"] += 1
 
+    def _advance(self, inflight, finished: List[Request]) -> None:
+        """One pass of run()'s loop: fill the empty slots from the queue,
+        dispatch a chunk while a slot is active, and read back the oldest
+        chunks (one in steady state, keeping `pipeline_depth` queued; all
+        of them once no slot is active). Finished requests go to
+        `finished`."""
+        empties = [i for i, r in enumerate(self.slot_req) if r is None]
+        taken: List[Request] = []
+        while len(taken) < len(empties) and not self.queue.empty():
+            try:
+                req = self.queue.get_nowait()
+            except queue.Empty:
+                break
+            if req.cancelled:  # cancelled while still queued: never fill
+                req.done = True
+                if req.stream_q is not None:
+                    req.stream_q.put(None)
+                finished.append(req)
+                continue
+            taken.append(req)
+        if taken:
+            t0 = time.perf_counter()
+            by_shape: Dict[Tuple, List[Request]] = {}
+            for req in taken:
+                # a delta prefill is always a fill of its own
+                key = (("resume", req.uid) if req.resume is not None
+                       else _group_key(req.dev_batch))
+                by_shape.setdefault(key, []).append(req)
+            for reqs in by_shape.values():
+                for s in range(0, len(reqs), self.fill_batch):
+                    self._fill_group([(empties.pop(0), r)
+                                      for r in reqs[s:s + self.fill_batch]])
+            self.host_stats["fill"] += time.perf_counter() - t0
+            self.host_stats["fills"] += len(taken)
+        if self._active():
+            t0 = time.perf_counter()
+            self._dispatch_chunk(inflight)
+            self.host_stats["dispatch"] += time.perf_counter() - t0
+        while inflight and (len(inflight) > self.pipeline_depth or not self._active()):
+            self._process_chunk(inflight, finished)
+
+    def _pending(self, inflight) -> bool:
+        return not self.queue.empty() or bool(self._active()) or bool(inflight)
+
     @torch.inference_mode()
     def run(self) -> Iterator[Request]:
         """Process the queue to completion, yielding finished requests.
@@ -808,47 +860,26 @@ class ContinuousBatcher:
         whose request finishes mid-chunk decodes garbage until the readback
         catches it - wasted compute, never corrupt output."""
         inflight: "collections.deque" = collections.deque()
+        while self._pending(inflight):
+            finished: List[Request] = []
+            self._advance(inflight, finished)
+            yield from finished
+
+    @torch.inference_mode()
+    def step(self) -> List[Request]:
+        """One pass of run()'s loop, its chunks kept in flight from one call
+        to the next; returns the requests it finished. For a caller that
+        drives the engine tick by tick (the ranks of a fleet of TP engines,
+        `serve/fleet.py`, which must take their submits at the same pass).
+        After an exception, `drop_inflight` forgets the chunks."""
         finished: List[Request] = []
-        while not self.queue.empty() or self._active() or inflight:
-            empties = [i for i, r in enumerate(self.slot_req) if r is None]
-            taken: List[Request] = []
-            while len(taken) < len(empties) and not self.queue.empty():
-                try:
-                    req = self.queue.get_nowait()
-                except queue.Empty:
-                    break
-                if req.cancelled:  # cancelled while still queued: never fill
-                    req.done = True
-                    if req.stream_q is not None:
-                        req.stream_q.put(None)
-                    finished.append(req)
-                    continue
-                taken.append(req)
-            if taken:
-                t0 = time.perf_counter()
-                by_shape: Dict[Tuple, List[Request]] = {}
-                for req in taken:
-                    # a delta prefill is always a fill of its own
-                    key = (("resume", req.uid) if req.resume is not None
-                           else _group_key(req.dev_batch))
-                    by_shape.setdefault(key, []).append(req)
-                for reqs in by_shape.values():
-                    for s in range(0, len(reqs), self.fill_batch):
-                        self._fill_group([(empties.pop(0), r)
-                                          for r in reqs[s:s + self.fill_batch]])
-                self.host_stats["fill"] += time.perf_counter() - t0
-                self.host_stats["fills"] += len(taken)
-            if self._active():
-                t0 = time.perf_counter()
-                self._dispatch_chunk(inflight)
-                self.host_stats["dispatch"] += time.perf_counter() - t0
-            # Drain: one chunk per iteration in steady state (keeping
-            # `pipeline_depth` queued), everything once idle.
-            while inflight and (len(inflight) > self.pipeline_depth or not self._active()):
-                self._process_chunk(inflight, finished)
-            for r in finished:
-                yield r
-            finished = []
+        if self._pending(self._step_inflight):
+            self._advance(self._step_inflight, finished)
+        return finished
+
+    def drop_inflight(self) -> None:
+        """Forget the chunks `step` left in flight (after `fail_all`)."""
+        self._step_inflight.clear()
 
     @torch.inference_mode()
     def warmup(self) -> None:

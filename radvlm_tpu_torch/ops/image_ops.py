@@ -4,14 +4,17 @@ normalization (device, torch).
 Counterpart of the host half of `radvlm_tpu/ops/image_ops.py`: PIL bicubic,
 bit for bit the JAX package's tiles. Tile layout: tiles[0] is the base resize
 of the whole image, tiles[1:] the grid tiles of the aspect-preserving
-resize-and-pad, row major. The JAX package's C++ tiler
-(`RADVLM_NATIVE_ANYRES=1`) and its XLA device path are not ported.
+resize-and-pad, row major. RADVLM_NATIVE_ANYRES=1 sends the tiling through
+the C++ tiler (`radvlm_tpu_torch/native`, within a few grey levels of PIL)
+where it builds, as in the JAX package; the JAX package's XLA device path
+is not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import os
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -52,18 +55,44 @@ def resize_and_pad_host(img_np: np.ndarray, target_wh: Tuple[int, int]) -> np.nd
     return canvas
 
 
+def resize_plan(image_size_wh: Tuple[int, int], cfg: AnyResConfig) -> Dict[str, int]:
+    """The anyres geometry of an image of (w, h): the pinpoint it goes to
+    (`best_w`, `best_h`) and its aspect-kept resize inside it (`new_w`,
+    `new_h`), as `resize_and_pad_host` computes them (the JAX package's
+    `device_plan`, on the host)."""
+    ow, oh = image_size_wh
+    best_w, best_h = select_best_resolution((ow, oh), cfg.pinpoints)
+    scale_w, scale_h = best_w / ow, best_h / oh
+    if scale_w < scale_h:
+        nw, nh = best_w, min(math.ceil(oh * scale_w), best_h)
+    else:
+        nh, nw = best_h, min(math.ceil(ow * scale_h), best_w)
+    return dict(tile_size=cfg.tile_size, best_w=best_w, best_h=best_h, new_w=nw, new_h=nh)
+
+
 def preprocess_anyres_host(
     img_np: np.ndarray, cfg: AnyResConfig, *, normalize: bool = False
 ) -> Tuple[np.ndarray, Tuple[int, int]]:
     """img_np uint8 [H, W, 3] -> (tiles [T, ts, ts, 3], image_size (w, h)).
 
     Tiles stay uint8 unless normalize=True (`normalize_tiles_device` does the
-    same arithmetic on the card)."""
+    same arithmetic on the card). RADVLM_NATIVE_ANYRES=1: the C++ tiler, where
+    it builds."""
     if img_np.ndim == 2:
         img_np = np.stack([img_np] * 3, axis=-1)
     oh, ow = img_np.shape[:2]
     ts = cfg.tile_size
     best_w, best_h = select_best_resolution((ow, oh), cfg.pinpoints)
+
+    if os.environ.get("RADVLM_NATIVE_ANYRES") == "1":
+        from radvlm_tpu_torch import native
+
+        if native.available():
+            plan = resize_plan((ow, oh), cfg)
+            tiles = native.anyres_tiles(img_np, ts, (best_w, best_h),
+                                        (plan["new_w"], plan["new_h"]))
+            return (normalize_pixels(tiles) if normalize else tiles), (ow, oh)
+
     padded = resize_and_pad_host(img_np, (best_w, best_h))
     post = normalize_pixels if normalize else (lambda x: x)
     tiles = [post(_resize_pil(img_np, (ts, ts)))]  # base tile first

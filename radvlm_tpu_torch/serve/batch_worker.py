@@ -3,7 +3,13 @@
 
 Requests enqueue into one `ContinuousBatcher` driven by a single engine
 thread, or, with `fleet=N`, into a `serve/fleet.py` FleetEngine (N engines,
-one per device of `fleet_devices`, default every card). Same controller
+one per device of `fleet_devices`, default every card). With `fleet_tp=T`
+> 1, or a runner with a tensor-parallel `mesh` (one TP engine: N = 1), the
+world is N x T processes (torchrun) and the fleet is a `TPFleetEngine`: every
+rank builds the worker alike, rank 0 alone serves HTTP, registers with the
+controller and streams the tokens of every engine, and the other ranks
+follow the fleet's ticks in `serve_forever` until rank 0's `shutdown`.
+Sessions stay off under TP, as in the JAX worker. Same controller
 protocol as `serve/worker.py` (register, heartbeat, `/worker_get_status`);
 `/worker_generate` returns one JSON result, `/worker_generate_stream`
 streams \\0-framed cumulative-text chunks as the engine emits tokens (bursts
@@ -15,9 +21,6 @@ A request that names a `session_id` takes part in multi-turn KV reuse
 (`serve/sessions.py`): its finished KV stays on the device, and a later turn
 whose prompt extends the stored conversation prefills only the new tokens.
 The engine decodes speculatively when `spec_k` (or RADVLM_SPEC_K) is set.
-Not ported (ROADMAP M12): a runner with a tensor-parallel `mesh` (the ranks
-of a TP engine must submit the same requests in the same order, and each
-rank's HTTP server takes its own) and a fleet of TP engines (`fleet_tp` > 1).
 """
 
 from __future__ import annotations
@@ -55,17 +58,18 @@ class BatchWorker:
         worker_address: str = "",
         kv_quant: Optional[bool] = None,  # None -> RADVLM_KV_INT8 (the batcher reads it)
         fleet: Optional[int] = None,  # N data-parallel engines (serve/fleet.py)
-        fleet_tp: int = 1,  # devices per fleet engine (a TP group): not ported
+        fleet_tp: int = 1,  # ranks per fleet engine (a TP group, one process a rank)
         fleet_devices=None,  # the fleet's devices (None: the runner's, else every card)
         **engine_kw,  # ContinuousBatcher options: prompt_buckets, steps_per_sync, ...
     ):
-        if fleet_tp != 1:
-            raise NotImplementedError(
-                "fleet_tp > 1: a fleet of tensor-parallel engines is not ported (ROADMAP M12)")
-        if getattr(runner, "mesh", None) is not None:
-            raise NotImplementedError(
-                "a tensor-parallel BatchWorker is not ported (ROADMAP M12): the ranks of a TP "
-                "engine must submit the same requests in the same order")
+        mesh = getattr(runner, "mesh", None)
+        if mesh is not None and mesh["tensor"].size() > 1:
+            if fleet:
+                raise ValueError("BatchWorker: a tensor-parallel runner and a fleet are "
+                                 "exclusive; a fleet of TP engines takes fleet_tp")
+            # One TP engine is a fleet of one TP engine.
+            fleet_tp = mesh["tensor"].size()
+            fleet = mesh.size() // fleet_tp
         self.runner = runner
         self.model_names = list(model_names)
         self.controller_address = controller_address
@@ -79,9 +83,11 @@ class BatchWorker:
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._server: Optional[ThreadingHTTPServer] = None
-        # Multi-turn KV reuse: RADVLM_SESSION_CAP=0 turns it off.
+        # Multi-turn KV reuse: RADVLM_SESSION_CAP=0 turns it off. A TP engine
+        # takes no resume, so sessions stay off there.
         store = SessionStore()
-        self._sessions: Optional[SessionStore] = store if store.cap > 0 else None
+        self._sessions: Optional[SessionStore] = (
+            store if store.cap > 0 and not (fleet and fleet_tp > 1) else None)
         self._session_ctx: Dict[int, Any] = {}  # uid -> (sid, ids, image hashes, stops)
         engine_kw.setdefault("prompt_buckets", (prompt_bucket,))
         t0 = time.perf_counter()
@@ -94,9 +100,13 @@ class BatchWorker:
             # threads and failure isolation.
             from radvlm_tpu_torch.serve.fleet import FleetEngine
 
+            if fleet_tp > 1:
+                engine_kw["mesh"] = getattr(runner, "fleet_mesh", None)
+            else:
+                engine_kw["devices"] = (fleet_devices if fleet_devices is not None
+                                        else runner.fleet_devices)
             self.fleet = FleetEngine(
                 runner.model, runner.cfg, gen, fleet_size=fleet, tp_size=fleet_tp,
-                devices=fleet_devices if fleet_devices is not None else runner.fleet_devices,
                 num_slots=num_slots, max_len=max_len, attn_impl=runner.attn_impl,
                 kv_quant=kv_quant, on_complete=self._signal_done, **engine_kw,
             )
@@ -125,6 +135,11 @@ class BatchWorker:
     def engine(self):
         """Where requests go: the fleet, or the one batcher."""
         return self.fleet if self.fleet is not None else self.batcher
+
+    @property
+    def follows(self) -> bool:
+        """A rank other than 0 of a fleet of TP engines: it serves no HTTP."""
+        return self.fleet is not None and not getattr(self.fleet, "is_front", True)
 
     def _warmup_sessions(self, b: ContinuousBatcher) -> None:
         """A two-turn dummy conversation through the engine before its loop
@@ -441,6 +456,15 @@ class BatchWorker:
         return Handler
 
     def serve_forever(self, host: str = "0.0.0.0", port: int = 21003, *, background: bool = False):
+        """Serve HTTP (and register with the controller); returns the port
+        with `background`. A following rank of a fleet of TP engines serves
+        nothing: it takes the fleet's ticks until rank 0 shuts down."""
+        if self.follows:
+            if background:
+                threading.Thread(target=self.fleet.follow, daemon=True).start()
+                return None
+            self.fleet.follow()
+            return None
         server = ThreadingHTTPServer((host, port), self.make_handler())
         self._server = server
         port = server.server_address[1]
@@ -452,6 +476,15 @@ class BatchWorker:
         if background:
             threading.Thread(target=server.serve_forever, daemon=True).start()
             return port
+        if self.fleet is not None and self.fleet.tp_size > 1:
+            # Rank 0 of a TP fleet: serve until the tick loop ends; a broken
+            # lockstep ends the server and raises.
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            try:
+                self.fleet.wait()
+            finally:
+                self.shutdown()
+            return None
         server.serve_forever()
 
     def register(self):
@@ -475,7 +508,11 @@ class BatchWorker:
                 log.warning("heartbeat failed: %s", e)
 
     def shutdown(self):
-        """Stop serving and the engine thread(s) (each finishes its current run)."""
+        """Stop serving and the engine thread(s) (each finishes its current
+        run); on rank 0 of a TP fleet, the stop flag ends the other ranks'
+        `serve_forever`."""
+        if self._stop.is_set():
+            return
         self._stop.set()
         if self.fleet is not None:
             self.fleet.shutdown()

@@ -14,16 +14,24 @@ worker (`serve/worker.py`). Runs on the card unless `--device cpu` is given.
 `build_worker(args, tokenizer=None)` is `main` without the serving loop, for
 a caller that brings its own tokenizer. `--fleet N` serves N continuous
 engines behind the one worker (`serve/fleet.py`), one per device of
-`--fleet-devices` (default every card; a device may repeat); `--fleet-tp`
-above 1 (a fleet of TP engines) is not ported (ROADMAP M12). The JAX
-package's compile cache has no counterpart (nothing is compiled but the
-kernels, once).
+`--fleet-devices` (default every card; a device may repeat). `--fleet N
+--fleet-tp T` serves N TP engines of T ranks each, one process a rank,
+under torchrun (each rank on cuda:LOCAL_RANK, or `--device`): rank 0 serves
+HTTP and registers, the other ranks follow its ticks until it stops.
+
+    torchrun --nproc-per-node 4 -m radvlm_tpu_torch.serve.worker_cli \
+        --checkpoint /ckpts/radvlm-7b-int8 --fleet 2 --fleet-tp 2 --port 21002
+
+Outside torchrun's environment `--fleet-tp` above 1 raises the ValueError
+that names torchrun. The JAX package's compile cache has no counterpart
+(nothing is compiled but the kernels, once).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -59,7 +67,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="comma-separated devices of the fleet's engines (a device may repeat; "
                         "default every card)")
     p.add_argument("--fleet-tp", type=int, default=1,
-                   help="devices per fleet engine (not ported above 1)")
+                   help="ranks per fleet engine: a TP group, one process a rank (torchrun)")
     p.add_argument("--device", default=None,
                    help="where the model lives (default: the CUDA card)")
     return p.parse_args(argv)
@@ -71,9 +79,14 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
     `--checkpoint`. `engine_kw` reaches the continuous engine (`kv_quant`,
     `prompt_buckets`, `fill_batch`, `spec_k`, ...); the int8 KV cache is
     also switched on by RADVLM_KV_INT8=1, as in the JAX package."""
-    if args.fleet_tp != 1:
-        raise NotImplementedError(
-            "--fleet-tp: fleets of tensor-parallel engines are not ported (ROADMAP M12)")
+    if args.fleet_tp > 1:
+        if args.fleet_devices:
+            raise ValueError("--fleet-tp runs each rank on its own device: it takes no "
+                             "--fleet-devices")
+        from radvlm_tpu_torch.serve.fleet import check_tp_fleet_world
+
+        join_torchrun_world(args)
+        check_tp_fleet_world(args.fleet, args.fleet_tp)
     if args.fleet and args.engine != "continuous":
         raise ValueError("--fleet serves continuous engines: it takes --engine continuous")
 
@@ -88,7 +101,7 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
     tok = tokenizer if tokenizer is not None else HFTokenizer(args.tokenizer or args.checkpoint)
     # The runner fuses the projections of this one copy in place.
     runner = VLMRunner(model=model, cfg=cfg, tokenizer=tok, max_new_tokens=args.max_new_tokens,
-                       fleet=args.fleet,
+                       fleet=args.fleet, fleet_tp=args.fleet_tp,
                        fleet_devices=args.fleet_devices.split(",") if args.fleet_devices else None)
     model_names = [n.strip() for n in args.model_names.split(",") if n.strip()]
 
@@ -104,6 +117,7 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
             controller_address=args.controller_address,
             worker_address=args.worker_address,
             fleet=args.fleet,
+            fleet_tp=args.fleet_tp,
             **engine_kw,
         )
     if engine_kw:
@@ -117,6 +131,25 @@ def build_worker(args: argparse.Namespace, tokenizer=None, **engine_kw):
         controller_address=args.controller_address,
         limit_concurrency=args.limit_concurrency,
     )
+
+
+def join_torchrun_world(args: argparse.Namespace) -> None:
+    """Join the world of torchrun's environment, each rank on
+    cuda:LOCAL_RANK (or `args.device`); without that environment nothing
+    happens, and the fleet's mesh raises naming torchrun."""
+    if "MASTER_ADDR" not in os.environ:
+        return
+    import torch
+
+    from radvlm_tpu_torch.parallel.mesh import init_distributed
+
+    if args.device is None:
+        args.device = (f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+                       if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    init_distributed(device=device)
 
 
 def main(argv=None):

@@ -1160,6 +1160,25 @@ def test_pp_hop_over_gloo_moves_cuda_tensors_through_host(dev, tmp_path):
         assert transport == "gloo send/recv through host memory"
 
 
+def test_fleet_of_tp_engines_in_lockstep_on_the_card(dev, tmp_path):
+    """Two TP = 2 engines as four gloo processes on the card
+    (`serve/fleet.py::TPFleetEngine`): the control ticks carry the submits,
+    each engine's all_reduces move CUDA tensors through gloo, every rank
+    launches K4 and K5/K6, and each prompt's tokens are the same on both
+    engines (the same weights and arithmetic)."""
+    import torch_dist
+
+    out = torch_dist.run(torch_dist.tp_fleet_cuda, 4, None, tmp_path, timeout=300)
+    r0 = out[0]
+    assert r0["errors"] == [None] * 4 and r0["routed"] == [2, 2]
+    toks = r0["tokens"]
+    assert all(len(t) == 6 for t in toks)
+    assert toks[0] == toks[1] and toks[2] == toks[3]
+    assert [r["engine"] for r in out] == [0, 0, 1, 1]
+    for r in out:
+        assert r["counts"]["decode_attention_q8"] > 0 and r["counts"]["int8_matmul"] > 0
+
+
 def test_pp_hop_at_one_nccl_rank(dev, nccl_world):
     """At one NCCL rank the ring's hop sends a CUDA tensor to the rank
     itself point to point and back in the backward."""

@@ -12,8 +12,8 @@
   their own order), equal the JAX package's, and the metrics JSON agrees to
   1e-12. Images of several sizes, fill groups of 1.
 - Errors: a sample with no `instr`, an engine error and a feeder error fail
-  `run_task`; a fleet of TP engines (`fleet_tp`, `--fleet-tp`) raises naming
-  ROADMAP M12; `eval.cli` without `--device` needs the card.
+  `run_task`; a fleet of TP engines (`fleet_tp`, `--fleet-tp`) outside
+  torchrun's world raises naming torchrun; `eval.cli` without `--device` needs the card.
 - `vqa_cli.run_vqa`: the JAX package's answers JSONL, record for record,
   except `shortuuid`.
 """
@@ -319,16 +319,19 @@ def test_engine_and_feeder_errors_fail_run_task(tiny_q, data_dir, monkeypatch):
 
 
 def test_not_ported_options_raise(tiny_q, monkeypatch, tmp_path):
-    """A fleet of tensor-parallel engines is what stays of M12 for
-    evaluation; the mesh, fleets and --multihost run (tests/test_torch_fleet.py,
-    tests/test_torch_tp.py)."""
+    """A fleet of tensor-parallel engines runs one process a rank: in one
+    process without torchrun's world it raises naming torchrun (the fleet
+    itself runs in tests/test_torch_fleet_tp.py); a mesh and a fleet stay
+    exclusive."""
     cfg, params = tiny_q
     model = convert.radvlm_from_jax(params, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
-        th.VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer(), fleet_tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
+    with pytest.raises(ValueError, match="torchrun"):
+        th.VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer(), fleet=2, fleet_tp=2)
+    with pytest.raises(ValueError, match="torchrun"):
         tcli.main(["--task", "abnormality_grounding", "--checkpoint", str(tmp_path),
-                   "--device", "cpu", "--fleet-tp", "2"])
+                   "--device", "cpu", "--fleet", "2", "--fleet-tp", "2"])
+    with pytest.raises(ValueError, match="exclusive"):
+        th.VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer(), mesh=object(), fleet=2)
 
 
 @pytest.fixture(scope="module")

@@ -8,8 +8,9 @@ evaluation's fleets, and `run_task` across processes, at the tiny config
 - an engine whose loop raises fails its own requests only; after
   QUARANTINE_AFTER failures it leaves the rotation, and with every engine
   quarantined submit raises;
-- the device count is validated; a fleet of TP engines and a TP
-  BatchWorker raise naming M12;
+- the device count is validated; a fleet of TP engines outside a world of
+  fleet x tp ranks raises naming torchrun (the fleet of TP engines runs in
+  tests/test_torch_fleet_tp.py), and a TP runner's worker takes no fleet;
 - a keep_kv turn records the engine that cut it (`KVSnapshot.engine_idx`,
   carried through `to_numpy` / `from_numpy`), its resume goes back there,
   and the resumed tokens equal a full re-prefill's;
@@ -17,7 +18,10 @@ evaluation's fleets, and `run_task` across processes, at the tiny config
 - `run_task` on 2 spawned gloo ranks (each its DistributedSampler share,
   gathered with `all_gather_object`, rank 0 writes the files), on the 2
   ranks as one TP engine (`VLMRunner(mesh=)`, more samples than the
-  in-flight cap) and with `fleet=2` give the one-process cells and metrics.
+  in-flight cap) and with `fleet=2` give the one-process cells and metrics;
+- in the same spawn, a BatchWorker over the TP runner (a fleet of one TP
+  engine) answers HTTP on rank 0 as the one-process worker does, with
+  sessions off, and its stop flag ends rank 1's `serve_forever`.
 """
 
 from types import SimpleNamespace
@@ -134,8 +138,8 @@ def test_fleet_device_validation(tiny):
         FleetEngine(model, cfg, _gen(), fleet_size=2, **ENGINE)  # a CPU model: one device
     with pytest.raises(ValueError, match="tp_size"):
         FleetEngine(model, cfg, _gen(), tp_size=0, **ENGINE)
-    with pytest.raises(NotImplementedError, match="M12"):
-        FleetEngine(model, cfg, _gen(), fleet_size=1, tp_size=2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="torchrun"):  # one process a rank
+        FleetEngine(model, cfg, _gen(), fleet_size=1, tp_size=2)
     fleet = FleetEngine(model, cfg, _gen(), fleet_size=2, devices=["cpu"] * 3, **ENGINE)
     assert len(fleet.batchers) == 2  # sliced to the fleet's size
 
@@ -203,13 +207,15 @@ def test_batch_worker_fleet(tiny, monkeypatch):
         assert two.queue_length() == 0
     finally:
         two.shutdown()
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(ValueError, match="torchrun"):  # a world of 2 x 2 ranks
         worker(fleet=2, fleet_tp=2)
-    with pytest.raises(NotImplementedError, match="M12"):  # each rank's server: other requests
-        BatchWorker(SimpleNamespace(mesh=object()), model_names=["m"])
+    tp_mesh = {"tensor": SimpleNamespace(size=lambda: 2)}
+    with pytest.raises(ValueError, match="exclusive"):  # a TP runner is one engine
+        BatchWorker(SimpleNamespace(mesh=tp_mesh), model_names=["m"], fleet=2)
 
 
 N_EVAL = 11  # above the continuous path's in-flight cap of 8 at batch_size 2
+WORKER_N, WORKER_NEW = 4, 6
 
 
 @pytest.fixture(scope="module")
@@ -227,7 +233,8 @@ def two_ranks(tiny, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("run_task_ranks")
     return torch_dist.run(torch_dist.run_task_ranks, 2,
                           dict(cfg=cfg, params=params, n=N_EVAL, out=str(tmp),
-                               modes=("split", "tp")), tmp / "pg")
+                               modes=("split", "tp", "worker"), worker_n=WORKER_N,
+                               worker_new=WORKER_NEW), tmp / "pg")
 
 
 def _by_idx(results):
@@ -254,6 +261,26 @@ def test_run_task_tp_engine_across_two_ranks(one_process, two_ranks):
         assert r["metrics"] == want_metrics
     assert [r["share"] for r in ranks] == [N_EVAL, N_EVAL]
     assert [r["wrote"] for r in ranks] == [True, False]
+
+
+def test_tp_batch_worker_across_two_ranks(tiny, two_ranks, monkeypatch):
+    """The TP runner's BatchWorker: rank 0 serves every request over HTTP
+    (one streamed), its answers are the one-process worker's; sessions stay
+    off; rank 0's stop ends rank 1's serve_forever."""
+    cfg, _ = tiny
+    monkeypatch.setenv("RADVLM_SESSION_CAP", "0")
+    runner = th.VLMRunner(model=_model(tiny), cfg=cfg, tokenizer=torch_dist.ByteTokenizer(),
+                          max_new_tokens=WORKER_NEW, attn_impl="xla")
+    one = BatchWorker(runner, model_names=["m"], num_slots=2, max_len=256, prompt_bucket=128,
+                      pad_tiles=2)
+    try:
+        want = [one.generate(r) for r in torch_dist.worker_requests(WORKER_N, WORKER_NEW)]
+    finally:
+        one.shutdown()
+    r0, r1 = (r["worker"] for r in two_ranks)
+    assert r0["texts"] == want and r0["chunks"][0] >= 1
+    assert r0["sessions_off"] and r1["sessions_off"]
+    assert not r0["follows"] and r1["follows"] and r1["stopped"]
 
 
 def test_run_task_fleet_equals_one_engine(tiny, one_process):

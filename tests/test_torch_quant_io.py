@@ -364,7 +364,8 @@ def test_quantize_cli_then_worker_cli(tmp_path, hf_dir, bits, capsys):
 def test_worker_cli_load_order_and_what_raises(tmp_path, hf_dir):
     """An HF dir loads dense (bf16) or, with --int8, quantized at load; the
     static engine is the streaming worker; a fleet takes the continuous
-    engine, and a fleet of TP engines raises."""
+    engine, and a fleet of TP engines outside torchrun's world raises
+    naming torchrun."""
     from radvlm_tpu_torch.serve.worker import ModelWorker
 
     tok = ByteTokenizer()
@@ -375,7 +376,7 @@ def test_worker_cli_load_order_and_what_raises(tmp_path, hf_dir):
     assert dense.runner.model.image_newline.dtype == torch.bfloat16
     q = worker_cli.build_worker(worker_cli.parse_args(base + ["--int8"]), tokenizer=tok)
     assert isinstance(q.runner.model.text.layers[0].qkv, QLinear)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(ValueError, match="torchrun"):
         worker_cli.build_worker(worker_cli.parse_args(base + ["--fleet-tp", "2"]), tokenizer=tok)
     with pytest.raises(ValueError, match="--engine continuous"):
         worker_cli.build_worker(worker_cli.parse_args(base + ["--fleet", "2"]), tokenizer=tok)

@@ -184,7 +184,11 @@ def test_port_runs_with_jax_blocked():
     --fleet`, and M12's training half: a ZeRO-3 step through the zigzag
     ring (`parallel.sharding`, the zigzag helpers), qgZ's
     `parallel.compression`, and a pipeline's gradients on two spawned
-    ranks (`parallel.pp`)."""
+    ranks (`parallel.pp`), and a fleet of TP engines refuses a world of one
+    naming torchrun, and data preparation runs (the exporters,
+    `create_exports`, `create_llava_dataset`, `synth_cli` with the fake
+    client, both preprocessors), and the C++ tiler and decoder build and
+    serve their routes."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -638,6 +642,63 @@ def test_port_runs_with_jax_blocked():
                                  "cpu", "--multihost", "--fleet", "2", "--fleet-devices",
                                  "cpu,cpu"], tokenizer=Tok())
         assert "mAP_0.5" in metrics and tp.context() is None
+        # A fleet of TP engines runs one process a rank: in this world of one
+        # it raises naming torchrun (its lockstep runs in test_torch_fleet_tp).
+        try:
+            FleetEngine(model, cfg, GenerationConfig(max_new_tokens=3), fleet_size=2, tp_size=2)
+            raise AssertionError("a fleet of TP engines in a world of one")
+        except ValueError as e:
+            assert "torchrun" in str(e)
+        # Data preparation: the exporters, both builders' mains over the
+        # VinDr split (their mixtures stubbed to it), synth_cli with the fake
+        # client, the two preprocessors (a fake pydicom).
+        import types
+        from radvlm_tpu_torch.data import create_exports, create_llava_dataset, export
+        from radvlm_tpu_torch.data import synth_cli
+        from radvlm_tpu_torch.data.preprocess import dicom2jpg, normalize_mscxr
+        vindr_split = build_task_dataset("abnormality_grounding", data)
+        cells = export.export_dataset([export.MixtureEntry(vindr_split, "vindr", repeats=2)],
+                                      export.grpo_rec_cell, data_root=data, num_workers=2)
+        assert len(cells) == 4 and cells[2]["id"] == "vindr_0_rep1"
+        export.write_jsonl(cells, f"{data}/exp/rec.jsonl")
+        mixture = lambda d: [export.MixtureEntry(vindr_split, "vindr")]
+        create_exports.grounding_mixture = create_llava_dataset.build_mixture = mixture
+        create_exports.build_mixture = mixture
+        create_exports.main(["--data-dir", data, "--format", "vlmr1", "--output",
+                             f"{data}/exp/vlmr1.jsonl", "--num-workers", "1"])
+        create_llava_dataset.main(["--data-dir", data, "--output", f"{data}/exp/all.json"])
+        assert len(json.load(open(f"{data}/exp/all.json"))) == 2
+        assert synth_cli.main(["filter-reports", "--data-dir", data, "--split", "test",
+                               "--client", "fake", "--num-workers", "1", "--output-dir",
+                               f"{data}/filtered"]) == 0
+        assert os.listdir(f"{data}/filtered")
+        write(f"{data}/ms.csv", [["dicom_id", "label_text", "x", "y", "w", "h", "image_width",
+                                  "image_height"], ["d1", "heart", 10, 20, 30, 40, 100, 100]])
+        assert normalize_mscxr.convert(f"{data}/ms.csv", f"{data}/ms") == 1
+        sys.modules["pydicom"] = types.SimpleNamespace(dcmread=lambda path: types.SimpleNamespace(
+            pixel_array=np.arange(600 * 512).reshape(600, 512) % 4096,
+            PhotometricInterpretation="MONOCHROME1"))
+        os.makedirs(f"{data}/dcm")
+        open(f"{data}/dcm/x_0.dicom", "wb").close()
+        assert dicom2jpg.convert_split(f"{data}/dcm", f"{data}/dcm_jpg", f"{data}/res.json",
+                                       num_workers=1) == {"x_0": [512, 600]}
+        # The C++ host prep: both libraries built into a fresh directory,
+        # the tiler against PIL's tiles, the decoder against PIL, the routes.
+        from radvlm_tpu_torch import kernels, native
+        from radvlm_tpu_torch.config import AnyResConfig
+        from radvlm_tpu_torch.data.loader import load_image
+        from radvlm_tpu_torch.ops import image_ops
+        kernels.BUILD_DIR = tempfile.mkdtemp()
+        native.build()
+        big = np.random.default_rng(2).integers(0, 255, (520, 460, 3), dtype=np.uint8)
+        pil_tiles, _ = image_ops.preprocess_anyres_host(big, AnyResConfig())
+        os.environ["RADVLM_NATIVE_ANYRES"] = os.environ["RADVLM_NATIVE_JPEG"] = "1"
+        nat_tiles, _ = image_ops.preprocess_anyres_host(big, AnyResConfig())
+        assert np.abs(nat_tiles.astype(int) - pil_tiles.astype(int)).max() <= 2
+        jpath = f"{vindr}/test_jpg/a.jpg"
+        assert np.array_equal(load_image(jpath), native.decode_jpeg(open(jpath, "rb").read()))
+        del os.environ["RADVLM_NATIVE_ANYRES"], os.environ["RADVLM_NATIVE_JPEG"]
+        assert np.array_equal(load_image(jpath), native.decode_jpeg(open(jpath, "rb").read()))
         # M12's training half in the world of one: a ZeRO-3 step through the
         # zigzag ring (its helpers on the host batch), qgZ's sum, the rules.
         from radvlm_tpu_torch.parallel import compression, sharding

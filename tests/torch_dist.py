@@ -5,14 +5,21 @@ every rank imports torch and the port only).
 `torch.multiprocessing` on a `file://` store under `tmp`, one torch thread
 each; rank r calls `fn(rank, world, payload)` and its return value comes
 back to the caller in rank order. A rank that raises fails the spawn and
-the test. The rank functions live here, beside the helpers they share.
+the test, and so does a world still running after `timeout` seconds (its
+processes are stopped). The rank functions live here, beside the helpers
+they share.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
+import threading
+import time
 import traceback
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -37,11 +44,21 @@ def _entry(rank, world, init, fn, payload, out_dir):
             dist.destroy_process_group()
 
 
-def run(fn, world: int, payload, tmp) -> list:
+def run(fn, world: int, payload, tmp, timeout: float = 600.0) -> list:
     out_dir = str(tmp)
     os.makedirs(out_dir, exist_ok=True)
     init = "file://" + os.path.join(out_dir, "store")
-    mp.spawn(_entry, args=(world, init, fn, payload, out_dir), nprocs=world, join=True)
+    ctx = mp.spawn(_entry, args=(world, init, fn, payload, out_dir), nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{fn.__name__}: the world of {world} ran past {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
     results = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
@@ -218,7 +235,8 @@ def grounding_split(n: int, seed: int = 0) -> list:
 def run_task_ranks(rank, world, payload):
     """`run_task` over the world, once per mode of `payload["modes"]`:
     "split", each rank its share, gathered; "tp", the world one
-    tensor-parallel engine (`VLMRunner(mesh=)`) over every sample. Rank 1
+    tensor-parallel engine (`VLMRunner(mesh=)`) over every sample; "worker",
+    a BatchWorker over that TP runner, serving HTTP on rank 0. Rank 1
     builds its samples slower, so submits timed by the host (a feeder
     thread's) would reach the ranks' engine loops at different steps."""
     import time
@@ -240,7 +258,12 @@ def run_task_ranks(rank, world, payload):
     out = {}
     for mode in payload["modes"]:
         model = convert.radvlm_from_jax(payload["params"], cfg, device="cpu")
-        mesh = make_mesh({"tensor": world}) if mode == "tp" else None
+        mesh = make_mesh({"tensor": world}) if mode in ("tp", "worker") else None
+        if mode == "worker":  # the TP BatchWorker over HTTP
+            runner = VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer(),
+                               max_new_tokens=payload["worker_new"], attn_impl="xla", mesh=mesh)
+            out[mode] = tp_worker(rank, runner, payload["worker_n"], payload["worker_new"])
+            continue
         runner = VLMRunner(model=model, cfg=cfg, tokenizer=ByteTokenizer(), max_new_tokens=4,
                            batch_size=2, attn_impl="xla", mesh=mesh)
         out_dir = os.path.join(payload["out"], mode, f"rank{rank}")
@@ -251,6 +274,145 @@ def run_task_ranks(rank, world, payload):
                                     progress=lambda done, total: seen.append(total))
         out[mode] = dict(results=results, metrics=metrics, wrote=os.path.exists(out_dir),
                          share=seen[-1] if seen else 0)
+    return out
+
+
+def http_post(port, path, obj):
+    """POST `obj` to a worker on localhost; a stream's \\0-framed chunks as a list."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(obj).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = resp.read()
+    except urllib.error.HTTPError as e:
+        body = e.read()
+    if path.endswith("_stream"):
+        return [json.loads(c) for c in body.split(b"\0") if c]
+    return json.loads(body)
+
+
+def worker_requests(n: int, new: int) -> list:
+    return [{"prompt": f"<|im_start|>user\nquestion {i}<|im_end|>\n", "max_new_tokens": new}
+            for i in range(n)]
+
+
+def served_texts(worker, requests, streamed=(0,)) -> dict:
+    """Rank 0 of a TP worker: every request at once over HTTP (those in
+    `streamed` through /worker_generate_stream, the others blocking); the
+    texts, and each streamed request's chunk count."""
+    port = worker.serve_forever("127.0.0.1", 0, background=True)
+    texts, chunks = [None] * len(requests), {}
+
+    def go(i):
+        if i in streamed:
+            got = http_post(port, "/worker_generate_stream", requests[i])
+            chunks[i] = len(got)
+            texts[i] = got[-1] if got else None
+        else:
+            texts[i] = http_post(port, "/worker_generate", requests[i])
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    return dict(texts=texts, chunks=chunks)
+
+
+def tp_worker(rank, runner, n: int, new: int, **kw) -> dict:
+    """A BatchWorker over a TP runner (or a fleet of TP engines): rank 0
+    serves `worker_requests` over HTTP and shuts down, the others follow
+    until the stop flag ends their serve_forever."""
+    from radvlm_tpu_torch.serve.batch_worker import BatchWorker
+
+    worker = BatchWorker(runner, model_names=["m"], num_slots=2, max_len=256, prompt_bucket=128,
+                         pad_tiles=2, **kw)
+    out = dict(sessions_off=worker._sessions is None, follows=worker.follows)
+    if rank == 0:
+        try:
+            out.update(served_texts(worker, worker_requests(n, new)))
+        finally:
+            worker.shutdown()
+    else:
+        worker.serve_forever()  # returns at rank 0's stop flag
+        out["stopped"] = True
+    return out
+
+
+def tp_fleet_cases(rank, world, payload):
+    """A fleet of two TP = 2 engines on four ranks, case by case of
+    `payload["cases"]`: "fleet" (FleetEngine, routed before start, then
+    drained), "worker" (BatchWorker over HTTP), "run_task", "error" (a
+    host-side fault injected into engine 1's ranks), "cli" (eval.cli
+    --multihost --fleet 2 --fleet-tp 2, with RADVLM_W8A8=0)."""
+    from radvlm_tpu_torch.eval import cli as tcli
+    from radvlm_tpu_torch.eval.harness import VLMRunner, run_task
+    from radvlm_tpu_torch.generation.engine import GenerationConfig
+    from radvlm_tpu_torch.models import convert
+    from radvlm_tpu_torch.models import multimodal as tmm
+    from radvlm_tpu_torch.serve.fleet import FleetEngine
+
+    cfg, params = payload["cfg"], payload["params"]
+    engine = dict(ENGINE, steps_per_sync=2)
+    out = {}
+
+    def model():
+        return convert.radvlm_from_jax(params, cfg, device="cpu")
+
+    for case in payload["cases"]:
+        if case in ("fleet", "error"):
+            gen = GenerationConfig(max_new_tokens=payload["steps"], eos_token_ids=())
+            fleet = FleetEngine(model(), cfg, gen, fleet_size=2, tp_size=2, **engine)
+            b = fleet.batchers[0]
+            if case == "error" and fleet.engine_idx == 1:
+                def boom(*a, **kw):
+                    raise RuntimeError("injected engine fault")
+
+                b._dispatch_chunk = boom
+            res = dict(engine=fleet.engine_idx, local_heads=b.cfg.text.num_heads)
+            if fleet.is_front:
+                reqs = [fleet.submit(s) for s in samples(tmm, cfg, payload["lengths"])]
+                res["routed"] = [fleet._open[r.uid][1] for r in reqs]
+                fleet.start()
+                try:
+                    done = {r.uid: r for r in fleet.drain(idle_timeout=120)}
+                finally:
+                    fleet.shutdown()
+                res.update(tokens=[done[r.uid].emitted for r in reqs],
+                           errors=[done[r.uid].error for r in reqs],
+                           same_requests=all(done[r.uid] is r for r in reqs),
+                           busy={i for i, _, _ in fleet.busy_log},
+                           quarantine=list(fleet._errors), uids=[r.uid for r in reqs])
+            else:
+                fleet.follow()
+            res.update(fills=b.host_stats["fills"], ticks=fleet.tick_stats["ticks"])
+            out[case] = res
+        elif case == "worker":
+            runner = VLMRunner(model=model(), cfg=cfg, tokenizer=ByteTokenizer(),
+                               max_new_tokens=payload["worker_new"], attn_impl="xla",
+                               fleet=2, fleet_tp=2)
+            out[case] = tp_worker(rank, runner, payload["worker_n"], payload["worker_new"],
+                                  fleet=2, fleet_tp=2)
+        elif case == "run_task":
+            runner = VLMRunner(model=model(), cfg=cfg, tokenizer=ByteTokenizer(),
+                               max_new_tokens=4, batch_size=2, attn_impl="xla", fleet=2,
+                               fleet_tp=2)
+            out_dir = os.path.join(payload["out"], "run_task", f"rank{rank}")
+            stats = {}
+            results, metrics = run_task(runner, grounding_split(payload["n"]),
+                                        "abnormality_grounding", with_clinical=False,
+                                        output_dir=out_dir, stats=stats)
+            out[case] = dict(results=results, metrics=metrics, wrote=os.path.exists(out_dir),
+                             engines=stats.get("engines"))
+        elif case == "cli":
+            os.environ["RADVLM_W8A8"] = "0"
+            out_dir = os.path.join(payload["out"], "cli")
+            metrics = tcli.main(["--task", "abnormality_grounding", "--checkpoint",
+                                 payload["artifact"], "--data-dir", payload["data_dir"],
+                                 "--output-dir", out_dir, "--model-name", "tiny",
+                                 "--batch-size", "2", "--max-new-tokens", "4", "--no-clinical",
+                                 "--multihost", "--fleet", "2", "--fleet-tp", "2",
+                                 "--device", "cpu"], tokenizer=ByteTokenizer())
+            out[case] = dict(metrics=metrics, out_dir=out_dir)
     return out
 
 
@@ -673,3 +835,45 @@ def pp_hop_cuda(rank, world, payload):
     y = pp._hop(group, x, True)
     (y * float(rank + 2)).sum().backward()
     return y.detach().cpu().numpy(), x.grad.cpu().numpy(), pp.hop_transport(group, dev)
+
+
+def tp_fleet_cuda(rank, world, payload):
+    """A fleet of two TP = 2 engines on the card: four gloo ranks on cuda:0,
+    tiny int8 weights made from a seed, the int8 cache; two prompts, each
+    sent twice, so both engines serve each. Rank 0's tokens and errors,
+    and every rank's launch counts."""
+    import dataclasses
+
+    from radvlm_tpu_torch import kernels
+    from radvlm_tpu_torch.config import tiny_test_config
+    from radvlm_tpu_torch.generation.engine import GenerationConfig
+    from radvlm_tpu_torch.models import convert
+    from radvlm_tpu_torch.models import multimodal as tmm
+    from radvlm_tpu_torch.serve.fleet import FleetEngine
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    cfg = tiny_test_config(vocab_size=1024)
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, head_dim=16))
+    model = convert.random_quantized_params(cfg, torch.Generator(device=dev).manual_seed(5),
+                                            device=dev, fuse=False)
+    fleet = FleetEngine(model, cfg, GenerationConfig(max_new_tokens=6, eos_token_ids=()),
+                        fleet_size=2, tp_size=2, kv_quant=True,
+                        **dict(ENGINE, attn_impl="auto"))
+    kernels.reset_launch_counts()
+    out = dict(engine=fleet.engine_idx)
+    if fleet.is_front:
+        a, b = samples(tmm, cfg, (6, 11))
+        reqs = [fleet.submit(s) for s in (a, a, b, b)]
+        fleet.start()
+        try:
+            done = {r.uid: r for r in fleet.drain(idle_timeout=120)}
+        finally:
+            fleet.shutdown()
+        out.update(tokens=[done[r.uid].emitted for r in reqs],
+                   errors=[done[r.uid].error for r in reqs], routed=list(fleet.routed))
+    else:
+        fleet.follow()
+    torch.cuda.synchronize()
+    out["counts"] = kernels.launch_counts()
+    return out
