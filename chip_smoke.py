@@ -56,9 +56,13 @@ Phases, each raising on failure (the last line is printed only on success):
    reset: 12 concurrent chatml requests with CXR-sized images (2 streamed),
    then 3 single requests one at a time and a repeat of one, which must give
    the same tokens. K1, K2, K3, K4 and K5/K6 must have launched in that run.
-   Then, with every slot filled, one greedy decode chunk runs under
-   torch.cuda.set_sync_debug_mode("error") (no host sync hides in it), one
-   is timed and one is profiled;
+   Every engine of the script replays its decode chunks as CUDA graphs
+   (`generation/graphs.py`; `graph_line` prints what it captured, and
+   fails the run otherwise). Then, with every slot filled, a greedy decode
+   chunk runs eagerly and as the engine's graph replay, each under
+   torch.cuda.set_sync_debug_mode("error") (no host sync hides in it); from
+   one restored state the two must give the same tokens, and each is timed
+   and profiled (ms a step and busy share, eager against replayed);
 6. speculative decoding and sessions, on the int8 model of phase 5: a
    BatchWorker over ContinuousBatcher(spec_k=4, 8 slots, int8 KV cache)
    serves 6 concurrent greedy requests whose tokens must be those phase 5's
@@ -67,8 +71,8 @@ Phases, each raising on failure (the last line is printed only on success):
    is under 1e-2), one sampling request, and a two-turn chat over
    /v1/chat/completions with a session_id whose second turn must be a delta
    prefill (resume_fills == 1) giving the text of a full prefill of the same
-   conversation; a delta fill and a full fill are timed, and one verify
-   chunk runs under set_sync_debug_mode("error") and one is timed. Then the
+   conversation; a delta fill and a full fill are timed, and verify chunks
+   run as in phase 5, eager against replayed. Then the
    same with the bf16 KV cache and 3 requests, against a plain bf16-cache
    engine. K11 and K4, then K10 and K9, must have launched;
 7. the pre-quantized artifact, radvlm_7b at full width and depth: an int4
@@ -1519,10 +1523,11 @@ def require_launched(path: str, counts) -> None:
         raise AssertionError(f"kernels never launched on the {path} path: {missing}")
 
 
-def device_breakdown(prof, wall: float, label: str, profiled_wall=None, top: int = 12) -> None:
+def device_breakdown(prof, wall: float, label: str, profiled_wall=None, top: int = 12):
     """Device time by kernel from a profiler run, and the busy share of an
     unprofiled wall time of the same work (the profiler's own overhead
-    inflates its wall time)."""
+    inflates its wall time). Returns the device's busy seconds, None where
+    the profiler recorded no device time."""
     from torch.autograd import DeviceType
 
     # Device-side events only (kernels, copies); the aten ops that launched
@@ -1532,7 +1537,7 @@ def device_breakdown(prof, wall: float, label: str, profiled_wall=None, top: int
     if not events:
         print(f"  profile {label}: unprofiled wall {wall:.4f} s; torch.profiler recorded no "
               "device time, so the device-busy share is not measured", flush=True)
-        return
+        return None
     busy = sum(e.self_device_time_total for e in events) / 1e6
     profiled ="" if profiled_wall is None else f", profiled wall {profiled_wall:.4f} s"
     print(f"  profile {label}: unprofiled wall {wall:.4f} s{profiled}, device busy {busy:.4f} s "
@@ -1540,6 +1545,7 @@ def device_breakdown(prof, wall: float, label: str, profiled_wall=None, top: int
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:90]}",
               flush=True)
+    return busy
 
 
 def profile_stages(model, cfg, batch, new_tokens: int):
@@ -1763,6 +1769,7 @@ def phase_int8(dev, seed: int):
     counts = kernels.launch_counts()
     print(f"  launches in the measured run: {counts}", flush=True)
     print(f"  provenance: {b.kernel_provenance()}", flush=True)
+    graph_line("int8", b)
     require_launched("int8", counts)
     step_ms = engine_chunks(b, cfg, tok, reqs[0], images[0])
     # What the spec phase serves again: the model, the first requests and
@@ -1773,15 +1780,37 @@ def phase_int8(dev, seed: int):
                         plain_step_ms=step_ms)
 
 
+def graph_line(label: str, b=None, route=None, st=None) -> None:
+    """One engine's chunk graphs (`b`, or its `chunk_route()` and
+    `graph_stats()`): the variants captured, the seconds their captures
+    took and the MiB of its pool. Every engine at one rank on the card
+    replays its chunks: anything else fails the run."""
+    if b is not None:
+        route, st = b.chunk_route(), b.graph_stats()
+    print(f"  {label} chunk graphs: {st['captured']} captured in {st['capture_s']:.2f} s, "
+          f"pool {st['pool_mib']:.1f} MiB", flush=True)
+    if route != "graph" or not st["captured"]:
+        raise AssertionError(f"{label}: chunks not replayed as graphs ({route}, {st})")
+
+
+def chunk_state(b) -> list:
+    """The device tensors a chunk reads and writes, and the host counters
+    it advances."""
+    spec_state = [b.dec_pos, b.dec_widx, b.tok_hist] if b.spec_k else []
+    return [*b.cache, b.cache_seg, b.cur_tok, *spec_state, b.slot_len, b.slot_real_len]
+
+
 @torch.inference_mode()
 def engine_chunks(b, cfg, tok, req, image, label: str = "int8") -> float:
     """Every slot filled with `req`'s prompt (and `image`, if not None; the
-    engine thread is stopped), then three greedy
-    decode chunks (verify chunks on a spec engine): one under
-    torch.cuda.set_sync_debug_mode("error"), which raises on any host sync
-    inside it; one timed by the host's clock; one under torch.profiler
-    (device time by kernel, busy share). Returns the timed chunk's ms per
-    step."""
+    engine thread is stopped), then greedy decode chunks (verify chunks on
+    a spec engine) on the same engine, eagerly and as its graph replay:
+    one of each under torch.cuda.set_sync_debug_mode("error"), which
+    raises on any host sync inside it; then, each from the same state
+    (restored in place), one of each whose tokens must be equal, one of
+    each timed by the host's clock and one of each under torch.profiler
+    (device time by kernel, busy share). Returns the replayed chunk's ms
+    per step."""
     from torch.profiler import ProfilerActivity, profile
 
     sample = multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, req["prompt"]),
@@ -1794,38 +1823,72 @@ def engine_chunks(b, cfg, tok, req, image, label: str = "int8") -> float:
     for i in range(0, len(pending), b.fill_batch):
         b._fill_group([(i + j, r) for j, r in enumerate(pending[i:i + b.fill_batch])])
     inflight = collections.deque()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        b._dispatch_chunk(inflight, force_sampling=False)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    b._process_chunk(inflight, [])
-    print(f"  a greedy {b.steps_per_sync}-step chunk of {b.num_slots} slots "
-          f"(spec_k={b.spec_k}) ran under set_sync_debug_mode('error'): no host sync",
-          flush=True)
 
-    def chunk():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def chunk(eager: bool):
+        """One greedy chunk by the route asked for; its tokens and wall seconds."""
+        b.eager_chunks = eager
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b._dispatch_chunk(inflight, force_sampling=False)
+            toks = inflight[-1][0].numpy().copy()
+            b._process_chunk(inflight, [])
+            torch.cuda.synchronize()
+            return toks, time.perf_counter() - t0
+        finally:
+            b.eager_chunks = False
+
+    if b.chunk_route() != "graph":
+        raise AssertionError(f"{label}: chunks not replayed as graphs ({b.chunk_route()})")
+    while False not in b._graphs:  # an engine that has not served: eager once, then captured
         b._dispatch_chunk(inflight, force_sampling=False)
         b._process_chunk(inflight, [])
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
+    for eager in (True, False):
+        b.eager_chunks = eager
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            b._dispatch_chunk(inflight, force_sampling=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            b.eager_chunks = False
+        b._process_chunk(inflight, [])
+    print(f"  a greedy {b.steps_per_sync}-step chunk of {b.num_slots} slots "
+          f"(spec_k={b.spec_k}) ran eagerly and as a graph replay under "
+          "set_sync_debug_mode('error'): no host sync", flush=True)
+    saved = [t.clone() if isinstance(t, torch.Tensor) else t.copy() for t in chunk_state(b)]
 
-    before = dict(b.spec_stats) if b.spec_k else None
-    wall = chunk()
-    tokens = b.num_slots * b.steps_per_sync
-    if b.spec_k:  # a verify step emits its accepted prefix + 1
-        tokens = b.spec_stats["emitted"] - before["emitted"]
+    def restored_chunk(eager: bool):
+        """A chunk from the saved state: every measured chunk starts there."""
+        for t, v in zip(chunk_state(b), saved):
+            t[...] = v
+        return chunk(eager)
+
+    eager_toks, _ = restored_chunk(eager=True)
+    replay_toks, _ = restored_chunk(eager=False)
+    if not np.array_equal(eager_toks, replay_toks):
+        raise AssertionError(f"{label}: the replayed chunk's tokens differ from the eager chunk's")
+    print(f"  the replayed chunk's tokens equal the eager chunk's from the same state "
+          f"({eager_toks.size} values)", flush=True)
     kind = f"verify (spec_k={b.spec_k})" if b.spec_k else "decode"
-    print(f"  {label} {kind} chunk: {wall:.4f} s for {b.steps_per_sync} steps of {b.num_slots} "
-          f"slots ({1e3 * wall / b.steps_per_sync:.2f} ms/step, {tokens} tokens, "
-          f"{tokens / wall:.1f} tokens/s)", flush=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        chunk()
-    device_breakdown(prof, wall, f"{label} {kind} chunk ({b.steps_per_sync} steps)")
-    return 1e3 * wall / b.steps_per_sync
+    steps = b.steps_per_sync
+    # A verify step emits its accepted prefix + 1 (the last column).
+    tokens = int(eager_toks[..., -1].sum()) if b.spec_k else b.num_slots * steps
+    out = {}
+    for route, eager in (("eager", True), ("replayed", False)):
+        _, wall = restored_chunk(eager)
+        print(f"  {label} {kind} chunk, {route}: {wall:.4f} s for {steps} steps of "
+              f"{b.num_slots} slots ({1e3 * wall / steps:.2f} ms/step, {tokens} tokens, "
+              f"{tokens / wall:.1f} tokens/s)", flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            restored_chunk(eager)
+        busy = device_breakdown(prof, wall, f"{label} {kind} chunk, {route} ({steps} steps)")
+        out[route] = (1e3 * wall / steps, "not measured" if busy is None
+                      else f"{100 * busy / wall:.1f}%")
+    (e_ms, e_busy), (g_ms, g_busy) = out["eager"], out["replayed"]
+    print(f"  {label} {kind} step: eager {e_ms:.2f} ms (busy {e_busy}), replayed {g_ms:.2f} ms "
+          f"(busy {g_busy}), {e_ms / g_ms:.2f}x; {nvidia_smi_line()}", flush=True)
+    del saved
+    return g_ms
 
 
 def path_logits(model, cfg, tok, prompt_text, image, ids, step: int, kv_quant: bool):
@@ -1985,6 +2048,7 @@ def phase_spec(ctx, kv_quant: bool, n_requests: int):
     counts = kernels.launch_counts()
     print(f"  launches in the measured run: {counts}", flush=True)
     print(f"  provenance: {b.kernel_provenance()}", flush=True)
+    graph_line(label, b)
     require_launched("spec_int8" if kv_quant else "spec_bf16", counts)
     # A delta fill against a full fill of the same three-turn conversation.
     q3 = tok.encode("<|im_end|>\n<|im_start|>user\n" + QUESTIONS[2]
@@ -2105,6 +2169,7 @@ def phase_artifact(dev, seed: int, ctx):
     counts = kernels.launch_counts()
     print(f"  launches in the measured run: {counts}", flush=True)
     print(f"  provenance: {b.kernel_provenance()}", flush=True)
+    graph_line("int4", b)
     require_launched("int4", counts)
     # A fill's projections have thousands of rows (dequant route), so every
     # K12 launch is a decode step's: 4 fused projections x 28 layers.
@@ -2195,6 +2260,7 @@ def phase_fused(ctx):
             worker.shutdown()
         counts = kernels.launch_counts()
         print(f"  provenance: {b.kernel_provenance()}", flush=True)
+        graph_line("fused W8A8", b)
     finally:
         os.environ.pop("RADVLM_W8A8_IMPL")
     for i, out in enumerate(outs):
@@ -2370,6 +2436,8 @@ def phase_eval(ctx, seed: int):
         counts = kernels.launch_counts()
         print(f"  launches in the measured run: {counts}", flush=True)
         print(f"  provenance: {stats['provenance']}", flush=True)
+        for i, st in enumerate(stats["graphs"]):
+            graph_line(f"run_task engine {i}", route=stats["provenance"]["decode_chunk"], st=st)
         require_launched("eval", counts)
         # Greedy evaluation is deterministic: a second run of the first task
         # (requests finish in another order) must give every sample's text again.
@@ -2768,6 +2836,7 @@ def phase_text_lm(ctx, seed: int):
             print(f"  host_stats: { {k: round(v, 3) for k, v in hs.items()} }", flush=True)
             print(f"  launches in the measured run: {counts['text_lm']}", flush=True)
             print(f"  provenance: {b.kernel_provenance()}", flush=True)
+            graph_line("bf16 judge", b)
             require_launched("text_lm", counts["text_lm"])
             engine_kernels(b, fill_lengths, seed + 19, "bf16 judge")
             if judge(prompts) != responses:
@@ -2826,6 +2895,7 @@ def phase_text_lm(ctx, seed: int):
             print(f"  launches in the measured run: {counts['text_lm_int8']}", flush=True)
             prov = b.kernel_provenance()
             print(f"  provenance: {prov}", flush=True)
+            graph_line("int8 judge", b)
             if prov["prefill_matmul"] != "w8a8" or prov["decode_matmul"] != "int8":
                 raise AssertionError(f"the int8 judge's matmul routes: {prov}")
             require_launched("text_lm_int8", counts["text_lm_int8"])
@@ -3544,6 +3614,7 @@ def phase_grpo(dev, seed: int):
         print(f"  {k9 // cfg.text.num_layers} decode steps of {GRPO_SLOTS} slots in the rollouts",
               flush=True)
         require_counts("GRPO", counts, dict(want, decode_attention=k9))
+        graph_line("GRPO rollout", engine_)
         engine_kernels(engine_, lengths, seed + 29, "GRPO rollouts")
     finally:
         grpo_lib.ContinuousBatcher = built_by_train_grpo
@@ -3708,6 +3779,7 @@ def serve_family(dev, seed: int, label: str, cfg, *, n_requests: int, kernel_att
     print(f"  host_stats: { {k: round(v, 3) for k, v in b.host_stats.items()} }", flush=True)
     prov = b.kernel_provenance()
     print(f"  provenance: {prov}", flush=True)
+    graph_line(label, b)
     print(f"  launches in the measured run: {counts}", flush=True)
     attention = ("kernel", "kernel_q8") if kernel_attention else ("plain", "plain")
     want = dict(tower_attention="kernel", prefill_attention=attention[0],
@@ -4503,6 +4575,8 @@ def phase_fleet(ctx, seed: int) -> dict:
               f"{[b.host_stats['fills'] for b in fleet.batchers]}", flush=True)
         print(f"  launches in the measured run: {counts}", flush=True)
         require_launched("fleet", counts)
+        for i, fb in enumerate(fleet.batchers):
+            graph_line(f"fleet engine {i}", fb)
         engine_kernels(fleet.batchers[0], [s.length for s in samples], seed, "fleet engine 0")
         windows = [(i, a, z) for i, a, z in fleet.busy_log]
         overlap = max((min(z0, z1) - max(a0, a1) for i0, a0, z0 in windows

@@ -455,6 +455,7 @@ def _run_continuous(
             sizing_s=sizing_s, build_s=build_s[0], engine_wall_s=time.perf_counter() - t0,
             bucket=bucket, max_len=max_len, kv_quant=first.kv_quant, engines=n_engines,
             host_stats=host, provenance=first.kernel_provenance(),
+            graphs=[b.graph_stats() for b in engines],
         )
     return results
 
@@ -510,7 +511,7 @@ def run_task(
     """Run inference over `dataset` and compute task metrics. `stats`, when
     given, receives the continuous engine's host seconds (`sizing_s`: the
     bucket-sizing pass; `build_s`: the feeder's sample builds), its
-    `host_stats` and `kernel_provenance()`.
+    `host_stats`, `kernel_provenance()` and each engine's `graph_stats()`.
 
     Across processes each rank takes indices i with i % count == index (the
     DistributedSampler contract, `_data_shard`) and the results are

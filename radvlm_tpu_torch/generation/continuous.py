@@ -17,7 +17,8 @@ one shared KV cache.
   each fill group's first tokens) are copied into pinned host memory on the
   stream, behind a CUDA event; `_process_chunk` waits on the oldest event
   only. Positions and write indices go up from pinned host buffers with
-  `non_blocking=True`, so nothing in a chunk waits on the card.
+  `non_blocking=True` into the engine's own device buffers, so nothing in a
+  chunk waits on the card.
 
 - with `spec_k` > 0 (speculative decoding, `generation/spec.py`) a greedy
   step verifies spec_k prompt-lookup drafts in one (spec_k + 1)-wide cached
@@ -42,15 +43,24 @@ one shared KV cache.
   are identical on every rank, and so are the tokens and host decisions.
   KV resume raises there.
 
-A chunk is a Python loop of steps (the JAX `lax.scan`); capturing it as a
-CUDA graph is later work. AOT precompile has nothing to compile ahead in
-eager PyTorch.
+A chunk is a Python loop of steps (the JAX `lax.scan`), and on the card
+each variant of it (greedy, sampling, spec verify) is one CUDA graph
+(`generation/graphs.py`): its first dispatch runs eagerly, the second
+captures it (or `warmup` does, after its eager chunks), and every dispatch
+from then on is one replay, as the JAX engine's jitted chunk is one
+dispatch. So every tensor a chunk reads or writes keeps its storage for the
+engine's life (the cache, segments, current tokens, sampling parameters,
+spec state and the staged positions / write indices are written in place),
+and parameters must be refreshed in place too (GRPO's
+`sync_rollout_model`). The CPU, a gloo tensor-parallel group and
+`eager_chunks=True` run the same chunk body uncaptured (`graphs.chunk_route`).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import itertools
 import os
 import queue
@@ -62,7 +72,7 @@ import torch
 
 from radvlm_tpu_torch.config import RadVLMConfig
 from radvlm_tpu_torch.device import resolve as resolve_device
-from radvlm_tpu_torch.generation import engine, spec
+from radvlm_tpu_torch.generation import engine, graphs, spec
 from radvlm_tpu_torch.generation.engine import GenerationConfig, sample_token_vec
 from radvlm_tpu_torch.models import multimodal, qwen2, radvlm
 from radvlm_tpu_torch.parallel import tp as tplib
@@ -93,6 +103,17 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _upload(dst: torch.Tensor, a: np.ndarray) -> None:
+    """Host array -> `dst`, in place and without waiting on the card: from a
+    fresh pinned buffer, which the caching host allocator keeps until the
+    copy has run (a chunk in flight may still read `dst`'s last contents:
+    the copy is queued behind it)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dst.device.type == "cuda":
+        t = t.pin_memory()
+    dst.copy_(t, non_blocking=True)
 
 
 def _group_key(batch: Dict[str, torch.Tensor]) -> Tuple[int, int]:
@@ -252,6 +273,7 @@ class ContinuousBatcher:
         fill_batch: int = 1,
         mesh: Optional[Any] = None,  # a DeviceMesh: tensor-parallel serving, this rank's engine
         spec_k: Optional[int] = None,  # None -> RADVLM_SPEC_K (default 0)
+        eager_chunks: bool = False,  # run every chunk uncaptured (graphs.chunk_route)
     ):
         # Tensor-parallel serving (parallel/tp.py): the UNFUSED model is
         # sharded here, in place, and `cfg` becomes the rank-local one.
@@ -279,6 +301,14 @@ class ContinuousBatcher:
             spec_k = int(os.environ.get("RADVLM_SPEC_K", "0"))
         self.spec_k = max(0, int(spec_k))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # Read at every dispatch: a caller may time both routes on one engine.
+        self.eager_chunks = eager_chunks
+        # Captured chunk variants (by `sampling`), the variants already run
+        # eagerly once, and the one memory pool and side stream of the captures.
+        self._graphs: Dict[bool, graphs.ChunkGraph] = {}
+        self._ran_eager: set = set()
+        self._graph_pool = None
+        self._graph_stream = None
 
         dev = self.device
         self.cache = (
@@ -298,6 +328,11 @@ class ContinuousBatcher:
             self.dec_widx = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
             self.tok_hist = torch.full((num_slots, max_len), -1, dtype=torch.int32, device=dev)
             self.spec_stats = {"verify_steps": 0, "emitted": 0}
+        else:
+            # Each slot's rope position and write index at the chunk's first
+            # step, staged from the host counters before every chunk.
+            self.chunk_pos = torch.zeros((num_slots,), dtype=torch.long, device=dev)
+            self.chunk_widx = torch.zeros((num_slots,), dtype=torch.long, device=dev)
         # Host slot state (counters; no per-step device readback).
         self.slot_req: List[Optional[Request]] = [None] * num_slots
         self.slot_len = np.zeros((num_slots,), np.int64)  # tokens in cache
@@ -578,16 +613,16 @@ class ContinuousBatcher:
             n_reply=n, engine_idx=getattr(self, "_fleet_idx", 0),
         )
 
-    def _decode_chunk(self, positions: torch.Tensor, write_idx: torch.Tensor,
-                      sampling: bool) -> torch.Tensor:
-        """`steps_per_sync` decode steps of every slot, queued on the device
-        without a host sync; returns the tokens [B, K]. The greedy variant
-        is an argmax; the sampling one pays the per-row temperature/top-p
-        sort."""
+    def _decode_chunk(self, sampling: bool) -> torch.Tensor:
+        """`steps_per_sync` decode steps of every slot from the staged
+        `chunk_pos` / `chunk_widx`, queued on the device without a host
+        sync; returns the tokens [B, K]. The greedy variant is an argmax;
+        the sampling one pays the per-row temperature/top-p sort. State is
+        written in place (the body a graph captures)."""
         toks = []
-        tok = self.cur_tok
+        tok, positions, write_idx = self.cur_tok, self.chunk_pos, self.chunk_widx
         for _ in range(self.steps_per_sync):
-            self.cache, self.cache_seg, logits = engine.decode_step(
+            _, _, logits = engine.decode_step(
                 self.model, self.cfg, self.cache, self.cache_seg, tok, positions, write_idx,
                 attn_impl=self.attn_impl,
             )
@@ -599,7 +634,7 @@ class ContinuousBatcher:
             toks.append(tok)
             positions = positions + 1
             write_idx = (write_idx + 1).clamp_(max=self.max_len - 1)
-        self.cur_tok = tok
+        self.cur_tok.copy_(tok)
         return torch.stack(toks, dim=1)
 
     def _decode_chunk_spec(self, sampling: bool) -> torch.Tensor:
@@ -607,9 +642,10 @@ class ContinuousBatcher:
         verifies spec_k prompt-lookup drafts per step in one (spec_k + 1)-wide
         cached forward; the sampling variant is the plain one-token step.
         Both carry the per-slot (position, write index, history) state on the
-        device. Returns int32 [B, K, spec_k + 2]: per step the spec_k + 1
-        greedy predictions, then how many of them the step emits (accepted +
-        1; always 1 when sampling)."""
+        device, written in place (the body a graph captures). Returns int32
+        [B, K, spec_k + 2]: per step the spec_k + 1 greedy predictions, then
+        how many of them the step emits (accepted + 1; always 1 when
+        sampling)."""
         sk, max_len, b = self.spec_k, self.max_len, self.num_slots
         dev = self.device
         rows = torch.arange(b, device=dev)
@@ -620,7 +656,7 @@ class ContinuousBatcher:
             if sampling:
                 wc = widx.clamp(max=max_len - 1)
                 hist[rows, wc.long()] = tok.to(torch.int32)
-                self.cache, self.cache_seg, logits = engine.decode_step(
+                _, _, logits = engine.decode_step(
                     self.model, self.cfg, self.cache, self.cache_seg, tok, pos, wc,
                     attn_impl=self.attn_impl,
                 )
@@ -664,7 +700,9 @@ class ContinuousBatcher:
                 step = torch.cat([pred, n_emit[:, None]], dim=1)
                 tok, pos, widx = nxt.long(), pos + n_emit, wc + n_emit
             out.append(step)
-        self.cur_tok, self.dec_pos, self.dec_widx = tok, pos, widx
+        self.cur_tok.copy_(tok)
+        self.dec_pos.copy_(pos)
+        self.dec_widx.copy_(widx)
         return torch.stack(out, dim=1)
 
     def _emit(self, slot: int, tok: int, req: Optional[Request] = None):
@@ -728,20 +766,69 @@ class ContinuousBatcher:
     def _active(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is not None]
 
+    def chunk_route(self) -> str:
+        """"graph" or "eager: <why>" (`graphs.chunk_route`)."""
+        return graphs.chunk_route(self.device, self._tp_group, self.eager_chunks)
+
+    def _chunk_body(self, sampling: bool) -> torch.Tensor:
+        if self.spec_k:
+            return self._decode_chunk_spec(sampling)
+        return self._decode_chunk(sampling)
+
+    def _variant(self, sampling: bool) -> str:
+        return "sampling" if sampling else "verify" if self.spec_k else "greedy"
+
+    def _capture(self, sampling: bool) -> graphs.ChunkGraph:
+        """Capture one chunk variant into the engine's shared pool (the
+        variants replay one at a time on one stream)."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.device)
+        g = graphs.ChunkGraph(self._variant(sampling), pool=self._graph_pool,
+                              stream=self._graph_stream,
+                              generator=self.generator if sampling else None)
+        g.capture(functools.partial(self._chunk_body, sampling))
+        self._graphs[sampling] = g
+        return g
+
+    def _run_chunk(self, sampling: bool) -> torch.Tensor:
+        """One chunk of the variant by the engine's route. On the graph
+        route a variant's first dispatch runs eagerly (the kernels set their
+        shared-memory limits at their first launch, outside any capture),
+        its second captures it, and every dispatch replays it."""
+        if self.chunk_route() != "graph":
+            return self._chunk_body(sampling)
+        g = self._graphs.get(sampling)
+        if g is None:
+            if sampling not in self._ran_eager:
+                self._ran_eager.add(sampling)
+                return self._chunk_body(sampling)
+            g = self._capture(sampling)
+        return g.replay()
+
+    def graph_stats(self) -> Dict[str, object]:
+        """The variants captured, the seconds their captures took and the
+        MiB the pool holds on the card."""
+        mib = 0.0
+        if self._graph_pool is not None:
+            pool = tuple(self._graph_pool)
+            mib = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                      if tuple(s.get("segment_pool_id", ())) == pool) / 2 ** 20
+        return {"captured": [g.name for g in self._graphs.values()],
+                "capture_s": sum(g.capture_s for g in self._graphs.values()),
+                "pool_mib": mib}
+
     def _dispatch_chunk(self, inflight, force_sampling: Optional[bool] = None) -> None:
         """Queue one K-step decode chunk on the device (no host sync). Host
         counters advance at once: they describe the state after the chunk."""
         sampling = self._sampling_active() if force_sampling is None else force_sampling
+        if not self.spec_k:  # spec mode keeps positions and write indices on the device
+            _upload(self.chunk_pos, np.minimum(self.slot_real_len, 2 ** 30))
+            # Active slots never pass max_len (capped at fill); the stale
+            # index of an inactive slot is clamped, its garbage discarded.
+            _upload(self.chunk_widx, np.minimum(self.slot_len, self.max_len - 1))
         with self._tp_scope():
-            if self.spec_k:
-                # Positions and write indices live on the device in spec mode.
-                toks = self._decode_chunk_spec(sampling)
-            else:
-                positions = _to_device(np.minimum(self.slot_real_len, 2 ** 30), self.device)
-                # Active slots never pass max_len (capped at fill); the stale
-                # index of an inactive slot is clamped, its garbage discarded.
-                write_idx = _to_device(np.minimum(self.slot_len, self.max_len - 1), self.device)
-                toks = self._decode_chunk(positions, write_idx, sampling)
+            toks = self._run_chunk(sampling)
         self.slot_len += self.steps_per_sync
         self.slot_real_len += self.steps_per_sync
         # Readback emits to the SNAPSHOT's requests: a chunk dispatched before
@@ -885,8 +972,8 @@ class ContinuousBatcher:
     def warmup(self) -> None:
         """Run every prompt bucket's fill at every group size 1..fill_batch
         and both decode-chunk variants once (first-call allocations and the
-        kernel build happen here, not under a live request), then reset all
-        slot state."""
+        kernel build happen here, not under a live request), capture both
+        variants on the graph route, then reset all slot state in place."""
         self.warmup_timings = {}
         nfills = range(1, min(self.fill_batch, self.num_slots) + 1)
         for bucket in self.prompt_buckets:
@@ -910,11 +997,17 @@ class ContinuousBatcher:
             self._dispatch_chunk(inflight, force_sampling=sampling)
             self._process_chunk(inflight, [])
             self.warmup_timings[name] = time.perf_counter() - t0
+        if self.chunk_route() == "graph":
+            with self._tp_scope():
+                for sampling in (False, True):
+                    if sampling not in self._graphs:
+                        g = self._capture(sampling)
+                        self.warmup_timings[f"capture_{g.name}"] = g.capture_s
         self.cache_seg.zero_()
-        self.cur_tok = torch.zeros_like(self.cur_tok)
+        self.cur_tok.zero_()
         if self.spec_k:
-            self.dec_pos = torch.zeros_like(self.dec_pos)
-            self.dec_widx = torch.zeros_like(self.dec_widx)
+            self.dec_pos.zero_()
+            self.dec_widx.zero_()
             self.tok_hist.fill_(-1)
             self.spec_stats = {"verify_steps": 0, "emitted": 0}
         for counters in (self.slot_len, self.slot_real_len, self.slot_fill_len,
@@ -939,7 +1032,8 @@ class ContinuousBatcher:
             weight_bits=engine.weight_bits(self.model),
             cache_format="int8" if self.kv_quant else "bf16",
             fill_rows=min(self.fill_batch, self.num_slots), tiles=self.pad_tiles,
-            decode_rows=self.num_slots, spec_k=self.spec_k,
+            decode_rows=self.num_slots, spec_k=self.spec_k, device=self.device.type,
+            tp_group=self._tp_group, eager_chunks=self.eager_chunks,
         )
         if self.tp_size > 1:
             t = self.cfg.text

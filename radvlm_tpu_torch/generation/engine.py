@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.config import RadVLMConfig
+from radvlm_tpu_torch.generation.graphs import chunk_route
 from radvlm_tpu_torch.models import qwen2, radvlm, towers
 from radvlm_tpu_torch.models.layers import Q4Linear, QLinear
 from radvlm_tpu_torch.ops.attention import flash_eligible
@@ -442,6 +443,9 @@ def kernel_provenance(
     spec_k: int = 0,
     weight_bits: int = 8,
     tower_grad: bool = False,
+    device: str = "cuda",
+    tp_group=None,
+    eager_chunks: bool = False,
 ) -> Dict[str, object]:
     """Which path each stage takes for this geometry, from the same
     predicates the dispatch calls, plus the kernels' launch counts so far.
@@ -471,7 +475,10 @@ def kernel_provenance(
     attention and matmuls are judged at the tower's own sequence length
     (`towers.sequence_length`: the patches and a class token, before any
     resampler) and S2 crop count; `resampler_attention` reads "plain" for
-    the perceiver and the Q-Former and "none" for the other resamplers."""
+    the perceiver and the Q-Former and "none" for the other resamplers.
+    `decode_chunk` is how a continuous engine on `device` (with
+    `tp_group`, `eager_chunks`) runs its decode chunks:
+    `graphs.chunk_route`, "graph" or "eager: <why>"."""
     v, t = cfg.vision, cfg.text
     n = towers.sequence_length(v)  # the tower's own tokens, its class token included
     meta = torch.device("meta")
@@ -522,6 +529,7 @@ def kernel_provenance(
                 verify_lm_head=lm_head(decode_rows * (spec_k + 1)),
             )
         out["w8a8_impl"] = w8a8_impl_name() if "w8a8" in out.values() else "off"
+    out["decode_chunk"] = chunk_route(torch.device(device), tp_group, eager_chunks)
     out["launches"] = kernels.launch_counts()
     return out
 

@@ -9,12 +9,15 @@ and rebuilt when a source is newer than it; `RADVLM_TORCH_BUILD_DIR`
 overrides the directory.
 
 Every wrapper calls `count_launch` where it launches its kernel, and
-nowhere else: the counts show that a run went through the kernels.
-Importing this module needs no CUDA toolkit and no card.
+nowhere else: the counts show that a run went through the kernels. A CUDA
+graph's capture runs the wrappers without launching anything: it counts
+under `recording()`, and each replay adds what it recorded
+(`add_launches`). Importing this module needs no CUDA toolkit and no card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import glob
@@ -22,7 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -51,13 +54,38 @@ _launches: Dict[str, int] = {
     "flash_attention_bwd_dq": 0,  # K8
 }
 _count_lock = threading.Lock()
+_recording = threading.local()  # .counts: this thread's capture, or None
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def count_launch(name: str) -> None:
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
     with _count_lock:
         _launches[name] += 1
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """This thread's launches go into the yielded dict, not the counts: a
+    CUDA graph's capture, whose kernels run only when it is replayed.
+    Other threads count as before."""
+    outer = getattr(_recording, "counts", None)
+    _recording.counts = rec = {}
+    try:
+        yield rec
+    finally:
+        _recording.counts = outer
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count launches made elsewhere than in a wrapper: a graph's replay."""
+    with _count_lock:
+        for name, n in counts.items():
+            _launches[name] += n
 
 
 def reset_launch_counts() -> None:

@@ -159,7 +159,8 @@ class BatchWorker:
 
     def _finalize_session(self, req: Request) -> None:
         """Store the finished request's KVSnapshot under its session id (on
-        the engine's completion path: the snapshot was cut at emission).
+        the engine's completion path or, first, `_store_session_early`; the
+        snapshot was cut at emission; the first call stores it).
 
         The stored ids must be exactly what the CLIENT's next prompt will
         extend: only the emitted tokens the snapshot covers
@@ -193,6 +194,14 @@ class BatchWorker:
             img_hashes=img_hashes,
             snapshot=snap.truncated(snap.n_reply - covered),
         ))
+
+    def _store_session_early(self, req: Request) -> None:
+        """On the caller's thread, once its request is done: store the
+        session before the client learns that the turn is over. The engine
+        thread stores it only after reading back the chunks still in
+        flight, and a client's next turn can come first."""
+        if req.kv_snapshot is not None:
+            self._finalize_session(req)
 
     def _signal_done(self, req: Request) -> None:
         self._finalize_session(req)
@@ -299,6 +308,7 @@ class BatchWorker:
                         return
                     continue
                 if t is None:
+                    self._store_session_early(req)
                     break
                 burst = [t]
                 while True:  # drain the rest of this readback burst
@@ -307,6 +317,7 @@ class BatchWorker:
                     except queue.Empty:
                         break
                     if t is None:
+                        self._store_session_early(req)
                         done = True
                         break
                     burst.append(t)
@@ -342,6 +353,8 @@ class BatchWorker:
                 break
         with self._lock:
             self._events.pop(req.uid, None)
+        if ok:
+            self._store_session_early(req)
         if req.error:
             return {"text": f"error: {req.error}", "error_code": 1}
         if not ok:

@@ -1165,7 +1165,8 @@ def test_fleet_of_tp_engines_in_lockstep_on_the_card(dev, tmp_path):
     (`serve/fleet.py::TPFleetEngine`): the control ticks carry the submits,
     each engine's all_reduces move CUDA tensors through gloo, every rank
     launches K4 and K5/K6, and each prompt's tokens are the same on both
-    engines (the same weights and arithmetic)."""
+    engines (the same weights and arithmetic). Their chunks run eagerly:
+    gloo groups are not captured."""
     import torch_dist
 
     out = torch_dist.run(torch_dist.tp_fleet_cuda, 4, None, tmp_path, timeout=300)
@@ -1177,6 +1178,7 @@ def test_fleet_of_tp_engines_in_lockstep_on_the_card(dev, tmp_path):
     assert [r["engine"] for r in out] == [0, 0, 1, 1]
     for r in out:
         assert r["counts"]["decode_attention_q8"] > 0 and r["counts"]["int8_matmul"] > 0
+        assert r["route"] == "eager: gloo group"  # gloo's all_reduces are not captured
 
 
 def test_pp_hop_at_one_nccl_rank(dev, nccl_world):
@@ -1241,3 +1243,168 @@ def test_pp_stage_launches_the_training_kernels(dev):
     assert float((o - ro)[live].abs().max()) <= 2e-2 * float(ro[live].abs().max())
     for g, rg in zip(grads, rgrads):
         assert float((g - rg).abs().max()) <= 5e-2 * float(rg.abs().max())
+
+# ---------------------------------------------------------------------------
+# The continuous engine's decode chunks as CUDA graphs (generation/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_ENGINE = dict(num_slots=2, max_len=384, prompt_buckets=(128, 256), pad_tiles=2,
+                    steps_per_sync=4, pipeline_depth=2)
+
+
+def _graph_model(dev, bits):
+    """The tiny config on the card: int8 weights (head_dim 16, which K4 /
+    K11 take), int4 at the widths K12 takes, or bf16 weights (`bits` 16,
+    cuBLAS matmuls, as GRPO's rollout engine)."""
+    base = tcfg.tiny_test_config(vocab_size=1024)
+    if bits == 4:
+        cfg = dataclasses.replace(
+            base, text=dataclasses.replace(base.text, hidden_size=128, intermediate_size=256,
+                                           head_dim=32),
+            vision=dataclasses.replace(base.vision, hidden_size=128))
+    else:
+        cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, head_dim=16))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if bits == 16:
+        return cfg, convert.init_params(cfg, gen, device=dev)
+    return cfg, convert.random_quantized_params(cfg, gen, device=dev, bits=bits)
+
+
+def _graph_samples(cfg):
+    import numpy as np
+
+    from radvlm_tpu_torch.models import multimodal as tmm
+
+    out = []
+    for n in (6, 11, 8, 14, 7):
+        r = np.random.default_rng(n)
+        img = r.integers(0, 255, size=(90, 70, 3), dtype=np.uint8)
+        ids = [int(t) for t in r.integers(3, cfg.text.vocab_size, size=n)]
+        out.append(tmm.build_sample(ids[:2] + [tcfg.IMAGE_TOKEN_INDEX] + ids[2:], [img], cfg))
+    out.append(tmm.build_sample([int(t) for t in np.random.default_rng(3).integers(
+        3, cfg.text.vocab_size, size=5)], [], cfg))
+    return out
+
+
+def _graph_serve(b, cfg):
+    """Five prompts through two slots (refills), then a text turn resumed
+    on the first one's snapshot; every request's tokens."""
+    *prompts, delta = _graph_samples(cfg)
+    reqs = [b.submit(s, keep_kv=i == 0) for i, s in enumerate(prompts)]
+    list(b.run())
+    turn = b.submit(delta, resume=reqs[0].kv_snapshot)
+    list(b.run())
+    torch.cuda.synchronize()
+    return [r.emitted for r in reqs + [turn]]
+
+
+def _graph_engine(model, cfg, *, max_new=10, temperature=0.0, top_k=0, seed=0, **kw):
+    from radvlm_tpu_torch.generation.continuous import ContinuousBatcher
+    from radvlm_tpu_torch.generation.engine import GenerationConfig
+
+    return ContinuousBatcher(model, cfg, GenerationConfig(
+        max_new_tokens=max_new, temperature=temperature, top_k=top_k), seed=seed,
+        **dict(GRAPH_ENGINE, **kw))
+
+
+# (weight bits, int8 cache, spec_k, warmup): warmup captures both variants;
+# without it the engine captures a variant at its second dispatch.
+GRAPH_CASES = [(8, True, 0, True), (8, True, 0, False), (8, False, 0, True),
+               (8, True, 3, True), (8, False, 3, False), (4, True, 0, True),
+               (4, False, 3, True), (16, False, 0, False)]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES, ids=lambda c: f"w{c[0]}-{'q8' if c[1] else 'bf16'}"
+                         f"-spec{c[2]}-{'warm' if c[3] else 'lazy'}")
+def test_graph_chunks_equal_eager_chunks(dev, case):
+    """The same requests (refills, a resume between replays) on an engine
+    whose chunks replay CUDA graphs and on one that runs them eagerly: the
+    same tokens, the same cache bytes, the same launch counts."""
+    bits, kv_quant, spec_k, warm = case
+    cfg, model = _graph_model(dev, bits)
+    runs = {}
+    for eager in (True, False):
+        b = _graph_engine(model, cfg, kv_quant=kv_quant, spec_k=spec_k, eager_chunks=eager)
+        if warm:
+            b.warmup()
+        kernels.reset_launch_counts()
+        toks = _graph_serve(b, cfg)
+        runs[eager] = (b, toks, tuple(c.clone() for c in b.cache) + (b.cache_seg.clone(),),
+                       kernels.launch_counts())
+    (eb, et, ec, en), (gb, gt, gc, gn) = runs[True], runs[False]
+    assert eb.kernel_provenance()["decode_chunk"] == "eager: asked"
+    assert gb.kernel_provenance()["decode_chunk"] == "graph"
+    assert set(gb._graphs) == ({False, True} if warm else {False}) and not eb._graphs
+    assert gt == et and all(len(t) == 10 for t in gt)
+    assert all(torch.equal(a, b) for a, b in zip(gc, ec))
+    assert gn == en
+    # A spec engine's greedy chunks verify (K10 / K11), a plain one's decode (K9 / K4).
+    attention = ("decode_attention_window" if spec_k else "decode_attention") + (
+        "_q8" if kv_quant else "")
+    matmul = {8: "int8_matmul", 4: "int4_matmul", 16: None}[bits]
+    assert gn[attention] > 0 and (matmul is None or gn[matmul] > 0), gn
+
+
+def test_graph_sampling_draws_from_the_engines_generator(dev, monkeypatch):
+    """With the engine's generator registered with the sampling graph, a
+    replayed chunk draws what the eager chunk draws from the same seed (so
+    two engines of one seed agree too), and top-k 1 draws a largest logit
+    at every step: greedy's token, or at a tie (bf16 logits of the random
+    tiny model tie at the max at a few steps) another of the tied ones,
+    where argmax takes the first."""
+    from radvlm_tpu_torch.generation import continuous
+
+    cfg, model = _graph_model(dev, 8)
+
+    def run(temperature, top_k, seed, eager=False):
+        b = _graph_engine(model, cfg, temperature=temperature, top_k=top_k, seed=seed,
+                          kv_quant=True, eager_chunks=eager)
+        b.warmup()
+        return _graph_serve(b, cfg), b
+
+    top1, b = run(1.0, 1, 1)
+    assert set(b._graphs) == {False, True} and b.kernel_provenance()["decode_chunk"] == "graph"
+    drawn, _ = run(1.0, 0, 7)
+    again, _ = run(1.0, 0, 7)
+    assert drawn == again
+    greedy, _ = run(0.0, 0, 1)
+    assert drawn != greedy
+    assert run(1.0, 0, 7, eager=True)[0] == drawn
+    maximal = []
+    sample = continuous.sample_token_vec
+
+    def recorded(logits, *args, **kw):
+        tok = sample(logits, *args, **kw)
+        maximal.append(logits.gather(1, tok[:, None]) == logits.max(-1, keepdim=True).values)
+        return tok
+
+    monkeypatch.setattr(continuous, "sample_token_vec", recorded)
+    assert run(1.0, 1, 1, eager=True)[0] == top1
+    assert len(maximal) > 40 and bool(torch.cat(maximal).all())
+
+
+def test_two_engines_replay_from_two_threads(dev):
+    """Two engines of one card capture and replay from two threads at
+    once (a fleet's engines), each on its own side stream in thread-local
+    capture mode: each gives the tokens of an eager engine."""
+    import concurrent.futures
+
+    cfg, model = _graph_model(dev, 8)
+    ref = _graph_serve(_graph_engine(model, cfg, kv_quant=True, eager_chunks=True), cfg)
+    engines = [_graph_engine(model, cfg, kv_quant=True) for _ in range(2)]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        outs = list(pool.map(lambda b: _graph_serve(b, cfg), engines))
+    assert outs == [ref, ref]
+    assert all(set(b._graphs) == {False} for b in engines)
+    assert engines[0]._graph_stream != engines[1]._graph_stream
+
+
+def test_failed_capture_raises_on_the_card(dev):
+    """A host sync inside a capture fails it, and the capture raises."""
+    from radvlm_tpu_torch.generation import graphs
+
+    g = graphs.ChunkGraph("greedy", pool=torch.cuda.graph_pool_handle(),
+                          stream=torch.cuda.Stream(dev))
+    with pytest.raises(RuntimeError, match="capturing the greedy chunk failed"):
+        g.capture(lambda: torch.ones(2, device=dev) * float(torch.ones(1, device=dev).sum()))
+    torch.cuda.synchronize()

@@ -237,6 +237,11 @@ def test_kernel_provenance_reports_the_predicates():
                                      "flash_attention_bwd_dkv", "flash_attention_bwd_dq"}
     plain = teng.kernel_provenance(cfg, prompt_len=3584, max_new_tokens=32, attn_impl="xla")
     assert {plain[k] for k in ("tower_attention", "prefill_attention", "decode_attention")} == {"plain"}
+    # A continuous engine's decode chunks: CUDA-graph replays on the card,
+    # the same body uncaptured on the CPU (`generation/graphs.chunk_route`).
+    assert prov["decode_chunk"] == "graph"
+    assert teng.kernel_provenance(cfg, prompt_len=3584, max_new_tokens=32,
+                                  device="cpu")["decode_chunk"] == "eager: cpu"
     # The int8 serving path: W8A8 fills and tower, weight-only decode and
     # lm_head, the q8 decode kernel.
     q8 = teng.kernel_provenance(cfg, prompt_len=3584, max_new_tokens=128, quantized=True,

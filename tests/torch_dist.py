@@ -841,7 +841,7 @@ def tp_fleet_cuda(rank, world, payload):
     """A fleet of two TP = 2 engines on the card: four gloo ranks on cuda:0,
     tiny int8 weights made from a seed, the int8 cache; two prompts, each
     sent twice, so both engines serve each. Rank 0's tokens and errors,
-    and every rank's launch counts."""
+    and every rank's launch counts and chunk route."""
     import dataclasses
 
     from radvlm_tpu_torch import kernels
@@ -876,4 +876,5 @@ def tp_fleet_cuda(rank, world, payload):
         fleet.follow()
     torch.cuda.synchronize()
     out["counts"] = kernels.launch_counts()
+    out["route"] = fleet.batchers[0].kernel_provenance()["decode_chunk"]
     return out
