@@ -34,7 +34,12 @@ Phases, each raising on failure (the last line is printed only on success):
    K13, torch._weight_int8pack_mm for K5/K6; none over the int8 cache and
    none for K12: torch._weight_int4pack_mm takes bf16 scales and zero
    points in its own layout and does not round the weight after its
-   scale, another function);
+   scale, another function); then the D = 256 instances at Gemma-2B's
+   shapes (8 query heads over one kv head of 256): K2 and K2 with the lse
+   on one left-padded prompt of the 4096 bucket, K9 and K4 at 8 slots of a
+   4224-token cache of 18 layers, K10 and K11 at 5 queries a slot, each
+   against its plain version, timed beside SDPA (K2, K9, K10) and its
+   bound (the "d256" entries of the kernels line);
 4. bf16 slice: radvlm_7b at full width with random bf16 weights made on the
    card from --seed. A reference check first (on one small input, the
    kernel path and plain attention in bf16 against plain attention on an f32
@@ -236,10 +241,21 @@ Phases, each raising on failure (the last line is printed only on success):
    FAMILY_LAYERS of its 32 layers (the script's time, PR 20); its
    2048 positions keep the prompts to one 384-px tile ("pad") in the 1024
    bucket, 4 requests. Both time and profile a decode chunk of every slot.
-   11c: Llama-3-8B (the kernels), Mistral-7B (its 4096-token window: plain
-   attention; one prompt of 4080 tokens, so decode crosses the window) and
-   Gemma-2B (head_dim 256: plain attention), each cut to FAMILY_LAYERS of
-   its layers (the script's time), 2 requests each;
+   11c: Llama-3-8B (the kernels) and Mistral-7B (its 4096-token window:
+   plain attention; one prompt of 4080 tokens, so decode crosses the
+   window), each cut to FAMILY_LAYERS of its layers (the script's time), 2
+   requests each; then Gemma-2B at full width and depth (18 layers, head_dim
+   256: the D = 256 kernels), 2 requests on the int8 cache (K2, K4; its
+   decode chunk eager and replayed, profiled), and on the same model
+   `gemma_legs`: engines on the int8 cache at spec_k = 4 (K11), the bf16
+   cache (K9) and the bf16 cache at spec_k = 4 (K10), and two on plain
+   attention (the route the predicates took before, int8 cache, decode and
+   verify) as the yardstick; each fills every slot, runs its chunks eager
+   and replayed (equal tokens; the replay timed and profiled), times a
+   fill and prints its graph pool,
+   with the launch counts from 0 over its run; the kernel legs hold K2,
+   K9 / K4 and K10 / K11 to their plain versions on their own caches, each
+   window row bit-equal to the one-query kernel's;
 12. M10's towers and resamplers, each served as a family of phase 11 in
    front of Qwen2-7B cut to TOWER_DECODER_LAYERS of its 28 layers (the
    script's time, PR 20; so too the int8 model and EVA-CLIP-8B's f32
@@ -454,7 +470,7 @@ KERNELS = {
                          "radvlm_tpu/ops/decode_attention.py:37", "bf16"),
     "w8a8_matmul": ("radvlm_tpu_torch/csrc/w8a8_matmul.cu",
                     "radvlm_tpu/ops/w8a8_matmul.py:202", "int8"),
-    "decode_attention_q8": ("radvlm_tpu_torch/csrc/decode_attention.cu",
+    "decode_attention_q8": ("radvlm_tpu_torch/csrc/decode_attention_q8.cu",
                             "radvlm_tpu/ops/decode_attention.py:274", "int8"),
     # One kernel for K5 (the stacked decode projections, :131) and K6 (the
     # flat lm_head, int8_matmul.py:72).
@@ -462,7 +478,7 @@ KERNELS = {
                     "radvlm_tpu/ops/int8_matmul.py:131", "int8"),
     "decode_attention_window": ("radvlm_tpu_torch/csrc/decode_attention.cu",
                                 "radvlm_tpu/ops/decode_attention.py:376", "spec_bf16"),
-    "decode_attention_window_q8": ("radvlm_tpu_torch/csrc/decode_attention.cu",
+    "decode_attention_window_q8": ("radvlm_tpu_torch/csrc/decode_attention_q8.cu",
                                    "radvlm_tpu/ops/decode_attention.py:453", "spec_int8"),
     "int4_matmul": ("radvlm_tpu_torch/csrc/int4_matmul.cu",
                     "radvlm_tpu/ops/int4_matmul.py:111", "int4"),
@@ -553,6 +569,7 @@ SPEC_BUCKETS = (3456, 3840)
 # in the 1024 bucket; one Mistral prompt of 4080 real tokens in the 4096
 # bucket, whose 32 decode steps cross its 4096-token window.
 MIXTRAL_LAYERS, FAMILY_SLOTS, FAMILY_STEPS = 8, 8, 8  # layers, slots, steps a chunk
+GEMMA_HEADS = (8, 1, 256)  # Gemma-2B: query heads, kv heads, head dim (the D = 256 kernels)
 MPT_BUCKETS, MPT_MAX_LEN = (1024,), 1152
 MISTRAL_LONG_PROMPT = 4080
 # Phase 12: the towers. S2 over the 336-px tile at 1x, 2x and 3x (14 crops a
@@ -899,6 +916,7 @@ def phase_kernels(dev, seed: int):
     results.update(window_kernels(dev, randn, quantized=False))
     results.update(training_kernels(dev, g, randn))
     results.update(phase_int8_kernels(dev, g))
+    wide = gemma_kernels(dev, randn)
     print(f"  (kernels and library calls: samples of {ATTN_BATCH} calls in a row, and device "
           "time by torch.profiler in brackets where taken; plain versions: one call a sample, "
           "the wrapper's host time included)", flush=True)
@@ -910,6 +928,114 @@ def phase_kernels(dev, seed: int):
         print(f"  {name}: kernel {r['ms']:.4f} ms{dev_ms}, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library call {lib}{against(r)}",
               flush=True)
+    torch.cuda.empty_cache()
+    return results, wide
+
+
+def gemma_kernels(dev, randn) -> dict:
+    """The D = 256 instances at Gemma-2B's shapes (8 query heads over one kv
+    head of 256, 18 layers), each against its plain version and timed beside
+    SDPA (where one call computes the function) and its bound: K2 and K2
+    with the lse on one left-padded prompt of the 4096 bucket (phase 11c
+    fills one prompt a group), K9 and K4 at 8 slots of a 4224-token cache
+    (slot 7 empty), K10 and K11 at W = 5 (spec_k = 4) over the same caches.
+    Returns {kernel name: numbers}."""
+    h, hkv, d = GEMMA_HEADS
+    n_layers, scale, results = gemma_2b().num_layers, d ** -0.5, {}
+    s = 4096
+    q, k, v = randn(1, s, h, d), randn(1, s, hkv, d), randn(1, s, hkv, d)
+    seg = torch.ones((1, s), dtype=torch.int32, device=dev)
+    seg[0, :517] = 0
+    mask = tatt.make_attention_mask(seg, seg, True)
+    pairs = int(mask.sum())
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=True)
+    for name, fn in (("prefill_attention", fa.prefill_attention),
+                     ("prefill_attention_lse", fa.prefill_attention_lse)):
+        lse = name == "prefill_attention_lse"
+        run = lambda: fn(q, k, v, **kw)  # noqa: E731
+        plain = lambda: fa.attention_plain(q, k, v, seg, seg, True, scale,  # noqa: E731
+                                           with_lse=lse)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        o, ref_o = (out[0], ref[0]) if lse else (out, ref)
+        label = "K2-lse" if lse else "K2"
+        err = check_close(name, f"{label} {name} [1,{s},{h}|{hkv},{d}] (D = 256)", o, ref_o,
+                          rows=seg.bool())
+        if o[~seg.bool()].abs().max() != 0:
+            raise AssertionError(f"{label} D = 256: padding rows must be 0")
+        if lse:
+            fin = torch.isfinite(ref[1])
+            lse_err = float((out[1][fin] - ref[1][fin]).abs().max())
+            if (not torch.equal(fin, torch.isfinite(out[1]))
+                    or not lse_err <= 1e-4 * max(1.0, float(ref[1][fin].abs().max()))):
+                raise AssertionError("K2-lse D = 256: lse disagrees with the plain version")
+            if not torch.equal(o, fa.prefill_attention(q, k, v, **kw)):
+                raise AssertionError("K2-lse D = 256: o differs from the no-lse entry point's")
+        results[name] = dict(
+            max_abs_err=err, **timed(run, lambda: sdpa(q, k, v, mask), reps=5),
+            plain_ms=cuda_ms(plain, reps=3, warmup=1),
+            **bound(nbytes(q, k, v, o, seg, seg) + (nbytes(out[1]) if lse else 0),
+                    4 * h * d * pairs, "bf16"))
+        del out, ref, o, ref_o
+    del q, k, v, mask
+    b, s = 8, 4224
+    ck, cv = randn(n_layers, b, s, hkv * d), randn(n_layers, b, s, hkv * d)
+    qd = randn(b, h, d)
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    for i, (lo, hi) in enumerate([(300, 3500), (0, 4100), (1000, 4223), (40, 3100),
+                                  (700, 3890), (0, 3200), (123, 4000)]):
+        seg[i, lo:hi + 1] = 1
+    visible = int((seg != 0).sum())
+    mask = (seg != 0)[:, None, None, :]
+    q8 = kv_quant.quantize_kv(ck, hkv), kv_quant.quantize_kv(cv, hkv)
+    cache8 = (q8[0][0], q8[1][0], q8[0][1], q8[1][1])
+    layers = itertools.cycle(range(n_layers))
+    for name, label, cache in (("decode_attention", "K9", (ck, cv)),
+                               ("decode_attention_q8", "K4", cache8)):
+        quantized = len(cache) == 4
+        if quantized:
+            def run(layer):
+                return da.decode_attention_stacked_q8(qd, *cache, seg, layer, num_kv_heads=hkv)
+
+            def plain(layer):
+                return da.decode_attention_q8_plain(qd, *(c[layer] for c in cache), seg,
+                                                    num_kv_heads=hkv, scale=scale)
+            library, per_key = None, 2 * hkv * d + 2 * hkv * 4
+        else:
+            def run(layer):
+                return da.decode_attention_stacked(qd, ck, cv, seg, layer, num_kv_heads=hkv)
+
+            def plain(layer):
+                return da.decode_attention_plain(qd, ck[layer], cv[layer], seg,
+                                                 num_kv_heads=hkv, scale=scale)
+
+            def library(layer):
+                return sdpa(qd[:, None], ck[layer].view(b, s, hkv, d),
+                            cv[layer].view(b, s, hkv, d), mask)
+            per_key = 2 * hkv * d * 2
+        out = run(n_layers - 1)
+        torch.cuda.synchronize()
+        if out[7].abs().max() != 0:
+            raise AssertionError(f"{label} D = 256: a slot with no written key must give 0")
+        err = check_close(name, f"{label} {name} [8,{h},{d}] x [8,{s},{hkv * d}] (D = 256)",
+                          out, plain(n_layers - 1))
+        r = results[name] = dict(
+            max_abs_err=err,
+            **timed(lambda: run(next(layers)),
+                    None if library is None else lambda: library(next(layers))),
+            plain_ms=cuda_ms(lambda: plain(next(layers)), reps=5),
+            **bound(visible * per_key + nbytes(qd, out, seg), 4 * h * d * visible, "bf16"))
+        print(f"    {label} D = 256: {shares(r['device_ms'], visible * per_key, h * visible, d)}",
+              flush=True)
+    for quantized, cache in ((False, (ck, cv)), (True, cache8)):
+        results.update(window_kernels(dev, randn, quantized=quantized, cache=cache,
+                                      heads=GEMMA_HEADS, n_layers=n_layers, widths=(5,)))
+    del ck, cv, q8, cache8
+    for name, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"  {name} D = 256: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"library call {lib}{against(r)}", flush=True)
     torch.cuda.empty_cache()
     return results
 
@@ -1043,20 +1169,25 @@ def training_kernel_case(dev, g, randn, label, b, s, h, hkv, d, causal, layout):
     return r_lse, r_dkv, r_dq
 
 
-def window_kernels(dev, randn, *, quantized: bool, cache=None):
-    """K10 (bf16 cache) or K11 (int8 cache) at 8 slots x 4224 keys, windows of
-    5 (spec_k = 4, the main path's) and 16 queries: slots at different window
-    indices after their own left padding, slot 1's window ending at the last
-    cache index, slot 7 empty; the cache (and its scales) holds stale finite
-    values above every window. Returns the 5-query result."""
-    b, s, n_layers, hkv = 8, 4224, 28, 4
+def window_kernels(dev, randn, *, quantized: bool, cache=None, heads=(28, 4, 128),
+                   n_layers: int = 28, widths=(5, 16)):
+    """K10 (bf16 cache) or K11 (int8 cache) at 8 slots x 4224 keys of
+    `heads` (query heads, kv heads, head dim; Qwen2-7B's by default),
+    windows of 5 (spec_k = 4, the main path's) and 16 queries: slots at
+    different window indices after their own left padding, slot 1's window
+    ending at the last cache index, slot 7 empty; the cache (and its
+    scales) holds stale finite values above every window. Returns the
+    5-query result."""
+    b, s = 8, 4224
+    h, hkv, d = heads
+    row = hkv * d
     name = "decode_attention_window_q8" if quantized else "decode_attention_window"
     label = "K11" if quantized else "K10"
     if cache is None:
-        cache = (randn(n_layers, b, s, 512), randn(n_layers, b, s, 512))
+        cache = (randn(n_layers, b, s, row), randn(n_layers, b, s, row))
     result = None
-    for w in (5, 16):
-        q = randn(b, w, 28, 128)
+    for w in widths:
+        q = randn(b, w, h, d)
         widx = torch.tensor([3500, s - w, 4000, 3100, 3890, 3200, 1000, 2000],
                             dtype=torch.int32, device=dev)
         seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
@@ -1074,18 +1205,19 @@ def window_kernels(dev, randn, *, quantized: bool, cache=None):
             fn = (da.decode_attention_window_q8_plain if quantized
                   else da.decode_attention_window_plain)
             return fn(q, *(c[layer] for c in cache), seg, widx, num_kv_heads=hkv,
-                      scale=128 ** -0.5)
+                      scale=d ** -0.5)
 
-        out = run(27)
+        out = run(n_layers - 1)
         torch.cuda.synchronize()
         if out[7].abs().max() != 0:
             raise AssertionError(f"{label}: a slot with no visible key must give 0")
-        err = check_close(name, f"{label} {name} [8,{w},28,128] x [8,4224,512]", out, plain(27))
+        err = check_close(name, f"{label} {name} [8,{w},{h},{d}] x [8,4224,{row}]", out,
+                          plain(n_layers - 1))
         # Keys some query of the window sees, and (query, key) pairs in all.
         ar = torch.arange(s, device=dev)[None]
         any_row = int(((seg != 0) & (ar <= widx[:, None] + w - 1)).sum())
         pairs = sum(int(((seg != 0) & (ar <= widx[:, None] + j)).sum()) for j in range(w))
-        per_key = 2 * 512 + 2 * 4 * 4 if quantized else 2 * 512 * 2
+        per_key = 2 * row + 2 * hkv * 4 if quantized else 2 * row * 2
         layers = itertools.cycle(range(n_layers))
         if not quantized:
             # The library's attention on the bf16 layer as it lies, under the
@@ -1096,21 +1228,21 @@ def window_kernels(dev, randn, *, quantized: bool, cache=None):
                     )[:, None]
 
             def library(layer):
-                return sdpa(q, cache[0][layer].view(b, s, hkv, 128),
-                            cache[1][layer].view(b, s, hkv, 128), mask)
+                return sdpa(q, cache[0][layer].view(b, s, hkv, d),
+                            cache[1][layer].view(b, s, hkv, d), mask)
 
         r = dict(max_abs_err=err,
                  **timed(lambda: run(next(layers)),
                          None if quantized else lambda: library(next(layers))),
                  plain_ms=cuda_ms(lambda: plain(next(layers)), reps=3, warmup=1),
-                 **bound(any_row * per_key + nbytes(q, out, seg, widx), 4 * 28 * 128 * pairs,
+                 **bound(any_row * per_key + nbytes(q, out, seg, widx), 4 * h * d * pairs,
                          "bf16"))
         lib = r["library_ms"]
         print(f"    {label} W={w}: kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} on the device), "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"library call {'none' if lib is None else f'{lib:.4f} ms'}, "
               f"{any_row * per_key / r['ms'] / 1e6:.1f} GB/s of visible K/V; "
-              f"{shares(r['device_ms'], any_row * per_key, 28 * pairs)}", flush=True)
+              f"{shares(r['device_ms'], any_row * per_key, h * pairs, d)}", flush=True)
         if w == SPEC_K + 1:
             result = r
         del q, out
@@ -1801,20 +1933,24 @@ def chunk_state(b) -> list:
 
 
 @torch.inference_mode()
-def engine_chunks(b, cfg, tok, req, image, label: str = "int8") -> float:
-    """Every slot filled with `req`'s prompt (and `image`, if not None; the
-    engine thread is stopped), then greedy decode chunks (verify chunks on
+def engine_chunks(b, cfg, tok, req, image, label: str = "int8", sample=None,
+                  timed_routes=("eager", "replayed")) -> float:
+    """Every slot filled with `req`'s prompt (and `image`, if not None; or
+    with `sample`, built already; the engine thread is stopped), then
+    greedy decode chunks (verify chunks on
     a spec engine) on the same engine, eagerly and as its graph replay:
     one of each under torch.cuda.set_sync_debug_mode("error"), which
     raises on any host sync inside it; then, each from the same state
     (restored in place), one of each whose tokens must be equal, one of
-    each timed by the host's clock and one of each under torch.profiler
-    (device time by kernel, busy share). Returns the replayed chunk's ms
-    per step."""
+    each of `timed_routes` timed by the host's clock and one under
+    torch.profiler (device time by kernel, busy share). Returns the
+    replayed chunk's ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
-    sample = multimodal.build_sample(multimodal.tokenize_with_images(tok.encode, req["prompt"]),
-                                     [] if image is None else [image], cfg)
+    if sample is None:
+        sample = multimodal.build_sample(
+            multimodal.tokenize_with_images(tok.encode, req["prompt"]),
+            [] if image is None else [image], cfg)
     for _ in range(b.num_slots):
         b.submit(sample, 4 * b.steps_per_sync)
     pending = []
@@ -1875,6 +2011,8 @@ def engine_chunks(b, cfg, tok, req, image, label: str = "int8") -> float:
     tokens = int(eager_toks[..., -1].sum()) if b.spec_k else b.num_slots * steps
     out = {}
     for route, eager in (("eager", True), ("replayed", False)):
+        if route not in timed_routes:
+            continue
         _, wall = restored_chunk(eager)
         print(f"  {label} {kind} chunk, {route}: {wall:.4f} s for {steps} steps of "
               f"{b.num_slots} slots ({1e3 * wall / steps:.2f} ms/step, {tokens} tokens, "
@@ -1884,9 +2022,13 @@ def engine_chunks(b, cfg, tok, req, image, label: str = "int8") -> float:
         busy = device_breakdown(prof, wall, f"{label} {kind} chunk, {route} ({steps} steps)")
         out[route] = (1e3 * wall / steps, "not measured" if busy is None
                       else f"{100 * busy / wall:.1f}%")
-    (e_ms, e_busy), (g_ms, g_busy) = out["eager"], out["replayed"]
-    print(f"  {label} {kind} step: eager {e_ms:.2f} ms (busy {e_busy}), replayed {g_ms:.2f} ms "
-          f"(busy {g_busy}), {e_ms / g_ms:.2f}x; {nvidia_smi_line()}", flush=True)
+    g_ms, g_busy = out["replayed"]
+    eager = ""
+    if "eager" in out:
+        e_ms, e_busy = out["eager"]
+        eager = f"eager {e_ms:.2f} ms (busy {e_busy}), "
+    print(f"  {label} {kind} step: {eager}replayed {g_ms:.2f} ms (busy {g_busy})"
+          f"{f', {e_ms / g_ms:.2f}x' if eager else ''}; {nvidia_smi_line()}", flush=True)
     del saved
     return g_ms
 
@@ -3848,8 +3990,7 @@ def phase_families(dev, seed: int, header) -> dict:
                                  cut=" (of 32: depth cut)")
     for name, preset, kernel_attention, long_prompt in (
             ("llama3_8b", llama3_8b, True, 0),
-            ("mistral_7b", mistral_7b, False, MISTRAL_LONG_PROMPT),
-            ("gemma_2b", gemma_2b, False, 0)):
+            ("mistral_7b", mistral_7b, False, MISTRAL_LONG_PROMPT)):
         n = preset().num_layers
         header(f"[11c/12] LLaVA-{name}, {FAMILY_LAYERS} of {n} layers")
         counts[name] = serve_family(
@@ -3858,7 +3999,146 @@ def phase_families(dev, seed: int, header) -> dict:
             buckets=FAMILY_BUCKETS, max_len=4224, pad_tiles=6, n_requests=2,
             kernel_attention=kernel_attention, profile=False, long_prompt=long_prompt,
             fill_batch=1, cut=f" (of {n}: depth cut)")
+    header(f"[11c/12] LLaVA-gemma_2b, all {gemma_2b().num_layers} layers (head_dim 256: the "
+           f"D = 256 kernels), the int8 and bf16 caches, spec_k = {SPEC_K}")
+    counts["gemma_2b"] = serve_gemma(dev, seed)
     return counts
+
+
+def serve_gemma(dev, seed: int) -> dict:
+    """Phase 11c's Gemma-2B at full width and depth behind radvlm_7b's
+    tower: served as a family on the int8 cache (K2, K4; its decode chunk
+    timed and profiled), then `gemma_legs` on the same model. Returns the
+    Gemma path's launches: the served run's and the kernel legs'."""
+    legs = {}
+    counts = serve_family(
+        dev, seed, "gemma_2b", dataclasses.replace(radvlm_7b(), text=gemma_2b()),
+        buckets=FAMILY_BUCKETS, max_len=4224, pad_tiles=6, n_requests=2,
+        kernel_attention=True, profile=True, fill_batch=1,
+        after=lambda b, samples, k1_shapes: legs.update(gemma_legs(b, samples[0], seed)))
+    for name, n in legs.items():
+        counts[name] += n
+    return counts
+
+
+# 11c's Gemma-2B legs beyond the int8 worker's: (label, int8 cache, spec_k,
+# attn_impl, the attention kernels its run must launch). "xla" is the plain
+# attention route the predicates took before the D = 256 kernels.
+GEMMA_LEGS = (
+    ("int8 cache, verify", True, SPEC_K, "auto", ("prefill_attention",
+                                                  "decode_attention_window_q8")),
+    ("bf16 cache, decode", False, 0, "auto", ("prefill_attention", "decode_attention")),
+    ("bf16 cache, verify", False, SPEC_K, "auto", ("prefill_attention",
+                                                   "decode_attention_window")),
+    ("plain attention, int8 cache, decode", True, 0, "xla", ()),
+    ("plain attention, int8 cache, verify", True, SPEC_K, "xla", ()),
+)
+ATTENTION_KERNELS = ("prefill_attention", "prefill_attention_lse", "decode_attention",
+                     "decode_attention_q8", "decode_attention_window",
+                     "decode_attention_window_q8", "flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dq")
+
+
+def gemma_legs(b, sample, seed: int) -> dict:
+    """Phase 11c's Gemma-2B legs on the served int8 model (18 layers): an
+    engine (8 slots, 8-step chunks) for each of GEMMA_LEGS, every slot
+    filled with `sample` and its chunks run eagerly and replayed
+    (`engine_chunks`: equal tokens, the replayed step's wall and busy
+    share), a fill timed, the launch counts from 0 over that run (the
+    leg's attention kernels launched, no other attention kernel; none on
+    the plain legs), its graph pool; then its kernels on its own cache
+    (`engine_kernels`, `engine_window_kernels`). The served worker's own
+    engine (int8 cache, decode) is measured first. Returns the kernel legs'
+    launches summed."""
+    model, cfg, tok = b.model, b.cfg, CharTokenizer()
+    fill_s = min(timed_fill(b, sample) for _ in range(2))
+    rows = {"int8 cache, decode": (b.graph_stats()["pool_mib"], fill_s)}
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    for label, kv_quant, spec_k, impl, want in GEMMA_LEGS:
+        t_leg = time.perf_counter()
+        eng = ContinuousBatcher(model, cfg, GenerationConfig(max_new_tokens=NEW_TOKENS,
+                                                             eos_token_ids=()),
+                                num_slots=FAMILY_SLOTS, max_len=4224,
+                                prompt_buckets=FAMILY_BUCKETS, pad_tiles=6,
+                                steps_per_sync=FAMILY_STEPS, kv_quant=kv_quant, spec_k=spec_k,
+                                attn_impl=impl)
+        prov = eng.kernel_provenance()
+        q8 = "_q8" if kv_quant else ""
+        routes = ((prov["prefill_attention"], prov["decode_attention"])
+                  + ((prov["verify_attention"],) if spec_k else ()))
+        expect = (("kernel", "kernel" + q8) + (("window" + q8,) if spec_k else ())
+                  if impl == "auto" else ("plain",) * len(routes))
+        if routes != expect:
+            raise AssertionError(f"gemma_2b {label}: routes {routes}, expected {expect}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        # The served worker's engine times eager against replayed; the legs
+        # time the replay only (its tokens still equal the eager chunk's).
+        engine_chunks(eng, cfg, tok, None, None, f"gemma_2b {label}", sample=sample,
+                      timed_routes=("replayed",))
+        fill_s = min(timed_fill(eng, sample) for _ in range(2))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        launched = {k: counts[k] for k in ATTENTION_KERNELS if counts[k]}
+        print(f"  gemma_2b {label}: attention launches {launched}; a fill {fill_s:.4f} s",
+              flush=True)
+        missing = [k for k in want if not counts[k]]
+        allowed = set(want) | ({"decode_attention" + q8} if impl == "auto" else set())
+        if missing or set(launched) - allowed:
+            raise AssertionError(f"gemma_2b {label}: attention kernels missing {missing}, "
+                                 f"off the leg {sorted(set(launched) - allowed)}")
+        graph_line(f"gemma_2b {label}", eng)
+        rows[label] = (eng.graph_stats()["pool_mib"], fill_s)
+        if impl == "auto":
+            for name, n in counts.items():
+                total[name] += n
+            engine_kernels(eng, [sample.length], seed + 37, f"gemma_2b {label}")
+            if spec_k:
+                engine_window_kernels(eng, seed + 41, f"gemma_2b {label}")
+        print(f"  gemma_2b {label}: {time.perf_counter() - t_leg:.1f} s", flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, (pool, fill) in rows.items():
+        print(f"  gemma_2b {label}: graph pool {pool:.1f} MiB, a fill {fill:.4f} s", flush=True)
+    return total
+
+
+def engine_window_kernels(b, seed: int, label: str) -> None:
+    """K10 (bf16 cache) or K11 (int8 cache) on a spec engine's own cache and
+    segment ids after its run: a window of spec_k + 1 queries a slot ending
+    at the slot's last key, the first and the last layer, against the plain
+    version; every window row of the last layer equal, bit for bit, to K9 /
+    K4 over the keys that row sees."""
+    t, dev = b.cfg.text, b.model.device
+    h, hkv, hd, w = t.num_heads, t.num_kv_heads, t.head_dim, b.spec_k + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b.num_slots, w, h, hd, generator=g, device=dev, dtype=torch.bfloat16)
+    seg = b.cache_seg
+    ar = torch.arange(seg.shape[1], device=dev)
+    last = torch.where(seg != 0, ar[None], torch.full_like(seg, -1)).amax(1)
+    widx = (last - w + 1).clamp(min=0).to(torch.int32)
+    if b.kv_quant:
+        name, kn, one = "decode_attention_window_q8", "K11", da.decode_attention_stacked_q8
+        window, plain = da.decode_attention_stacked_window_q8, da.decode_attention_window_q8_plain
+    else:
+        name, kn, one = "decode_attention_window", "K10", da.decode_attention_stacked
+        window, plain = da.decode_attention_stacked_window, da.decode_attention_window_plain
+    for layer in (0, t.num_layers - 1):
+        out = window(q, *b.cache, seg, layer, widx, num_kv_heads=hkv)
+        torch.cuda.synchronize()
+        check_close(name, f"{label} {kn} {name} [{b.num_slots},{w},{h}|{hkv},{hd}] x layer "
+                    f"{layer} of the engine's cache", out,
+                    plain(q, *(c[layer] for c in b.cache), seg, widx, num_kv_heads=hkv,
+                          scale=hd ** -0.5))
+    for j in range(w):
+        seg_j = torch.where(ar[None] <= widx[:, None] + j, seg, torch.zeros_like(seg))
+        if not torch.equal(out[:, j], one(q[:, j], *b.cache, seg_j, t.num_layers - 1,
+                                          num_kv_heads=hkv)):
+            raise AssertionError(f"{label} {kn}: window row {j} differs from the one-query "
+                                 "kernel's over the same keys")
+    print(f"  {label} {kn}: each of the {w} window rows equals the one-query kernel's bit for "
+          "bit", flush=True)
 
 
 def tower_kernels(b, label: str, shape, seed: int) -> dict:
@@ -5242,7 +5522,7 @@ def main():
         print(f"{text} (at {time.perf_counter() - t_start:.0f} s)", flush=True)
 
     header("[3/12] kernels against their plain versions")
-    results = phase_kernels(dev, 1234 + args.seed)
+    results, wide = phase_kernels(dev, 1234 + args.seed)
 
     header("[4/12] bf16 slice: radvlm_7b, random bf16 weights")
     counts = {"bf16": phase_slice(dev, args.seed)}
@@ -5341,9 +5621,13 @@ def main():
     phase_host_prep(args.seed)
     print(f"  phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
 
+    # Each kernel's numbers at its main path's shapes; the D = 256 instances'
+    # at Gemma-2B's under "d256", launched on 11c's Gemma path.
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": counts[path][name], **results[name]}
+         "launches": counts[path][name], **results[name],
+         **({"d256": dict(wide[name], launches=counts["gemma_2b"][name])}
+            if name in wide else {})}
         for name, (src, replaces, path) in KERNELS.items()
     ]}
     header("done")

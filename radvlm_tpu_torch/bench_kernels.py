@@ -1,12 +1,14 @@
 """Time the port's kernels on the card at the shapes the main paths give
 them, optionally against other versions of their sources in turns:
 
-- `--only fwd`: the attention forwards (K1, K2, K2 with the lse) against SDPA;
+- `--only fwd`: the attention forwards (K1, K2, K2 with the lse) against
+  SDPA, at Qwen2-7B's and the towers' shapes and at Gemma-2B's (D = 256);
 - `--only bwd`: the backward (K7 dk / dv, K8 dq) against SDPA's backward;
 - `--only decode`: K9 (bf16 decode attention) and K10 (its window) at W = 5
   and W = 16 against SDPA, then K4 (decode attention over the int8 cache;
   beside it K9 on a bf16 copy of the same cache) and K11 (its window) at W
-  = 5 and 16 (no library call);
+  = 5 and 16 (no library call), at Qwen2-7B's heads and then at Gemma-2B's
+  (8 query heads over one kv head of 256, 18 layers; no baseline there);
 - `--only w8a8`: K3 (W8A8 matmul) alone against `torch._int_mm` + the scale
   products and `torch._int_mm` alone (the cuBLAS floor for the same
   products), then K13 (fused W8A8 matmul) beside `quantize_rows` + K3 and
@@ -35,10 +37,12 @@ them, optionally against other versions of their sources in turns:
   this is device time); the forward kernels and SDPA are also timed one call
   a sample, their wrappers' host time included, and the backward, decode
   and W8A8 sets also by torch.profiler device time (`device_ms`).
-- The decode kernels cycle through the 28 layers of a stacked cache, so
-  that one layer's K / V does not stay in the 50 MB L2 between calls.
+- The decode kernels cycle through the layers of a stacked cache (28, or
+  Gemma-2B's 18), so that one layer's K / V does not stay in the 50 MB L2
+  between calls.
 - `--baseline DIR` (repeatable): DIR holds other versions of the sources
-  (`flash_attention.cu`, `flash_attention_bwd.cu`, `decode_attention.cu`,
+  (`flash_attention.cu`, `flash_attention_bwd.cu`, `decode_attention.cu`
+  and `decode_attention_q8.cu` (an older tree has the one file),
   `w8a8_matmul.cu`, `int8_matmul.cu`, `int4_matmul.cu`, and the headers they include), e.g. the parent
   commit's `radvlm_tpu_torch/csrc/` unpacked by `git archive` into the
   gitignored `build/`. The sources the `--only` set needs are built into a
@@ -94,6 +98,9 @@ SHAPES = [
     ("K2-lse 0.5B [1,4096,14|2,64]", "lse", 1, 4096, 14, 2, 64, True, "packed"),
     ("K2-lse 7B [1,4096,28|4,128]", "lse", 1, 4096, 28, 4, 128, True, "left_pad"),
     ("K2-lse tower [5,729,16,72]", "lse", 5, 729, 16, 16, 72, False, None),
+    # Gemma-2B (the D = 256 instance): one left-padded prompt of the 4096 bucket.
+    ("K2 Gemma-2B prefill [1,4096,8|1,256]", "prefill", 1, 4096, 8, 1, 256, True, "left_pad"),
+    ("K2-lse Gemma-2B [1,4096,8|1,256]", "lse", 1, 4096, 8, 1, 256, True, "left_pad"),
 ]
 # The backward's shapes: (label, B, S, H, Hkv, D, causal, segment layout).
 BWD_SHAPES = [
@@ -103,7 +110,8 @@ BWD_SHAPES = [
 ]
 # The sources each --only set times.
 SET_SOURCES = {"fwd": ("flash_attention.cu",), "bwd": ("flash_attention_bwd.cu",),
-               "decode": ("decode_attention.cu",), "w8a8": ("w8a8_matmul.cu",),
+               "decode": ("decode_attention.cu", "decode_attention_q8.cu"),
+               "w8a8": ("w8a8_matmul.cu",),
                "int8mm": ("int8_matmul.cu",), "int4": ("int4_matmul.cu",)}
 SOURCES = tuple(src for srcs in SET_SOURCES.values() for src in srcs)
 # K9 at phase 3's shape: 4 rows of a 4096-slot cache, Qwen2-7B heads; each
@@ -123,6 +131,10 @@ INT8MM_SHAPES = [("qkv", 3584, 4608), ("o", 3584, 3584), ("gateup", 3584, 37888)
                  ("down", 18944, 3584), ("lm_head", 3584, 152064)]
 INT8MM_ROWS = (8, 40)
 N_LAYERS = 28
+# The decode set's heads: (query heads, kv heads, head dim, layers) of
+# Qwen2-7B, then of Gemma-2B (the D = 256 instances).
+QWEN2_7B_HEADS = (28, 4, 128, N_LAYERS)
+GEMMA_2B_HEADS = (8, 1, 256, 18)
 # K12 at the decode projections of a fused Qwen2-7B layer (the lm_head stays
 # int8 in an int4 model): (label, K, N).
 INT4_SHAPES = INT8MM_SHAPES[:4]
@@ -299,7 +311,9 @@ def in_turns(run, bases, args, measure=None):
 
 
 def forward(args, this, bases, dev, g) -> None:
+    all_bases = bases
     for label, entry, b, s, h, hkv, d, causal, layout in SHAPES:
+        bases = all_bases if d <= 128 else []  # older sources refuse D = 256
         q = torch.randn(b, s, h, d, generator=g, device=dev, dtype=torch.bfloat16)
         k = torch.randn(b, s, hkv, d, generator=g, device=dev, dtype=torch.bfloat16)
         v = torch.randn(b, s, hkv, d, generator=g, device=dev, dtype=torch.bfloat16)
@@ -419,32 +433,33 @@ def backward(args, this, bases, dev, g) -> None:
         torch.cuda.empty_cache()
 
 
-def decode(args, this, bases, dev, g) -> None:
+def decode(args, this, bases, dev, g, heads=QWEN2_7B_HEADS) -> None:
     """K9 at phase 3's shape and K10 at W = 5 and 16 against SDPA, K4 and
     K11 at W = 5 and 16 (no library call), layers cycled; each with its
-    share of the byte bound and of the f32 FMA floor."""
-    n_layers, hkv, d = 28, 4, 128
-    scale = d ** -0.5
+    share of the byte bound and of the f32 FMA floor. `heads`: (query heads,
+    kv heads, head dim, layers) of the model whose shapes these are."""
+    h, hkv, d, n_layers = heads
+    last, scale, row = n_layers - 1, d ** -0.5, f"{hkv * d}"
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
 
-    # K9: [4, 28, 128] over [4, 4096, 512].
+    # K9: [4, h, d] over [4, 4096, hkv * d].
     b, s = 4, 4096
     ck, cv = randn(n_layers, b, s, hkv * d), randn(n_layers, b, s, hkv * d)
-    q = randn(b, 28, d)
+    q = randn(b, h, d)
     seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
     for i, (lo, hi) in enumerate(DECODE_SPANS):
         seg[i, lo:hi] = 1
     nsplit, chunk = da._split_plan(b, hkv, s, kernels.sm_count(dev))
-    part_o = torch.empty((b, 28, nsplit, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b, 28, nsplit, 2), dtype=torch.float32, device=dev)
+    part_o = torch.empty((b, h, nsplit, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, h, nsplit, 2), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
 
     def k9(layer, lib=this):
         err = lib.radvlm_decode_attention(
             q.data_ptr(), ck[layer].data_ptr(), cv[layer].data_ptr(), seg.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, 28, hkv, d, nsplit,
+            part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, h, hkv, d, nsplit,
             chunk, scale, kernels.stream_ptr(dev))
         kernels.check(err, "decode_attention")
 
@@ -457,25 +472,25 @@ def decode(args, this, bases, dev, g) -> None:
 
     visible = int((seg != 0).sum())
     n_bytes = 2 * visible * hkv * d * 2 + 2 * q.numel() * 2 + seg.numel() * 4
-    bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * 28 * d * visible / PEAK_BF16)
-    ref = da.decode_attention_plain(q, ck[27], cv[27], seg, num_kv_heads=hkv, scale=scale)
-    timed("K9 decode [4,28,128] x [4,4096,512]", "decode_attention", k9, sdpa, ref, out,
-          bound_ms, n_layers, args, this, bases, 1e3 * 4 * 28 * d * visible / PEAK_FP32)
+    bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * h * d * visible / PEAK_BF16)
+    ref = da.decode_attention_plain(q, ck[last], cv[last], seg, num_kv_heads=hkv, scale=scale)
+    timed(f"K9 decode [4,{h},{d}] x [4,4096,{row}]", "decode_attention", k9, sdpa, ref, out,
+          bound_ms, n_layers, args, this, bases, 1e3 * 4 * h * d * visible / PEAK_FP32)
     del ck, cv, part_o, part_ml
 
-    # K4: [8, 28, 128] over [8, 4224, 512] int8, each slot's written span from
-    # WINDOW_LO to its window index, slot 7 empty; then K10 at W = 5 and 16
-    # and K11 at W = 5 and 16: [8, W, 28, 128] over the same caches.
+    # K4: [8, h, d] over [8, 4224, hkv * d] int8, each slot's written span
+    # from WINDOW_LO to its window index, slot 7 empty; then K10 at W = 5 and
+    # 16 and K11 at W = 5 and 16: [8, W, h, d] over the same caches.
     b, s = 8, 4224
     ck, cv = randn(n_layers, b, s, hkv * d), randn(n_layers, b, s, hkv * d)
     ckq, cvq = (kv_quant.quantize_kv(c, hkv) for c in (ck, cv))
     nsplit, chunk = da._split_plan(b, hkv, s, kernels.sm_count(dev))
-    q = randn(b, 28, d)
+    q = randn(b, h, d)
     seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
     for i, lo in enumerate(WINDOW_LO):
         seg[i, lo:min(WINDOW_IDX[i], s - 1) + 1] = 1
-    part_o = torch.empty((b, 28, nsplit, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b, 28, nsplit, 2), dtype=torch.float32, device=dev)
+    part_o = torch.empty((b, h, nsplit, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b, h, nsplit, 2), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
 
     def k4(layer, lib=this):
@@ -483,48 +498,49 @@ def decode(args, this, bases, dev, g) -> None:
         err = lib.radvlm_decode_attention_q8(
             q.data_ptr(), kq[layer].data_ptr(), vq[layer].data_ptr(), ks[layer].data_ptr(),
             vs[layer].data_ptr(), seg.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-            out.data_ptr(), b, s, 28, hkv, d, nsplit, chunk, scale, kernels.stream_ptr(dev))
+            out.data_ptr(), b, s, h, hkv, d, nsplit, chunk, scale, kernels.stream_ptr(dev))
         kernels.check(err, "decode_attention_q8")
 
     visible = int((seg != 0).sum())
     n_bytes = visible * (2 * hkv * d + 2 * hkv * 4) + 2 * q.numel() * 2 + seg.numel() * 4
-    bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * 28 * d * visible / PEAK_BF16)
+    bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * h * d * visible / PEAK_BF16)
     (kq, ks), (vq, vs) = ckq, cvq
-    ref = da.decode_attention_q8_plain(q, kq[27], vq[27], ks[27], vs[27], seg, num_kv_heads=hkv,
-                                       scale=scale)
-    timed("K4 decode [8,28,128] x [8,4224,512] int8", "decode_attention_q8", k4, None, ref, out,
-          bound_ms, n_layers, args, this,
+    ref = da.decode_attention_q8_plain(q, kq[last], vq[last], ks[last], vs[last], seg,
+                                       num_kv_heads=hkv, scale=scale)
+    timed(f"K4 decode [8,{h},{d}] x [8,4224,{row}] int8", "decode_attention_q8", k4, None, ref,
+          out, bound_ms, n_layers, args, this,
           [(base, n) for base, n in bases if has(base, "radvlm_decode_attention_q8")],
-          1e3 * 4 * 28 * d * visible / PEAK_FP32)
+          1e3 * 4 * h * d * visible / PEAK_FP32)
 
     def k9_same(layer, lib=this):  # K9 on the bf16 copy of K4's cache
         err = lib.radvlm_decode_attention(
             q.data_ptr(), ck[layer].data_ptr(), cv[layer].data_ptr(), seg.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, 28, hkv, d, nsplit,
+            part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, s, h, hkv, d, nsplit,
             chunk, scale, kernels.stream_ptr(dev))
         kernels.check(err, "decode_attention")
 
     n_bytes = visible * 2 * hkv * d * 2 + 2 * q.numel() * 2 + seg.numel() * 4
-    timed("K9 decode at K4's shape [8,28,128] x [8,4224,512] bf16", "decode_attention", k9_same,
-          None, da.decode_attention_plain(q, ck[27], cv[27], seg, num_kv_heads=hkv, scale=scale),
+    timed(f"K9 decode at K4's shape [8,{h},{d}] x [8,4224,{row}] bf16", "decode_attention",
+          k9_same, None,
+          da.decode_attention_plain(q, ck[last], cv[last], seg, num_kv_heads=hkv, scale=scale),
           out, 1e3 * n_bytes / HBM_BYTES_PER_S, n_layers, args, this, bases,
-          1e3 * 4 * 28 * d * visible / PEAK_FP32)
+          1e3 * 4 * h * d * visible / PEAK_FP32)
     del q, part_o, part_ml, out, ref
     ar = torch.arange(s, device=dev)[None]
     for w, quantized in ((5, False), (16, False), (5, True), (16, True)):
-        q = randn(b, w, 28, d)
+        q = randn(b, w, h, d)
         widx = torch.tensor([min(i, s - w) for i in WINDOW_IDX], dtype=torch.int32, device=dev)
         seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
         for i, lo in enumerate(WINDOW_LO):
             seg[i, lo:int(widx[i]) + w] = 1
-        part_o = torch.empty((b, w, 28, nsplit, d), dtype=torch.float32, device=dev)
-        part_ml = torch.empty((b, w, 28, nsplit, 2), dtype=torch.float32, device=dev)
+        part_o = torch.empty((b, w, h, nsplit, d), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((b, w, h, nsplit, 2), dtype=torch.float32, device=dev)
         out = torch.empty_like(q)
 
         def window(layer, lib=this):
             ptrs = (q.data_ptr(), ck[layer].data_ptr(), cv[layer].data_ptr())
             rest = (seg.data_ptr(), widx.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-                    out.data_ptr(), b, s, 28, hkv, d, w, nsplit, chunk, scale,
+                    out.data_ptr(), b, s, h, hkv, d, w, nsplit, chunk, scale,
                     kernels.stream_ptr(dev))
             err = lib.radvlm_decode_attention_window(*ptrs, *rest)
             kernels.check(err, "decode_attention_window")
@@ -534,7 +550,7 @@ def decode(args, this, bases, dev, g) -> None:
             err = lib.radvlm_decode_attention_window_q8(
                 q.data_ptr(), kq[layer].data_ptr(), vq[layer].data_ptr(), ks[layer].data_ptr(),
                 vs[layer].data_ptr(), seg.data_ptr(), widx.data_ptr(), part_o.data_ptr(),
-                part_ml.data_ptr(), out.data_ptr(), b, s, 28, hkv, d, w, nsplit, chunk, scale,
+                part_ml.data_ptr(), out.data_ptr(), b, s, h, hkv, d, w, nsplit, chunk, scale,
                 kernels.stream_ptr(dev))
             kernels.check(err, "decode_attention_window_q8")
 
@@ -551,18 +567,18 @@ def decode(args, this, bases, dev, g) -> None:
         pairs = sum(int(((seg != 0) & (ar <= widx[:, None] + j)).sum()) for j in range(w))
         per_key = 2 * hkv * d + 2 * hkv * 4 if quantized else 2 * hkv * d * 2
         n_bytes = any_row * per_key + 2 * q.numel() * 2 + seg.numel() * 4 + widx.numel() * 4
-        bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * 28 * d * pairs / PEAK_BF16)
-        fma_ms = 1e3 * 4 * 28 * d * pairs / PEAK_FP32
+        bound_ms = max(1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * 4 * h * d * pairs / PEAK_BF16)
+        fma_ms = 1e3 * 4 * h * d * pairs / PEAK_FP32
         if quantized:
             (kq, ks), (vq, vs) = ckq, cvq
-            ref = da.decode_attention_window_q8_plain(q, kq[27], vq[27], ks[27], vs[27], seg,
-                                                      widx, num_kv_heads=hkv, scale=scale)
+            ref = da.decode_attention_window_q8_plain(q, kq[last], vq[last], ks[last], vs[last],
+                                                      seg, widx, num_kv_heads=hkv, scale=scale)
             label, name, kernel, library = "K11", "decode_attention_window_q8", window_q8, None
         else:
-            ref = da.decode_attention_window_plain(q, ck[27], cv[27], seg, widx,
+            ref = da.decode_attention_window_plain(q, ck[last], cv[last], seg, widx,
                                                    num_kv_heads=hkv, scale=scale)
             label, name, kernel, library = "K10", "decode_attention_window", window, sdpa_window
-        timed(f"{label} window W={w} [8,{w},28,128] x [8,4224,512]", name, kernel, library, ref,
+        timed(f"{label} window W={w} [8,{w},{h},{d}] x [8,4224,{row}]", name, kernel, library, ref,
               out, bound_ms, n_layers, args, this,
               [(base, n) for base, n in bases if has(base, "radvlm_" + name)], fma_ms)
         del q, part_o, part_ml, out, ref, wmask
@@ -572,15 +588,15 @@ def decode(args, this, bases, dev, g) -> None:
 
 def timed(label, name, kernel, library, ref, out, bound_ms, n_layers, args, this, bases,
           fma_ms=None):
-    """Hold `kernel(layer, lib)` (writing `out`) at layer 27 to `ref`, then
-    time it, each baseline's and `library(layer)` (if any) with the layers
-    cycled; `fma_ms`: the f32 FMA floor of its dot products (pairs x 4 D
-    over 67 TFLOP/s), printed with the kernel's share of it."""
-    kernel(27)
+    """Hold `kernel(layer, lib)` (writing `out`) at the last layer to `ref`,
+    then time it, each baseline's and `library(layer)` (if any) with the
+    layers cycled; `fma_ms`: the f32 FMA floor of its dot products (pairs x
+    4 D over 67 TFLOP/s), printed with the kernel's share of it."""
+    kernel(n_layers - 1)
     torch.cuda.synchronize()
     err, ratio = kernels.error_ratio(name, out, ref)
     for base, bname in bases:
-        kernel(27, base)
+        kernel(n_layers - 1, base)
         torch.cuda.synchronize()
         print(f"    {bname}: {base_rule(name, out, ref)}", flush=True)
     layers = itertools.cycle(range(n_layers))
@@ -907,6 +923,8 @@ def main(argv=None) -> None:
     for name in sets:
         fn, entry = runs[name]
         fn(args, this, [(b, n) for b, n in bases if has(b, entry)], dev, g)
+        if name == "decode":  # Gemma-2B's heads; older sources refuse D = 256
+            decode(args, this, [], dev, g, heads=GEMMA_2B_HEADS)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@
 //   the output: every launch gives the same bits.
 //
 // Layouts are the port's public BSHD: q/o [B, Sq, H, D], k/v [B, Sk, Hkv, D],
-// segment ids [B, S] int32. D must be even and at most 128.
+// segment ids [B, S] int32. D must be even and at most 256.
 //
 // Design:
 // - A CTA owns 128 query rows of one (batch, head): two warpgroups of 64
@@ -57,6 +57,17 @@
 //   the last, so the heaviest causal CTAs start first.
 // - Two CTAs an SM (128 registers a thread): four warpgroups interleave, so
 //   one's softmax runs beside another's products.
+// - Head dims 129-256 (Gemma-2B's 256) take one instance of the same kernel
+//   at DP = DV = 256, one CTA an SM. The O accumulator of a warpgroup's 64
+//   rows is then 64 x 256 f32 over 128 threads, 128 registers a thread
+//   alone, so the instance runs under __launch_bounds__(256, 1) (up to 255
+//   registers a thread); its shared memory (Q 64 KB, two stages of K + V of
+//   64 KB each: 192 KB) leaves room for one CTA anyway. PV is one m64n256k16
+//   wgmma a k16 step (N at its limit: V's four column blocks, 8 KB apart, as
+//   one MN-major operand); Q, K and V each land as four 64-column TMA boxes.
+//   The tile stays 128 query rows x 64 keys, the D <= 128 instances' own, so
+//   the masks, the ring and the epilogue are theirs unchanged; two
+//   warpgroups an SM hide less of a tile's dependent chain than four.
 // What bounds it: each warpgroup runs a tile as one dependent chain (the
 // ring's barrier, QK, mask and softmax, PV), and four warpgroups an SM do
 // not hide its latency: 11-41% of the tensor-core bound at the main-path
@@ -119,7 +130,8 @@ struct Params {
 // DP: head_dim padded to a multiple of 16 (the QK contraction); DV: the PV
 // product's N, head_dim padded to a multiple of 8.
 template <int DP, int DV>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const __grid_constant__ Params p) {
+__global__ void __launch_bounds__(kThreads, DP > 128 ? 1 : 2)
+    flash_fwd_kernel(const __grid_constant__ Params p) {
   using S = Smem<DP>;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t sbase = smem_u32(smem);
@@ -398,7 +410,7 @@ cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
 }
 
 cudaError_t dispatch(Params p, int b, cudaStream_t stream) {
-  if (p.d <= 0 || p.d % 2 != 0 || p.d > 128 || p.hkv <= 0 || p.h % p.hkv != 0) {
+  if (p.d <= 0 || p.d % 2 != 0 || p.d > 256 || p.hkv <= 0 || p.h % p.hkv != 0) {
     return cudaErrorInvalidValue;
   }
   p.n_qtiles = (p.sq + kBlockM - 1) / kBlockM;
@@ -415,7 +427,8 @@ cudaError_t dispatch(Params p, int b, cudaStream_t stream) {
   if (p.d <= 32) return launch<32, 32>(p, b, stream);
   if (p.d <= 64) return launch<64, 64>(p, b, stream);
   if (p.d <= 72) return launch<80, 72>(p, b, stream);
-  return launch<128, 128>(p, b, stream);
+  if (p.d <= 128) return launch<128, 128>(p, b, stream);
+  return launch<256, 256>(p, b, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* qseg,

@@ -217,9 +217,10 @@ def decode_kernel_eligible(cfg: Qwen2Config, cache_max_len: int, attn_impl: str,
     `_block_cached` and `generation.engine.kernel_provenance` call.
     Excluded, as in the JAX package: a sliding window, a non-rope position
     scheme, impl="xla". Excluded too: a head shape the kernels do not take
-    (`decode_attention.kernel_takes`: head_dim above 128, and for the int8
-    cache one that is no multiple of 16; a GQA group above 8), which the
-    JAX package's decode route takes on the TPU. On a CPU tensor the
+    (`decode_attention.kernel_takes`: head_dim above 256, above 128 one that
+    is no multiple of 8, and for the int8 cache one that is no multiple of
+    16; a GQA group above 8), which the JAX package's decode route takes on
+    the TPU (no preset has one). Gemma-2B's 256 is taken. On a CPU tensor the
     wrappers run their plain versions; on a CUDA tensor they launch the
     kernel or raise, so this predicate holds exactly where they launch."""
     return (

@@ -8,7 +8,9 @@ Counterpart of `radvlm_tpu/ops/decode_attention.py::decode_attention_stacked`,
 `decode_attention_stacked_q8`, `decode_attention_stacked_window` and
 `decode_attention_stacked_window_q8`.
 The cache keeps the JAX package's stacked layout [L, B, Smax, Hkv*D]; the
-kernel (`csrc/decode_attention.cu`) reads layer `l` through the view
+kernel (`csrc/decode_attention.cuh`; its entry points in
+`decode_attention.cu`, bf16 cache, and `decode_attention_q8.cu`, int8 cache)
+reads layer `l` through the view
 `ck[l]`, which is free in PyTorch - the TPU's scalar-prefetched layer index
 has nothing left to do. A query attends every slot whose segment id is not 0.
 
@@ -27,29 +29,43 @@ import torch
 from radvlm_tpu_torch import kernels
 
 _SPLIT_GRAIN = 64  # the kernel's key tile
-MAX_HEAD_DIM = 128  # the widest head the kernels take
+MAX_HEAD_DIM = 256  # the widest head the kernels take
+NARROW_HEAD_DIM = 128  # above it, 16-byte copies of a key row only
 MAX_GROUP = 8  # the most query heads a kv head the kernels take
+
+
+def _grain(head_dim: int, quantized: bool) -> int:
+    """What the head dim must be a multiple of: 16 on the int8 cache (16-byte
+    copies of an int8 key row), 8 on the bf16 cache above 128 (the D = 256
+    instances copy 16 bytes at a time), else 2."""
+    return 16 if quantized else 8 if head_dim > NARROW_HEAD_DIM else 2
 
 
 def kernel_takes(head_dim: int, num_heads: int, num_kv_heads: int, quantized: bool) -> bool:
     """The head shapes the decode kernels take: K9 / K10 (bf16 cache) an even
-    head_dim <= 128, K4 / K11 (int8 cache, 16-byte copies of a key row) a
-    head_dim <= 128 that is a multiple of 16; both a GQA group of at most 8.
-    The wrappers raise on a CUDA tensor outside it, and
-    `models.qwen2.decode_kernel_eligible` routes such a config to the plain
-    path."""
-    grain = 16 if quantized else 2
-    return (head_dim <= MAX_HEAD_DIM and head_dim % grain == 0
+    head_dim <= 128 or a multiple of 8 up to 256, K4 / K11 (int8 cache) a
+    multiple of 16 up to 256; both a GQA group of at most 8. The wrappers
+    raise on a CUDA tensor outside it (and on a bf16 cache that is not
+    16-byte aligned at a head_dim above 128, which no engine's cache is),
+    and `models.qwen2.decode_kernel_eligible` routes such a config to the
+    plain path."""
+    return (head_dim <= MAX_HEAD_DIM and head_dim % _grain(head_dim, quantized) == 0
             and num_heads % num_kv_heads == 0 and num_heads // num_kv_heads <= MAX_GROUP)
 
 
 def _require_heads(name: str, d: int, h: int, num_kv_heads: int, quantized: bool) -> None:
     if not kernel_takes(d, h, num_kv_heads, quantized):
-        what = "a multiple of 16" if quantized else "even"
         raise ValueError(
-            f"{name}: the kernel takes a head_dim <= {MAX_HEAD_DIM} that is {what} and up to "
-            f"{MAX_GROUP} query heads per kv head, got D={d}, H={h}, Hkv={num_kv_heads}"
+            f"{name}: the kernel takes a head_dim <= {MAX_HEAD_DIM} that is a multiple of "
+            f"{_grain(d, quantized)} and up to {MAX_GROUP} query heads per kv head, got D={d}, "
+            f"H={h}, Hkv={num_kv_heads}"
         )
+
+
+def _require_bf16_cache(name: str, d: int, ck: torch.Tensor, cv: torch.Tensor) -> None:
+    """The bf16 cache on the card; above head_dim 128 16-byte aligned (the
+    D = 256 instances have no 4-byte copies)."""
+    kernels.require_cuda_tensors(name, ck, cv, align=16 if d > NARROW_HEAD_DIM else 4)
 
 
 def decode_attention_plain(
@@ -125,11 +141,12 @@ def decode_attention_stacked(
     s = ck.shape[1]
     q = q.contiguous()
     seg = kv_segment_ids.to(torch.int32).contiguous()
-    kernels.require_cuda_tensors("decode_attention", q, ck, cv, seg)
+    kernels.require_cuda_tensors("decode_attention", q, seg)
     for t in (q, ck, cv):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"decode_attention: the kernel takes bf16, got {t.dtype}")
     _require_heads("decode_attention", d, h, num_kv_heads, False)
+    _require_bf16_cache("decode_attention", d, ck, cv)
     nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))
     part_o = torch.empty((b, h, nsplit, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, h, nsplit, 2), dtype=torch.float32, device=q.device)
@@ -351,8 +368,9 @@ def decode_attention_stacked_window(
     q = q.contiguous()
     seg = kv_segment_ids.to(torch.int32).contiguous()
     kernels.require_dtype(name, torch.bfloat16, q=q, ck=ck, cv=cv)
-    kernels.require_cuda_tensors(name, q, ck, cv, seg, window_idx)
+    kernels.require_cuda_tensors(name, q, seg, window_idx)
     _require_heads(name, d, h, num_kv_heads, False)
+    _require_bf16_cache(name, d, ck, cv)
     nsplit, chunk = _split_plan(b, num_kv_heads, s, kernels.sm_count(q.device))  # K9's plan
     part_o, part_ml, out = _window_scratch(q, nsplit)
     err = kernels.lib().radvlm_decode_attention_window(

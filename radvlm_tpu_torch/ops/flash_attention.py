@@ -163,28 +163,40 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return float(q.shape[-1] ** -0.5 if scale is None else scale)
 
 
-MAX_HEAD_DIM = 128  # the widest head K1 / K2 / K7 / K8 take
+MAX_HEAD_DIM = 256  # the widest head K1 / K2 take
+MAX_GRAD_HEAD_DIM = 128  # the widest head K7 / K8 take
 
 
 def kernel_takes(head_dim: int) -> bool:
-    """The head dims K1 / K2 / K7 / K8 take: even and at most 128 (padded
-    inside to a multiple of 16). The wrappers raise on a CUDA tensor outside
-    it, and `ops.attention.flash_eligible` routes such a call to the plain
-    path."""
+    """The head dims the forward kernels K1 / K2 (and K2 with the lse) take:
+    even and at most 256 (padded inside to a multiple of 16, or to 256 above
+    128). The wrappers raise on a CUDA tensor outside it, and
+    `ops.attention.flash_eligible` routes such a call to the plain path."""
     return head_dim <= MAX_HEAD_DIM and head_dim % 2 == 0
 
 
-def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+def grad_kernel_takes(head_dim: int) -> bool:
+    """The head dims the kernel route takes under a gradient, where K2
+    writes the lse that the backward kernels K7 / K8 read: even and at most
+    128, the backward kernels' range. The one predicate of that route:
+    `ops.attention.flash_eligible(needs_grad=True)` (and through it
+    `generation.engine.kernel_provenance`), `flash_attention_with_lse` and
+    the K7 / K8 wrappers read it; above it (Gemma's 256) attention under a
+    gradient takes the plain path."""
+    return kernel_takes(head_dim) and head_dim <= MAX_GRAD_HEAD_DIM
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor, grad: bool = False) -> None:
     """The kernels take bf16 q/k/v on the card with a head dim that
-    `kernel_takes`."""
+    `kernel_takes` (the backward kernels: `grad_kernel_takes`)."""
     kernels.require_cuda_tensors(name, *tensors)
     for t in tensors[:3]:
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: the kernel takes bf16, got {t.dtype}")
     d = tensors[0].shape[-1]
-    if not kernel_takes(d):
-        raise ValueError(
-            f"{name}: the kernel takes an even head_dim <= {MAX_HEAD_DIM}, got {d}")
+    if not (grad_kernel_takes(d) if grad else kernel_takes(d)):
+        limit = MAX_GRAD_HEAD_DIM if grad else MAX_HEAD_DIM
+        raise ValueError(f"{name}: the kernel takes an even head_dim <= {limit}, got {d}")
 
 
 def tower_attention(
@@ -209,9 +221,9 @@ def tower_attention(
     return o
 
 
-def _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids):
-    """Shape checks shared by K2, K7 and K8: contiguous q/k/v and int32
-    segment ids (a list of two, or empty)."""
+def _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids, grad=False):
+    """Shape checks shared by K2, K7 and K8 (`grad`): contiguous q/k/v and
+    int32 segment ids (a list of two, or empty)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -225,7 +237,7 @@ def _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids):
         ]
         if segs[0].shape != (b, sq) or segs[1].shape != (b, sk):
             raise ValueError(f"{name}: segment ids must be [B, Sq] and [B, Sk]")
-    _require_cuda(name, q, k, v, *segs)
+    _require_cuda(name, q, k, v, *segs, grad=grad)
     return q, k, v, segs
 
 
@@ -306,7 +318,7 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor,
 
 
 def _bwd_inputs(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse, delta):
-    q, k, v, segs = _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids)
+    q, k, v, segs = _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids, grad=True)
     b, sq, h, _ = q.shape
     do, lse, delta = do.contiguous(), lse.contiguous(), delta.contiguous()
     kernels.require_cuda_tensors(name, do, lse, delta)
@@ -408,7 +420,8 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def _needs_grad(*tensors: torch.Tensor) -> bool:
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Does autograd want a gradient of any of `tensors` here?"""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
@@ -424,13 +437,20 @@ def flash_attention_with_lse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused attention returning (out [B,Sq,H,D], lse [B,H,Sq] f32); a row
     with nothing to attend has lse = -inf and zero output. Differentiable in
-    both outputs: the lse cotangent folds into delta."""
+    both outputs: the lse cotangent folds into delta. On the card under a
+    gradient the head dim must be one `grad_kernel_takes` (the backward
+    kernels'): the call raises there rather than fail in the backward."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("provide both or neither of q/kv segment ids")
     scale = _scale(q, scale)
     dtype = q.dtype
-    if q.device.type != "cpu" and dtype != torch.bfloat16 and _needs_grad(q, k, v):
-        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    if q.device.type != "cpu" and needs_grad(q, k, v):
+        if not grad_kernel_takes(q.shape[-1]):
+            raise ValueError(
+                f"flash_attention_with_lse: under a gradient the kernels take an even head_dim "
+                f"<= {MAX_GRAD_HEAD_DIM}, got {q.shape[-1]}")
+        if dtype != torch.bfloat16:
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     o, lse = _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, bool(causal), scale)
     return o.to(dtype), lse
 
@@ -452,10 +472,10 @@ def flash_attention(
     lse, K7 and K8 backward), the tower's too; otherwise to K1 or K2."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("provide both or neither of q/kv segment ids")
-    needs_grad = _needs_grad(q, k, v)
-    if tower_eligible(q, k, q_segment_ids, causal, needs_grad):
+    grad = needs_grad(q, k, v)
+    if tower_eligible(q, k, q_segment_ids, causal, grad):
         return tower_attention(q, k, v, scale=scale)
-    if needs_grad:
+    if grad:
         return flash_attention_with_lse(
             q, k, v, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             causal=causal, scale=scale)[0]

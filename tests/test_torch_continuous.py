@@ -20,6 +20,7 @@ over by the weight bridge).
 """
 
 import base64
+import dataclasses
 import io
 import json
 import urllib.request
@@ -42,6 +43,7 @@ from radvlm_tpu_torch.generation import engine as teng
 from radvlm_tpu_torch.generation.continuous import ContinuousBatcher as TBatcher
 from radvlm_tpu_torch.models import convert
 from radvlm_tpu_torch.models import multimodal as tmm
+from radvlm_tpu_torch.models import qwen2 as tqwen
 from radvlm_tpu_torch.ops.quant import qmm_route
 from radvlm_tpu_torch.serve.batch_worker import BatchWorker
 
@@ -104,6 +106,45 @@ def test_tokens_identical_to_jax_batcher(tiny_q, kv_quant, fill_batch):
     assert got == expected
     assert len(got[1]) == 2 and got[1] == free[1][:2]  # eos cut request 1 mid-chunk
     assert len(got[-1]) == 1  # capped by the cache: 256 - 256 + 1 tokens
+    assert max(len(e) for e in got) == NEW
+
+
+@pytest.fixture(scope="module")
+def gemma_q():
+    """The tiny config with a Gemma-shaped decoder: head_dim 256 (Gemma-2B's),
+    8 query heads over one kv head, GeGLU (`gelu_tanh`), (1 + w) norms, the
+    sqrt(d) embedding normaliser and a tied head; int8 weights from the JAX
+    quantizer."""
+    base = cfglib.tiny_test_config()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, head_dim=256, num_heads=8, num_kv_heads=1, hidden_act="gelu_tanh",
+        rms_norm_offset=True, embed_normalizer=True, tie_word_embeddings=True,
+        attention_bias=False))
+    params = jrad.init_params(cfg, jax.random.key(5))
+    return cfg, jax.tree.map(np.asarray, jquant.quantize_params(params))
+
+
+@pytest.mark.parametrize("kv_quant,spec_k", [(True, 0), (False, 0), (True, 2)],
+                         ids=["int8", "bf16", "int8-spec2"])
+def test_gemma_shaped_tokens_identical_to_jax_batcher(gemma_q, kv_quant, spec_k):
+    """A Gemma-shaped decoder (head_dim 256) through the port's engine on the
+    kernel routes (K2 fills, K4 / K9 decode, K11 verify at spec_k 2; their
+    plain versions on the CPU) gives the JAX engine's greedy tokens."""
+    cfg, params = gemma_q
+    max_len = ENGINE["max_len"]
+    prov = teng.kernel_provenance(cfg, prompt_len=128, max_new_tokens=NEW,
+                                  cache_format="int8" if kv_quant else "bf16", decode_rows=2,
+                                  spec_k=spec_k, device="cpu")
+    suffix = "_q8" if kv_quant else ""
+    assert (prov["prefill_attention"], prov["decode_attention"]) == ("kernel", "kernel" + suffix)
+    assert prov.get("verify_attention", "window" + suffix) == "window" + suffix
+    assert tqwen.decode_kernel_eligible(cfg.text, max_len, "auto", kv_quant)
+    got = _run_port(cfg, params, (), kv_quant=kv_quant, spec_k=spec_k)
+    jb = JBatcher(params, cfg, jeng.GenerationConfig(max_new_tokens=NEW, eos_token_ids=()),
+                  attn_impl="xla", kv_quant=kv_quant, spec_k=spec_k, **ENGINE)
+    reqs = [jb.submit(s) for s in _samples(jmm, cfg)]
+    done = {r.uid: r.emitted for r in jb.run()}
+    assert got == [done[r.uid] for r in reqs]
     assert max(len(e) for e in got) == NEW
 
 

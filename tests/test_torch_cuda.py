@@ -1,7 +1,10 @@
 """The port's hand-written CUDA kernels (K1-K13) against
 their plain PyTorch versions on the card, at shapes beyond the main path's:
 other head dims and GQA ratios, ragged sequence tails, Sq < Sk, rows with
-nothing to attend, K and N tails of the int8 matmuls, 1-64 decode rows.
+nothing to attend, K and N tails of the int8 matmuls, 1-64 decode rows; the
+D = 256 instances of K2 (with the lse too), K9, K4, K10 and K11 at
+Gemma-2B's heads (8 query heads over one kv head) and at other head dims
+from 129 to 256, a verify window wider than a CTA's 40 rows in blocks.
 
 Needs a CUDA card and nvcc; skips elsewhere. The repo's conftest imports
 jax, which the card's machine does not have, so run it there as
@@ -94,6 +97,13 @@ K2_CASES = [
     (2, 200, 200, 4, 4, 16, False, None),  # D = 16
     (1, 129, 129, 6, 3, 30, True, "packed"),  # D % 8 != 0: 4-byte staging
     (2, 2048, 2048, 32, 32, 128, True, "left_pad"),  # Llama-2-7B (the GREEN judge), MHA
+    # Gemma-2B (D = 256, 8 query heads over one kv head): the DP = 256 instance.
+    (2, 1024, 1024, 8, 1, 256, True, "left_pad"),
+    (1, 4096, 4096, 8, 1, 256, True, "left_pad"),  # a fill of the 4096 bucket
+    (2, 333, 333, 2, 1, 256, False, "packed"),  # non-causal, ragged, packed
+    (1, 129, 700, 8, 1, 256, True, "cache"),  # Sk > Sq, one row past a tile
+    (1, 300, 300, 4, 2, 192, True, "packed"),  # D = 192: a wholly zero column block
+    (1, 200, 200, 4, 2, 250, True, "packed"),  # D % 8 != 0 above 128: 4-byte staging
 ]
 
 
@@ -127,7 +137,7 @@ def test_k2_matches_plain(dev, case):
     assert torch.equal(out, tfa.prefill_attention(q, k, v, **kw))
 
 
-@pytest.mark.parametrize("d", [64, 72, 128])
+@pytest.mark.parametrize("d", [64, 72, 128, 256])
 def test_k2_unaligned_views_give_the_aligned_bits(dev, d):
     """q / k / v that start 4 bytes past a 16-byte boundary take the 4-byte
     staging into the same shared-memory layout: the aligned copies' bits."""
@@ -162,6 +172,9 @@ K9_CASES = [
     (1, 77, 8, 1, 128, 1),  # one kv head for eight query heads
     (3, 300, 4, 4, 32, 2),  # no GQA
     (8, 3584, 32, 32, 128, 1),  # Llama-2-7B (the GREEN judge): 8 slots, MHA
+    (8, 4224, 8, 1, 256, 17),  # Gemma-2B, 8 slots: the kDP = 256 instance
+    (3, 1000, 2, 1, 256, 0),  # two query heads over one, S not a multiple of 64
+    (2, 300, 4, 2, 200, 1),  # D = 200 (a multiple of 8 above 128)
 ]
 
 
@@ -207,6 +220,7 @@ K9_SKIP_CASES = [
     (8, 4096, 28, 4, 128, "empty_chunk"),
     (4, 4000, 14, 2, 64, "last_tile"),
     (4, 1000, 6, 3, 30, "islands"),
+    (8, 4224, 8, 1, 256, "islands"),  # Gemma-2B's heads
 ]
 
 
@@ -258,42 +272,45 @@ def test_mha_on_the_card_launches_the_kernels(dev):
 
 @pytest.mark.parametrize("cache_format", ["bf16", "int8"])
 def test_head_dim_256_decoder_runs_on_the_card(dev, cache_format):
-    """Gemma's head dim of 256, which no attention kernel takes: the
-    predicates send prefill and decode to the plain path, so a tiny bf16
-    decoder prefills and decodes on the card without a raise, launches no
-    attention kernel, and gives the CPU run's logits (the same plain
-    attention; bf16 matmuls whose f32 sums run in another order: 2e-2 of the
-    largest logit)."""
+    """Gemma's head dim of 256: a tiny bf16 decoder (8 query heads over one
+    kv head) prefills through K2 and decodes through K9 / K4 and a verify
+    window through K10 / K11 on the card, and gives the CPU run's logits
+    (the kernels' plain versions there; bf16 matmuls whose f32 sums run in
+    another order: 2e-2 of the largest logit)."""
     base = tcfg.tiny_test_config()
-    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, head_dim=256))
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, head_dim=256, num_heads=8, num_kv_heads=1))
     text = cfg.text
     cpu = convert.init_params(cfg, torch.Generator().manual_seed(0), device="cpu").text
     card = copy.deepcopy(cpu).to(dev)
-    tokens = torch.randint(2, text.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
-    seg = torch.ones((2, 9), dtype=torch.int32)
-    pos = torch.arange(9)[None].repeat(2, 1)
+    tokens = torch.randint(2, text.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1))
+    seg = torch.ones((2, 12), dtype=torch.int32)
+    pos = torch.arange(12)[None].repeat(2, 1)
     cseg = torch.zeros((2, 32), dtype=torch.int32)
-    cseg[:, :9] = 1
+    cseg[:, :12] = 1
 
     def run(model, device):
         cache = (tqwen.init_kv_cache_q8(text, 2, 32, device=device) if cache_format == "int8"
                  else tqwen.init_kv_cache(text, 2, 32, device=device))
         on = lambda t: t.to(device)  # noqa: E731
+        fwd = lambda a, b, index: tqwen.forward(  # noqa: E731
+            model, text, input_embeds=tqwen.embed_tokens(model, on(tokens[:, a:b]), text),
+            positions=on(pos[:, a:b]), segment_ids=on(seg[:, a:b]), kv_cache=cache,
+            cache_index=index, cache_segment_ids=on(cseg))[0]
         with torch.inference_mode():
-            tqwen.forward(model, text, input_embeds=tqwen.embed_tokens(model, on(tokens[:, :8]), text),
-                          positions=on(pos[:, :8]), segment_ids=on(seg[:, :8]), kv_cache=cache,
-                          cache_index=0, cache_segment_ids=on(cseg))
-            step, _ = tqwen.forward(
-                model, text, input_embeds=tqwen.embed_tokens(model, on(tokens[:, 8:]), text),
-                positions=on(pos[:, 8:]), segment_ids=on(seg[:, 8:]), kv_cache=cache,
-                cache_index=on(torch.tensor([8, 8])), cache_segment_ids=on(cseg))
-        return step.float().cpu()
+            fwd(0, 8, 0)
+            step = fwd(8, 9, on(torch.tensor([8, 8])))
+            window = fwd(9, 12, on(torch.tensor([9, 9])))
+        return torch.cat([step, window], 1).float().cpu()
 
+    q8 = "_q8" if cache_format == "int8" else ""
     kernels.reset_launch_counts()
     out = run(card, dev)
     torch.cuda.synchronize()
-    assert not any(kernels.launch_counts()[name] for name in (
-        "prefill_attention", "decode_attention", "decode_attention_q8"))
+    counts = kernels.launch_counts()
+    assert counts["prefill_attention"] == text.num_layers
+    assert counts["decode_attention" + q8] == text.num_layers
+    assert counts["decode_attention_window" + q8] == text.num_layers
     ref = run(cpu, "cpu")
     assert torch.isfinite(out).all() and out.shape == ref.shape
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-2 * float(ref.abs().max()))
@@ -303,13 +320,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 8, 2, 8), device=dev, dtype=torch.float32)
     with pytest.raises(ValueError, match="bf16"):
         tfa.tower_attention(x, x, x)
-    y = torch.zeros((1, 8, 2, 256), device=dev, dtype=torch.bfloat16)
+    y = torch.zeros((1, 8, 2, 320), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.prefill_attention(y, y, y, causal=True)
+    # K2 takes D = 256 forward; under a gradient K7 / K8 do not.
+    w = torch.zeros((1, 8, 2, 256), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="under a gradient"):
+        tfa.flash_attention_with_lse(w, w, w, causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_bwd_dq(w.detach(), w.detach(), w.detach(), w.detach(),
+                                   torch.zeros((1, 2, 8), device=dev),
+                                   torch.zeros((1, 2, 8), device=dev))
     q = torch.zeros((1, 16, 64), device=dev, dtype=torch.bfloat16)
     c = torch.zeros((1, 1, 32, 64), device=dev, dtype=torch.bfloat16)
     seg = torch.ones((1, 32), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="query heads per kv head"):
+        tdec.decode_attention_stacked(q, c, c, seg, 0, num_kv_heads=1)
+    q = torch.zeros((1, 2, 320), device=dev, dtype=torch.bfloat16)
+    c = torch.zeros((1, 1, 32, 320), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tdec.decode_attention_stacked(q, c, c, seg, 0, num_kv_heads=1)
+    # Above D = 128 the bf16 cache must be 16-byte aligned (16-byte copies only).
+    q = torch.zeros((1, 2, 256), device=dev, dtype=torch.bfloat16)
+    flat = torch.zeros(32 * 256 + 2, device=dev, dtype=torch.bfloat16)
+    c = flat[2:].view(1, 1, 32, 256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
         tdec.decode_attention_stacked(q, c, c, seg, 0, num_kv_heads=1)
 
 
@@ -368,6 +403,9 @@ K4_CASES = [
     (1, 77, 8, 1, 128, 1),  # eight query heads per kv head
     (3, 300, 4, 4, 32, 2),  # no GQA
     (2, 130, 6, 2, 16, 0),  # three per kv head, D = 16
+    (8, 4224, 8, 1, 256, 17),  # Gemma-2B, 8 slots: the kDP = 256 instance
+    (3, 1000, 2, 1, 256, 0),  # two query heads over one
+    (2, 300, 4, 2, 208, 1),  # D = 208 (a multiple of 16 above 128)
 ]
 
 
@@ -513,6 +551,14 @@ WINDOW_CASES.append(WINDOW_HOLES_CASE)
 # tile that rows 2-4 see, and rows 2-4 a tile that rows 0-1 do not.
 WINDOW_EDGE_CASE = (8, 4224, 28, 4, 128, 5, 2)
 WINDOW_CASES.append(WINDOW_EDGE_CASE)
+WINDOW_CASES += [
+    (8, 4224, 8, 1, 256, 5, 17),  # Gemma-2B, spec_k = 4: 40 rows, the kDP = 256 instance
+    (8, 4224, 8, 1, 256, 16, 2),  # W = 16: 128 rows in blocks of 5 window rows
+    (4, 1000, 8, 1, 256, 7, 0),  # 56 rows: a block of 5 window rows and one of 2
+    (3, 300, 2, 1, 256, 3, 1),  # 6 rows
+    (2, 1000, 8, 1, 128, 5, 0),  # 40 rows at D = 128: the 40-row bucket (kNR = 10)
+    (2, 600, 8, 1, 256, 3, 0),  # 24 rows at D = 256: the 40-row bucket too
+]
 
 
 def _window_inputs(dev, case, quantized):
@@ -874,7 +920,14 @@ def _bwd_inputs(dev, case):
     return q, k, v, do, dlse, qseg, kseg
 
 
-@pytest.mark.parametrize("case", BWD_CASES)
+# K2 with the lse at Gemma-2B's head dim, which K7 / K8 do not take.
+K2_LSE_WIDE_CASES = [
+    (2, 1024, 1024, 8, 1, 256, True, "left_pad"),
+    (1, 700, 700, 2, 1, 256, True, "packed"),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES + K2_LSE_WIDE_CASES)
 def test_k2_lse_matches_plain_and_k2(dev, case):
     causal, d = case[6], case[5]
     q, k, v, _, _, qseg, kseg = _bwd_inputs(dev, case)

@@ -184,10 +184,20 @@ def test_k5_k6_plain_matches_pallas(rng, rows):
 
 
 def test_k4_plain_matches_pallas(rng):
+    _k4_case(rng, 8, 2, 64)
+
+
+@pytest.mark.parametrize("h", [8, 2])
+def test_k4_plain_matches_pallas_at_head_dim_256(rng, h):
+    """Gemma-2B's head dim: h query heads over one kv head."""
+    _k4_case(rng, h, 1, 256)
+
+
+def _k4_case(rng, h, hkv, d):
     """Per-row write indices (each row's keys end at its own index), left
     padding, and an empty row, which is compared only for being 0: the
     Pallas kernel's finite mask value gives mean(v) there."""
-    n_layers, b, h, hkv, d, s = 3, 4, 8, 2, 64, 256
+    n_layers, b, s = 3, 4, 256
     kv = jnp.asarray(rng.normal(size=(n_layers, b, s, hkv * d)), jnp.float32)
     vv = jnp.asarray(rng.normal(size=(n_layers, b, s, hkv * d)), jnp.float32)
     ckq, ksc = jkv.quantize_kv(kv, hkv)

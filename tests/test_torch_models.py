@@ -30,6 +30,7 @@ from radvlm_tpu_torch.generation import engine as teng
 from radvlm_tpu_torch.models import convert, qwen2, radvlm, siglip
 from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as tdec
+from radvlm_tpu_torch.ops import flash_attention as tfa
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -257,6 +258,17 @@ def test_kernel_provenance_reports_the_predicates():
     assert (q8["fill_lm_head"], q8["decode_lm_head"], q8["decode_matmul"]) == (
         "dequant", "dequant", "int8")
     assert prov["resampler_attention"] == plain["resampler_attention"] == "none"
+    assert prov["train_attention"] == "kernel_lse" and plain["train_attention"] == "plain"
+    # Gemma-2B (head_dim 256, 8 query heads over 1 kv head) behind the same
+    # tower: the D = 256 kernels serve prefill, decode and verify on both
+    # caches; under a gradient its attention is plain (K7 / K8 take D <= 128).
+    gemma = dataclasses.replace(cfg, text=tcfg.gemma_2b())
+    for fmt, suffix in (("bf16", ""), ("int8", "_q8")):
+        g = teng.kernel_provenance(gemma, prompt_len=3584, max_new_tokens=128, quantized=True,
+                                   cache_format=fmt, decode_rows=8, spec_k=4)
+        assert (g["prefill_attention"], g["decode_attention"], g["verify_attention"]) == (
+            "kernel", "kernel" + suffix, "window" + suffix)
+        assert g["train_attention"] == "plain"
     # The tower is judged at its own sequence length, class token included
     # and before the resampler: CLIP-L/14-336 577 tokens at D = 64 (x 14
     # crops under S2), ImageBind 257 at D = 80 though it hands on one token,
@@ -317,7 +329,8 @@ ROUTE_CASES = {
     (64, 4, 2): (True, True, True),
     (128, 4, 2): (True, True, True),
     (72, 4, 2): (True, True, False),  # the int8-cache kernels want a multiple of 16
-    (256, 4, 2): (False, False, False),  # Gemma's head dim: every kernel refuses it
+    (256, 4, 2): (True, True, True),  # Gemma's head dim: the D = 256 instances
+    (320, 4, 2): (False, False, False),  # above 256: every kernel refuses it
     (128, 16, 1): (True, False, False),  # a GQA group of 16: the decode kernels take 8
 }
 
@@ -335,6 +348,7 @@ def test_routes_hold_exactly_what_the_kernels_take(case):
     q = torch.empty((1, 64, h, d), device=meta)
     kv = torch.empty((1, 64, hkv, d), device=meta)
     assert tatt.flash_eligible(q, kv) is flash
+    assert tfa.kernel_takes(d) is flash
     assert qwen2.decode_kernel_eligible(cfg.text, 128, "auto") is decode
     assert qwen2.decode_kernel_eligible(cfg.text, 128, "auto", quantized=True) is decode_q8
     assert tdec.kernel_takes(d, h, hkv, False) is decode
@@ -349,11 +363,52 @@ def test_routes_hold_exactly_what_the_kernels_take(case):
         assert prov["verify_attention"] == ("window" + suffix if kernel else "plain")
 
 
+# (head_dim, query heads, kv heads) -> the route under a gradient, where
+# the backward kernels K7 / K8 read K2's lse: they take head dims up to 128.
+GRAD_ROUTE_CASES = {
+    (128, 4, 2): True,
+    (72, 4, 2): True,
+    (256, 4, 2): False,  # Gemma's head dim: K2 serves it forward only
+    (256, 8, 1): False,
+}
+
+
+@pytest.mark.parametrize("case", list(GRAD_ROUTE_CASES), ids=lambda c: "d{}_h{}_kv{}".format(*c))
+def test_routes_under_a_gradient_hold_what_the_backward_kernels_take(case):
+    """Under a gradient the kernel route is K2 with the lse and K7 / K8
+    backward, whose head dims stop at 128: `flash_eligible(needs_grad=True)`
+    and `kernel_provenance`'s tower and train routes name the plain route
+    above it, and `mha` on tensors that need a gradient takes the plain
+    (autograd) path there and `_FlashAttention` below it."""
+    kernel = GRAD_ROUTE_CASES[case]
+    d, h, hkv = case
+    meta = torch.device("meta")
+    q = torch.empty((1, 64, h, d), device=meta)
+    kv = torch.empty((1, 64, hkv, d), device=meta)
+    assert tatt.flash_eligible(q, kv)
+    assert tatt.flash_eligible(q, kv, needs_grad=True) is kernel
+    assert tfa.grad_kernel_takes(d) is kernel
+    prov = teng.kernel_provenance(_widened(d, h, hkv), prompt_len=96, max_new_tokens=16,
+                                  tower_grad=True)
+    route = "kernel_lse" if kernel else "plain"
+    assert prov["train_attention"] == prov["tower_attention"] == route
+    assert prov["prefill_attention"] == "kernel"
+    gen = torch.Generator().manual_seed(3)
+    qg = torch.randn((1, 64, h, d), generator=gen).requires_grad_(True)
+    k, v = (torch.randn((1, 64, hkv, d), generator=gen) for _ in range(2))
+    out = tatt.mha(qg, k, v, causal=True)
+    assert ("_FlashAttention" in type(out.grad_fn).__name__) is kernel
+    with torch.no_grad():  # no gradient: K2 (its plain version on the CPU)
+        ref = tatt.mha(qg, k, v, causal=True)
+    np.testing.assert_allclose(out.detach().numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+
+
 def test_head_dim_256_decoder_runs_the_plain_routes():
     """A tiny decoder with Gemma's head dim of 256 prefills and decodes (bf16
-    and int8 cache) through the plain routes: the same logits as the plain
-    attention the predicates name (the wrappers' plain versions are never
-    reached)."""
+    and int8 cache) through the kernel routes, K2 and K9 / K4, whose
+    wrappers run their plain versions on the CPU: the same logits as a full
+    forward. (The name is older than the D = 256 kernels, when the
+    predicates sent this decoder to plain attention.)"""
     cfg = _widened(256).text
     model = convert.init_params(_widened(256), torch.Generator().manual_seed(0), device="cpu",
                                 dtype=torch.float32).text
@@ -375,7 +430,8 @@ def test_head_dim_256_decoder_runs_the_plain_routes():
                 positions=pos[:, 8:], segment_ids=seg[:, 8:], kv_cache=cache,
                 cache_index=torch.tensor([8, 8]), cache_segment_ids=cseg)
         quantized = len(cache) == 4
-        assert qwen2.cached_attention_route(cfg, 32, "auto", 1, True, quantized) == "plain"
+        assert qwen2.cached_attention_route(cfg, 32, "auto", 1, True, quantized) == (
+            "kernel_q8" if quantized else "kernel")
         # The int8 cache quantizes K / V per token and head: 3e-2, as in
         # tests/test_torch_int8.py; the f32 cache only reorders f32 sums.
         tol = 3e-2 if quantized else 1e-5

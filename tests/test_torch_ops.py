@@ -20,6 +20,7 @@ from radvlm_tpu.ops.decode_attention import decode_attention_stacked_window as j
 from radvlm_tpu.ops.decode_attention import decode_attention_stacked_window_q8 as j_window_q8
 from radvlm_tpu.ops.kv_quant import quantize_kv as j_quantize_kv
 from radvlm_tpu.ops.flash_attention import flash_attention as j_flash
+from radvlm_tpu.ops.flash_attention import flash_attention_with_lse as j_flash_lse
 from radvlm_tpu_torch import kernels
 from radvlm_tpu_torch.ops import attention as tatt
 from radvlm_tpu_torch.ops import decode_attention as tdec
@@ -111,23 +112,36 @@ def _left_pad_and_packed(b, s):
     return seg
 
 
-@pytest.mark.parametrize("gqa", [1, 2])
-def test_k2_plain_matches_pallas(rng, gqa):
-    """K2 (`_fwd_kernel`), causal with left padding and packed segments;
-    only rows with a non-zero segment are compared (the XLA path and the
-    kernel differ on padding rows, which nothing attends)."""
-    b, s, h, d = 2, 256, 4, 64
+@pytest.mark.parametrize("h,hkv,d", [
+    pytest.param(4, 4, 64, id="1"), pytest.param(4, 2, 64, id="2"),
+    # Gemma-2B's head dim (its K2 instance at D = 256): 8 query heads over
+    # one kv head, and 2 over one.
+    pytest.param(8, 1, 256, id="d256_h8_kv1"), pytest.param(2, 1, 256, id="d256_h2_kv1")])
+def test_k2_plain_matches_pallas(rng, h, hkv, d):
+    """K2 (`_fwd_kernel`), causal with left padding and packed segments,
+    without and with the lse (`prefill_attention_lse` against
+    `flash_attention_with_lse`); only rows with a non-zero segment are
+    compared (the XLA path and the kernel differ on padding rows, which
+    nothing attends)."""
+    b, s = 2, 256
     q = _rand(rng, (b, s, h, d))
-    k, v = _rand(rng, (b, s, h // gqa, d)), _rand(rng, (b, s, h // gqa, d))
+    k, v = _rand(rng, (b, s, hkv, d)), _rand(rng, (b, s, hkv, d))
     seg = _left_pad_and_packed(b, s)
-    ref = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                  q_segment_ids=jnp.asarray(seg), kv_segment_ids=jnp.asarray(seg),
-                  causal=True, block_q=128, block_k=128, interpret=True)
+    kw = dict(q_segment_ids=jnp.asarray(seg), kv_segment_ids=jnp.asarray(seg), causal=True,
+              block_q=128, block_k=128, interpret=True)
+    ref = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
     out = tfa.flash_attention(_t(q), _t(k), _t(v), q_segment_ids=_t(seg),
                               kv_segment_ids=_t(seg), causal=True)
     real = seg != 0
     np.testing.assert_allclose(out.numpy()[real], np.asarray(ref)[real], **TOL)
     np.testing.assert_array_equal(out.numpy()[~real], 0.0)
+    ref_o, ref_lse = j_flash_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    o, lse = tfa.prefill_attention_lse(_t(q), _t(k), _t(v), q_segment_ids=_t(seg),
+                                       kv_segment_ids=_t(seg), causal=True)
+    np.testing.assert_allclose(o.numpy()[real], np.asarray(ref_o)[real], **TOL)
+    # lse [B, H, S]: the real rows' rows.
+    np.testing.assert_allclose(lse.numpy().transpose(0, 2, 1)[real],
+                               np.asarray(ref_lse).transpose(0, 2, 1)[real], **TOL)
 
 
 def test_k2_plain_prefill_into_longer_cache(rng):
@@ -150,9 +164,19 @@ def test_k2_plain_prefill_into_longer_cache(rng):
 
 
 def test_k9_plain_matches_pallas(rng):
+    _k9_case(rng, 4, 2, 64)
+
+
+@pytest.mark.parametrize("h", [8, 2])
+def test_k9_plain_matches_pallas_at_head_dim_256(rng, h):
+    """Gemma-2B's head dim: h query heads over one kv head."""
+    _k9_case(rng, h, 1, 256)
+
+
+def _k9_case(rng, h, hkv, d):
     """K9 (`_fused_heads_kernel`) over a partly written stacked cache: left
     padding first, an unwritten tail, one row with a hole."""
-    n_layers, b, s, h, hkv, d = 2, 3, 256, 4, 2, 64
+    n_layers, b, s = 2, 3, 256
     q = _rand(rng, (b, h, d))
     ck = _rand(rng, (n_layers, b, s, hkv * d))
     cv = _rand(rng, (n_layers, b, s, hkv * d))
@@ -246,7 +270,8 @@ def test_kernel_sources_and_build_dir():
     import os
 
     names = sorted(os.path.basename(s) for s in kernels._sources())
-    assert names == ["common.cuh", "decode_attention.cu", "flash_attention.cu",
+    assert names == ["common.cuh", "decode_attention.cu", "decode_attention.cuh",
+                     "decode_attention_q8.cu", "flash_attention.cu",
                      "flash_attention_bwd.cu", "int4_matmul.cu", "int8_matmul.cu",
                      "w8a8_matmul.cu", "wgmma.cuh"]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -282,10 +307,10 @@ def test_error_ratio_catches_one_mis_masked_slot(mutation):
     assert ratio > 4.0
 
 
-def _window_case(rng, w):
+def _window_case(rng, w, h=4, hkv=2, d=64):
     """Slots at different window indices after their own left padding; slot
     1's window ends at the last cache index, slot 2 has a hole."""
-    n_layers, b, s, h, hkv, d = 2, 3, 256, 4, 2, 64
+    n_layers, b, s = 2, 3, 256
     q = _rand(rng, (b, w, h, d))
     ck, cv = _rand(rng, (n_layers, b, s, hkv * d)), _rand(rng, (n_layers, b, s, hkv * d))
     widx = np.array([100, s - w, 37], np.int32)
@@ -296,12 +321,17 @@ def _window_case(rng, w):
     return q, ck, cv, widx, seg, hkv
 
 
-@pytest.mark.parametrize("w", [3, 16])
+# Gemma-2B's heads at spec_k = 4 (W = 5, 8 query heads over one kv head:
+# 40 rows, D = 256), and 2 query heads over one.
+GEMMA_WINDOWS = {"5-d256_h8_kv1": (5, 8, 1, 256), "3-d256_h2_kv1": (3, 2, 1, 256)}
+
+
+@pytest.mark.parametrize("w", [3, 16] + list(GEMMA_WINDOWS))
 def test_k10_plain_matches_pallas(rng, w):
     """K10 (`_fused_heads_window_kernel`, interpret mode) on f32 inputs, at
     the tolerance of tests/test_window_decode.py: 2e-5 (f32 sums in another
     order)."""
-    q, ck, cv, widx, seg, hkv = _window_case(rng, w)
+    q, ck, cv, widx, seg, hkv = _window_case(rng, *GEMMA_WINDOWS.get(w, (w,)))
     for layer in range(2):
         ref = j_window(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(seg),
                        jnp.int32(layer), jnp.asarray(widx), num_kv_heads=hkv, block_k=128,
@@ -312,13 +342,13 @@ def test_k10_plain_matches_pallas(rng, w):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("w", [5, 16])
+@pytest.mark.parametrize("w", [5, 16] + list(GEMMA_WINDOWS))
 def test_k11_plain_matches_pallas(rng, w):
     """K11 (`_fused_heads_window_q8_kernel`, interpret mode) over a cache
     quantized by the JAX package: 3e-2, as tests/test_window_decode.py (the
     TPU kernel rounds p * vs to bf16 before its PV product, the port keeps
     it in f32)."""
-    q, ck, cv, widx, seg, hkv = _window_case(rng, w)
+    q, ck, cv, widx, seg, hkv = _window_case(rng, *GEMMA_WINDOWS.get(w, (w,)))
     (kq, ks), (vq, vs) = (j_quantize_kv(jnp.asarray(x), hkv) for x in (ck, cv))
     for layer in range(2):
         ref = j_window_q8(jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(seg), jnp.int32(layer),
