@@ -35,11 +35,13 @@ Phases, each raising on failure (the last line is printed only on success):
    none for K12: torch._weight_int4pack_mm takes bf16 scales and zero
    points in its own layout and does not round the weight after its
    scale, another function); then the D = 256 instances at Gemma-2B's
-   shapes (8 query heads over one kv head of 256): K2 and K2 with the lse
-   on one left-padded prompt of the 4096 bucket, K9 and K4 at 8 slots of a
-   4224-token cache of 18 layers, K10 and K11 at 5 queries a slot, each
-   against its plain version, timed beside SDPA (K2, K9, K10) and its
-   bound (the "d256" entries of the kernels line);
+   shapes (8 query heads over one kv head of 256): K2 on one left-padded
+   prompt of the 4096 bucket, K9 and K4 at 8 slots of a 4224-token cache
+   of 18 layers, K10 and K11 at 5 queries a slot, K2 with the lse, K7 and
+   K8 at phase 8b's packed 4096-token row (beside SDPA's backward, and K7
+   + K8 + attention_delta against it), each against its plain version,
+   timed beside SDPA (K2, K2-lse, K9, K10) and its bound (the "d256"
+   entries of the kernels line);
 4. bf16 slice: radvlm_7b at full width with random bf16 weights made on the
    card from --seed. A reference check first (on one small input, the
    kernel path and plain attention in bf16 against plain attention on an f32
@@ -177,7 +179,21 @@ Phases, each raising on failure (the last line is printed only on success):
    checkpoint, a resume from it for 2 more, and 4 constant-rate steps on one
    batch whose loss must fall. K2-lse, K7 and K8 must have launched (K7 and
    K8 once a layer a micro-step: 24 + 26), K1 must not. Seconds a step,
-   tokens/s, peak memory and a profiler breakdown of one step are printed;
+   tokens/s, peak memory and a profiler breakdown of one step are printed.
+   8b. SFT of Gemma-2B (radvlm_7b's SigLIP tower and projector into
+   gemma_2b's decoder, all 18 layers, 8 query heads over one kv head of
+   256), f32 master weights made on the card from --seed, the tower frozen
+   (mm_tunable_parts mm_mlp_adapter,mm_language_model, as LLaVA-Gemma's
+   finetuning leaves it), remat on, bf16 autocast: kernel_provenance must
+   name K2-lse / K7 / K8 for its attention under a gradient; phase 8's
+   reference check; `training.loop.train` over phase 8's kind of
+   llava-json, packed 4096-token rows, micro-batch 1, accumulation 2, 4
+   micro-steps, with exact launches a micro-step (K2-lse 36, K7 and K8 18
+   each, K1 26, nothing else); then constant-rate steps on one batch (the
+   loss must fall over 4), 2 of the same step on plain attention on the
+   same weights (the only route before the D = 256 backward) and one more
+   on the kernels, each timed with its peak memory, and a kernel step
+   profiled;
 9. QLoRA: radvlm_7b at full width and depth over an unfused int8 base born on
    the card, rank-128 adapters, 2 steps of one packed 4096-token row through
    `training.loop.train`: the adapters change, the base's bytes do not, K7
@@ -250,7 +266,8 @@ Phases, each raising on failure (the last line is printed only on success):
    `gemma_legs`: engines on the int8 cache at spec_k = 4 (K11), the bf16
    cache (K9) and the bf16 cache at spec_k = 4 (K10), and two on plain
    attention (the route the predicates took before, int8 cache, decode and
-   verify) as the yardstick; each fills every slot, runs its chunks eager
+   spec_k = 4 verify) as the yardstick;
+   each fills every slot, runs its chunks eager
    and replayed (equal tokens; the replay timed and profiled), times a
    fill and prints its graph pool,
    with the launch counts from 0 over its run; the kernel legs hold K2,
@@ -540,6 +557,10 @@ PATH_KERNELS = {
     # QLoRA: the decoder as above, the frozen tower through K1.
     "qlora": ("tower_attention", "prefill_attention_lse", "flash_attention_bwd_dkv",
               "flash_attention_bwd_dq"),
+    # Gemma-2B's SFT (8b): the D = 256 training kernels, the frozen tower
+    # through K1.
+    "gemma_sft": ("tower_attention", "prefill_attention_lse", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq"),
     # DPO of radvlm_0_5b, the tower frozen: K1 in every pass, K2 in the
     # reference's (no gradient), K2-lse, K7 and K8 in the policy's.
     "dpo": ("tower_attention", "prefill_attention", "prefill_attention_lse",
@@ -553,6 +574,10 @@ PATH_KERNELS = {
 }
 TRAIN_BUCKET = Bucket(4096, 6)
 SFT_STEPS, SFT_RESUMED_STEPS, OVERFIT_STEPS, QLORA_STEPS = 6, 2, 4, 2
+# Phase 8b: Gemma-2B's SFT, the tower frozen as LLaVA-Gemma's finetuning
+# leaves it; micro-steps of the measured run and plain-attention steps.
+GEMMA_TUNABLE = "mm_mlp_adapter,mm_language_model"
+GEMMA_SFT_STEPS, GEMMA_PLAIN_STEPS = 4, 2
 # Phase 10: DPO pairs a micro-step and steps, GRPO waves at mu = 1 and then
 # at mu = 2, and the GRPO rollout engine.
 DPO_PAIRS, DPO_STEPS = 2, 4
@@ -916,7 +941,7 @@ def phase_kernels(dev, seed: int):
     results.update(window_kernels(dev, randn, quantized=False))
     results.update(training_kernels(dev, g, randn))
     results.update(phase_int8_kernels(dev, g))
-    wide = gemma_kernels(dev, randn)
+    wide = gemma_kernels(dev, g, randn)
     print(f"  (kernels and library calls: samples of {ATTN_BATCH} calls in a row, and device "
           "time by torch.profiler in brackets where taken; plain versions: one call a sample, "
           "the wrapper's host time included)", flush=True)
@@ -932,14 +957,16 @@ def phase_kernels(dev, seed: int):
     return results, wide
 
 
-def gemma_kernels(dev, randn) -> dict:
+def gemma_kernels(dev, g, randn) -> dict:
     """The D = 256 instances at Gemma-2B's shapes (8 query heads over one kv
     head of 256, 18 layers), each against its plain version and timed beside
-    SDPA (where one call computes the function) and its bound: K2 and K2
-    with the lse on one left-padded prompt of the 4096 bucket (phase 11c
-    fills one prompt a group), K9 and K4 at 8 slots of a 4224-token cache
-    (slot 7 empty), K10 and K11 at W = 5 (spec_k = 4) over the same caches.
-    Returns {kernel name: numbers}."""
+    SDPA (where one call computes the function) and its bound: K2 on one
+    left-padded prompt of the 4096 bucket (phase 11c fills one prompt a
+    group), K9 and K4 at 8 slots of a 4224-token cache (slot 7 empty), K10
+    and K11 at W = 5 (spec_k = 4) over the same caches, and K2 with the lse,
+    K7 and K8 at phase 8b's packed 4096-token training row
+    (`training_kernel_case`, beside SDPA and its backward). Returns {kernel
+    name: numbers}."""
     h, hkv, d = GEMMA_HEADS
     n_layers, scale, results = gemma_2b().num_layers, d ** -0.5, {}
     s = 4096
@@ -949,35 +976,19 @@ def gemma_kernels(dev, randn) -> dict:
     mask = tatt.make_attention_mask(seg, seg, True)
     pairs = int(mask.sum())
     kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=True)
-    for name, fn in (("prefill_attention", fa.prefill_attention),
-                     ("prefill_attention_lse", fa.prefill_attention_lse)):
-        lse = name == "prefill_attention_lse"
-        run = lambda: fn(q, k, v, **kw)  # noqa: E731
-        plain = lambda: fa.attention_plain(q, k, v, seg, seg, True, scale,  # noqa: E731
-                                           with_lse=lse)
-        out, ref = run(), plain()
-        torch.cuda.synchronize()
-        o, ref_o = (out[0], ref[0]) if lse else (out, ref)
-        label = "K2-lse" if lse else "K2"
-        err = check_close(name, f"{label} {name} [1,{s},{h}|{hkv},{d}] (D = 256)", o, ref_o,
-                          rows=seg.bool())
-        if o[~seg.bool()].abs().max() != 0:
-            raise AssertionError(f"{label} D = 256: padding rows must be 0")
-        if lse:
-            fin = torch.isfinite(ref[1])
-            lse_err = float((out[1][fin] - ref[1][fin]).abs().max())
-            if (not torch.equal(fin, torch.isfinite(out[1]))
-                    or not lse_err <= 1e-4 * max(1.0, float(ref[1][fin].abs().max()))):
-                raise AssertionError("K2-lse D = 256: lse disagrees with the plain version")
-            if not torch.equal(o, fa.prefill_attention(q, k, v, **kw)):
-                raise AssertionError("K2-lse D = 256: o differs from the no-lse entry point's")
-        results[name] = dict(
-            max_abs_err=err, **timed(run, lambda: sdpa(q, k, v, mask), reps=5),
-            plain_ms=cuda_ms(plain, reps=3, warmup=1),
-            **bound(nbytes(q, k, v, o, seg, seg) + (nbytes(out[1]) if lse else 0),
-                    4 * h * d * pairs, "bf16"))
-        del out, ref, o, ref_o
-    del q, k, v, mask
+    run = lambda: fa.prefill_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: fa.attention_plain(q, k, v, seg, seg, True, scale)  # noqa: E731
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = check_close("prefill_attention", f"K2 prefill_attention [1,{s},{h}|{hkv},{d}] (D = 256)",
+                      out, ref, rows=seg.bool())
+    if out[~seg.bool()].abs().max() != 0:
+        raise AssertionError("K2 D = 256: padding rows must be 0")
+    results["prefill_attention"] = dict(
+        max_abs_err=err, **timed(run, lambda: sdpa(q, k, v, mask), reps=5),
+        plain_ms=cuda_ms(plain, reps=3, warmup=1),
+        **bound(nbytes(q, k, v, out, seg, seg), 4 * h * d * pairs, "bf16"))
+    del q, k, v, mask, out, ref
     b, s = 8, 4224
     ck, cv = randn(n_layers, b, s, hkv * d), randn(n_layers, b, s, hkv * d)
     qd = randn(b, h, d)
@@ -1037,6 +1048,9 @@ def gemma_kernels(dev, randn) -> dict:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"library call {lib}{against(r)}", flush=True)
     torch.cuda.empty_cache()
+    (results["prefill_attention_lse"], results["flash_attention_bwd_dkv"],
+     results["flash_attention_bwd_dq"]) = training_kernel_case(
+        dev, g, randn, "Gemma-2B decoder", 1, 4096, h, hkv, d, True, "packed")
     return results
 
 
@@ -3194,6 +3208,17 @@ def training_reference_check(model, cfg, tok, rng) -> None:
           f"{batch['tiles'].shape[1]} tiles", flush=True)
 
 
+def first_batch(run, tok, dev) -> dict:
+    """The first packed batch of `run`'s data (its loader seed), on `dev`."""
+    with open(run.data_path) as f:
+        cells = json.load(f)
+    loader = PrefetchLoader(
+        LlavaJsonDataset(cells=cells, image_root=run.image_root, cfg=run.model,
+                         tokenize_fn=tok.encode, max_len=TRAIN_BUCKET.max_len),
+        1, buckets=run.buckets, seed=run.seed, num_workers=2, pack_factor=2)
+    return batch_to_device(next(iter(loader.epoch(0))), dev)
+
+
 def run_training(run, tok, model, label: str, first_step: int = 0):
     """`training.loop.train` with every step's metrics and wall time kept.
     Returns (state, [(step, metrics, seconds since the previous step)])."""
@@ -3286,13 +3311,7 @@ def phase_sft(dev, seed: int):
         const = optim.TrainConfig(learning_rate=1e-4, vision_tower_lr=1e-4, lr_schedule="constant",
                                   warmup_ratio=0.0, grad_accum_steps=1)
         ostate, step_fn, _ = tstep.setup_training(cfg, const, model)
-        with open(data_path) as f:
-            cells = json.load(f)
-        loader = PrefetchLoader(
-            LlavaJsonDataset(cells=cells, image_root=root, cfg=cfg, tokenize_fn=tok.encode,
-                             max_len=TRAIN_BUCKET.max_len),
-            1, buckets=run.buckets, seed=run.seed, num_workers=2, pack_factor=2)
-        batch = batch_to_device(next(iter(loader.epoch(0))), dev)
+        batch = first_batch(run, tok, dev)
         losses = []
         for _ in range(OVERFIT_STEPS):
             torch.cuda.synchronize()
@@ -3310,6 +3329,119 @@ def phase_sft(dev, seed: int):
             ostate, m = step_fn(ostate, batch)
             torch.cuda.synchronize()
         device_breakdown(prof, wall, "SFT step (update every step)", top=20)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def phase_gemma_sft(dev, seed: int) -> dict:
+    """Phase 8b: full finetuning of Gemma-2B behind radvlm_7b's tower and
+    projector at full width and depth (18 layers, 8 query heads over one kv
+    head of 256: K2-lse, K7 and K8 at D = 256), f32 master weights made on
+    the card from `seed`, the SigLIP tower frozen (K1), remat on, bf16
+    autocast. The reference check of phase 8, then `training.loop.train`
+    (packed 4096-token rows, micro-batch 1, accumulation 2) with exact
+    launch counts a micro-step; then constant-rate steps on one batch whose
+    loss must fall, the same step on plain attention on the same weights (the
+    route before the D = 256 backward) in turns, and one kernel step
+    profiled. Returns the measured run's launches."""
+    cfg, tok = dataclasses.replace(radvlm_7b(), text=gemma_2b()), CharTokenizer()
+    text, n_layers = cfg.text, cfg.text.num_layers
+    t0 = time.perf_counter()
+    model = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+                                dtype=torch.float32)
+    labels = optim.mark_trainable(model, optim.TrainConfig(mm_tunable_parts=GEMMA_TUNABLE))
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for n, p in model.named_parameters() if n in labels)
+    n_all = sum(p.numel() for p in model.parameters())
+    print(f"  gemma_2b: {n_layers} layers, hidden {text.hidden_size}, heads {text.num_heads}|"
+          f"{text.num_kv_heads} x {text.head_dim}, vocab {text.vocab_size} (tied); "
+          f"{n_train / 1e6:.1f} M trainable f32 parameters of {n_all / 1e6:.1f} M (tunable: "
+          f"{GEMMA_TUNABLE}), {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card, "
+          f"init {time.perf_counter() - t0:.2f} s", flush=True)
+    route = engine.kernel_provenance(cfg, prompt_len=TRAIN_BUCKET.max_len,
+                                     max_new_tokens=1)["train_attention"]
+    print(f"  kernel_provenance train_attention: {route}", flush=True)
+    if route != "kernel_lse":
+        raise AssertionError(f"gemma_2b under a gradient routes to {route}, not kernel_lse")
+    rng = np.random.default_rng(seed + 5)
+    training_reference_check(model, cfg, tok, rng)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke_gemma_sft_{os.getpid()}")
+    try:
+        data_path = write_training_data(root, rng, GEMMA_SFT_STEPS)
+        train_cfg = optim.TrainConfig(grad_accum_steps=2, total_steps=100,
+                                      mm_tunable_parts=GEMMA_TUNABLE)
+        run = training_run_config(cfg, train_cfg, data_path, root, tok, seed, GEMMA_SFT_STEPS,
+                                  max_steps=GEMMA_SFT_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, seen = run_training(run, tok, model, "Gemma SFT")
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steady = [dt for _, _, dt in seen[2:]]  # past the first update
+        tokens = statistics.median(m["tokens_per_sec"] for _, m, _ in seen[2:])
+        print(f"  Gemma SFT: {GEMMA_SFT_STEPS} micro-steps ({state.opt_state.count} updates), "
+              f"median {statistics.median(steady):.3f} s a micro-step past the first update, "
+              f"{tokens:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB; the whole call "
+              f"{t_run:.2f} s (set-up and the loader's start included)", flush=True)
+        print(f"  launches in the measured run: {counts}", flush=True)
+        require_launched("gemma_sft", counts)
+        # A micro-step: K2-lse twice a decoder layer (the forward and remat's
+        # recompute), K7 and K8 once, K1 once a layer of the frozen tower.
+        require_counts("Gemma SFT", counts, {
+            "prefill_attention_lse": GEMMA_SFT_STEPS * 2 * n_layers,
+            "flash_attention_bwd_dkv": GEMMA_SFT_STEPS * n_layers,
+            "flash_attention_bwd_dq": GEMMA_SFT_STEPS * n_layers,
+            "tower_attention": GEMMA_SFT_STEPS * cfg.vision.num_layers})
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Constant-rate steps on one batch (a micro-step and its update
+        # each): the kernels, then plain attention on the same weights,
+        # then the kernels again.
+        const = optim.TrainConfig(learning_rate=1e-5, lr_schedule="constant", warmup_ratio=0.0,
+                                  grad_accum_steps=1, mm_tunable_parts=GEMMA_TUNABLE)
+        ostate, step_fn, opt = tstep.setup_training(cfg, const, model)
+        plain_fn = tstep.make_train_step(cfg, opt, remat=True, attn_impl="xla")
+        batch = first_batch(run, tok, dev)
+        walls = {"kernels": [], "plain attention": []}
+        peaks, losses = {}, []
+        for route, fn in ([("kernels", step_fn)] * OVERFIT_STEPS
+                          + [("plain attention", plain_fn)] * GEMMA_PLAIN_STEPS
+                          + [("kernels", step_fn)]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            ostate, m = fn(ostate, batch)
+            loss = float(m["loss"])  # reads the step's result back
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+            peaks[route] = max(peaks.get(route, 0), torch.cuda.max_memory_allocated(dev))
+            if len(losses) < OVERFIT_STEPS:
+                losses.append(loss)
+        print(f"  {OVERFIT_STEPS} kernel steps on one batch at a constant 1e-5: losses "
+              f"{[round(l, 4) for l in losses]}", flush=True)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError("the Gemma overfit loss did not fall")
+        n_tok = int(batch["tokens"].shape[1])
+        for route, w in walls.items():
+            w = w[1:] if route == "kernels" else w  # the first step warms up
+            print(f"  Gemma step on {route} ({n_tok} tokens, micro-step + update): median "
+                  f"{statistics.median(w):.3f} s ({n_tok / statistics.median(w):.0f} tokens/s), "
+                  f"steps {[round(x, 3) for x in w]}, peak memory "
+                  f"{peaks[route] / 2**30:.2f} GiB", flush=True)
+        from torch.profiler import ProfilerActivity, profile
+
+        wall = statistics.median(walls["kernels"][1:])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ostate, m = step_fn(ostate, batch)
+            torch.cuda.synchronize()
+        device_breakdown(prof, wall, "Gemma SFT step (kernels, update every step)", top=16)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return counts
@@ -5573,6 +5705,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    header(f"[8b/12] SFT of Gemma-2B: all {gemma_2b().num_layers} layers behind radvlm_7b's "
+           "frozen tower, f32 master weights, K2-lse / K7 / K8 at D = 256")
+    counts["gemma_sft"] = phase_gemma_sft(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     header("[9/12] QLoRA: radvlm_7b, int8 base, rank-128 adapters, training.loop.train")
     counts["qlora"] = phase_qlora(dev, args.seed)
     gc.collect()
@@ -5622,11 +5760,13 @@ def main():
     print(f"  phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
 
     # Each kernel's numbers at its main path's shapes; the D = 256 instances'
-    # at Gemma-2B's under "d256", launched on 11c's Gemma path.
+    # at Gemma-2B's under "d256", launched on its paths: 11c's serving and
+    # 8b's finetuning.
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": counts[path][name], **results[name],
-         **({"d256": dict(wide[name], launches=counts["gemma_2b"][name])}
+         **({"d256": dict(wide[name],
+                          launches=counts["gemma_2b"][name] + counts["gemma_sft"][name])}
             if name in wide else {})}
         for name, (src, replaces, path) in KERNELS.items()
     ]}

@@ -3,7 +3,9 @@ them, optionally against other versions of their sources in turns:
 
 - `--only fwd`: the attention forwards (K1, K2, K2 with the lse) against
   SDPA, at Qwen2-7B's and the towers' shapes and at Gemma-2B's (D = 256);
-- `--only bwd`: the backward (K7 dk / dv, K8 dq) against SDPA's backward;
+- `--only bwd`: the backward (K7 dk / dv, K8 dq) against SDPA's backward,
+  at the 0.5B's, the 7B's and the tower's training shapes and at Gemma-2B's
+  (D = 256; no baseline there);
 - `--only decode`: K9 (bf16 decode attention) and K10 (its window) at W = 5
   and W = 16 against SDPA, then K4 (decode attention over the int8 cache;
   beside it K9 on a bf16 copy of the same cache) and K11 (its window) at W
@@ -107,6 +109,8 @@ BWD_SHAPES = [
     ("0.5B decoder [1,4096,14|2,64]", 1, 4096, 14, 2, 64, True, "packed"),
     ("7B decoder [1,4096,28|4,128]", 1, 4096, 28, 4, 128, True, "left_pad"),
     ("tower [5,729,16,72]", 5, 729, 16, 16, 72, False, None),
+    # Gemma-2B (the D = 256 instances): its packed 4096-token training rows.
+    ("Gemma-2B [1,4096,8|1,256]", 1, 4096, 8, 1, 256, True, "packed"),
 ]
 # The sources each --only set times.
 SET_SOURCES = {"fwd": ("flash_attention.cu",), "bwd": ("flash_attention_bwd.cu",),
@@ -364,7 +368,9 @@ def base_rule(name, out, ref, rows=None) -> str:
 
 def backward(args, this, bases, dev, g) -> None:
     """K7, K8 and K7 + K8 + delta against SDPA's backward."""
+    all_bases = bases
     for label, b, s, h, hkv, d, causal, layout in BWD_SHAPES:
+        bases = all_bases if d <= 128 else []  # older sources refuse D = 256
         q, do = (torch.randn(b, s, h, d, generator=g, device=dev, dtype=torch.bfloat16)
                  for _ in range(2))
         k, v = (torch.randn(b, s, hkv, d, generator=g, device=dev, dtype=torch.bfloat16)

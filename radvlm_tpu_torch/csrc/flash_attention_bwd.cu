@@ -20,7 +20,7 @@
 //   launches give the same bits.
 //
 // Layouts: q / do / dq [B, Sq, H, D], k / v / dk / dv [B, Sk, Hkv, D] bf16;
-// lse, delta [B, H, Sq] f32; segment ids [B, S] int32. D even, <= 128.
+// lse, delta [B, H, Sq] f32; segment ids [B, S] int32. D even, <= 256.
 //
 // Design (csrc/wgmma.cuh's toolkit, as K2 in flash_attention.cu uses it):
 // - Every product is a wgmma m64nNk16 (bf16 in, f32 sums) on operands in the
@@ -60,6 +60,18 @@
 //   before the cast. Grid (Hkv c, key tiles, B): the heads of one key tile
 //   are neighbours and key tile 0, the heaviest under a causal mask, comes
 //   first; the CTAs of a cluster share a key tile and so carry one load.
+// - Head dims 129-256 (Gemma-2B's 256) take one instance of each at DP = DV
+//   = 256, a design of its own: a warpgroup's f32 accumulators of 64 rows x
+//   256 columns are 128 registers a thread each. K8 keeps 128 query rows
+//   and its one accumulator, and streams K / V in stages of 32 keys (Q and
+//   dO 128 KB, three stages of 32 KB), so S and dP take 16 registers each.
+//   K7 owns 64 keys a CTA; both warpgroups compute the same S^T and dP^T
+//   (64 keys x 32 queries, contracted over all 256 columns) and warpgroup w
+//   accumulates columns [128 w, 128 w + 128) of dK and dV (m64n128
+//   products, its half of dO and Q as the MN-major operand); K
+//   and V take 64 KB, three stages of Q and dO 32 KB each, and the cluster's
+//   f32 partials (2 x 64 x 256 x 4 bytes) fit where they were. The scores
+//   are computed twice, so the instance issues 1.5x the products it needs.
 // Both run one CTA an SM (176-254 registers a thread, no spills).
 // What bounds them on the H100: the tensor-core rate (four products in K7,
 // three in K8), of which they reach 17-38% at the training shapes: each
@@ -177,10 +189,11 @@ __device__ __forceinline__ void ring_wait(bool tma, uint32_t bars, int n) {
 // ---------------------------------------------------------------------------
 
 // K8's tiles for head dims padded to DP: BN keys a stage (the N of the
-// score products) and the ring's stages, within 227 KB of shared memory.
+// score products) and the ring's stages, within 227 KB of shared memory
+// (32-key stages at DP = 256: the header's last design note).
 template <int DP>
 struct DqCfg {
-  static constexpr int BN = DP <= 80 ? 128 : 64;
+  static constexpr int BN = DP <= 80 ? 128 : DP <= 128 ? 64 : 32;
   static constexpr int kStages = DP <= 64 || DP > 80 ? 3 : 2;
 };
 
@@ -395,25 +408,31 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dq_kernel(const __grid_consta
 // K7: dk, dv, summed over the GQA group
 // ---------------------------------------------------------------------------
 
-// K7's tiles for head dims padded to DP: BQ queries a stage (the N of the
-// score products; 64 from DP 80, where 128 spill) and the ring's stages.
+// K7's tiles for head dims padded to DP: BK keys a CTA, BQ queries a stage
+// (the N of the score products; 64 from DP 80, where 128 spill) and the
+// ring's stages. Up to DP = 128 the two warpgroups own 64 keys each and
+// every column of their dK, dV; at DP = 256 (kSplit) both own the CTA's 64
+// keys and half the columns each (the header's last design note).
 template <int DP>
 struct DkvCfg {
-  static constexpr int BQ = DP <= 64 ? 128 : 64;
+  static constexpr bool kSplit = DP > 128;
+  static constexpr int BK = kSplit ? 64 : 128;
+  static constexpr int BQ = DP <= 64 ? 128 : kSplit ? 32 : 64;
   static constexpr int kStages = 3;
 };
 
-// Shared memory in bytes: K and V of the CTA's 128 keys, each stage's Q and
+// Shared memory in bytes: K and V of the CTA's BK keys, each stage's Q and
 // dO tiles of BQ queries, each stage's lse, delta and query segment ids (BQ
 // each), the CTA's segment range, each stage's mbarrier. The cluster's sum
-// overwrites the start with the f32 dK and dV [128, DV] (at most 1024 DP
-// bytes: within K, V and the ring).
+// overwrites the start with the f32 dK and dV [BK, DV] (within K, V and the
+// ring).
 template <int DP>
 struct DkvSmem : DkvCfg<DP> {
+  using DkvCfg<DP>::BK;
   using DkvCfg<DP>::BQ;
   using DkvCfg<DP>::kStages;
   static constexpr int kCols = (DP + 63) / 64 * 64;
-  static constexpr int kKV = 128 * kCols * 2;
+  static constexpr int kKV = BK * kCols * 2;
   static constexpr int kTile = BQ * kCols * 2;
   static constexpr int kRing = 2 * kKV;
   static constexpr int kStage = 2 * kTile;
@@ -426,8 +445,9 @@ struct DkvSmem : DkvCfg<DP> {
 template <int DP, int DV>
 __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_constant__ Params p) {
   using S = DkvSmem<DP>;
-  constexpr int BQ = S::BQ, kStages = S::kStages;
-  static_assert(2 * 128 * DV * 4 <= S::kRows, "the f32 partials must fit K, V and the ring");
+  constexpr int BK = S::BK, BQ = S::BQ, kStages = S::kStages;
+  constexpr int NW = S::kSplit ? DV / 2 : DV;  // the dK, dV columns a warpgroup owns
+  static_assert(2 * BK * DV * 4 <= S::kRows, "the f32 partials must fit K, V and the ring");
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t sbase = smem_u32(smem);
 
@@ -435,10 +455,12 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
   const int rank = c > 1 ? static_cast<int>(cluster_rank()) : 0;
   const int hk = blockIdx.x / c, b = blockIdx.z;
   const int h0 = hk * (p.h / p.hkv) + rank * heads;
-  const int n0 = blockIdx.y * 128;  // key tile 0 first
+  const int n0 = blockIdx.y * BK;  // key tile 0 first
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wkey = n0 + wg * 64 + warp * 16;  // this warp's first key
+  // This warpgroup's first key within the CTA's and its first column of dK, dV.
+  const int koff = S::kSplit ? 0 : wg * 64, coff = S::kSplit ? wg * NW : 0;
+  const int wkey = n0 + koff + warp * 16;  // this warp's first key
   const int k0 = wkey + g, k1 = k0 + 8;
   const bool seg = p.qseg != nullptr;
   const long q_rs = (long)p.h * p.d, kv_rs = (long)p.hkv * p.d;
@@ -474,8 +496,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
 #pragma unroll
           for (int cb = 0; cb < S::kCols / 64; ++cb) {
             if (tile == 0) {
-              tma_load_4d(sbase + cb * 128 * 128, &p.tk, bar, cb * 64, hk, n0, b);
-              tma_load_4d(sbase + S::kKV + cb * 128 * 128, &p.tv, bar, cb * 64, hk, n0, b);
+              tma_load_4d(sbase + cb * BK * 128, &p.tk, bar, cb * 64, hk, n0, b);
+              tma_load_4d(sbase + S::kKV + cb * BK * 128, &p.tv, bar, cb * 64, hk, n0, b);
             }
             tma_load_4d(qs + cb * BQ * 128, &p.tq, bar, cb * 64, hq, m0, b);
             tma_load_4d(dos + cb * BQ * 128, &p.tdo, bar, cb * 64, hq, m0, b);
@@ -484,8 +506,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
       } else {
         if (tile == 0) {
           const long kv_off = (long)b * p.sk * kv_rs + (long)hk * p.d;
-          stage_tile<128, DP, kThreads>(sbase, p.k + kv_off, kv_rs, n0, p.sk, p.d);
-          stage_tile<128, DP, kThreads>(sbase + S::kKV, p.v + kv_off, kv_rs, n0, p.sk, p.d);
+          stage_tile<BK, DP, kThreads>(sbase, p.k + kv_off, kv_rs, n0, p.sk, p.d);
+          stage_tile<BK, DP, kThreads>(sbase + S::kKV, p.v + kv_off, kv_rs, n0, p.sk, p.d);
         }
         const long q_off = (long)b * p.sq * q_rs + (long)hq * p.d;
         stage_tile<BQ, DP, kThreads>(qs, p.q + q_off, q_rs, m0, p.sq, p.d);
@@ -514,12 +536,13 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
 
-  float dk[DV / 2], dv[DV / 2];
+  float dk[NW / 2], dv[NW / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < NW / 2; ++i) dk[i] = dv[i] = 0.f;
   const float sl2 = p.scale_log2, scale = p.scale;
-  const uint32_t k_s = sbase + wg * 64 * 128, v_s = k_s + S::kKV;  // this warpgroup's keys
-  const int wg_key = n0 + wg * 64;
+  const uint32_t k_s = sbase + koff * 128, v_s = k_s + S::kKV;  // this warpgroup's keys
+  const uint32_t cblk = coff / 64 * BQ * 128;  // its columns' first block in a Q / dO tile
+  const int wg_key = n0 + koff;
 
   for (int n = 0; n < n_tiles; ++n) {
     const int st = n % kStages, m0 = (qt0 + n % n_qt) * BQ;
@@ -549,13 +572,13 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      Wgmma<BQ>::ss(sc, desc_k_major(k_s + (kk >> 2) * 128 * 128 + (kk & 3) * 32),
+      Wgmma<BQ>::ss(sc, desc_k_major(k_s + (kk >> 2) * BK * 128 + (kk & 3) * 32),
                     desc_k_major(q_s + (kk >> 2) * BQ * 128 + (kk & 3) * 32), kk > 0);
     }
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      Wgmma<BQ>::ss(dpt, desc_k_major(v_s + (kk >> 2) * 128 * 128 + (kk & 3) * 32),
+      Wgmma<BQ>::ss(dpt, desc_k_major(v_s + (kk >> 2) * BK * 128 + (kk & 3) * 32),
                     desc_k_major(do_s + (kk >> 2) * BQ * 128 + (kk & 3) * 32), kk > 0);
     }
     wgmma_commit();
@@ -600,7 +623,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      Wgmma<DV>::rs(dv, pa[kk], desc_mn_major(do_s + kk * 16 * 128, BQ * 128));
+      Wgmma<NW>::rs(dv, pa[kk], desc_mn_major(do_s + cblk + kk * 16 * 128, BQ * 128));
     }
     wgmma_commit();
     wgmma_wait<1>();  // dP^T has landed; dV's product may still run
@@ -628,7 +651,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      Wgmma<DV>::rs(dk, da[kk], desc_mn_major(q_s + kk * 16 * 128, BQ * 128));
+      Wgmma<NW>::rs(dk, da[kk], desc_mn_major(q_s + cblk + kk * 16 * 128, BQ * 128));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -640,8 +663,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
   __nv_bfloat16* dvb = p.dv + (long)b * p.sk * kv_rs + (long)hk * p.d;
   if (c == 1) {  // the whole group in this CTA: straight to the output
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
-      const int col = j * 8 + 2 * t;
+    for (int j = 0; j < NW / 8; ++j) {
+      const int col = coff + j * 8 + 2 * t;
       if (col < p.d) {
         if (k0 < p.sk) {
           *reinterpret_cast<uint32_t*>(dkb + k0 * kv_rs + col) =
@@ -661,25 +684,25 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
   }
 
   // The cluster's sum. Every product of this CTA is done, so K, V and the
-  // ring are free: f32 dK, then dV, [128, DV] each, from the start.
+  // ring are free: f32 dK, then dV, [BK, DV] each, from the start.
   __syncthreads();
   float* part = reinterpret_cast<float*>(smem);
-  const int kr = wg * 64 + warp * 16 + g;  // this thread's first key, within the tile
+  const int kr = koff + warp * 16 + g;  // this thread's first key, within the tile
 #pragma unroll
-  for (int j = 0; j < DV / 8; ++j) {
-    const int col = j * 8 + 2 * t;
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = coff + j * 8 + 2 * t;
     *reinterpret_cast<float2*>(part + kr * DV + col) = make_float2(dk[j * 4], dk[j * 4 + 1]);
     *reinterpret_cast<float2*>(part + (kr + 8) * DV + col) =
         make_float2(dk[j * 4 + 2], dk[j * 4 + 3]);
-    *reinterpret_cast<float2*>(part + (128 + kr) * DV + col) =
+    *reinterpret_cast<float2*>(part + (BK + kr) * DV + col) =
         make_float2(dv[j * 4], dv[j * 4 + 1]);
-    *reinterpret_cast<float2*>(part + (136 + kr) * DV + col) =
+    *reinterpret_cast<float2*>(part + (BK + kr + 8) * DV + col) =
         make_float2(dv[j * 4 + 2], dv[j * 4 + 3]);
   }
   cluster_sync();
-  // Rank r sums pairs [r P / c, (r + 1) P / c) of the P = 128 DV float pairs
+  // Rank r sums pairs [r P / c, (r + 1) P / c) of the P = BK DV float pairs
   // of dK and dV over ranks 0..c-1, in rank order.
-  constexpr int kPairs = 128 * DV;
+  constexpr int kPairs = BK * DV;
   const int end = (rank + 1) * kPairs / c;
   for (int i = rank * kPairs / c + threadIdx.x; i < end; i += kThreads) {
     const uint32_t addr = sbase + i * 8;
@@ -696,10 +719,10 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkv_kernel(const __grid_const
         sum.y += x[r].y;
       }
     }
-    const int e = 2 * i, rem = e % (128 * DV), row = rem / DV, col = rem % DV;
+    const int e = 2 * i, rem = e % (BK * DV), row = rem / DV, col = rem % DV;
     const int key = n0 + row;
     if (key < p.sk && col < p.d) {
-      __nv_bfloat16* out = e < 128 * DV ? dkb : dvb;
+      __nv_bfloat16* out = e < BK * DV ? dkb : dvb;
       *reinterpret_cast<uint32_t*>(out + key * kv_rs + col) = pack_bf16(sum.x, sum.y);
     }
   }
@@ -755,12 +778,12 @@ cudaError_t launch_dkv(Params p, int b, cudaStream_t stream) {
   constexpr int kBytes = DkvSmem<DP>::kBytes;
   static std::mutex mu;
   static bool ready[kMaxDevices] = {};
-  cudaError_t err = encode_maps(p, b, DkvCfg<DP>::BQ, 128);
+  cudaError_t err = encode_maps(p, b, DkvCfg<DP>::BQ, DkvCfg<DP>::BK);
   if (err != cudaSuccess) return err;
   err = smem_once(reinterpret_cast<const void*>(bwd_dkv_kernel<DP, DV>), kBytes, mu, ready);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.hkv * p.cluster, (p.sk + 127) / 128, b);
+  cfg.gridDim = dim3(p.hkv * p.cluster, (p.sk + DkvCfg<DP>::BK - 1) / DkvCfg<DP>::BK, b);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kBytes;
   cfg.stream = stream;
@@ -788,7 +811,7 @@ int cluster_size(int g) {
 
 template <bool DKV>
 cudaError_t dispatch(Params p, int b, cudaStream_t stream) {
-  if (p.d <= 0 || p.d % 2 != 0 || p.d > 128 || p.hkv <= 0 || p.h % p.hkv != 0 || b <= 0 ||
+  if (p.d <= 0 || p.d % 2 != 0 || p.d > 256 || p.hkv <= 0 || p.h % p.hkv != 0 || b <= 0 ||
       p.sq <= 0 || p.sk <= 0) {
     return cudaErrorInvalidValue;
   }
@@ -800,12 +823,14 @@ cudaError_t dispatch(Params p, int b, cudaStream_t stream) {
     if (p.d <= 32) return launch_dkv<32, 32>(p, b, stream);
     if (p.d <= 64) return launch_dkv<64, 64>(p, b, stream);
     if (p.d <= 72) return launch_dkv<80, 72>(p, b, stream);
-    return launch_dkv<128, 128>(p, b, stream);
+    if (p.d <= 128) return launch_dkv<128, 128>(p, b, stream);
+    return launch_dkv<256, 256>(p, b, stream);
   } else {
     if (p.d <= 32) return launch_dq<32, 32>(p, b, stream);
     if (p.d <= 64) return launch_dq<64, 64>(p, b, stream);
     if (p.d <= 72) return launch_dq<80, 72>(p, b, stream);
-    return launch_dq<128, 128>(p, b, stream);
+    if (p.d <= 128) return launch_dq<128, 128>(p, b, stream);
+    return launch_dq<256, 256>(p, b, stream);
   }
 }
 

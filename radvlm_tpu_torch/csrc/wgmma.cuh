@@ -212,7 +212,8 @@ __device__ __forceinline__ void fence_regs(int (&r)[N]) {
 }
 
 // wgmma.mma_async m64nNk16, bf16 in, f32 accumulators: `ss` (A and B in
-// shared memory) at N = 64 and 128, the scores of a 64- or 128-column tile;
+// shared memory) at N = 32, 64 and 128, the scores of a 32-, 64- or
+// 128-column tile;
 // `rs` (A in registers) at every head-dim N (up to 256). The accumulator of
 // warp w of the warpgroup holds rows 16w + g and 16w + g + 8 (g = lane / 4,
 // t = lane % 4): d[4j + 0, 1] = row g, columns 8j + 2t, +1; d[4j + 2, 3] =
@@ -224,6 +225,18 @@ struct Wgmma;
 
 template <>
 struct Wgmma<32> {
+  // d[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B in shared memory, both K-major
+  // (the score tiles of K7 and K8 at head_dim 256)
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
   // d[64 x 32] += A[64 x 16] * B[16 x 32], A in registers, B in shared memory MN-major
   static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(

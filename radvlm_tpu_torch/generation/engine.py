@@ -474,13 +474,14 @@ def kernel_provenance(
     and the K7 / K8 backward instead of K1, which writes no lse, where the
     kernels take its head dim under a gradient (else "plain").
     `train_attention` is the decoder's attention under a gradient (SFT, DPO,
-    GRPO's updates) at `prompt_len`: "kernel_lse" where
-    `ops.flash_attention.grad_kernel_takes` its head dim, "plain" above 128
-    (Gemma's 256) or where the forward predicate excludes it. The tower's
-    attention and matmuls are judged at the tower's own sequence length
-    (`towers.sequence_length`: the patches and a class token, before any
-    resampler) and S2 crop count; `resampler_attention` reads "plain" for
-    the perceiver and the Q-Former and "none" for the other resamplers.
+    GRPO's updates) at `prompt_len`: "kernel_lse" (K2 with the lse, K7 /
+    K8 backward) wherever the prefill's route is "kernel", the backward
+    kernels taking the forward's head dims (up to 256, Gemma-2B's), else
+    "plain". The tower's attention and matmuls are judged at the tower's own
+    sequence length (`towers.sequence_length`: the patches and a class
+    token, before any resampler) and S2 crop count; `resampler_attention`
+    reads "plain" for the perceiver and the Q-Former and "none" for the
+    other resamplers.
     `decode_chunk` is how a continuous engine on `device` (with
     `tp_group`, `eager_chunks`) runs its decode chunks:
     `graphs.chunk_route`, "graph" or "eager: <why>"."""
@@ -490,12 +491,11 @@ def kernel_provenance(
     q_tower = torch.empty((1, n, v.num_heads, v.head_dim), device=meta)
     q_text = torch.empty((1, prompt_len, t.num_heads, t.head_dim), device=meta)
     k_text = torch.empty((1, prompt_len, t.num_kv_heads, t.head_dim), device=meta)
-    tower_flash = flash_eligible(q_tower, q_tower, impl=attn_impl, needs_grad=tower_grad)
+    tower_flash = flash_eligible(q_tower, q_tower, impl=attn_impl)
     tower = tower_flash and tower_eligible(q_tower, q_tower, None, False, tower_grad)
     text_kw = dict(impl=attn_impl, window=t.sliding_window,
                    alibi=t.alibi_bias_max if t.pos_embedding == "alibi" else 0)
     prefill_ok = flash_eligible(q_text, k_text, **text_kw)
-    train_ok = flash_eligible(q_text, k_text, needs_grad=True, **text_kw)
     max_len = cache_length(prompt_len, max_new_tokens)
     int8_cache = cache_format == "int8"
     out: Dict[str, object] = {
@@ -506,7 +506,7 @@ def kernel_provenance(
         "resampler_attention": ("plain" if cfg.resampler.kind in ("perceiver", "qformer")
                                 else "none"),
         "prefill_attention": "kernel" if prefill_ok else "plain",
-        "train_attention": "kernel_lse" if train_ok else "plain",
+        "train_attention": "kernel_lse" if prefill_ok else "plain",
         "decode_attention": qwen2.cached_attention_route(
             t, max_len, attn_impl, 1, decode_rows > 1, int8_cache),
     }

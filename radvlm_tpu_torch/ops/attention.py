@@ -11,7 +11,7 @@ from typing import Optional, Union
 
 import torch
 
-from radvlm_tpu_torch.ops.flash_attention import grad_kernel_takes, kernel_takes, needs_grad
+from radvlm_tpu_torch.ops.flash_attention import kernel_takes
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -114,25 +114,22 @@ def flash_eligible(
     impl: str = "auto",
     window: int = 0,
     alibi: int = 0,
-    needs_grad: bool = False,
 ) -> bool:
-    """Do the hand-written attention kernels (K1/K2, and under a gradient,
-    `needs_grad`, K2 with the lse and K7/K8) serve this call?
+    """Do the hand-written attention kernels (K1/K2, and under a gradient K2
+    with the lse and K7/K8) serve this call?
 
     The one predicate `mha`, `parallel.ring` and
     `generation.engine.kernel_provenance` call. What the JAX package itself
     routes to XLA stays plain (a sliding window, ALiBi, a non-zero query
     offset, impl="xla"), and so does a head dim the kernels do not take
-    (`flash_attention.kernel_takes`: above 256, or odd; under a gradient
-    `flash_attention.grad_kernel_takes`: above 128, the backward kernels'
-    range), which the JAX package's flash route takes on the TPU. On a CPU
+    (`flash_attention.kernel_takes`: above 256, or odd; the backward
+    kernels' range is the forward's), which the JAX package's flash route
+    takes on the TPU. On a CPU
     tensor the kernels' wrappers run their plain versions; on a CUDA tensor
     they launch the kernel or raise, so this predicate holds exactly where
     they launch."""
     d = q.shape[-1]
     if impl == "xla" or window or alibi or not kernel_takes(d):
-        return False
-    if needs_grad and not grad_kernel_takes(d):
         return False
     return isinstance(q_offset, int) and q_offset == 0 and k.shape[1] >= q.shape[1]
 
@@ -161,9 +158,9 @@ def mha(
     differentiable: the training step's sequence parallelism).
     Where q, k or v needs a gradient the kernel route is K2 with the lse
     forward and K7 / K8 backward, the tower's calls included (K1 serves them
-    only without a gradient), at head dims up to 128 (Gemma's 256 takes the
-    plain route under a gradient); the plain route differentiates through
-    `mha_reference` by autograd, as the JAX package's XLA path does.
+    only without a gradient), at head dims up to 256 (Gemma-2B's included);
+    the plain route differentiates through `mha_reference` by autograd, as
+    the JAX package's XLA path does.
     """
     if impl == "ring":
         from radvlm_tpu_torch.parallel.ring import ring_attention_sharded
@@ -177,8 +174,7 @@ def mha(
             raise ValueError("ring attention has no ALiBi support")
         return ring_attention_sharded(q, k, v, q_segment_ids, kv_segment_ids, causal=True,
                                       scale=scale if scale is not None else q.shape[-1] ** -0.5)
-    if flash_eligible(q, k, q_offset=q_offset, impl=impl, window=window, alibi=alibi,
-                      needs_grad=needs_grad(q, k, v)):
+    if flash_eligible(q, k, q_offset=q_offset, impl=impl, window=window, alibi=alibi):
         from radvlm_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention(

@@ -163,40 +163,32 @@ def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return float(q.shape[-1] ** -0.5 if scale is None else scale)
 
 
-MAX_HEAD_DIM = 256  # the widest head K1 / K2 take
-MAX_GRAD_HEAD_DIM = 128  # the widest head K7 / K8 take
+MAX_HEAD_DIM = 256  # the widest head K1 / K2 / K7 / K8 take
 
 
 def kernel_takes(head_dim: int) -> bool:
-    """The head dims the forward kernels K1 / K2 (and K2 with the lse) take:
-    even and at most 256 (padded inside to a multiple of 16, or to 256 above
-    128). The wrappers raise on a CUDA tensor outside it, and
-    `ops.attention.flash_eligible` routes such a call to the plain path."""
+    """The head dims the attention kernels take: K1 / K2 (and K2 with the
+    lse) forward and K7 / K8 backward, even and at most 256 (Gemma-2B's
+    head; padded inside to a multiple of 16, or to 256 above 128). The one
+    predicate of the kernel route, with or without a gradient:
+    `ops.attention.flash_eligible` (and through it
+    `generation.engine.kernel_provenance` and `parallel.ring`),
+    `flash_attention_with_lse` and the wrappers read it; outside it
+    attention takes the plain path, and the wrappers raise on a CUDA
+    tensor."""
     return head_dim <= MAX_HEAD_DIM and head_dim % 2 == 0
 
 
-def grad_kernel_takes(head_dim: int) -> bool:
-    """The head dims the kernel route takes under a gradient, where K2
-    writes the lse that the backward kernels K7 / K8 read: even and at most
-    128, the backward kernels' range. The one predicate of that route:
-    `ops.attention.flash_eligible(needs_grad=True)` (and through it
-    `generation.engine.kernel_provenance`), `flash_attention_with_lse` and
-    the K7 / K8 wrappers read it; above it (Gemma's 256) attention under a
-    gradient takes the plain path."""
-    return kernel_takes(head_dim) and head_dim <= MAX_GRAD_HEAD_DIM
-
-
-def _require_cuda(name: str, *tensors: torch.Tensor, grad: bool = False) -> None:
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """The kernels take bf16 q/k/v on the card with a head dim that
-    `kernel_takes` (the backward kernels: `grad_kernel_takes`)."""
+    `kernel_takes`."""
     kernels.require_cuda_tensors(name, *tensors)
     for t in tensors[:3]:
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: the kernel takes bf16, got {t.dtype}")
     d = tensors[0].shape[-1]
-    if not (grad_kernel_takes(d) if grad else kernel_takes(d)):
-        limit = MAX_GRAD_HEAD_DIM if grad else MAX_HEAD_DIM
-        raise ValueError(f"{name}: the kernel takes an even head_dim <= {limit}, got {d}")
+    if not kernel_takes(d):
+        raise ValueError(f"{name}: the kernel takes an even head_dim <= {MAX_HEAD_DIM}, got {d}")
 
 
 def tower_attention(
@@ -221,8 +213,8 @@ def tower_attention(
     return o
 
 
-def _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids, grad=False):
-    """Shape checks shared by K2, K7 and K8 (`grad`): contiguous q/k/v and
+def _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids):
+    """Shape checks shared by K2, K7 and K8: contiguous q/k/v and
     int32 segment ids (a list of two, or empty)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -237,7 +229,7 @@ def _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids, grad=False):
         ]
         if segs[0].shape != (b, sq) or segs[1].shape != (b, sk):
             raise ValueError(f"{name}: segment ids must be [B, Sq] and [B, Sk]")
-    _require_cuda(name, q, k, v, *segs, grad=grad)
+    _require_cuda(name, q, k, v, *segs)
     return q, k, v, segs
 
 
@@ -318,7 +310,7 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor,
 
 
 def _bwd_inputs(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse, delta):
-    q, k, v, segs = _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids, grad=True)
+    q, k, v, segs = _prefill_inputs(name, q, k, v, q_segment_ids, kv_segment_ids)
     b, sq, h, _ = q.shape
     do, lse, delta = do.contiguous(), lse.contiguous(), delta.contiguous()
     kernels.require_cuda_tensors(name, do, lse, delta)
@@ -437,18 +429,14 @@ def flash_attention_with_lse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused attention returning (out [B,Sq,H,D], lse [B,H,Sq] f32); a row
     with nothing to attend has lse = -inf and zero output. Differentiable in
-    both outputs: the lse cotangent folds into delta. On the card under a
-    gradient the head dim must be one `grad_kernel_takes` (the backward
-    kernels'): the call raises there rather than fail in the backward."""
+    both outputs: the lse cotangent folds into delta. On the card the head
+    dim must be one `kernel_takes`: the call raises there, under a gradient
+    too, rather than fail in the backward."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("provide both or neither of q/kv segment ids")
     scale = _scale(q, scale)
     dtype = q.dtype
     if q.device.type != "cpu" and needs_grad(q, k, v):
-        if not grad_kernel_takes(q.shape[-1]):
-            raise ValueError(
-                f"flash_attention_with_lse: under a gradient the kernels take an even head_dim "
-                f"<= {MAX_GRAD_HEAD_DIM}, got {q.shape[-1]}")
         if dtype != torch.bfloat16:
             q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     o, lse = _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, bool(causal), scale)

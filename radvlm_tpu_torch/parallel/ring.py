@@ -39,8 +39,7 @@ import torch.distributed as dist
 
 from radvlm_tpu_torch.config import IGNORE_INDEX
 from radvlm_tpu_torch.ops.attention import flash_eligible
-from radvlm_tpu_torch.ops.flash_attention import (attention_plain, flash_attention_with_lse,
-                                                  needs_grad)
+from radvlm_tpu_torch.ops.flash_attention import attention_plain, flash_attention_with_lse
 
 SCHEDULES = ("contiguous", "zigzag")
 
@@ -56,7 +55,7 @@ def _local_attn_with_lse(q, k, v, q_seg, kv_seg, *, causal: bool, scale: float, 
     """(out, lse [B, H, Sq] f32) for one chunk pair: K2 with its lse (K7 and
     K8 backward) where the kernels serve the call, else its plain version
     (differentiated by autograd)."""
-    if impl != "xla" and flash_eligible(q, k, impl=impl, needs_grad=needs_grad(q, k, v)):
+    if impl != "xla" and flash_eligible(q, k, impl=impl):
         return flash_attention_with_lse(q, k, v, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
                                         causal=causal, scale=scale)
     return attention_plain(q, k, v, q_seg, kv_seg, causal, scale, with_lse=True)

@@ -2,7 +2,7 @@
 their plain PyTorch versions on the card, at shapes beyond the main path's:
 other head dims and GQA ratios, ragged sequence tails, Sq < Sk, rows with
 nothing to attend, K and N tails of the int8 matmuls, 1-64 decode rows; the
-D = 256 instances of K2 (with the lse too), K9, K4, K10 and K11 at
+D = 256 instances of K2 (with the lse too), K7, K8, K9, K4, K10 and K11 at
 Gemma-2B's heads (8 query heads over one kv head) and at other head dims
 from 129 to 256, a verify window wider than a CTA's 40 rows in blocks.
 
@@ -323,9 +323,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     y = torch.zeros((1, 8, 2, 320), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.prefill_attention(y, y, y, causal=True)
-    # K2 takes D = 256 forward; under a gradient K7 / K8 do not.
-    w = torch.zeros((1, 8, 2, 256), device=dev, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(ValueError, match="under a gradient"):
+    # Above D = 256 no kernel takes a head, forward or under a gradient.
+    w = torch.zeros((1, 8, 2, 320), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_with_lse(w, w, w, causal=True)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_bwd_dq(w.detach(), w.detach(), w.detach(), w.detach(),
@@ -897,6 +897,16 @@ BWD_CASES = [
     (2, 200, 200, 4, 2, 72, True, "packed"),
     (1, 130, 130, 71, 1, 64, False, None),
     (1, 577, 577, 16, 16, 64, False, None),  # a tunable CLIP-L/14-336 tower, no mask
+    # The DP = 256 instances (Gemma-2B: 8 query heads over one kv head of
+    # 256): K7 owns 64 keys a CTA and splits the head dim over its two
+    # warpgroups, K8 streams 32-key stages. GQA groups g = 8, 2 and 1
+    # (clusters of 8, 2 and 1).
+    (1, 1024, 1024, 8, 1, 256, True, "packed"),  # Gemma-2B's packed training rows
+    (2, 700, 700, 4, 2, 256, True, "left_pad"),  # left padding, a ragged key tile
+    (1, 333, 333, 2, 2, 256, False, None),  # no mask, ragged
+    (2, 192, 512, 4, 4, 256, True, "cache"),  # Sk > Sq
+    (1, 300, 300, 4, 2, 192, True, "packed"),  # D = 192: a wholly zero column block
+    (1, 200, 200, 4, 2, 250, True, "packed"),  # D % 8 != 0 above 128: 4-byte staging
 ]
 
 
@@ -920,7 +930,7 @@ def _bwd_inputs(dev, case):
     return q, k, v, do, dlse, qseg, kseg
 
 
-# K2 with the lse at Gemma-2B's head dim, which K7 / K8 do not take.
+# K2 with the lse at Gemma-2B's head dim beside BWD_CASES' own.
 K2_LSE_WIDE_CASES = [
     (2, 1024, 1024, 8, 1, 256, True, "left_pad"),
     (1, 700, 700, 2, 1, 256, True, "packed"),
@@ -1005,7 +1015,7 @@ def test_flash_attention_function_on_the_card(dev):
     _assert_close("flash_attention_bwd_dkv", dv, rv)
 
 
-@pytest.mark.parametrize("d", [64, 72, 128])
+@pytest.mark.parametrize("d", [64, 72, 128, 256])
 def test_k7_k8_unaligned_views_give_the_aligned_bits(dev, d):
     """q / k / v / do that start 4 bytes past a 16-byte boundary take the
     4-byte staging into the same shared-memory layout: the aligned copies'
@@ -1103,10 +1113,12 @@ class _PlainPair(torch.autograd.Function):
         return (*grads, None, None, None, None, None)
 
 
+@pytest.mark.parametrize("heads", [(14, 2, 64), (8, 1, 256)], ids=["d64", "d256"])
 @pytest.mark.parametrize("schedule", ["zigzag", "contiguous"])
-def test_ring_pairs_forward_and_backward_at_the_half_shape(dev, nccl_world, schedule,
+def test_ring_pairs_forward_and_backward_at_the_half_shape(dev, nccl_world, schedule, heads,
                                                            monkeypatch):
-    """The ring at seq = 1 on the zigzag half shape [2, 2048, 14 | 2, 64]
+    """The ring at seq = 1 on the zigzag half shape [2, 2048, 14 | 2, 64],
+    and on Gemma-2B's heads [2, 2048, 8 | 1, 256] (the D = 256 instances)
     (zigzag: lo x lo, hi x lo, hi x hi through K2-lse, K7, K8; contiguous:
     one pair of 4096): its output against the same ring over K2-lse's plain
     version, its q / k / v gradients against the same ring over K2-lse and
@@ -1116,7 +1128,7 @@ def test_ring_pairs_forward_and_backward_at_the_half_shape(dev, nccl_world, sche
     from radvlm_tpu_torch.parallel import ring
 
     gen = torch.Generator(device=dev).manual_seed(21)
-    b, s, h, hkv, d = 2, 4096, 14, 2, 64
+    (h, hkv, d), b, s = heads, 2, 4096
     q, k, v = _randn(gen, dev, b, s, h, d), _randn(gen, dev, b, s, hkv, d), _randn(
         gen, dev, b, s, hkv, d)
     do = _randn(gen, dev, b, s, h, d)

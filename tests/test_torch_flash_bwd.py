@@ -34,6 +34,10 @@ CASES = [
     ("causal_nomask", 1, 128, 128, 2, 1, 64, True, None),
     ("tower", 2, 729, 729, 2, 2, 72, False, None),
     ("noncausal_packed", 1, 128, 128, 4, 2, 64, False, "packed"),
+    # Gemma-2B's head dim (the D = 256 instances of K7 / K8): MQA 8:1 packed
+    # as its training rows are, and GQA 4:2 left-padded.
+    ("d256_causal_packed_mqa8", 1, 128, 128, 8, 1, 256, True, "packed"),
+    ("d256_causal_pad_gqa2", 1, 128, 128, 4, 2, 256, True, "pad"),
 ]
 IDS = [c[0] for c in CASES]
 

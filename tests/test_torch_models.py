@@ -261,14 +261,14 @@ def test_kernel_provenance_reports_the_predicates():
     assert prov["train_attention"] == "kernel_lse" and plain["train_attention"] == "plain"
     # Gemma-2B (head_dim 256, 8 query heads over 1 kv head) behind the same
     # tower: the D = 256 kernels serve prefill, decode and verify on both
-    # caches; under a gradient its attention is plain (K7 / K8 take D <= 128).
+    # caches, and under a gradient K2 with the lse and K7 / K8.
     gemma = dataclasses.replace(cfg, text=tcfg.gemma_2b())
     for fmt, suffix in (("bf16", ""), ("int8", "_q8")):
         g = teng.kernel_provenance(gemma, prompt_len=3584, max_new_tokens=128, quantized=True,
                                    cache_format=fmt, decode_rows=8, spec_k=4)
         assert (g["prefill_attention"], g["decode_attention"], g["verify_attention"]) == (
             "kernel", "kernel" + suffix, "window" + suffix)
-        assert g["train_attention"] == "plain"
+        assert g["train_attention"] == "kernel_lse"
     # The tower is judged at its own sequence length, class token included
     # and before the resampler: CLIP-L/14-336 577 tokens at D = 64 (x 14
     # crops under S2), ImageBind 257 at D = 80 though it hands on one token,
@@ -364,35 +364,36 @@ def test_routes_hold_exactly_what_the_kernels_take(case):
 
 
 # (head_dim, query heads, kv heads) -> the route under a gradient, where
-# the backward kernels K7 / K8 read K2's lse: they take head dims up to 128.
+# the backward kernels K7 / K8 read K2's lse: they take head dims up to 256.
 GRAD_ROUTE_CASES = {
     (128, 4, 2): True,
     (72, 4, 2): True,
-    (256, 4, 2): False,  # Gemma's head dim: K2 serves it forward only
-    (256, 8, 1): False,
+    (256, 4, 2): True,  # Gemma's head dim: the D = 256 instances of K7 / K8
+    (256, 8, 1): True,
+    (320, 4, 2): False,  # above 256: no kernel takes it, forward or backward
 }
 
 
 @pytest.mark.parametrize("case", list(GRAD_ROUTE_CASES), ids=lambda c: "d{}_h{}_kv{}".format(*c))
 def test_routes_under_a_gradient_hold_what_the_backward_kernels_take(case):
     """Under a gradient the kernel route is K2 with the lse and K7 / K8
-    backward, whose head dims stop at 128: `flash_eligible(needs_grad=True)`
-    and `kernel_provenance`'s tower and train routes name the plain route
-    above it, and `mha` on tensors that need a gradient takes the plain
-    (autograd) path there and `_FlashAttention` below it."""
+    backward, whose head dims stop at 256, the forward kernels' own limit:
+    `flash_eligible`, `kernel_takes` and `kernel_provenance`'s tower and
+    train routes name the plain route above it, and `mha` on tensors that
+    need a gradient takes the plain (autograd) path there and
+    `_FlashAttention` up to it."""
     kernel = GRAD_ROUTE_CASES[case]
     d, h, hkv = case
     meta = torch.device("meta")
     q = torch.empty((1, 64, h, d), device=meta)
     kv = torch.empty((1, 64, hkv, d), device=meta)
-    assert tatt.flash_eligible(q, kv)
-    assert tatt.flash_eligible(q, kv, needs_grad=True) is kernel
-    assert tfa.grad_kernel_takes(d) is kernel
+    assert tatt.flash_eligible(q, kv) is kernel
+    assert tfa.kernel_takes(d) is kernel
     prov = teng.kernel_provenance(_widened(d, h, hkv), prompt_len=96, max_new_tokens=16,
                                   tower_grad=True)
     route = "kernel_lse" if kernel else "plain"
     assert prov["train_attention"] == prov["tower_attention"] == route
-    assert prov["prefill_attention"] == "kernel"
+    assert prov["prefill_attention"] == ("kernel" if tfa.kernel_takes(d) else "plain")
     gen = torch.Generator().manual_seed(3)
     qg = torch.randn((1, 64, h, d), generator=gen).requires_grad_(True)
     k, v = (torch.randn((1, 64, hkv, d), generator=gen) for _ in range(2))

@@ -6,6 +6,7 @@ through both. f32 on the CPU; the JAX side runs attn_impl="xla", the port
 its plain attention forward and the hand-written backward formulas.
 """
 
+import dataclasses
 import json
 import os
 
@@ -58,6 +59,30 @@ def tiny():
     return cfg, tiny_test_config(vocab_size=VOCAB), params
 
 
+# A Gemma-shaped decoder at a narrow width: gemma_2b's head (MQA, head_dim
+# 256, the D = 256 instances of K7 / K8 on the card), GeGLU, (1 + w)
+# RMSNorm, sqrt(d)-scaled embeddings and a tied head, two layers.
+GEMMA_TEXT = dict(hidden_size=64, intermediate_size=128, num_layers=2, num_heads=2,
+                  num_kv_heads=1, head_dim=256, attention_bias=False, tie_word_embeddings=True,
+                  hidden_act="gelu_tanh", rms_norm_offset=True, embed_normalizer=True)
+
+
+@pytest.fixture(scope="module")
+def tiny_gemma(tiny):
+    jcfg, tcfg, _ = tiny
+    jcfg = dataclasses.replace(jcfg, text=dataclasses.replace(jcfg.text, **GEMMA_TEXT))
+    tcfg = dataclasses.replace(tcfg, text=dataclasses.replace(tcfg.text, **GEMMA_TEXT))
+    params = _np_tree(jrad.init_params(jcfg, jax.random.key(2)))
+    noise = np.random.default_rng(3)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, x: (x + 0.05 * noise.normal(size=x.shape)).astype(x.dtype)
+        if any(getattr(k, "key", None) in ("bias", "ln1", "ln2", "norm", "scale")
+               for k in p) else x,
+        params,
+    )
+    return jcfg, tcfg, params
+
+
 def _sample(mod, cfg, seed, n_prompt, n_reply):
     r = np.random.default_rng(seed)
     img = r.integers(0, 255, (70, 90, 3), dtype=np.uint8)
@@ -103,17 +128,20 @@ LOSS_CASES = [
     ("noremat_chunked_unpacked", False, 37, False, False),
     ("remat_labels_next", True, 1024, True, True),
     ("chunked_labels_next", False, 64, False, True),
+    # The Gemma-shaped decoder (`tiny_gemma`).
+    ("gemma_d256_remat_packed", True, 1024, True, False),
 ]
 
 
 @pytest.mark.parametrize("case", LOSS_CASES, ids=[c[0] for c in LOSS_CASES])
-def test_loss_and_gradients_match_jax(tiny, case):
+def test_loss_and_gradients_match_jax(request, case):
     """Same loss (1e-5 relative) and the same gradient for every leaf as the
     JAX `loss_fn`. Gradients: atol 3e-5 (the attention backward's own
     tolerance; some leaves, the k biases, have a true gradient of 0 and hold
     only rounding noise) and rtol 1e-4."""
-    _, remat, chunk, packed, labels_next = case
-    jcfg, tcfg, params = tiny
+    name, remat, chunk, packed, labels_next = case
+    jcfg, tcfg, params = request.getfixturevalue(
+        "tiny_gemma" if name.startswith("gemma") else "tiny")
     batch = _batches(jcfg, tcfg, packed)
     if labels_next:
         nxt = np.full_like(batch["labels"], IGNORE_INDEX)
